@@ -2,13 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``ehyb_spmv_torch/csrc/``, checks it
-against its plain PyTorch version on small matrices that land on each
-layout it serves, then drives the flagship path end to end through the CLI
-on ``permuted_poisson_512`` (262,144 rows, ~1.3M nnz) and checks the result
-against the exact-f64 oracle.  It then shows that the run went through the
-kernel (its launch count), and times the kernel and its plain version at the
-main path's shapes.
+Builds the port's three CUDA kernels from ``ehyb_spmv_torch/csrc/`` (one
+``nvcc`` each, all started together): K1, the streamed SELL body; K7 and K8,
+the routed engine's two stages.  Checks each against its plain PyTorch
+version on small matrices that land on every layout it serves, then drives
+two main paths end to end through the CLI and checks each against the
+exact-f64 oracle:
+
+* the flagship on ``permuted_poisson_512`` (262,144 rows, ~1.3M nnz), which
+  runs K1;
+* the gather-wall row: ``ehyb`` on ``random_1m`` (1,048,576 rows, 16,769,356
+  nnz), which the flagship's delegation gate hands to the routed engine
+  (K7, K8).
+
+Each path runs with the launch counts set to 0 just before it and read just
+after, to show it went through its kernels.  Then it times every kernel and
+its plain version at its main path's shapes, beside one cuSPARSE call
+(``torch.sparse_csr_tensor`` matvec) as a yardstick, and prints one JSON
+line of kernels with their bounds.
 
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
@@ -20,15 +31,21 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import ehyb_spmv_torch as port
 from ehyb_spmv_torch import cli
-from ehyb_spmv_torch.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv_torch.core.coo import MatrixCOO, deterministic_x, oracle_spmv
+from ehyb_spmv_torch.core.route import build_routed
 from ehyb_spmv_torch.io import generate
+from ehyb_spmv_torch.models import routed as routed_model
 from ehyb_spmv_torch.ops import ehyb_stream
+from ehyb_spmv_torch.ops import route
+from ehyb_spmv_torch.ops.torch_ops import body_gather_index
+from ehyb_spmv_torch.utils.timing import detect_hbm_bw
 
 #: Kernel vs plain version, f32 both: only the summation order differs.
 KERNEL_TOL = 1e-6
@@ -36,12 +53,21 @@ KERNEL_TOL = 1e-6
 ORACLE_TOL = 5e-6
 MAIN_ARGS = ["-g", "permuted_poisson_512", "-i", "500", "--json",
              "--device", "cuda"]
-KERNEL = {
-    "name": "ehyb_stream_body",
-    "route": "cuda",
-    "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
-    "replaces": "ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py:148",
-}
+#: bench.py's gather-wall row: ehyb through the gate, 100 iterations.
+GATHER_ARGS = ["-g", "random_1m", "--model", "ehyb", "-i", "100", "--json",
+               "--device", "cuda"]
+K1 = {"name": "ehyb_stream_body", "route": "cuda",
+      "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
+      "replaces": "ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py:148"}
+K7 = {"name": "route_at", "route": "cuda",
+      "source": "ehyb_spmv_torch/csrc/route_at.cu",
+      "replaces": "ehyb_spmv_gpu_tpu/ops/route_pallas.py:56"}
+K8 = {"name": "route_b", "route": "cuda",
+      "source": "ehyb_spmv_torch/csrc/route_b.cu",
+      "replaces": "ehyb_spmv_gpu_tpu/ops/route_pallas.py:87"}
+#: float32 peak outside the tensor cores (NVIDIA's data sheets), matched like
+#: the bandwidth table of utils/timing.py: the first key in the name wins.
+PEAK_F32 = {"h100 pcie": 51e12, "h100": 67e12}
 
 
 def check(ok: bool, what: str) -> None:
@@ -54,6 +80,10 @@ def rel(got: torch.Tensor, want: torch.Tensor) -> float:
     g, w = got.double(), want.double()
     return float(torch.linalg.norm(g - w) / torch.linalg.norm(w).clamp_min(
         1e-300))
+
+
+def rel_np(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
 def ms_per_call(fn, n: int) -> float:
@@ -92,7 +122,57 @@ def device_ms_per_call(fn, n: int) -> float:
     graph.replay()
     end.record()
     end.synchronize()
+    del graph
     return start.elapsed_time(end) / n
+
+
+def in_turns(kernel, plain, n_kernel: int, n_plain: int):
+    """Device ms per call in turns (plain, kernel, kernel, plain) on one
+    card: the means of both, and the four readings."""
+    p_a = device_ms_per_call(plain, n_plain)
+    k_a = device_ms_per_call(kernel, n_kernel)
+    k_b = device_ms_per_call(kernel, n_kernel)
+    p_b = device_ms_per_call(plain, n_plain)
+    return (k_a + k_b) / 2, (p_a + p_b) / 2, (p_a, k_a, k_b, p_b)
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: int, dev: torch.device) -> dict:
+    """The least time the card could take: the larger of the bytes over its
+    memory rate and the f32 operations over its peak rate."""
+    name = torch.cuda.get_device_name(dev).lower()
+    bw = detect_hbm_bw(dev)
+    peak = next((v for k, v in PEAK_F32.items() if k in name), None)
+    if bw is None or peak is None:
+        raise RuntimeError(f"no memory or f32 peak rate for {name!r}")
+    t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def csr_of(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+           n_rows: int, n_cols: int) -> torch.Tensor:
+    """A sparse CSR tensor (int32 indices) of COO entries, on their device:
+    the cuSPARSE yardstick's operand."""
+    order = torch.argsort(row * n_cols + col)
+    counts = torch.bincount(row, minlength=n_rows)
+    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=row.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    return torch.sparse_csr_tensor(
+        crow.to(torch.int32), col[order].to(torch.int32), val[order],
+        size=(n_rows, n_cols))
+
+
+def random_coo(dim: int, k: int, seed: int) -> MatrixCOO:
+    """dim x dim, k random columns per row, duplicates dropped."""
+    rng = np.random.default_rng(seed)
+    row = np.repeat(np.arange(dim), k)
+    col = rng.integers(0, dim, dim * k)
+    _, ui = np.unique(row.astype(np.int64) * dim + col, return_index=True)
+    return MatrixCOO(dim, dim, row[ui], col[ui], rng.standard_normal(ui.size))
 
 
 def cancellation_matrix() -> port.MatrixCOO:
@@ -124,12 +204,268 @@ def kernel_cases():
     ]
 
 
+def reset_launches() -> None:
+    for fn in (ehyb_stream.stream_body, route.route_at, route.route_b):
+        fn.launches = 0
+
+
+def routed_plain(d, x: torch.Tensor) -> torch.Tensor:
+    """The routed apply of one schedule through the kernels' plain
+    versions."""
+    y_dst = route.route_b_plain(d, route.route_at_plain(d, x))
+    return route.to_input_space(d, route.spill_tail(d, x, y_dst))
+
+
+def check_schedule(name: str, d, x: torch.Tensor) -> None:
+    """K7, K8 and the full apply of one schedule against their plain
+    versions on the card."""
+    t_k = route.route_at(d, x)
+    t_p = route.route_at_plain(d, x)
+    torch.cuda.synchronize()
+    check(torch.equal(t_k, t_p), f"{name}: K7 equals its plain version "
+                                 f"({t_k.numel()} products)")
+    y_k = route.route_b(d, t_p)
+    y_p = route.route_b_plain(d, t_p)
+    torch.cuda.synchronize()
+    err = rel(y_k, y_p)
+    check(bool(torch.isfinite(y_k).all()) and err <= KERNEL_TOL,
+          f"{name}: K8 vs plain rel {err:.3e} <= {KERNEL_TOL}")
+    y_k = route.RoutedApply(d)(x)
+    y_p = routed_plain(d, x)
+    torch.cuda.synchronize()
+    err = rel(y_k, y_p)
+    check(err <= KERNEL_TOL,
+          f"{name}: routed apply vs plain rel {err:.3e} <= {KERNEL_TOL}")
+
+
+def block_mode_model(m: MatrixCOO, dev) -> port.RoutedSpmv:
+    """RoutedSpmv in column-block mode at a small size: blocks of a quarter
+    of the dimension in place of BLOCK_COLS (the mode engages on its own
+    only past ~2M columns)."""
+    model = port.RoutedSpmv(port.EhybConfig(), device=dev)
+    model.m, model.setup_seconds, model.ehyb = m, {}, None
+    model._setup_blocks(m, routed_model._block_ranges(m.dimension,
+                                                      m.dimension // 4))
+    return model
+
+
+def check_routed_small(dev) -> None:
+    """Every layout K7 and K8 serve, on small matrices."""
+    cfg = port.EhybConfig()
+    x_of = deterministic_x
+    # slice layout, one block, identity dst
+    m = generate.random_general(16384, 12, seed=3)
+    model = port.RoutedSpmv(cfg, device=dev).setup(m)
+    d = model.applies[0].d
+    check(len(model.blocks) == 1 and not d.octet and d.ident,
+          "slice: one block, slice layout, identity dst")
+    check_schedule("slice", d, model.prepare_x(x_of(m.dimension)))
+    models = [("slice", m, model)]
+    # octet layout, permuted dst (built as the JAX suite builds it)
+    m = random_coo(1 << 17, 1, seed=41)
+    rm = build_routed(m, R=4096, P=64)
+    d = rm.to_torch(device=dev)
+    check(d.octet, f"octet: octet layout ({rm.stats['b_steps']} B steps)")
+    x = np.zeros(rm.padded_x_rows, np.float32)
+    x[:m.dimension] = x_of(m.dimension)
+    x = torch.as_tensor(x, device=dev)
+    check_schedule("octet", d, x)
+    y = route.RoutedApply(d)(x).cpu().numpy()[:m.dimension]
+    err = rel_np(y, oracle_spmv(m, x_of(m.dimension)))
+    check(err <= ORACLE_TOL, f"octet: apply vs oracle rel {err:.3e} <= "
+                             f"{ORACLE_TOL}")
+    # column-block mode
+    m = random_coo(1 << 15, 8, seed=17)
+    model = block_mode_model(m, dev)
+    check(len(model.blocks) == 4, f"blocks: {len(model.blocks)} blocks")
+    x = model.prepare_x(x_of(m.dimension))
+    for i, (ap, lo) in enumerate(zip(model.applies, model._lo)):
+        check_schedule(f"block {i}", ap.d, x[lo:lo + ap.d.padded_x_rows])
+    models.append(("blocks", m, model))
+    # slice layout with a spill tail
+    m = generate.random_general(4096, 12, seed=9, power_law=0.8)
+    model = port.RoutedSpmv(cfg, device=dev).setup(m)
+    spill = model.blocks[0].stats["nnz_spill"]
+    check(spill > 0, f"spill: {spill} spilled entries")
+    check_schedule("spill", model.applies[0].d,
+                   model.prepare_x(x_of(m.dimension)))
+    models.append(("spill", m, model))
+    # the degree-split hybrid (K1 beside K7/K8)
+    m = generate.random_general(1 << 14, 24, seed=4, power_law=0.7)
+    models.append(("split", m, port.DegreeSplitSpmv(cfg, device=dev)
+                   .setup(m)))
+    for name, m, model in models:
+        x = x_of(m.dimension)
+        err = rel_np(model.matvec(x), oracle_spmv(m, x))
+        check(err <= ORACLE_TOL,
+              f"{name}: {model.name} vs oracle rel {err:.3e} <= {ORACLE_TOL}")
+
+
+def drive(args):
+    """One main path through the CLI with the launch counts set to 0 just
+    before it; returns (result, model, launches, wall seconds)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    code, result, model = cli.run(cli.build_parser().parse_args(args))
+    wall = time.perf_counter() - t0
+    launches = {"K1": ehyb_stream.stream_body.launches,
+                "K7": route.route_at.launches, "K8": route.route_b.launches}
+    print(json.dumps(result))
+    check(code == 0 and result is not None, f"CLI exit code {code}")
+    print(f"  wall {wall:.1f} s; setup seconds per phase: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in
+                      result["setup_seconds"].items()))
+    check(result["rel_error"] <= ORACLE_TOL,
+          f"rel error vs exact-f64 oracle {result['rel_error']:.3e} "
+          f"<= {ORACLE_TOL}")
+    print(f"  launches during the run: {launches}")
+    return result, model, launches
+
+
+def time_k1(model, result, dev) -> dict:
+    """K1 at the flagship's shapes: kernel, plain version and cuSPARSE over
+    the body's own entries (reordered space)."""
+    e = model.dev
+    kahan = model.module.kahan
+    x_dev = model.prepare_x(deterministic_x(result["dim"]))
+    y_k = ehyb_stream.stream_body(e, x_dev, kahan)
+    y_p = ehyb_stream.stream_body_plain(e, x_dev, kahan)
+    torch.cuda.synchronize()
+    max_abs = float((y_k - y_p).abs().max())
+    err = rel(y_k, y_p)
+    check(err <= KERNEL_TOL, f"K1 vs plain rel {err:.3e} <= {KERNEL_TOL} "
+                             f"(max abs {max_abs:.3e})")
+    # the body's entries as CSR: row = slice * 128 + lane, decoded column
+    steps = e.ell_val.shape[0]
+    step_slice = torch.searchsorted(
+        e.slice_offset[1:], torch.arange(steps, dtype=torch.int32,
+                                         device=dev), right=True)
+    rows = step_slice.long()[:, None] * 128 \
+        + torch.arange(128, device=dev)[None, :]
+    keep = e.ell_val != 0
+    a = csr_of(rows[keep], body_gather_index(e).long()[keep],
+               e.ell_val[keep], y_k.shape[0], x_dev.shape[0])
+    y_l = torch.mv(a, x_dev)
+    torch.cuda.synchronize()
+    err = rel(y_l, y_p)
+    check(err <= KERNEL_TOL, f"cuSPARSE over K1's {int(keep.sum())} body "
+                             f"entries vs plain rel {err:.3e}")
+    kernel = lambda: ehyb_stream.stream_body(e, x_dev, kahan)  # noqa: E731
+    plain = lambda: ehyb_stream.stream_body_plain(e, x_dev, kahan)  # noqa
+    ms, plain_ms, turns = in_turns(kernel, plain, 100, 20)
+    lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), 100)
+    n_bytes = nbytes(e.ell_col, e.ell_val, e.slice_offset,
+                     *[e.step_win, e.step_win_b, e.step_win_c,
+                       e.step_win_d][:e.nwin], x_dev, y_k)
+    b = bound(n_bytes, 2 * e.body_nnz, dev)
+    print(f"  K1 device ms per call (plain, kernel, kernel, plain): "
+          f"{turns}; cuSPARSE over its body {lib_ms:.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({n_bytes} B, {b['bound_by']})")
+    print(f"  eager calls back to back (host launch cost included): "
+          f"K1 {ms_per_call(kernel, 200):.4f} ms, full apply (K1 + torch "
+          f"ER/long/DIA/combine) "
+          f"{ms_per_call(lambda: model.apply(x_dev), 200):.4f} ms")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **b)
+
+
+def time_routed(model, m: MatrixCOO, dev) -> tuple:
+    """K7, K8 and the whole routed apply at random_1m's shapes, and one
+    cuSPARSE matvec over the whole matrix."""
+    check(len(model.applies) == 1, "random_1m runs one routed block")
+    d = model.applies[0].d
+    x_dev = model.prepare_x(deterministic_x(m.dimension))
+    t_k = route.route_at(d, x_dev)
+    t_p = route.route_at_plain(d, x_dev)
+    y_k = route.route_b(d, t_p)
+    y_p = route.route_b_plain(d, t_p)
+    torch.cuda.synchronize()
+    at_abs = float((t_k - t_p).abs().max())
+    check(torch.equal(t_k, t_p), "K7 equals its plain version at full size")
+    b_abs = float((y_k - y_p).abs().max())
+    err = rel(y_k, y_p)
+    check(err <= KERNEL_TOL, f"K8 vs plain rel {err:.3e} <= {KERNEL_TOL} "
+                             f"(max abs {b_abs:.3e})")
+    del t_k, y_k, y_p
+    at_ms, at_plain, at_turns = in_turns(
+        lambda: route.route_at(d, x_dev),
+        lambda: route.route_at_plain(d, x_dev), 50, 5)
+    b_ms, b_plain, b_turns = in_turns(
+        lambda: route.route_b(d, t_p),
+        lambda: route.route_b_plain(d, t_p), 50, 5)
+    apply_ms = device_ms_per_call(lambda: model.apply(x_dev), 20)
+    apply_plain = device_ms_per_call(lambda: routed_plain(d, x_dev), 5)
+    nnz_routed = int(model.blocks[0].stats["nnz_routed"])
+    b_at = bound(nbytes(d.a_col, d.a_val, d.a_win) + 4 * d.padded_x_rows
+                 + 4 * t_p.numel(), nnz_routed, dev)
+    b_b = bound(nbytes(d.b_idx, d.b_gmap, d.b_boff, d.seg_first, d.seg_last,
+                       t_p) + 4 * d.n_dst_rows, nnz_routed, dev)
+    # the yardstick: one cuSPARSE CSR matvec over the whole matrix, in the
+    # original ordering
+    a = csr_of(torch.as_tensor(m.row, device=dev).long(),
+               torch.as_tensor(m.col, device=dev).long(),
+               torch.as_tensor(m.val, dtype=torch.float32, device=dev),
+               m.n_rows, m.n_cols)
+    x = torch.as_tensor(deterministic_x(m.dimension), dtype=torch.float32,
+                        device=dev)
+    y_l = torch.mv(a, x).cpu().numpy()
+    err = rel_np(y_l, oracle_spmv(m, deterministic_x(m.dimension)))
+    check(err <= ORACLE_TOL, f"cuSPARSE over random_1m vs oracle rel "
+                             f"{err:.3e}")
+    lib_ms = device_ms_per_call(lambda: torch.mv(a, x), 20)
+    a_bytes = nbytes(a.crow_indices(), a.col_indices(), a.values(), x) \
+        + 4 * m.n_rows
+    lib_bound = bound(a_bytes, 2 * m.nnz, dev)
+    print(f"  K7 device ms (plain, kernel, kernel, plain): {at_turns}; "
+          f"bound {b_at['bound_ms']:.4f} ms ({b_at['bound_by']})")
+    print(f"  K8 device ms (plain, kernel, kernel, plain): {b_turns}; "
+          f"bound {b_b['bound_ms']:.4f} ms ({b_b['bound_by']})")
+    print(f"  routed apply (K7 + K8 + spill tail + epilogue) {apply_ms:.4f} "
+          f"ms device time, through the plain versions {apply_plain:.4f} "
+          f"ms; cuSPARSE CSR matvec over the whole matrix {lib_ms:.4f} ms "
+          f"(bound {lib_bound['bound_ms']:.4f} ms, {a_bytes} B): routed / "
+          f"cuSPARSE = {apply_ms / lib_ms:.3f}; the apply's device "
+          f"GFLOP/s {2e-6 * m.nnz / apply_ms:.2f}, cuSPARSE's "
+          f"{2e-6 * m.nnz / lib_ms:.2f}")
+    return (dict(max_abs_err=at_abs, ms=at_ms, plain_ms=at_plain,
+                 library_ms=None, **b_at),
+            dict(max_abs_err=b_abs, ms=b_ms, plain_ms=b_plain,
+                 library_ms=None, **b_b))
+
+
+def profile_path(name: str, result: dict, model, n: int = 20) -> None:
+    """Device time by kernel over ``n`` iterations of a main path
+    (``torch.profiler``), and the device's busy share of the unprofiled
+    wall time per iteration the CLI measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x_dev = model.prepare_x(deterministic_x(result["dim"]))
+    model.iterate(x_dev, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.iterate(x_dev, n)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kernels) / n
+    wall_us = 1e6 * result["seconds"] / result["iters"]
+    print(f"  {name}: device busy {busy_us:.2f} us per iteration "
+          f"(torch.profiler, {n} iterations) of {wall_us:.2f} us wall "
+          f"unprofiled: {100 * busy_us / wall_us:.1f}% busy")
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
+        print(f"    {e.device_time_total / n:10.2f} us  x{e.count / n:g}  "
+              f"{e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     print("== phase 1: card", flush=True)
     card = subprocess.run(
@@ -141,14 +477,19 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(dev)}, "
           f"count {torch.cuda.device_count()}", flush=True)
 
-    print("== phase 2: build", flush=True)
-    built = ehyb_stream.build_kernel()
-    print(f"  built {built.path} in {built.seconds:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    print("== phase 2: build (one nvcc per source, all at once)", flush=True)
+    builds = {"K1": ehyb_stream.build_kernel, "K7": route.build_route_at,
+              "K8": route.build_route_b}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {k: pool.submit(b) for k, b in builds.items()}
+        built = {k: f.result() for k, f in futures.items()}
+    for k, b in built.items():
+        print(f"  {k}: built {b.path} in {b.seconds:.2f} s")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {k} ptxas: {line.strip()}")
 
-    print("== phase 3: kernel vs plain version on small matrices", flush=True)
+    print("== phase 3: K1 vs plain version on small matrices", flush=True)
     for name, m, cfg, nwin, kahan in kernel_cases():
         model = port.EhybSpmv(cfg, device=dev).setup(m)
         e = model.dev
@@ -163,71 +504,60 @@ def main() -> int:
         check(torch.isfinite(y_k).all().item() and err <= KERNEL_TOL,
               f"{name}: kernel vs plain rel {err:.3e} <= {KERNEL_TOL}")
         y = model.matvec(x)
-        err = float(np.linalg.norm(y - oracle_spmv(m, x))
-                    / np.linalg.norm(oracle_spmv(m, x)))
+        err = rel_np(y, oracle_spmv(m, x))
         check(err <= ORACLE_TOL,
               f"{name}: model vs oracle rel {err:.3e} <= {ORACLE_TOL}")
         if kahan:
             check(y[0] == 100.0, f"{name}: compensated row 0 = {y[0]!r}")
 
-    print("== phase 4: main path "
-          f"(python -m ehyb_spmv_torch {' '.join(MAIN_ARGS)})", flush=True)
-    ehyb_stream.stream_body.launches = 0
-    t0 = time.perf_counter()
-    code, result, model = cli.run(cli.build_parser().parse_args(MAIN_ARGS))
-    wall = time.perf_counter() - t0
-    launches = ehyb_stream.stream_body.launches
-    print(json.dumps(result))
-    check(code == 0 and result is not None, f"CLI exit code {code}")
-    print(f"  wall {wall:.1f} s; setup seconds per phase: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in
-                      result["setup_seconds"].items()))
-    print(f"  layout: {result['layout']}")
-    check(result["dim"] == 262144 and result["nnz"] > 1_000_000,
-          f"full size: dim {result['dim']}, nnz {result['nnz']}")
-    check(result["rel_error"] <= ORACLE_TOL,
-          f"rel error vs exact-f64 oracle {result['rel_error']:.3e} "
-          f"<= {ORACLE_TOL}")
-    y = model.apply(model.prepare_x(deterministic_x(result["dim"])))
-    check(y.shape[0] >= result["dim"] and bool(torch.isfinite(y).all()),
-          f"finite padded y of {y.shape[0]} rows")
-
-    print("== phase 5: the main path went through the kernel", flush=True)
-    check(launches > 0, f"{KERNEL['name']} launched {launches} times "
-                        "during the main path")
-
-    print("== phase 6: kernel and plain version at the main path's shapes",
+    print("== phase 4: K7 and K8 vs plain versions on small matrices "
+          "(slice, octet, column blocks, spill) and the split model",
           flush=True)
-    e = model.dev
-    kahan = model.module.kahan
-    x_dev = model.prepare_x(deterministic_x(result["dim"]))
-    y_k = ehyb_stream.stream_body(e, x_dev, kahan)
-    y_p = ehyb_stream.stream_body_plain(e, x_dev, kahan)
-    torch.cuda.synchronize()
-    max_abs = float((y_k - y_p).abs().max())
-    err = rel(y_k, y_p)
-    check(err <= KERNEL_TOL, f"kernel vs plain rel {err:.3e} <= {KERNEL_TOL}"
-                             f" (max abs {max_abs:.3e})")
-    kernel = lambda: ehyb_stream.stream_body(e, x_dev, kahan)  # noqa: E731
-    plain = lambda: ehyb_stream.stream_body_plain(e, x_dev, kahan)  # noqa
-    # device time, in turns (plain, kernel, kernel, plain), one card
-    plain_a = device_ms_per_call(plain, 20)
-    kern_a = device_ms_per_call(kernel, 100)
-    kern_b = device_ms_per_call(kernel, 100)
-    plain_b = device_ms_per_call(plain, 20)
-    print(f"  device time per call: {KERNEL['name']} {kern_a:.4f} / "
-          f"{kern_b:.4f} ms, plain version {plain_a:.4f} / {plain_b:.4f} ms")
-    print(f"  eager calls back to back (host launch cost included): "
-          f"{KERNEL['name']} {ms_per_call(kernel, 200):.4f} ms, plain "
-          f"version {ms_per_call(plain, 50):.4f} ms, full apply (kernel + "
-          f"torch ER/long/DIA/combine) "
-          f"{ms_per_call(lambda: model.apply(x_dev), 200):.4f} ms")
-    print(f"  main path: {result['gflops']:.2f} GFLOP/s "
-          f"({result['iters']} iterations in {result['seconds']:.4f} s)")
+    check_routed_small(dev)
 
-    print(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches, max_abs_err=max_abs,
-        ms=(kern_a + kern_b) / 2, plain_ms=(plain_a + plain_b) / 2)]}))
+    print("== phase 5: main path 1 "
+          f"(python -m ehyb_spmv_torch {' '.join(MAIN_ARGS)})", flush=True)
+    res1, model1, launch1 = drive(MAIN_ARGS)
+    print(f"  layout: {res1['layout']}")
+    check(res1["engine"] == "EhybSpmv", f"engine {res1['engine']}")
+    check(res1["dim"] == 262144 and res1["nnz"] > 1_000_000,
+          f"full size: dim {res1['dim']}, nnz {res1['nnz']}")
+    y = model1.apply(model1.prepare_x(deterministic_x(res1["dim"])))
+    check(y.shape[0] >= res1["dim"] and bool(torch.isfinite(y).all()),
+          f"finite padded y of {y.shape[0]} rows")
+    check(launch1["K1"] > 0, f"{K1['name']} launched {launch1['K1']} times "
+                             "during main path 1")
+
+    print("== phase 6: main path 2, the gather-wall row "
+          f"(python -m ehyb_spmv_torch {' '.join(GATHER_ARGS)})", flush=True)
+    res2, model2, launch2 = drive(GATHER_ARGS)
+    check(res2["engine"] == "RoutedSpmv",
+          f"the gate delegated to {res2['engine']}")
+    check(res2["dim"] == 1048576 and res2["nnz"] == 16769356,
+          f"full size: dim {res2['dim']}, nnz {res2['nnz']}")
+    print(f"  nnz_routed {res2['nnz_routed']}, nnz_spill {res2['nnz_spill']}")
+    for k in ("K7", "K8"):
+        check(launch2[k] > 0, f"{k} launched {launch2[k]} times during main "
+                              "path 2")
+
+    print("== phase 7: kernels, plain versions and cuSPARSE at the main "
+          "paths' shapes (device time, CUDA graph replay)", flush=True)
+    k1 = time_k1(model1, res1, dev)
+    k7, k8 = time_routed(model2, model2.m, dev)
+    for res in (res1, res2):
+        print(f"  {res['matrix']}: {res['gflops']:.2f} GFLOP/s end to end "
+              f"({res['iters']} iterations in {res['seconds']:.4f} s, "
+              f"{1e3 * res['seconds'] / res['iters']:.4f} ms each)")
+
+    print("== phase 8: where the device time goes per iteration", flush=True)
+    profile_path(res1["matrix"], res1, model1)
+    profile_path(res2["matrix"], res2, model2)
+    print(f"  script wall {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": [
+        dict(K1, launches=launch1["K1"], **k1),
+        dict(K7, launches=launch2["K7"], **k7),
+        dict(K8, launches=launch2["K8"], **k8)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

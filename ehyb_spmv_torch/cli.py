@@ -40,9 +40,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=10,
                    help="warm-up iterations (reference hardcodes 10, "
                         "spmv.cu:100)")
-    p.add_argument("--model", default="ehyb", choices=["ehyb", "ehyb_xla"],
-                   help="SpMV model: ehyb (flagship, CUDA kernel body) | "
-                        "ehyb_xla (plain torch ops)")
+    p.add_argument("--model", default="ehyb",
+                   choices=["ehyb", "ehyb_xla", "ehyb_routed", "ehyb_split"],
+                   help="SpMV model: ehyb (flagship, CUDA kernel body; "
+                        "hands gather-wall matrices to the routed engine) | "
+                        "ehyb_xla (plain torch ops) | ehyb_routed (routed "
+                        "engine) | ehyb_split (degree-split hybrid)")
     p.add_argument("--tol", type=float, default=0.01,
                    help="validation relative tolerance (reference: 1%%)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -111,30 +114,43 @@ def run(args: argparse.Namespace):
 
     # --- timed loop (spmv.cu:100-122 protocol) ---
     x_dev = model.prepare_x(x)
-    st = model.ehyb.stats
-    mcfg = model.config          # authoritative: the flagship pins int16
-    bm = spmv_bytes_model(st, dim=m.dimension,
-                          value_bytes=np.dtype(mcfg.dtype).itemsize,
-                          ell_index_bytes=np.dtype(mcfg.index_dtype).itemsize)
+    e = getattr(model, "ehyb", None)
+    if e is not None:
+        mcfg = model.config      # authoritative: the flagship pins int16
+        bm = spmv_bytes_model(
+            e.stats, dim=m.dimension,
+            value_bytes=np.dtype(mcfg.dtype).itemsize,
+            ell_index_bytes=np.dtype(mcfg.index_dtype).itemsize)
+    else:
+        bm = model.bytes_model()  # the routed and split engines' own model
     res = bench_apply(f"{args.model}:{name}",
                       lambda n: model.iterate(x_dev, n), nnz=m.nnz,
                       device=device, iters=args.iters, warmup=args.warmup,
                       bytes_model=bm)
     print(res)
     result = {
-        "matrix": name, "model": args.model, "device": res.device,
-        "nnz": m.nnz, "dim": m.dimension, "iters": res.iters,
-        "seconds": res.seconds, "gflops": res.gflops,
+        "matrix": name, "model": args.model, "engine": type(model).__name__,
+        "device": res.device, "nnz": m.nnz, "dim": m.dimension,
+        "iters": res.iters, "seconds": res.seconds, "gflops": res.gflops,
         "gnnz_per_sec": res.nnz_per_sec / 1e9,
         "roofline_frac": res.roofline_frac,
         "rel_error": err, "valid": cmp_res.ok,
         "setup_seconds": {"load": load_s, **model.setup_seconds},
-        "layout": {"body_layout": mcfg.body_layout,
-                   "nwin": model.dev.nwin,
-                   **{k: int(st.get(k, 0)) for k in (
-                       "ell_steps", "nnz_ell", "waste_ell", "nnz_dia",
-                       "nnz_er", "nnz_long")}},
     }
+    if e is not None:
+        result["layout"] = {
+            "body_layout": model.config.body_layout, "nwin": model.dev.nwin,
+            **{k: int(e.stats.get(k, 0)) for k in (
+                "ell_steps", "nnz_ell", "waste_ell", "nnz_dia", "nnz_er",
+                "nnz_long")}}
+    # the routed engine's schedule split (bench.py reports the same keys)
+    blocks = (getattr(model, "blocks", None)
+              or getattr(getattr(model, "r", None), "blocks", None))
+    if blocks:
+        result["nnz_routed"] = int(sum(b.stats.get("nnz_routed", 0)
+                                       for b in blocks))
+        result["nnz_spill"] = int(sum(b.stats.get("nnz_spill", 0)
+                                      for b in blocks))
     return (0 if cmp_res.ok else 1), result, model
 
 

@@ -13,7 +13,10 @@ Variants:
     flagship pins for its Pallas kernel and runs the SELL body through the
     hand-written CUDA kernel (``ops/ehyb_stream.py``).  It pins that layout
     on every device, so the CPU runs the same artifact through the kernel's
-    plain version.
+    plain version.  Its delegation gate hands gather-wall matrices to the
+    routed engine (``models/routed.py``) or, with a heavy row-degree tail,
+    to the degree-split hybrid (``models/hybrid.py``), as the JAX flagship
+    does.
 
 The layout switches use the TPU's per-vreg cycle constants, kept here so that
 both packages land on the same ``EhybMatrix``; re-deriving them for the H100
@@ -22,11 +25,14 @@ is ROADMAP Queue 1 item 12.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
+from typing import Optional
 
 import numpy as np
 
-from ..config import LANES, WINDOW_ALIGN, round_up
+from ..config import LANES, WINDOW_ALIGN, cdiv, round_up
 from ..core.coo import MatrixCOO
 from ..core.convert import coo_to_ehyb
 from ..core.ehyb import EhybMatrix
@@ -40,6 +46,16 @@ from ..utils.log import get_logger
 from .base import SpmvModel
 
 log = get_logger(__name__)
+
+
+class _DelegateToRouted(Exception):
+    """Control-flow carrier: the gate decided for another engine;
+    ``EhybSpmv.setup`` catches it and returns ``model``."""
+
+    def __init__(self, model):
+        super().__init__("gather-wall delegation")
+        self.model = model
+
 
 #: Measured TPU (v5e) full-apply cost per (8,128) body vreg: chunk-sync vs
 #: relaxed dual-window vs relaxed quad-window.  Layout arbitration only.
@@ -66,6 +82,10 @@ class EhybPlainSpmv(SpmvModel):
         """Called once the reordering is decided, before any conversion
         (the flagship's routed-delegation gate)."""
 
+    def _pre_order_hook(self, m: MatrixCOO) -> None:
+        """Called before the artifact load and the ordering chain (the
+        flagship's cached-verdict delegation)."""
+
     def _make_module(self):
         return EhybApply(self.dev)
 
@@ -85,6 +105,9 @@ class EhybPlainSpmv(SpmvModel):
         # cache key = the config AS GIVEN (the layout switches below are
         # deterministic for (matrix, config))
         cfg_key = cfg
+        # a cached gather-wall verdict fires before the EHYB artifact load
+        # and the ordering chain, both of which it would throw away
+        self._pre_order_hook(m)
         if cfg.artifact_cache:
             from ..core.cache import load_artifacts
 
@@ -254,15 +277,89 @@ class EhybSpmv(EhybPlainSpmv):
         return m.nnz >= (1 << 18)
 
     def _post_order_hook(self, m: MatrixCOO) -> None:
-        """The structural fill sample of the TPU flagship's routed gate.
-        Where the TPU would hand the matrix to the routed or degree-split
-        engine, raise: those engines are not ported yet."""
+        routed = self._maybe_delegate_routed(m)
+        if routed is not None:
+            raise _DelegateToRouted(routed)
+
+    def _pre_order_hook(self, m: MatrixCOO) -> None:
+        """Cached-verdict fast path before the ordering chain: a matrix the
+        gate already judged gather-wall delegates at once instead of paying
+        the partition + RCM ordering the routed engine never uses."""
         if not self._gate_preconditions(m):
             return
+        verdict = self._load_gate_decision(m)
+        if verdict not in ("routed", "split"):
+            return
+        log.info("cached gate verdict: %s — delegating without paying the "
+                 "ordering chain", verdict)
+        from .hybrid import DegreeSplitSpmv
+        from .routed import RoutedSpmv
+
+        engine = DegreeSplitSpmv if verdict == "split" else RoutedSpmv
+        try:
+            model = engine(self.config, device=self.device).setup(m)
+        except ValueError as exc:
+            # the gate contract: keep the EHYB body when routed cannot run,
+            # never crash setup (a stale marker must not wedge warm runs)
+            log.warning("cached %s verdict but the build failed (%s); "
+                        "keeping the EHYB body", verdict, exc)
+            self._save_gate_decision(m, False)
+            return
+        raise _DelegateToRouted(model)
+
+    def _gate_decision_path(self, m: MatrixCOO) -> Optional[str]:
+        if not self.config.artifact_cache:
+            return None
+        from ..core.cache import DEFAULT_CACHE_DIR, matrix_fingerprint
+
+        d = self.config.cache_dir or DEFAULT_CACHE_DIR
+        sp = os.environ.get("EHYB_ROUTE_SPILL_MAX", "0.10")
+        return os.path.join(
+            d, f"{matrix_fingerprint(m)}"
+               f"-gate{self._ROUTED_FILL_GATE:g}v3-sp{sp}.json")
+
+    def _load_gate_decision(self, m: MatrixCOO):
+        """Cached gate verdict: "routed" / "split" = delegate to that
+        engine, False = keep the EHYB body, None = not decided yet (or
+        caching disabled)."""
+        path = self._gate_decision_path(m)
+        if path is None or not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                return json.load(f)["delegate"]
+        except (OSError, ValueError, KeyError, TypeError):
+            return None  # unreadable marker: decide again
+
+    def _save_gate_decision(self, m: MatrixCOO, delegate) -> None:
+        path = self._gate_decision_path(m)
+        if path is None:
+            return
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"delegate": delegate}, f)
+        os.replace(tmp, path)  # atomic against concurrent runs
+
+    def _maybe_delegate_routed(self, m: MatrixCOO):
+        """Return the routed or degree-split model when the post-reorder
+        structure shows the gather-wall regime, else None (keep the EHYB
+        body).  Runs right after the ordering is decided and before any
+        conversion (a scrambled stencil recovers under RCM and must not
+        delegate; a random matrix must not pay a conversion it never uses).
+
+        The flagship always pins ``sell_mw``/``sell_rx``, so its ordering is
+        ``pick_ordering``'s, which already considered RCM: the JAX gate's
+        re-sample under RCM for the partition-ordered XLA path is never
+        reached here and is not ported.
+        """
+        if not self._gate_preconditions(m):
+            return None
         if m.dimension < self._SMALL_GATE_DIM:
-            return  # the measured small-matrix A/B gate: not ported yet
+            return None  # the measured small-matrix A/B gate: not ported
         # mean fill of sampled post-reorder (128-row slice, 1024-col window)
-        # groups: every 97th slice, all of its entries
+        # groups — what a window-gather sub-tile can hope to serve; whole
+        # slices are sampled (every 97th, all of its entries)
         o2n = self.reordering.old_to_new
         r_new = o2n[m.row.astype(np.int64)]
         pick = (r_new // LANES) % 97 == 0
@@ -271,12 +368,55 @@ class EhybSpmv(EhybPlainSpmv):
         gkey = (r_s // LANES) * (m.dimension // 1024 + 1) + c_s // 1024
         fill = r_s.shape[0] / max(np.unique(gkey).shape[0], 1)
         if fill > self._ROUTED_FILL_GATE:
-            return
-        raise NotImplementedError(
-            f"gather-wall structure (post-reorder group fill {fill:.1f} <= "
-            f"{self._ROUTED_FILL_GATE}): the routed and degree-split engines "
-            "are not ported yet (ROADMAP Queue 1 item 5); pass "
-            "routed_delegate='never' to keep the EHYB body")
+            # the sample saw a bandwidth-recovered ordering: final, cached
+            self._save_gate_decision(m, False)
+            return None
+        if self._load_gate_decision(m) is False:
+            return None  # cached keep-body verdict (e.g. the spill veto)
+        from ..core.route import _choose_params
+        from .hybrid import DegreeSplitSpmv, MIN_DENSE_FRAC, degree_split_stats
+        from .routed import RoutedSpmv
+
+        try:
+            # block-width feasibility: column-block mode lifts the dim cap,
+            # so only the per-row density can disqualify the router
+            _choose_params(m.dimension, min(m.dimension, 1 << 20),
+                           m.nnz // max(cdiv(m.dimension, 1 << 20), 1),
+                           None, None)
+            # heavy tail → degree-split hybrid: dense rows pack the EHYB
+            # body at pooled-slice fill, the bounded-degree rest routes
+            _, dense_frac = degree_split_stats(m)
+            if dense_frac >= MIN_DENSE_FRAC:
+                log.info("gather-wall with a heavy tail (fill %.1f, %.0f%% "
+                         "of nnz in dense rows): degree-split hybrid",
+                         fill, 100 * dense_frac)
+                model = DegreeSplitSpmv(self.config,
+                                        device=self.device).setup(m)
+                self._save_gate_decision(m, "split")
+                return model
+            log.info("gather-wall structure (post-reorder (slice,window) "
+                     "group fill %.1f): delegating to the routed engine",
+                     fill)
+            routed = RoutedSpmv(self.config, device=self.device).setup(m)
+            # schedule-quality veto: spilled entries ride the torch gather
+            # tail the routed engine exists to avoid
+            nnz_spill = sum(b.stats.get("nnz_spill", 0)
+                            for b in routed.blocks)
+            spill_max = float(os.environ.get("EHYB_ROUTE_SPILL_MAX", "0.10"))
+            if nnz_spill > spill_max * max(m.nnz, 1):
+                log.info("routed schedule spills %.1f%% of nnz (> %.0f%% "
+                         "veto) — keeping the EHYB body",
+                         100 * nnz_spill / m.nnz, 100 * spill_max)
+                self._save_gate_decision(m, False)
+                return None
+            # saved only once the build succeeded
+            self._save_gate_decision(m, "routed")
+            return routed
+        except ValueError as exc:            # too dense for the router
+            log.info("gather-wall structure (group fill %.1f) but routed "
+                     "infeasible (%s); keeping the EHYB body", fill, exc)
+            self._save_gate_decision(m, False)
+            return None
 
     def setup(self, m: MatrixCOO) -> "EhybSpmv":
         cfg = self.config
@@ -303,4 +443,13 @@ class EhybSpmv(EhybPlainSpmv):
             cfg, window_rows=WINDOW_ALIGN, body_layout=layout,
             width_align=SUBTILES * TILE_STEPS, index_dtype=idx_dtype,
             sliding_windows=sliding, features=feats)
-        return super().setup(m)
+        t0 = time.perf_counter()
+        try:
+            return super().setup(m)
+        except _DelegateToRouted as d:
+            # the delegated engine's setup also counts the ordering the gate
+            # paid for before it decided
+            d.model.setup_seconds = {**self.setup_seconds,
+                                     **d.model.setup_seconds,
+                                     "total": time.perf_counter() - t0}
+            return d.model

@@ -1,16 +1,18 @@
 """Native (C++) host components, loaded via ctypes.
 
 Port counterpart of ``ehyb_spmv_gpu_tpu/native/__init__.py``.  The C++
-sources are the JAX package's own (``ehyb_spmv_gpu_tpu/native/*.cpp``), read
-as files by path and never imported as Python, so the port stays free of
-JAX while both packages pack byte-identical artifacts.  Libraries are built
-with ``g++`` on first use into ``ehyb_spmv_torch/build/`` under names of
-their own.  Each build writes a temporary file and renames it into place, so
-concurrent processes (test workers) never load a half-written library.
+sources are the port's own copies of the JAX package's (``partition.cpp``,
+``rcm.cpp``, ``diaextract.cpp``, ``mtxparse.cpp``, ``routecolor.cpp``, in
+this directory), so both packages pack byte-identical artifacts while the
+port compiles nothing of the JAX package; a tier-1 test holds the copies'
+code equal to the originals.  Libraries are built with ``g++`` on first use
+into ``ehyb_spmv_torch/build/`` under names of their own.  Each build writes
+a temporary file and renames it into place, so concurrent processes (test
+workers) never load a half-written library.
 
-Only the entry points the port's host layer calls are bound: the k-way
-partitioner, RCM + adjacency, the DIA extractor, the relaxed body packer and
-the ``.mtx`` entry parser.  The routing colorers wait for the routed engine.
+Bound entry points: the k-way partitioner, RCM + adjacency, the DIA
+extractor, the ``.mtx`` entry parser, the relaxed body packer and the
+routing engine's three edge colorers.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: The shared C++ sources (the JAX package's native directory, by path).
-SRC_DIR = os.path.join(os.path.dirname(_PKG), "ehyb_spmv_gpu_tpu", "native")
+#: The port's own C++ sources (copies of the JAX package's).
+SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "build")
 _lock = threading.Lock()
 _libs = {}
@@ -114,13 +116,25 @@ def kway_partition_native(xadj: np.ndarray, adjncy: np.ndarray, n_parts: int,
 
 
 # ---------------------------------------------------------------------------
-# Relaxed SELL-body packer (routecolor.cpp::ehyb_pack_relaxed).
+# Relaxed SELL-body packer and the routing colorers (routecolor.cpp).
 # ---------------------------------------------------------------------------
 
 def _bind_color(lib):
     lib.ehyb_pack_relaxed.restype = ctypes.c_longlong
     lib.ehyb_pack_relaxed.argtypes = [
         ctypes.c_longlong, _i64(), _i16(), _i16(), _i16(), _i64(), _i32()]
+    lib.ehyb_color_edges.restype = ctypes.c_longlong
+    lib.ehyb_color_edges.argtypes = [
+        ctypes.c_longlong, _i32(), _i16(), _i16(), _i64(), ctypes.c_int,
+        ctypes.c_int, _i32()]
+    lib.ehyb_color_edges_cls.restype = ctypes.c_longlong
+    lib.ehyb_color_edges_cls.argtypes = [
+        ctypes.c_longlong, _i32(), _i16(), _i16(), _i16(), _i64(),
+        ctypes.c_int, ctypes.c_int, _i32()]
+    lib.ehyb_color_edges_cls_bal.restype = ctypes.c_longlong
+    lib.ehyb_color_edges_cls_bal.argtypes = [
+        ctypes.c_longlong, _i32(), _i16(), _i16(), _i16(), _i32(), _i32(),
+        _i16(), _i64(), ctypes.c_int, ctypes.c_int, ctypes.c_int, _i32()]
 
 
 def pack_relaxed_native(pair: np.ndarray, lane: np.ndarray, slot: np.ndarray,
@@ -139,6 +153,74 @@ def pack_relaxed_native(pair: np.ndarray, lane: np.ndarray, slot: np.ndarray,
     if rc < 0:
         raise RuntimeError(f"native relaxed packer failed (code {rc})")
     return out.astype(np.int64)
+
+
+def color_edges_cls_bal_native(pair: np.ndarray, lane: np.ndarray,
+                               slot: np.ndarray, cls: np.ndarray,
+                               win: np.ndarray, dslice: np.ndarray,
+                               perm: np.ndarray, order: np.ndarray,
+                               n_pairs: int, n_dslices: int,
+                               P: int) -> np.ndarray:
+    """Stage-A class-aware coloring with B-side slot balancing.  Returns
+    int32 stripe (pre-scramble) per edge; -1 = spill."""
+    lib = _load("routecolor", _bind_color)
+    n = pair.shape[0]
+    out = np.empty(n, dtype=np.int32)
+    spilled = lib.ehyb_color_edges_cls_bal(
+        n, np.ascontiguousarray(pair, dtype=np.int32),
+        np.ascontiguousarray(lane, dtype=np.int16),
+        np.ascontiguousarray(slot, dtype=np.int16),
+        np.ascontiguousarray(cls, dtype=np.int16),
+        np.ascontiguousarray(win, dtype=np.int32),
+        np.ascontiguousarray(dslice, dtype=np.int32),
+        np.ascontiguousarray(perm, dtype=np.int16),
+        np.ascontiguousarray(order, dtype=np.int64),
+        int(n_pairs), int(n_dslices), int(P), out)
+    if spilled < 0:
+        raise RuntimeError(f"native bal colorer failed (code {spilled})")
+    return out
+
+
+def color_edges_cls_native(pair: np.ndarray, lane: np.ndarray,
+                           slot: np.ndarray, cls: np.ndarray,
+                           order: np.ndarray, n_pairs: int,
+                           max_colors: int) -> np.ndarray:
+    """Class-aware greedy edge coloring (routing stage A): slot conflicts
+    count only when the class differs.  Returns int32 colors per edge; -1 =
+    spill."""
+    lib = _load("routecolor", _bind_color)
+    n = pair.shape[0]
+    out = np.empty(n, dtype=np.int32)
+    spilled = lib.ehyb_color_edges_cls(
+        n, np.ascontiguousarray(pair, dtype=np.int32),
+        np.ascontiguousarray(lane, dtype=np.int16),
+        np.ascontiguousarray(slot, dtype=np.int16),
+        np.ascontiguousarray(cls, dtype=np.int16),
+        np.ascontiguousarray(order, dtype=np.int64),
+        int(n_pairs), int(max_colors), out)
+    if spilled < 0:
+        raise RuntimeError(f"native class colorer failed (code {spilled})")
+    return out
+
+
+def color_edges_native(pair: np.ndarray, lane: np.ndarray, slot: np.ndarray,
+                       order: np.ndarray, n_pairs: int,
+                       max_colors: int = 64) -> np.ndarray:
+    """Greedy lowest-free-color bipartite edge coloring (routing stage B).
+    Returns int32 colors per edge; -1 marks spilled edges (no free color
+    under ``max_colors`` at both endpoints)."""
+    lib = _load("routecolor", _bind_color)
+    n = pair.shape[0]
+    out = np.empty(n, dtype=np.int32)
+    spilled = lib.ehyb_color_edges(
+        n, np.ascontiguousarray(pair, dtype=np.int32),
+        np.ascontiguousarray(lane, dtype=np.int16),
+        np.ascontiguousarray(slot, dtype=np.int16),
+        np.ascontiguousarray(order, dtype=np.int64),
+        int(n_pairs), int(max_colors), out)
+    if spilled < 0:
+        raise RuntimeError(f"native edge colorer failed (code {spilled})")
+    return out
 
 
 # ---------------------------------------------------------------------------

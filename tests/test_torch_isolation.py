@@ -1,6 +1,7 @@
 """The port stands alone: it and chip_smoke.py import neither JAX nor the JAX
-package, the smoke script refuses to run without a CUDA device, CUDA
-requests raise where there is none, and the CLI runs on the CPU when asked."""
+package, it compiles its own copies of the C++ sources, the smoke script
+refuses to run without a CUDA device, CUDA requests raise where there is
+none, and the CLI runs on the CPU when asked."""
 import os
 import shutil
 import subprocess
@@ -9,8 +10,8 @@ import sys
 import pytest
 import torch
 
-from ehyb_spmv_torch import EhybConfig, EhybSpmv, cli
-from ehyb_spmv_torch.ops import ehyb_stream
+from ehyb_spmv_torch import EhybConfig, EhybSpmv, RoutedSpmv, cli, native
+from ehyb_spmv_torch.ops import ehyb_stream, route
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -48,6 +49,27 @@ def test_port_and_smoke_import_without_jax():
     assert "IMPORTS OK" in proc.stdout
 
 
+def _code_lines(path):
+    """The file's lines with ``//`` comments and trailing blanks dropped."""
+    with open(path) as f:
+        return [ln.split("//")[0].rstrip() for ln in f]
+
+
+@pytest.mark.parametrize("stem", ["partition", "rcm", "diaextract",
+                                  "mtxparse", "routecolor"])
+def test_native_sources_are_the_ports_own_copies(stem):
+    """The port compiles its own copy of each C++ source, kept equal in code
+    to the JAX package's file (comments may differ), so both pack the same
+    artifacts and drift is caught here."""
+    pkg = os.path.join(REPO, "ehyb_spmv_torch")
+    src_dir = os.path.realpath(native.SRC_DIR)
+    assert os.path.commonpath([src_dir, os.path.realpath(pkg)]) \
+        == os.path.realpath(pkg)
+    ours = os.path.join(src_dir, f"{stem}.cpp")
+    ref = os.path.join(REPO, "ehyb_spmv_gpu_tpu", "native", f"{stem}.cpp")
+    assert _code_lines(ours) == _code_lines(ref)
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the smoke script would run")
@@ -67,10 +89,13 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_cuda_requests_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ehyb_stream.build_kernel()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        EhybSpmv(EhybConfig(), device="cuda")
+    for build in (ehyb_stream.build_kernel, route.build_route_at,
+                  route.build_route_b):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    for model in (EhybSpmv, RoutedSpmv):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model(EhybConfig())          # the card is the default device
 
 
 def test_cli_device_cpu(tmp_path, monkeypatch, capsys):

@@ -7,7 +7,6 @@ import pytest
 
 import ehyb_spmv_gpu_tpu as ref
 from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.io import generate
 
 import ehyb_spmv_torch as port
 from ehyb_spmv_torch.ops import ehyb_stream
@@ -87,15 +86,3 @@ def test_compensated_sum_exact_row():
     assert y[0] == 100.0
     np.testing.assert_allclose(y[1:], 1.0, rtol=1e-6)
 
-
-def test_routed_gate_raises_not_implemented(monkeypatch):
-    """Where the TPU flagship would hand a gather-wall matrix to the routed
-    engine, the port raises (the engine is not ported yet).  The gate is
-    scaled down so a small random matrix reads as a gather wall."""
-    m = generate.random_general(16384, 20, seed=3)
-    assert m.nnz >= 1 << 18
-    monkeypatch.setattr(port.EhybSpmv, "_SMALL_GATE_DIM", 1 << 13)
-    monkeypatch.setattr(port.EhybSpmv, "_ROUTED_FILL_GATE", 1e9)
-    model = port.EhybSpmv(port.EhybConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        model.setup(coo_for("ehyb_spmv_torch", m))
