@@ -2,24 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from ``ehyb_spmv_torch/csrc/`` (one
+Builds the port's five CUDA kernels from ``ehyb_spmv_torch/csrc/`` (one
 ``nvcc`` each, all started together): K1, the streamed SELL body; K7 and K8,
-the routed engine's two stages.  Checks each against its plain PyTorch
-version on small matrices that land on every layout it serves, then drives
-two main paths end to end through the CLI and checks each against the
-exact-f64 oracle:
+the routed engine's two stages; K9, the DIA body; and the x-window-cache
+body that serves the TPU's K3/K4.  Checks each against its plain PyTorch
+version on small matrices that land on every layout it serves (and K1
+where the JAX package would run K5 or K6), then drives four main paths end
+to end through the CLI and checks each against the exact-f64 oracle:
 
 * the flagship on ``permuted_poisson_512`` (262,144 rows, ~1.3M nnz), which
-  runs K1;
+  runs K1 and K9;
 * the gather-wall row: ``ehyb`` on ``random_1m`` (1,048,576 rows, 16,769,356
   nnz), which the flagship's delegation gate hands to the routed engine
-  (K7, K8).
+  (K7, K8);
+* the audikw-class FEM row ``fem3d_68_audikw_class`` (943,296 rows,
+  74,181,672 nnz, all DIA), which runs K9 alone;
+* ``permuted_poisson_4096`` (16,777,216 rows, 83,869,696 nnz), whose x is
+  past the TPU's residency limit: the window-cache body and K9.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, to show it went through its kernels.  Then it times every kernel and
-its plain version at its main path's shapes, beside one cuSPARSE call
-(``torch.sparse_csr_tensor`` matvec) as a yardstick, and prints one JSON
-line of kernels with their bounds.
+its plain version at its main path's shapes (K1 also on
+permuted_poisson_4096's body, beside the window cache), beside one cuSPARSE
+call (``torch.sparse_csr_tensor`` matvec) as a yardstick, and prints one
+JSON line of kernels with their bounds.
 
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
@@ -28,9 +34,11 @@ output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -42,8 +50,8 @@ from ehyb_spmv_torch.core.coo import MatrixCOO, deterministic_x, oracle_spmv
 from ehyb_spmv_torch.core.route import build_routed
 from ehyb_spmv_torch.io import generate
 from ehyb_spmv_torch.models import routed as routed_model
-from ehyb_spmv_torch.ops import ehyb_stream
-from ehyb_spmv_torch.ops import route
+from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
+from ehyb_spmv_torch.ops import stream_plan
 from ehyb_spmv_torch.ops.torch_ops import body_gather_index
 from ehyb_spmv_torch.utils.timing import detect_hbm_bw
 
@@ -56,15 +64,29 @@ MAIN_ARGS = ["-g", "permuted_poisson_512", "-i", "500", "--json",
 #: bench.py's gather-wall row: ehyb through the gate, 100 iterations.
 GATHER_ARGS = ["-g", "random_1m", "--model", "ehyb", "-i", "100", "--json",
                "--device", "cuda"]
+#: The audikw-class FEM row: all DIA, K9 alone.
+FEM_ARGS = ["-g", "fem3d_68_audikw_class", "--model", "ehyb", "-i", "200",
+            "--json", "--device", "cuda"]
+#: x past the TPU's residency limit: the window-cache body and K9.
+HBM_ARGS = ["-g", "permuted_poisson_4096", "--model", "ehyb", "-i", "50",
+            "--json", "--device", "cuda"]
+_PALLAS = "ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py"
 K1 = {"name": "ehyb_stream_body", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
-      "replaces": "ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py:148"}
+      "replaces": f"{_PALLAS}:148 (K1); also serves {_PALLAS}:615 (K2), "
+                  f"{_PALLAS}:84 (K5), {_PALLAS}:109 (K6)"}
 K7 = {"name": "route_at", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/route_at.cu",
       "replaces": "ehyb_spmv_gpu_tpu/ops/route_pallas.py:56"}
 K8 = {"name": "route_b", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/route_b.cu",
       "replaces": "ehyb_spmv_gpu_tpu/ops/route_pallas.py:87"}
+K9 = {"name": "dia", "route": "cuda", "source": "ehyb_spmv_torch/csrc/dia.cu",
+      "replaces": "ehyb_spmv_gpu_tpu/ops/dia_pallas.py:68 (K9, inner "
+                  "kernels :115 and :131)"}
+WC = {"name": "ehyb_wincache_body", "route": "cuda",
+      "source": "ehyb_spmv_torch/csrc/ehyb_wincache.cu",
+      "replaces": f"{_PALLAS}:293 (K3), {_PALLAS}:489 (K4)"}
 #: float32 peak outside the tensor cores (NVIDIA's data sheets), matched like
 #: the bandwidth table of utils/timing.py: the first key in the name wins.
 PEAK_F32 = {"h100 pcie": 51e12, "h100": 67e12}
@@ -205,7 +227,8 @@ def kernel_cases():
 
 
 def reset_launches() -> None:
-    for fn in (ehyb_stream.stream_body, route.route_at, route.route_b):
+    for fn in (ehyb_stream.stream_body, route.route_at, route.route_b,
+               dia.dia_body, ehyb_wincache.wincache_body):
         fn.launches = 0
 
 
@@ -301,6 +324,146 @@ def check_routed_small(dev) -> None:
               f"{name}: {model.name} vs oracle rel {err:.3e} <= {ORACLE_TOL}")
 
 
+class patched:
+    """Set attributes of ``stream_plan`` and environment variables for the
+    length of a ``with`` block, and restore them after it."""
+
+    def __init__(self, env=None, **attrs):
+        self.env, self.attrs = env or {}, attrs
+
+    def __enter__(self):
+        self.old_attrs = {k: getattr(stream_plan, k) for k in self.attrs}
+        self.old_env = {k: os.environ.get(k) for k in self.env}
+        for k, v in self.attrs.items():
+            setattr(stream_plan, k, v)
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.old_attrs.items():
+            setattr(stream_plan, k, v)
+        for k, v in self.old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_dia_small(dev) -> None:
+    """K9 against its plain version: one diagonal; fem3d_16's 99; offsets
+    past the block edges both ways with rows that are not a multiple of
+    the block; a span too wide to stage."""
+    rng = np.random.default_rng(5)
+    cases = [("K=1", (0,), 100_003),
+             ("edges", (-5000, -2049, -1, 0, 1, 2047, 2048, 5000), 12_345),
+             ("wide span", (-40_000, -3, 0, 3, 40_000), 100_000)]
+    for name, offs, dim_r in cases:
+        e = types.SimpleNamespace(dia_offsets=offs, dia_val=torch.as_tensor(
+            rng.standard_normal((len(offs), dim_r)), dtype=torch.float32,
+            device=dev))
+        x = torch.as_tensor(rng.standard_normal(dim_r - 77),
+                            dtype=torch.float32, device=dev)
+        y_k, y_p = dia.dia_body(e, x), dia.dia_body_plain(e, x)
+        torch.cuda.synchronize()
+        err = rel(y_k, y_p)
+        check(bool(torch.isfinite(y_k).all()) and err <= KERNEL_TOL,
+              f"K9 {name} ({'staged' if dia.stages_x(offs) else '__ldg'}): "
+              f"vs plain rel {err:.3e} <= {KERNEL_TOL}")
+    m = generate.fem3d(16)
+    model = port.EhybSpmv(port.EhybConfig(), device=dev).setup(m)
+    e = model.dev
+    x_dev = model.prepare_x(deterministic_x(m.dimension))
+    y_k, y_p = dia.dia_body(e, x_dev), dia.dia_body_plain(e, x_dev)
+    torch.cuda.synchronize()
+    err = rel(y_k, y_p)
+    check(len(e.dia_offsets) == 99 and err <= KERNEL_TOL,
+          f"K9 fem3d_16 ({len(e.dia_offsets)} diagonals): vs plain rel "
+          f"{err:.3e} <= {KERNEL_TOL}")
+    x = deterministic_x(m.dimension)
+    err = rel_np(model.matvec(x), oracle_spmv(m, x))
+    check(err <= ORACLE_TOL, f"fem3d_16 model vs oracle rel {err:.3e}")
+
+
+def check_wincache_small(dev) -> None:
+    """The window-cache kernel against its plain version and against K1
+    at nwin 1/2/4 and Kahan, forced past the residency limit in-process,
+    and with a slot budget so tight that slices overflow a stage."""
+    for name, m, cfg, nwin, kahan in kernel_cases():
+        with patched(X_RESIDENT_BYTES=1024):
+            model = port.EhybSpmv(cfg, device=dev).setup(m)
+        e, plan = model.dev, model.module.wincache
+        check(e.nwin == nwin and plan is not None
+              and model.module.branch.startswith("streamed hbm"),
+              f"{name}: branch {model.module.branch}, nwin={e.nwin}")
+        x = deterministic_x(m.dimension) if not kahan else np.ones(m.dimension)
+        x_dev = model.prepare_x(x)
+        plans = [("", plan)]
+        tight = ehyb_wincache.build_wincache_plan(model.ehyb, slot_rows=32)
+        if tight.stats["chunked_slices"]:
+            plans.append((f" tight ({tight.stats['chunked_slices']} chunked "
+                          "slices)", tight.to_torch(dev)))
+        for label, p in plans:
+            y_w = ehyb_wincache.wincache_body(e, p, x_dev, kahan)
+            y_p = ehyb_wincache.wincache_body_plain(e, p, x_dev, kahan)
+            y_1 = ehyb_stream.stream_body(e, x_dev, kahan)
+            torch.cuda.synchronize()
+            err_p, err_1 = rel(y_w, y_p), rel(y_w, y_1)
+            check(bool(torch.isfinite(y_w).all()) and err_p <= KERNEL_TOL
+                  and err_1 <= KERNEL_TOL,
+                  f"{name}{label}: window cache vs plain rel {err_p:.3e}, "
+                  f"vs K1 rel {err_1:.3e}")
+        y = model.matvec(x)
+        err = rel_np(y, oracle_spmv(m, x))
+        check(err <= ORACLE_TOL,
+              f"{name}: model vs oracle rel {err:.3e} <= {ORACLE_TOL}")
+        if kahan:
+            check(y[0] == 100.0, f"{name}: compensated row 0 = {y[0]!r}")
+    m = random_coo(1 << 15, 24, seed=11)
+    cfg = port.EhybConfig(body_layout="sell_rx", relax_body="never",
+                          windows_per_subtile=4, routed_delegate="never")
+    with patched(X_RESIDENT_BYTES=1024):
+        model = port.EhybSpmv(cfg, device=dev).setup(m)
+    x_dev = model.prepare_x(deterministic_x(m.dimension))
+    for groups in (1, 4):
+        p = ehyb_wincache.build_wincache_plan(model.ehyb, slot_rows=64,
+                                              groups=groups)
+        n = p.stats["chunked_slices"]
+        y_w = ehyb_wincache.wincache_body(model.dev, p.to_torch(dev), x_dev)
+        y_p = ehyb_wincache.wincache_body_plain(model.dev, p.to_torch(dev),
+                                                x_dev)
+        torch.cuda.synchronize()
+        err = rel(y_w, y_p)
+        check(n > 0 and err <= KERNEL_TOL,
+              f"scattered 32k quad, {groups} groups: {n} slices overflow 64 "
+              f"slot rows; window cache vs plain rel {err:.3e}")
+
+
+def check_k5_k6(dev) -> None:
+    """K1 where the JAX package would run K5 (the stream turned off) or K6
+    (x past residency, no window-cache geometry, 1024-aligned windows):
+    the flagship takes the TPU's branch and launches K1."""
+    m = generate.permuted(generate.poisson2d(96), seed=3)
+    cases = [("K5", "resident-x", patched(env={"EHYB_STREAM_BODY": "0"}),
+              port.EhybConfig()),
+             ("K6", "windowed", patched(X_RESIDENT_BYTES=1024, NSLOT=8,
+                                        HBM_NSLOT=8),
+              port.EhybConfig(sliding_windows=False))]
+    for kid, branch, ctx, cfg in cases:
+        with ctx:
+            model = port.EhybSpmv(cfg, device=dev).setup(m)
+        check(model.module.branch == branch and model.module.wincache is None
+              and model.config.body_layout == "sell_mw",
+              f"{kid}: TPU branch {model.module.branch}, layout "
+              f"{model.config.body_layout}")
+        reset_launches()
+        x = deterministic_x(m.dimension)
+        y = model.matvec(x)
+        launches = ehyb_stream.stream_body.launches
+        err = rel_np(y, oracle_spmv(m, x))
+        check(launches > 0 and err <= ORACLE_TOL,
+              f"{kid}: K1 launched {launches} times, model vs oracle rel "
+              f"{err:.3e}")
+
+
 def drive(args):
     """One main path through the CLI with the launch counts set to 0 just
     before it; returns (result, model, launches, wall seconds)."""
@@ -309,7 +472,9 @@ def drive(args):
     code, result, model = cli.run(cli.build_parser().parse_args(args))
     wall = time.perf_counter() - t0
     launches = {"K1": ehyb_stream.stream_body.launches,
-                "K7": route.route_at.launches, "K8": route.route_b.launches}
+                "K7": route.route_at.launches, "K8": route.route_b.launches,
+                "K9": dia.dia_body.launches,
+                "WC": ehyb_wincache.wincache_body.launches}
     print(json.dumps(result))
     check(code == 0 and result is not None, f"CLI exit code {code}")
     print(f"  wall {wall:.1f} s; setup seconds per phase: "
@@ -322,9 +487,24 @@ def drive(args):
     return result, model, launches
 
 
-def time_k1(model, result, dev) -> dict:
-    """K1 at the flagship's shapes: kernel, plain version and cuSPARSE over
-    the body's own entries (reordered space)."""
+def body_csr(e, n_rows: int, n_cols: int, dev) -> torch.Tensor:
+    """The SELL body's own entries as CSR (row = slice * 128 + lane, the
+    decoded column; reordered space): cuSPARSE's operand."""
+    steps = e.ell_val.shape[0]
+    step_slice = torch.searchsorted(
+        e.slice_offset[1:], torch.arange(steps, dtype=torch.int32,
+                                         device=dev), right=True)
+    rows = step_slice.long()[:, None] * 128 \
+        + torch.arange(128, device=dev)[None, :]
+    keep = e.ell_val != 0
+    return csr_of(rows[keep], body_gather_index(e).long()[keep],
+                  e.ell_val[keep], n_rows, n_cols)
+
+
+def time_k1(model, result, dev, n: int = 100, n_plain: int = 20,
+            n_eager: int = 200) -> dict:
+    """K1 at a flagship path's shapes: kernel, plain version and cuSPARSE
+    over the body's own entries."""
     e = model.dev
     kahan = model.module.kahan
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
@@ -334,26 +514,19 @@ def time_k1(model, result, dev) -> dict:
     max_abs = float((y_k - y_p).abs().max())
     err = rel(y_k, y_p)
     check(err <= KERNEL_TOL, f"K1 vs plain rel {err:.3e} <= {KERNEL_TOL} "
-                             f"(max abs {max_abs:.3e})")
-    # the body's entries as CSR: row = slice * 128 + lane, decoded column
-    steps = e.ell_val.shape[0]
-    step_slice = torch.searchsorted(
-        e.slice_offset[1:], torch.arange(steps, dtype=torch.int32,
-                                         device=dev), right=True)
-    rows = step_slice.long()[:, None] * 128 \
-        + torch.arange(128, device=dev)[None, :]
-    keep = e.ell_val != 0
-    a = csr_of(rows[keep], body_gather_index(e).long()[keep],
-               e.ell_val[keep], y_k.shape[0], x_dev.shape[0])
+                             f"(max abs {max_abs:.3e}, "
+                             f"{e.ell_val.shape[0]} steps)")
+    a = body_csr(e, y_k.shape[0], x_dev.shape[0], dev)
     y_l = torch.mv(a, x_dev)
     torch.cuda.synchronize()
     err = rel(y_l, y_p)
-    check(err <= KERNEL_TOL, f"cuSPARSE over K1's {int(keep.sum())} body "
+    check(err <= KERNEL_TOL, f"cuSPARSE over K1's {a.values().numel()} body "
                              f"entries vs plain rel {err:.3e}")
+    del y_l
     kernel = lambda: ehyb_stream.stream_body(e, x_dev, kahan)  # noqa: E731
     plain = lambda: ehyb_stream.stream_body_plain(e, x_dev, kahan)  # noqa
-    ms, plain_ms, turns = in_turns(kernel, plain, 100, 20)
-    lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), 100)
+    ms, plain_ms, turns = in_turns(kernel, plain, n, n_plain)
+    lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), n)
     n_bytes = nbytes(e.ell_col, e.ell_val, e.slice_offset,
                      *[e.step_win, e.step_win_b, e.step_win_c,
                        e.step_win_d][:e.nwin], x_dev, y_k)
@@ -362,9 +535,104 @@ def time_k1(model, result, dev) -> dict:
           f"{turns}; cuSPARSE over its body {lib_ms:.4f} ms; bound "
           f"{b['bound_ms']:.4f} ms ({n_bytes} B, {b['bound_by']})")
     print(f"  eager calls back to back (host launch cost included): "
-          f"K1 {ms_per_call(kernel, 200):.4f} ms, full apply (K1 + torch "
-          f"ER/long/DIA/combine) "
-          f"{ms_per_call(lambda: model.apply(x_dev), 200):.4f} ms")
+          f"K1 {ms_per_call(kernel, n_eager):.4f} ms, full apply "
+          f"{ms_per_call(lambda: model.apply(x_dev), n_eager):.4f} ms")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **b)
+
+
+def time_wincache(model, result, dev, lib_ms: float) -> dict:
+    """The window-cache body at permuted_poisson_4096's shapes against its
+    plain version; ``lib_ms`` is cuSPARSE over the same body entries (timed
+    beside K1)."""
+    e, p = model.dev, model.module.wincache
+    kahan = model.module.kahan
+    x_dev = model.prepare_x(deterministic_x(result["dim"]))
+    y_k = ehyb_wincache.wincache_body(e, p, x_dev, kahan)
+    y_p = ehyb_wincache.wincache_body_plain(e, p, x_dev, kahan)
+    y_1 = ehyb_stream.stream_body(e, x_dev, kahan)
+    torch.cuda.synchronize()
+    max_abs = float((y_k - y_p).abs().max())
+    err = rel(y_k, y_p)
+    check(err <= KERNEL_TOL, f"window cache vs plain rel {err:.3e} <= "
+                             f"{KERNEL_TOL} (max abs {max_abs:.3e})")
+    err = rel(y_k, y_1)
+    check(err <= KERNEL_TOL, f"window cache vs K1 rel {err:.3e}")
+    del y_p, y_1
+    ms, plain_ms, turns = in_turns(
+        lambda: ehyb_wincache.wincache_body(e, p, x_dev, kahan),
+        lambda: ehyb_wincache.wincache_body_plain(e, p, x_dev, kahan), 20, 2)
+    n_bytes = nbytes(e.ell_col, e.ell_val, e.slice_offset,
+                     *(getattr(p, f) for f in p.ARRAY_FIELDS), x_dev, y_k)
+    b = bound(n_bytes, 2 * e.body_nnz, dev)
+    st = p.stats
+    print(f"  window cache device ms per call (plain, kernel, kernel, "
+          f"plain): {turns}; bound {b['bound_ms']:.4f} ms ({n_bytes} B, "
+          f"{b['bound_by']}); cuSPARSE over the body {lib_ms:.4f} ms")
+    print(f"  plan: {st['n_blocks']} blocks, {st['n_stages']} stages, "
+          f"{st['chunked_slices']} chunked slices; staged {st['staged_bytes']}"
+          f" B = {st['staged_bytes'] / st['x_bytes']:.3f} x the padded x, "
+          f"{st['staged_bytes'] / st['body_bytes']:.3f} x the body's "
+          f"{st['body_bytes']} col/val bytes")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **b)
+
+
+def dia_csr(e, n_x: int, dev) -> torch.Tensor:
+    """The DIA part's entries (nonzero values with x inside [0, n_x)) as
+    CSR: cuSPARSE's operand."""
+    dim_r = e.dia_val.shape[1]
+    i = torch.arange(dim_r, device=dev)
+    rows, cols, vals = [], [], []
+    for k, d in enumerate(e.dia_offsets):
+        keep = (e.dia_val[k] != 0) & (i + d >= 0) & (i + d < n_x)
+        rows.append(i[keep])
+        cols.append(i[keep] + d)
+        vals.append(e.dia_val[k][keep])
+    return csr_of(torch.cat(rows), torch.cat(cols), torch.cat(vals), dim_r,
+                  n_x)
+
+
+def time_dia(model, result, dev, n: int = 50) -> dict:
+    """K9 at a flagship path's shapes: kernel, plain version and cuSPARSE
+    over the same DIA entries."""
+    e = model.dev
+    x_dev = model.prepare_x(deterministic_x(result["dim"]))
+    y_k = dia.dia_body(e, x_dev)
+    y_p = dia.dia_body_plain(e, x_dev)
+    torch.cuda.synchronize()
+    max_abs = float((y_k - y_p).abs().max())
+    err = rel(y_k, y_p)
+    check(err <= KERNEL_TOL, f"K9 vs plain rel {err:.3e} <= {KERNEL_TOL} "
+                             f"(max abs {max_abs:.3e}, "
+                             f"{len(e.dia_offsets)} diagonals)")
+    a = dia_csr(e, x_dev.shape[0], dev)
+    y_l = torch.mv(a, x_dev)
+    torch.cuda.synchronize()
+    err = rel(y_l, y_p)
+    check(err <= KERNEL_TOL, f"cuSPARSE over the {a.values().numel()} DIA "
+                             f"entries vs plain rel {err:.3e}")
+    ms, plain_ms, turns = in_turns(lambda: dia.dia_body(e, x_dev),
+                                   lambda: dia.dia_body_plain(e, x_dev),
+                                   n, max(n // 10, 2))
+    lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), n)
+    k, dim_r = e.dia_val.shape
+    n_bytes = (k * dim_r + 2 * dim_r) * 4
+    b = bound(n_bytes, 2 * k * dim_r, dev)
+    staged = dia.stages_x(e.dia_offsets)
+    print(f"  K9 ({k} diagonals, {dim_r} rows, x "
+          f"{'staged' if staged else 'through __ldg'}) device ms per call "
+          f"(plain, kernel, kernel, plain): {turns}; cuSPARSE over its "
+          f"entries {lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+          f"({n_bytes} B, {b['bound_by']})")
+    if staged:
+        # the A/B of staging: the same kernel reading x through __ldg
+        limit, dia.STAGE_LIMIT_BYTES = dia.STAGE_LIMIT_BYTES, 0
+        try:
+            ldg_ms = device_ms_per_call(lambda: dia.dia_body(e, x_dev), n)
+        finally:
+            dia.STAGE_LIMIT_BYTES = limit
+        print(f"  K9 with x through __ldg instead: {ldg_ms:.4f} ms")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, **b)
 
@@ -467,7 +735,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    print("== phase 1: card", flush=True)
+    def phase(title: str) -> None:
+        print(f"== phase {title} (at {time.perf_counter() - t_start:.1f} s)",
+              flush=True)
+
+    phase("1: card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -477,9 +749,10 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(dev)}, "
           f"count {torch.cuda.device_count()}", flush=True)
 
-    print("== phase 2: build (one nvcc per source, all at once)", flush=True)
+    phase("2: build (one nvcc per source, all at once)")
     builds = {"K1": ehyb_stream.build_kernel, "K7": route.build_route_at,
-              "K8": route.build_route_b}
+              "K8": route.build_route_b, "K9": dia.build_kernel,
+              "WC": ehyb_wincache.build_kernel}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(b) for k, b in builds.items()}
         built = {k: f.result() for k, f in futures.items()}
@@ -489,7 +762,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {k} ptxas: {line.strip()}")
 
-    print("== phase 3: K1 vs plain version on small matrices", flush=True)
+    phase("3: K1 vs plain version on small matrices")
     for name, m, cfg, nwin, kahan in kernel_cases():
         model = port.EhybSpmv(cfg, device=dev).setup(m)
         e = model.dev
@@ -510,13 +783,17 @@ def main() -> int:
         if kahan:
             check(y[0] == 100.0, f"{name}: compensated row 0 = {y[0]!r}")
 
-    print("== phase 4: K7 and K8 vs plain versions on small matrices "
-          "(slice, octet, column blocks, spill) and the split model",
-          flush=True)
+    phase("4: K7 and K8 vs plain versions on small matrices (slice, octet, "
+          "column blocks, spill) and the split model")
     check_routed_small(dev)
 
-    print("== phase 5: main path 1 "
-          f"(python -m ehyb_spmv_torch {' '.join(MAIN_ARGS)})", flush=True)
+    phase("5: K9 and the window cache vs plain versions on small matrices; "
+          "K1 where the TPU runs K5 or K6")
+    check_dia_small(dev)
+    check_wincache_small(dev)
+    check_k5_k6(dev)
+
+    phase(f"6: main path 1 (python -m ehyb_spmv_torch {' '.join(MAIN_ARGS)})")
     res1, model1, launch1 = drive(MAIN_ARGS)
     print(f"  layout: {res1['layout']}")
     check(res1["engine"] == "EhybSpmv", f"engine {res1['engine']}")
@@ -525,11 +802,12 @@ def main() -> int:
     y = model1.apply(model1.prepare_x(deterministic_x(res1["dim"])))
     check(y.shape[0] >= res1["dim"] and bool(torch.isfinite(y).all()),
           f"finite padded y of {y.shape[0]} rows")
-    check(launch1["K1"] > 0, f"{K1['name']} launched {launch1['K1']} times "
-                             "during main path 1")
+    check(launch1["K1"] > 0 and launch1["K9"] > 0,
+          f"{K1['name']} launched {launch1['K1']} times, {K9['name']} "
+          f"{launch1['K9']} times during main path 1")
 
-    print("== phase 6: main path 2, the gather-wall row "
-          f"(python -m ehyb_spmv_torch {' '.join(GATHER_ARGS)})", flush=True)
+    phase("7: main path 2, the gather-wall row "
+          f"(python -m ehyb_spmv_torch {' '.join(GATHER_ARGS)})")
     res2, model2, launch2 = drive(GATHER_ARGS)
     check(res2["engine"] == "RoutedSpmv",
           f"the gate delegated to {res2['engine']}")
@@ -540,24 +818,63 @@ def main() -> int:
         check(launch2[k] > 0, f"{k} launched {launch2[k]} times during main "
                               "path 2")
 
-    print("== phase 7: kernels, plain versions and cuSPARSE at the main "
-          "paths' shapes (device time, CUDA graph replay)", flush=True)
+    phase("8: main path 3, the audikw-class FEM row "
+          f"(python -m ehyb_spmv_torch {' '.join(FEM_ARGS)})")
+    res3, model3, launch3 = drive(FEM_ARGS)
+    print(f"  layout: {res3['layout']}; {len(model3.dev.dia_offsets)} "
+          f"diagonals; TPU branch {model3.module.branch}")
+    check(res3["engine"] == "EhybSpmv", f"engine {res3['engine']}")
+    check(res3["dim"] == 943296
+          and res3["layout"]["nnz_dia"] == res3["nnz"] == 74181672,
+          f"full size, all DIA: dim {res3['dim']}, nnz {res3['nnz']}, "
+          f"nnz_dia {res3['layout']['nnz_dia']}")
+    check(launch3["K9"] > 0 and launch3["K1"] == launch3["WC"] == 0,
+          f"{K9['name']} launched {launch3['K9']} times, the body kernels "
+          f"{launch3['K1'] + launch3['WC']} times during main path 3")
+
+    phase("9: main path 4, x past the TPU's residency limit "
+          f"(python -m ehyb_spmv_torch {' '.join(HBM_ARGS)})")
+    res4, model4, launch4 = drive(HBM_ARGS)
+    plan = model4.module.wincache
+    print(f"  layout: {res4['layout']}; TPU branch {model4.module.branch}; "
+          f"setup {res4['setup_seconds']['total']:.1f} s")
+    check(res4["engine"] == "EhybSpmv", f"engine {res4['engine']}")
+    check(res4["dim"] == 16777216 and res4["nnz"] == 83869696,
+          f"full size: dim {res4['dim']}, nnz {res4['nnz']}")
+    check(plan is not None and launch4["WC"] > 0 and launch4["K9"] > 0
+          and launch4["K1"] == 0,
+          f"{WC['name']} launched {launch4['WC']} times, {K9['name']} "
+          f"{launch4['K9']} times, K1 {launch4['K1']} times during main "
+          "path 4")
+
+    phase("10: kernels, plain versions and cuSPARSE at the main paths' "
+          "shapes (device time, CUDA graph replay)")
     k1 = time_k1(model1, res1, dev)
     k7, k8 = time_routed(model2, model2.m, dev)
-    for res in (res1, res2):
+    k9 = time_dia(model3, res3, dev)
+    print("  K9 on permuted_poisson_4096's diagonal:")
+    time_dia(model4, res4, dev, n=20)
+    print("  K1 on permuted_poisson_4096's body (the TPU's K2 regime; L2 "
+          "instead of the window cache):")
+    k1_big = time_k1(model4, res4, dev, n=20, n_plain=2, n_eager=20)
+    wc = time_wincache(model4, res4, dev, k1_big["library_ms"])
+    for res in (res1, res2, res3, res4):
         print(f"  {res['matrix']}: {res['gflops']:.2f} GFLOP/s end to end "
               f"({res['iters']} iterations in {res['seconds']:.4f} s, "
               f"{1e3 * res['seconds'] / res['iters']:.4f} ms each)")
 
-    print("== phase 8: where the device time goes per iteration", flush=True)
-    profile_path(res1["matrix"], res1, model1)
-    profile_path(res2["matrix"], res2, model2)
+    phase("11: where the device time goes per iteration")
+    for res, model in ((res1, model1), (res2, model2), (res3, model3),
+                       (res4, model4)):
+        profile_path(res["matrix"], res, model)
     print(f"  script wall {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         dict(K1, launches=launch1["K1"], **k1),
         dict(K7, launches=launch2["K7"], **k7),
-        dict(K8, launches=launch2["K8"], **k8)]}))
+        dict(K8, launches=launch2["K8"], **k8),
+        dict(K9, launches=launch3["K9"], **k9),
+        dict(WC, launches=launch4["WC"], **wc)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

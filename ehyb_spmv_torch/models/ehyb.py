@@ -10,10 +10,14 @@ Variants:
   * :class:`EhybPlainSpmv` (``ehyb_xla``) — the plain-torch apply
     (``ops/torch_ops.py``) on whatever plan the config requests;
   * :class:`EhybSpmv` (``ehyb``) — the flagship: it pins the layout the TPU
-    flagship pins for its Pallas kernel and runs the SELL body through the
-    hand-written CUDA kernel (``ops/ehyb_stream.py``).  It pins that layout
-    on every device, so the CPU runs the same artifact through the kernel's
-    plain version.  Its delegation gate hands gather-wall matrices to the
+    flagship pins for its Pallas kernels, takes its decisions (the relaxed
+    layout only where a streamed body schedules; the TPU branch of the
+    apply, ``ops/stream_plan.py``) and runs the SELL body through a
+    hand-written CUDA kernel: K1 (``ops/ehyb_stream.py``), or the x-window
+    cache (``ops/ehyb_wincache.py``) where the TPU streams x from HBM; the
+    DIA part through the DIA kernel (``ops/dia.py``).  It pins that layout
+    on every device, so the CPU runs the same artifact through the kernels'
+    plain versions.  Its delegation gate hands gather-wall matrices to the
     routed engine (``models/routed.py``) or, with a heavy row-degree tail,
     to the degree-split hybrid (``models/hybrid.py``), as the JAX flagship
     does.
@@ -38,8 +42,9 @@ from ..core.convert import coo_to_ehyb
 from ..core.ehyb import EhybMatrix
 from ..core.planner import Plan, make_plan
 from ..core.reorder import Reordering, identity_reordering, two_level_reorder
-from ..ops.ehyb_stream import (SUBTILES, TILE_STEPS, X_RESIDENT_BYTES,
-                               EhybStreamApply, stream_body_fits)
+from ..ops import stream_plan
+from ..ops.ehyb_stream import make_stream_apply
+from ..ops.stream_plan import SUBTILES, TILE_STEPS
 from ..ops.torch_ops import EhybApply
 from ..partition import partition_rows
 from ..utils.log import get_logger
@@ -235,12 +240,12 @@ class EhybPlainSpmv(SpmvModel):
 
 
 class EhybSpmv(EhybPlainSpmv):
-    """Flagship: EHYB with the hand-written streamed SELL-body kernel.
+    """Flagship: EHYB with the hand-written body and DIA kernels.
 
     Pins the layout of the TPU flagship's Pallas mode (1024-row windows, a
     multi-window SELL packing, int16 columns, sliding windows, slice widths
     in multiples of ``SUBTILES * TILE_STEPS``), runs the same layout
-    switches, and applies through :class:`~..ops.ehyb_stream.EhybStreamApply`.
+    switches, and applies through :func:`~..ops.ehyb_stream.make_stream_apply`.
     """
 
     name = "ehyb"
@@ -253,16 +258,19 @@ class EhybSpmv(EhybPlainSpmv):
     _SMALL_GATE_DIM = 1 << 16
 
     def _rx_supported(self, e_rx: EhybMatrix) -> bool:
-        return stream_body_fits(e_rx, np.dtype(self.config.dtype).itemsize)
+        """The relaxed layout runs only on a streamed body, as in the JAX
+        flagship: not with ``EHYB_STREAM_BODY=0``, and past
+        ``X_RESIDENT_BYTES`` only where the window-cache plan schedules."""
+        if not stream_plan.stream_body_enabled():
+            return False
+        return stream_plan.stream_body_fits(
+            e_rx, np.dtype(self.config.dtype).itemsize)
 
     def _make_module(self):
-        if self.ehyb.stats.get("nnz_ell", 0) > 0 \
-                and not stream_body_fits(self.ehyb):
-            raise NotImplementedError(
-                "this body breaks the stream-map invariants; the per-slice "
-                "TPU bodies that serve it are not ported yet (ROADMAP Queue "
-                "2, K5/K6, Queue 1 item 7)")
-        return EhybStreamApply(self.dev, kahan=self.config.compensated_sum)
+        return make_stream_apply(self.ehyb, self.dev,
+                                 kahan=self.config.compensated_sum,
+                                 value_bytes=np.dtype(
+                                     self.config.dtype).itemsize)
 
     def _gate_preconditions(self, m: MatrixCOO) -> bool:
         cfg = self.config
@@ -433,11 +441,11 @@ class EhybSpmv(EhybPlainSpmv):
         sliding = cfg.sliding_windows
         if sliding is None:
             # the TPU's rule, so both packages pick the same windows (the
-            # CUDA kernel takes 128-aligned windows at any x size)
+            # CUDA kernels take 128-aligned windows at any x size)
             x_bytes = (round_up(m.dimension, LANES) + WINDOW_ALIGN) \
                 * np.dtype(cfg.dtype).itemsize
             est_sub_bytes = 4 * int(1.5 * m.nnz / (LANES * 8))
-            sliding = (x_bytes <= X_RESIDENT_BYTES
+            sliding = (x_bytes <= stream_plan.X_RESIDENT_BYTES
                        or est_sub_bytes <= 800 * 1024)
         self.config = dataclasses.replace(
             cfg, window_rows=WINDOW_ALIGN, body_layout=layout,

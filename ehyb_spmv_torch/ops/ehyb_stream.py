@@ -1,10 +1,15 @@
-"""The streamed SELL body on the GPU: wrapper, plain version and host maps.
+"""The streamed SELL body on the GPU (K1): wrapper, plain version, and the
+flagship's apply.
 
 Port counterpart of the resident streamed body in
 ``ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py`` (``_make_stream_resident_kernel``
 and the branch of ``make_ehyb_pallas_apply`` that runs it).  The kernel is
 ``csrc/ehyb_stream.cu``; see its header for what it computes, what bounds
-it on the H100, and how it replaces the TPU's sequential-grid carry.
+it on the H100, and how it replaces the TPU's sequential-grid carry.  It
+reads its window maps from device memory at any size, so it also computes
+the bodies the TPU gives to K2 (maps in HBM meta blocks), K5 and K6 (the
+per-slice chunk-sync bodies).  :func:`make_stream_apply` picks K1 or the
+window-cache kernel (``ops/ehyb_wincache.py``) by the TPU's branch.
 
 :func:`stream_body` launches the kernel for tensors on a CUDA device and
 takes the plain version :func:`stream_body_plain` only for tensors on the
@@ -15,26 +20,18 @@ from __future__ import annotations
 import ctypes
 import threading
 
-import numpy as np
 import torch
 
-from ..config import LANES, SUBLANES_F32
+from ..config import LANES
 from ..core.ehyb import EhybDevice, EhybMatrix
+from ..utils.log import get_logger
+from . import stream_plan
 from .build import BuiltLibrary, build_cuda_library
-from .torch_ops import (combine_ehyb, ehyb_body, ehyb_dia, ehyb_er,
-                        ehyb_long)
+from .dia import dia_body
+from .ehyb_wincache import WinCacheDevice, build_wincache_plan, wincache_body
+from .torch_ops import combine_ehyb, ehyb_body, ehyb_er, ehyb_long
 
-#: Width-steps per TPU sub-tile (one (8,128) vreg of nnz).
-TILE_STEPS = SUBLANES_F32
-#: TPU sub-tiles per grid step of the older per-slice body; the flagship pins
-#: slice widths to multiples of SUBTILES * TILE_STEPS so both packages pack
-#: the same layout.
-SUBTILES = 4
-#: TPU sub-tiles per streamed grid step (the geometry of the stream maps).
-STREAM_SUBTILES = 32
-#: The TPU's x-residency limit.  The GPU keeps x in device memory at any
-#: size; the flagship reads this only to pick the layout the TPU picks.
-X_RESIDENT_BYTES = 64 * 1024 * 1024
+log = get_logger(__name__)
 
 _lock = threading.Lock()
 _built = None
@@ -136,83 +133,55 @@ def stream_body_plain(e: EhybDevice, x_pad: torch.Tensor,
 
 
 class EhybStreamApply(torch.nn.Module):
-    """Device apply of the flagship: the streamed body plus the torch ER,
-    long-row, DIA and combine phases.  ``forward(x_pad)`` → padded y."""
+    """Device apply of the flagship: the body kernel, the DIA kernel and the
+    torch ER, long-row and combine phases.  ``forward(x_pad)`` → padded y.
 
-    def __init__(self, e: EhybDevice, kahan: bool = False):
+    The body runs through the window-cache kernel when ``wincache`` (its
+    plan on the device) is given, else through K1."""
+
+    def __init__(self, e: EhybDevice, kahan: bool = False,
+                 wincache: WinCacheDevice = None, branch: str = ""):
         super().__init__()
         self.e = e
         self.kahan = kahan
+        self.wincache = wincache
+        #: The TPU branch the JAX flagship takes for this artifact.
+        self.branch = branch
 
     def forward(self, x_pad: torch.Tensor) -> torch.Tensor:
         e = self.e
         if e.body_nnz == 0:
             # everything went to DIA/ER/long: nothing for the body to do
             y_body = x_pad.new_zeros(e.slice_win_start.shape[0] * LANES)
+        elif self.wincache is not None:
+            y_body = wincache_body(e, self.wincache, x_pad, self.kahan)
         else:
             y_body = stream_body(e, x_pad, self.kahan)
         return combine_ehyb(e, y_body, ehyb_er(e, x_pad),
-                            ehyb_long(e, x_pad), ehyb_dia(e, x_pad))
+                            ehyb_long(e, x_pad), dia_body(e, x_pad))
 
 
-# ---------------------------------------------------------------------------
-# Host maps (copied from ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py; keep in step).
-# ---------------------------------------------------------------------------
-
-def build_stream_maps(e: EhybMatrix, spt: int = None):
-    """Host metadata for the streamed body: per-sub-tile window rows and the
-    sub-tile → slice segment ids (padding sub-tiles map to the dump slice
-    ``n_slices``).  Steps are padded to a whole number of stream tiles.
-
-    Returns (sub_wins, sub_slice, reset, last_sub, n_tiles); ``sub_wins`` is
-    a LIST of per-sub-tile window-row maps — one entry for the chunk-sync
-    layouts, two for dual-window ``sell_rx``, four for quad
-    (windows_per_subtile=4); ``reset`` flags each slice's first sub-tile
-    (for the in-kernel cumulative accumulator); ``last_sub[s]`` is the
-    sub-tile whose emitted running sum is slice s's finished total.
-
-    The CUDA kernel needs none of these maps (it reads the per-step window
-    arrays); the flagship uses this to check the same layout invariants the
-    TPU checks, so both land on the same layout.
-    """
-    widths = np.diff(e.slice_offset.astype(np.int64))
-    if not np.all(widths % TILE_STEPS == 0):
-        raise ValueError("slice widths must be multiples of 8")
-    n_sub = e.step_win.shape[0] // TILE_STEPS
-    spt = spt or STREAM_SUBTILES
-    n_tiles = max(1, -(-n_sub // spt))
-    sub_wins = []
-    win_arrays = [e.step_win, e.step_win_b, e.step_win_c, e.step_win_d]
-    for a in win_arrays:
-        if a is None or not a.size:
-            break
-        sw = a.astype(np.int64).reshape(-1, TILE_STEPS)
-        if not np.all(sw == sw[:, :1]):
-            raise ValueError(
-                "window must be constant within each 8-step sub-tile")
-        m = np.zeros(n_tiles * spt, dtype=np.int32)
-        m[:n_sub] = (sw[:, 0] // LANES).astype(np.int32)
-        sub_wins.append(m)
-    sub_slice = np.full(n_tiles * spt, e.n_slices, dtype=np.int32)  # dump
-    step_slice = np.repeat(np.arange(e.n_slices, dtype=np.int32),
-                           widths // TILE_STEPS)
-    sub_slice[:n_sub] = step_slice
-    reset = np.zeros(n_tiles * spt, dtype=np.int32)
-    reset[0] = 1
-    reset[1:] = sub_slice[1:] != sub_slice[:-1]
-    last_sub = np.searchsorted(sub_slice, np.arange(e.n_slices),
-                               side="right").astype(np.int32) - 1
-    return sub_wins, sub_slice, reset, last_sub, n_tiles
-
-
-def stream_body_fits(e: EhybMatrix, value_bytes: int = 4) -> bool:
-    """True iff the streamed body can serve this matrix (resident case of
-    the TPU predicate: the stream-map invariants hold and the body is not
-    empty)."""
-    if e.stats.get("nnz_ell", 1) == 0:
-        return False
-    try:
-        build_stream_maps(e)
-    except ValueError:
-        return False
-    return True
+def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,
+                      value_bytes: int = 4) -> EhybStreamApply:
+    """The flagship's apply for this artifact: the TPU branch decides the
+    body kernel.  Where the JAX package runs K3 or K4 (x past
+    ``X_RESIDENT_BYTES`` and the window-cache plan schedules) the body goes
+    through the window-cache kernel; everywhere else through K1, which
+    computes the bodies of K2, K5 and K6 and the XLA fallbacks too."""
+    branch = stream_plan.tpu_body_branch(e, value_bytes)
+    wincache = None
+    if stream_plan.BRANCH_KERNEL[branch] in ("K3", "K4"):
+        plan = build_wincache_plan(e)
+        wincache = plan.to_torch(dev.ell_col.device)
+        st = plan.stats
+        log.info("body [%s on the TPU]: window-cache kernel, %d "
+                 "blocks, %d stages (%d chunked slices), staged %.1f MB "
+                 "beside %.1f MB of body and %.1f MB of x", branch,
+                 st["n_blocks"], st["n_stages"], st["chunked_slices"],
+                 st["staged_bytes"] / 1e6, st["body_bytes"] / 1e6,
+                 st["x_bytes"] / 1e6)
+    else:
+        log.info("body [%s on the TPU]: %s", branch,
+                 "none (all DIA/ER/long)" if branch == "skipped" else "K1")
+    return EhybStreamApply(dev, kahan=kahan, wincache=wincache,
+                           branch=branch)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from ehyb_spmv_torch import EhybConfig, EhybSpmv, RoutedSpmv, cli, native
-from ehyb_spmv_torch.ops import ehyb_stream, route
+from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,6 +30,9 @@ for mod in pkgutil.walk_packages(ehyb_spmv_torch.__path__,
                                  "ehyb_spmv_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
+import chip_wincache_sweep
+for name in ("ops.stream_plan", "ops.dia", "ops.ehyb_wincache"):
+    assert f"ehyb_spmv_torch.{name}" in sys.modules, name
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ehyb_spmv_gpu_tpu")]
 assert not bad, bad
@@ -90,7 +93,8 @@ def test_cuda_requests_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for build in (ehyb_stream.build_kernel, route.build_route_at,
-                  route.build_route_b):
+                  route.build_route_b, dia.build_kernel,
+                  ehyb_wincache.build_kernel):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
     for model in (EhybSpmv, RoutedSpmv):
