@@ -23,9 +23,12 @@ to end through the CLI and checks each against the exact-f64 oracle:
 Each path runs with the launch counts set to 0 just before it and read just
 after, to show it went through its kernels.  Then it times every kernel and
 its plain version at its main path's shapes (K1 also on
-permuted_poisson_4096's body, beside the window cache), beside one cuSPARSE
-call (``torch.sparse_csr_tensor`` matvec) as a yardstick, and prints one
-JSON line of kernels with their bounds.
+permuted_poisson_4096's body, beside the window cache, and both on
+``permuted_poisson_1024`` forced past the residency limit, where the TPU
+runs K3), beside one cuSPARSE call (``torch.sparse_csr_tensor`` matvec) as
+a yardstick, and prints one JSON line of kernels with two bounds each:
+the bytes of the kernel's own layout, and the same work in any layout (each
+entry's value and column, x and y once).
 
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
@@ -173,6 +176,14 @@ def bound(n_bytes: int, n_ops: int, dev: torch.device) -> dict:
     t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def same_work_bound(nnz: int, idx_bytes: int, n_x: int, n_y: int,
+                    dev: torch.device) -> dict:
+    """The bound of the same product in any layout: each entry's f32 value
+    and ``idx_bytes`` of column once, x once and y once (f32)."""
+    n_bytes = nnz * (4 + idx_bytes) + 4 * (n_x + n_y)
+    return dict(bound(n_bytes, 2 * nnz, dev), bytes=n_bytes)
 
 
 def csr_of(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
@@ -383,34 +394,52 @@ def check_dia_small(dev) -> None:
     check(err <= ORACLE_TOL, f"fem3d_16 model vs oracle rel {err:.3e}")
 
 
+def padded_body(model, dev):
+    """The model's artifact on the card with the padded SELL body that K1
+    reads: a model whose body runs through the window cache keeps only the
+    plan's compact cells there."""
+    return model.ehyb.to_torch(dtype=model.config.dtype, device=dev)
+
+
+def check_wincache_plan(name: str, e, p, x_dev, kahan: bool) -> None:
+    """The window-cache kernel on one plan against its plain version and
+    against K1 on the same body; prints the largest difference from K1
+    (0 where the summation order is kept, as it is for finite x)."""
+    y_w = ehyb_wincache.wincache_body(e, p, x_dev, kahan)
+    y_p = ehyb_wincache.wincache_body_plain(e, p, x_dev, kahan)
+    y_1 = ehyb_stream.stream_body(e, x_dev, kahan)
+    torch.cuda.synchronize()
+    err_p, err_1 = rel(y_w, y_p), rel(y_w, y_1)
+    st = p.stats
+    check(bool(torch.isfinite(y_w).all()) and err_p <= KERNEL_TOL
+          and err_1 <= KERNEL_TOL,
+          f"{name} ({st['n_blocks']} blocks, {st['chunked_slices']} chunked "
+          f"slices, {st['compact_cells']} of {st['padded_cells']} cells): "
+          f"window cache vs plain rel {err_p:.3e}, vs K1 rel {err_1:.3e}, "
+          f"max abs from K1 {float((y_w - y_1).abs().max()):.3e}")
+
+
 def check_wincache_small(dev) -> None:
     """The window-cache kernel against its plain version and against K1
     at nwin 1/2/4 and Kahan, forced past the residency limit in-process,
-    and with a slot budget so tight that slices overflow a stage."""
+    with a slot budget so tight that slices overflow a stage, and with 1
+    and 4 groups."""
     for name, m, cfg, nwin, kahan in kernel_cases():
         with patched(X_RESIDENT_BYTES=1024):
             model = port.EhybSpmv(cfg, device=dev).setup(m)
-        e, plan = model.dev, model.module.wincache
+        e, plan = padded_body(model, dev), model.module.wincache
         check(e.nwin == nwin and plan is not None
-              and model.module.branch.startswith("streamed hbm"),
-              f"{name}: branch {model.module.branch}, nwin={e.nwin}")
+              and model.module.branch.startswith("streamed hbm")
+              and model.dev.ell_val is None,
+              f"{name}: branch {model.module.branch}, nwin={e.nwin}, no "
+              f"padded body on the card")
         x = deterministic_x(m.dimension) if not kahan else np.ones(m.dimension)
         x_dev = model.prepare_x(x)
-        plans = [("", plan)]
+        check_wincache_plan(name, e, plan, x_dev, kahan)
         tight = ehyb_wincache.build_wincache_plan(model.ehyb, slot_rows=32)
         if tight.stats["chunked_slices"]:
-            plans.append((f" tight ({tight.stats['chunked_slices']} chunked "
-                          "slices)", tight.to_torch(dev)))
-        for label, p in plans:
-            y_w = ehyb_wincache.wincache_body(e, p, x_dev, kahan)
-            y_p = ehyb_wincache.wincache_body_plain(e, p, x_dev, kahan)
-            y_1 = ehyb_stream.stream_body(e, x_dev, kahan)
-            torch.cuda.synchronize()
-            err_p, err_1 = rel(y_w, y_p), rel(y_w, y_1)
-            check(bool(torch.isfinite(y_w).all()) and err_p <= KERNEL_TOL
-                  and err_1 <= KERNEL_TOL,
-                  f"{name}{label}: window cache vs plain rel {err_p:.3e}, "
-                  f"vs K1 rel {err_1:.3e}")
+            check_wincache_plan(f"{name} tight", e, tight.to_torch(dev),
+                                x_dev, kahan)
         y = model.matvec(x)
         err = rel_np(y, oracle_spmv(m, x))
         check(err <= ORACLE_TOL,
@@ -423,18 +452,14 @@ def check_wincache_small(dev) -> None:
     with patched(X_RESIDENT_BYTES=1024):
         model = port.EhybSpmv(cfg, device=dev).setup(m)
     x_dev = model.prepare_x(deterministic_x(m.dimension))
+    e = padded_body(model, dev)
     for groups in (1, 4):
         p = ehyb_wincache.build_wincache_plan(model.ehyb, slot_rows=64,
                                               groups=groups)
-        n = p.stats["chunked_slices"]
-        y_w = ehyb_wincache.wincache_body(model.dev, p.to_torch(dev), x_dev)
-        y_p = ehyb_wincache.wincache_body_plain(model.dev, p.to_torch(dev),
-                                                x_dev)
-        torch.cuda.synchronize()
-        err = rel(y_w, y_p)
-        check(n > 0 and err <= KERNEL_TOL,
-              f"scattered 32k quad, {groups} groups: {n} slices overflow 64 "
-              f"slot rows; window cache vs plain rel {err:.3e}")
+        check(p.stats["chunked_slices"] > 0, "scattered 32k quad: slices "
+                                             "overflow 64 slot rows")
+        check_wincache_plan(f"scattered 32k quad, {groups} groups", e,
+                            p.to_torch(dev), x_dev, False)
 
 
 def check_k5_k6(dev) -> None:
@@ -501,11 +526,12 @@ def body_csr(e, n_rows: int, n_cols: int, dev) -> torch.Tensor:
                   e.ell_val[keep], n_rows, n_cols)
 
 
-def time_k1(model, result, dev, n: int = 100, n_plain: int = 20,
+def time_k1(model, result, dev, e=None, n: int = 100, n_plain: int = 20,
             n_eager: int = 200) -> dict:
     """K1 at a flagship path's shapes: kernel, plain version and cuSPARSE
-    over the body's own entries."""
-    e = model.dev
+    over the body's own entries.  ``e``, the artifact on the card, defaults
+    to the model's own."""
+    e = model.dev if e is None else e
     kahan = model.module.kahan
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
     y_k = ehyb_stream.stream_body(e, x_dev, kahan)
@@ -531,25 +557,29 @@ def time_k1(model, result, dev, n: int = 100, n_plain: int = 20,
                      *[e.step_win, e.step_win_b, e.step_win_c,
                        e.step_win_d][:e.nwin], x_dev, y_k)
     b = bound(n_bytes, 2 * e.body_nnz, dev)
+    same = same_work_bound(e.body_nnz, 2, x_dev.numel(), y_k.numel(), dev)
     print(f"  K1 device ms per call (plain, kernel, kernel, plain): "
-          f"{turns}; cuSPARSE over its body {lib_ms:.4f} ms; bound "
-          f"{b['bound_ms']:.4f} ms ({n_bytes} B, {b['bound_by']})")
+          f"{turns}; cuSPARSE over its body {lib_ms:.4f} ms; layout bound "
+          f"{b['bound_ms']:.4f} ms ({n_bytes} B, {b['bound_by']}); "
+          f"same-work bound {same['bound_ms']:.4f} ms ({same['bytes']} B)")
     print(f"  eager calls back to back (host launch cost included): "
           f"K1 {ms_per_call(kernel, n_eager):.4f} ms, full apply "
           f"{ms_per_call(lambda: model.apply(x_dev), n_eager):.4f} ms")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **b)
+                library_ms=lib_ms, **b, same_work_bound_ms=same["bound_ms"])
 
 
-def time_wincache(model, result, dev, lib_ms: float) -> dict:
-    """The window-cache body at permuted_poisson_4096's shapes against its
-    plain version; ``lib_ms`` is cuSPARSE over the same body entries (timed
-    beside K1)."""
-    e, p = model.dev, model.module.wincache
+def time_wincache(model, result, dev, k1: dict, e) -> dict:
+    """The window-cache body at a path's shapes against its plain version,
+    beside K1 on the same body and cuSPARSE over the same entries (``k1``,
+    from :func:`time_k1` on ``e``, the artifact with its padded body), with
+    the cells it reads against the padded body's and both bounds: the bytes
+    its layout moves, and the same work in any layout."""
+    d, p = model.dev, model.module.wincache
     kahan = model.module.kahan
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
-    y_k = ehyb_wincache.wincache_body(e, p, x_dev, kahan)
-    y_p = ehyb_wincache.wincache_body_plain(e, p, x_dev, kahan)
+    y_k = ehyb_wincache.wincache_body(d, p, x_dev, kahan)
+    y_p = ehyb_wincache.wincache_body_plain(d, p, x_dev, kahan)
     y_1 = ehyb_stream.stream_body(e, x_dev, kahan)
     torch.cuda.synchronize()
     max_abs = float((y_k - y_p).abs().max())
@@ -557,25 +587,34 @@ def time_wincache(model, result, dev, lib_ms: float) -> dict:
     check(err <= KERNEL_TOL, f"window cache vs plain rel {err:.3e} <= "
                              f"{KERNEL_TOL} (max abs {max_abs:.3e})")
     err = rel(y_k, y_1)
-    check(err <= KERNEL_TOL, f"window cache vs K1 rel {err:.3e}")
+    check(err <= KERNEL_TOL, f"window cache vs K1 rel {err:.3e}, max abs "
+                             f"{float((y_k - y_1).abs().max()):.3e}")
     del y_p, y_1
     ms, plain_ms, turns = in_turns(
-        lambda: ehyb_wincache.wincache_body(e, p, x_dev, kahan),
-        lambda: ehyb_wincache.wincache_body_plain(e, p, x_dev, kahan), 20, 2)
-    n_bytes = nbytes(e.ell_col, e.ell_val, e.slice_offset,
-                     *(getattr(p, f) for f in p.ARRAY_FIELDS), x_dev, y_k)
-    b = bound(n_bytes, 2 * e.body_nnz, dev)
+        lambda: ehyb_wincache.wincache_body(d, p, x_dev, kahan),
+        lambda: ehyb_wincache.wincache_body_plain(d, p, x_dev, kahan), 20, 2)
     st = p.stats
+    check(st["compact_cells"] <= 1.1 * e.body_nnz,
+          f"compact cells {st['compact_cells']} of {st['padded_cells']} "
+          f"padded ({st['real_cells']} real; body nnz {e.body_nnz}): "
+          f"{st['compact_cells'] / e.body_nnz:.5f} x the body's entries")
+    lay = bound(st["layout_bytes"], 2 * e.body_nnz, dev)
+    same = same_work_bound(e.body_nnz, 2, x_dev.numel(), y_k.numel(), dev)
     print(f"  window cache device ms per call (plain, kernel, kernel, "
-          f"plain): {turns}; bound {b['bound_ms']:.4f} ms ({n_bytes} B, "
-          f"{b['bound_by']}); cuSPARSE over the body {lib_ms:.4f} ms")
+          f"plain): {turns}; K1 on the same body {k1['ms']:.4f} ms; "
+          f"cuSPARSE over the body {k1['library_ms']:.4f} ms")
+    print(f"  bounds: layout {lay['bound_ms']:.4f} ms ({st['layout_bytes']} "
+          f"B: cells {st['cell_bytes']}, staged rows {st['staged_bytes']}, y "
+          f"{st['y_bytes']}; {lay['bound_ms'] / ms:.3f} of it reached); same "
+          f"work {same['bound_ms']:.4f} ms ({same['bytes']} B; "
+          f"{same['bound_ms'] / ms:.3f} reached)")
     print(f"  plan: {st['n_blocks']} blocks, {st['n_stages']} stages, "
-          f"{st['chunked_slices']} chunked slices; staged {st['staged_bytes']}"
-          f" B = {st['staged_bytes'] / st['x_bytes']:.3f} x the padded x, "
-          f"{st['staged_bytes'] / st['body_bytes']:.3f} x the body's "
-          f"{st['body_bytes']} col/val bytes")
+          f"{st['chunked_slices']} chunked slices; staged "
+          f"{st['staged_bytes'] / st['x_bytes']:.3f} x the padded x; the "
+          f"padded body would move {st['body_bytes']} B of cells")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **b)
+                library_ms=k1["library_ms"], **lay,
+                same_work_bound_ms=same["bound_ms"])
 
 
 def dia_csr(e, n_x: int, dev) -> torch.Tensor:
@@ -619,12 +658,15 @@ def time_dia(model, result, dev, n: int = 50) -> dict:
     k, dim_r = e.dia_val.shape
     n_bytes = (k * dim_r + 2 * dim_r) * 4
     b = bound(n_bytes, 2 * k * dim_r, dev)
+    # the diagonals carry no column: each entry's value, x and y once
+    same = same_work_bound(a.values().numel(), 0, x_dev.numel(), dim_r, dev)
     staged = dia.stages_x(e.dia_offsets)
     print(f"  K9 ({k} diagonals, {dim_r} rows, x "
           f"{'staged' if staged else 'through __ldg'}) device ms per call "
           f"(plain, kernel, kernel, plain): {turns}; cuSPARSE over its "
-          f"entries {lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
-          f"({n_bytes} B, {b['bound_by']})")
+          f"entries {lib_ms:.4f} ms; layout bound {b['bound_ms']:.4f} ms "
+          f"({n_bytes} B, {b['bound_by']}); same-work bound "
+          f"{same['bound_ms']:.4f} ms ({same['bytes']} B)")
     if staged:
         # the A/B of staging: the same kernel reading x through __ldg
         limit, dia.STAGE_LIMIT_BYTES = dia.STAGE_LIMIT_BYTES, 0
@@ -634,12 +676,13 @@ def time_dia(model, result, dev, n: int = 50) -> dict:
             dia.STAGE_LIMIT_BYTES = limit
         print(f"  K9 with x through __ldg instead: {ldg_ms:.4f} ms")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **b)
+                library_ms=lib_ms, **b, same_work_bound_ms=same["bound_ms"])
 
 
 def time_routed(model, m: MatrixCOO, dev) -> tuple:
     """K7, K8 and the whole routed apply at random_1m's shapes, and one
-    cuSPARSE matvec over the whole matrix."""
+    cuSPARSE matvec over the whole matrix.  Neither stage alone computes
+    the product, so both carry the whole apply's same-work bound."""
     check(len(model.applies) == 1, "random_1m runs one routed block")
     d = model.applies[0].d
     x_dev = model.prepare_x(deterministic_x(m.dimension))
@@ -684,6 +727,8 @@ def time_routed(model, m: MatrixCOO, dev) -> tuple:
     a_bytes = nbytes(a.crow_indices(), a.col_indices(), a.values(), x) \
         + 4 * m.n_rows
     lib_bound = bound(a_bytes, 2 * m.nnz, dev)
+    # 1M columns need 32-bit column indices
+    same = same_work_bound(m.nnz, 4, m.dimension, m.n_rows, dev)
     print(f"  K7 device ms (plain, kernel, kernel, plain): {at_turns}; "
           f"bound {b_at['bound_ms']:.4f} ms ({b_at['bound_by']})")
     print(f"  K8 device ms (plain, kernel, kernel, plain): {b_turns}; "
@@ -691,14 +736,15 @@ def time_routed(model, m: MatrixCOO, dev) -> tuple:
     print(f"  routed apply (K7 + K8 + spill tail + epilogue) {apply_ms:.4f} "
           f"ms device time, through the plain versions {apply_plain:.4f} "
           f"ms; cuSPARSE CSR matvec over the whole matrix {lib_ms:.4f} ms "
-          f"(bound {lib_bound['bound_ms']:.4f} ms, {a_bytes} B): routed / "
+          f"(bound {lib_bound['bound_ms']:.4f} ms, {a_bytes} B; same-work "
+          f"bound {same['bound_ms']:.4f} ms, {same['bytes']} B): routed / "
           f"cuSPARSE = {apply_ms / lib_ms:.3f}; the apply's device "
           f"GFLOP/s {2e-6 * m.nnz / apply_ms:.2f}, cuSPARSE's "
           f"{2e-6 * m.nnz / lib_ms:.2f}")
     return (dict(max_abs_err=at_abs, ms=at_ms, plain_ms=at_plain,
-                 library_ms=None, **b_at),
+                 library_ms=None, **b_at, same_work_bound_ms=same["bound_ms"]),
             dict(max_abs_err=b_abs, ms=b_ms, plain_ms=b_plain,
-                 library_ms=None, **b_b))
+                 library_ms=None, **b_b, same_work_bound_ms=same["bound_ms"]))
 
 
 def profile_path(name: str, result: dict, model, n: int = 20) -> None:
@@ -846,6 +892,10 @@ def main() -> int:
           f"{WC['name']} launched {launch4['WC']} times, {K9['name']} "
           f"{launch4['K9']} times, K1 {launch4['K1']} times during main "
           "path 4")
+    check(model4.dev.ell_val is None,
+          f"the model holds {nbytes(*model4.dev.buffers())} B of artifact "
+          f"and {nbytes(*plan.buffers())} B of window-cache plan on the "
+          f"card, no padded body ({plan.stats['body_bytes']} B)")
 
     phase("10: kernels, plain versions and cuSPARSE at the main paths' "
           "shapes (device time, CUDA graph replay)")
@@ -854,10 +904,26 @@ def main() -> int:
     k9 = time_dia(model3, res3, dev)
     print("  K9 on permuted_poisson_4096's diagonal:")
     time_dia(model4, res4, dev, n=20)
-    print("  K1 on permuted_poisson_4096's body (the TPU's K2 regime; L2 "
-          "instead of the window cache):")
-    k1_big = time_k1(model4, res4, dev, n=20, n_plain=2, n_eager=20)
-    wc = time_wincache(model4, res4, dev, k1_big["library_ms"])
+    print("  K1 on permuted_poisson_4096's padded body, uploaded for it "
+          "(the TPU's K2 regime; L2 instead of the window cache):")
+    e4 = padded_body(model4, dev)
+    k1_big = time_k1(model4, res4, dev, e4, n=20, n_plain=2, n_eager=20)
+    print("  the window cache on permuted_poisson_4096's body:")
+    wc = time_wincache(model4, res4, dev, k1_big, e4)
+    del e4
+    print("  permuted_poisson_1024 forced past the residency limit "
+          "in-process (the TPU's K3 branch): K1, then the window cache")
+    with patched(X_RESIDENT_BYTES=1024):
+        m5 = generate.load_corpus("permuted_poisson_1024")
+        model5 = port.EhybSpmv(port.EhybConfig(), device=dev).setup(m5)
+    check(model5.module.branch == "streamed hbm"
+          and model5.module.wincache is not None,
+          f"TPU branch {model5.module.branch}: the window cache runs")
+    res5 = {"dim": m5.dimension}
+    e5 = padded_body(model5, dev)
+    time_wincache(model5, res5, dev, time_k1(model5, res5, dev, e5,
+                                             n_plain=10, n_eager=20), e5)
+    del model5, e5
     for res in (res1, res2, res3, res4):
         print(f"  {res['matrix']}: {res['gflops']:.2f} GFLOP/s end to end "
               f"({res['iters']} iterations in {res['seconds']:.4f} s, "

@@ -267,10 +267,15 @@ class EhybSpmv(EhybPlainSpmv):
             e_rx, np.dtype(self.config.dtype).itemsize)
 
     def _make_module(self):
-        return make_stream_apply(self.ehyb, self.dev,
-                                 kahan=self.config.compensated_sum,
-                                 value_bytes=np.dtype(
-                                     self.config.dtype).itemsize)
+        t0 = time.perf_counter()
+        module = make_stream_apply(self.ehyb, self.dev,
+                                   kahan=self.config.compensated_sum,
+                                   value_bytes=np.dtype(
+                                       self.config.dtype).itemsize)
+        if module.wincache is not None:
+            # the window-cache plan's build, a part of the upload phase
+            self.setup_seconds["wincache_plan"] = time.perf_counter() - t0
+        return module
 
     def _gate_preconditions(self, m: MatrixCOO) -> bool:
         cfg = self.config

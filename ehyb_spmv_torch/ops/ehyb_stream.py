@@ -167,18 +167,24 @@ def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,
     body kernel.  Where the JAX package runs K3 or K4 (x past
     ``X_RESIDENT_BYTES`` and the window-cache plan schedules) the body goes
     through the window-cache kernel; everywhere else through K1, which
-    computes the bodies of K2, K5 and K6 and the XLA fallbacks too."""
+    computes the bodies of K2, K5 and K6 and the XLA fallbacks too.
+
+    The window-cache plan holds the body's real cells in a layout of its
+    own, so ``dev`` then gives up its padded cells (``ell_col`` and
+    ``ell_val`` become None); ``e`` keeps them on the host."""
     branch = stream_plan.tpu_body_branch(e, value_bytes)
     wincache = None
     if stream_plan.BRANCH_KERNEL[branch] in ("K3", "K4"):
         plan = build_wincache_plan(e)
         wincache = plan.to_torch(dev.ell_col.device)
+        dev.ell_col = dev.ell_val = None
         st = plan.stats
         log.info("body [%s on the TPU]: window-cache kernel, %d "
-                 "blocks, %d stages (%d chunked slices), staged %.1f MB "
-                 "beside %.1f MB of body and %.1f MB of x", branch,
-                 st["n_blocks"], st["n_stages"], st["chunked_slices"],
-                 st["staged_bytes"] / 1e6, st["body_bytes"] / 1e6,
+                 "blocks, %d stages (%d chunked slices), %.1f MB of cells "
+                 "in place of %.1f MB padded, staged %.1f MB of %.1f MB "
+                 "of x", branch, st["n_blocks"], st["n_stages"],
+                 st["chunked_slices"], st["cell_bytes"] / 1e6,
+                 st["body_bytes"] / 1e6, st["staged_bytes"] / 1e6,
                  st["x_bytes"] / 1e6)
     else:
         log.info("body [%s on the TPU]: %s", branch,

@@ -25,7 +25,7 @@ from ehyb_spmv_gpu_tpu.io import generate
 
 import ehyb_spmv_torch as port
 from ehyb_spmv_torch.ops import ehyb_stream, ehyb_wincache, stream_plan
-from ehyb_spmv_torch.ops.torch_ops import ehyb_body
+from ehyb_spmv_torch.ops.torch_ops import body_gather_index, ehyb_body
 from test_torch_parity import (PORT, REF, assert_same_ehyb,
                                cancellation_matrix, config_for, coo_for,
                                host_pipeline, port_from_ref, rel)
@@ -203,13 +203,35 @@ def _port_artifact(request, fixture, layout, wps):
     return host_pipeline(PORT, m, config_for(PORT, True, layout, wps))[2]
 
 
+def _replay_cells(p):
+    """Every compact cell of the plan: (y row, stage, place k in its row
+    within the stage, x column, value), and the row blocks' first y rows."""
+    rb = np.repeat(np.arange(len(p.rb_cell) - 1), np.diff(p.rb_cell))
+    rb_stage = np.repeat(np.arange(len(p.stage_rb) - 1), np.diff(p.stage_rb))
+    rb_first = (np.arange(rb_stage.size) - p.stage_rb[rb_stage]
+                + 4 * p.stage_slice[rb_stage, 0]) * 32
+    c = np.arange(p.rb_cell[-1])
+    k = (c - p.rb_cell[rb]) // 32
+    row = rb_first[rb] + c % 32
+    stage = rb_stage[rb]
+    idx = p.cell_idx.view(np.uint16).astype(np.int64)
+    slot = idx // 128
+    sizes = np.diff(p.stage_row_ptr)
+    assert np.all(slot < sizes[stage]), "a cell reads past its stage's rows"
+    col = p.stage_rows[p.stage_row_ptr[stage] + slot] * 128 + idx % 128
+    return row, stage, k, col, p.cell_val
+
+
 @pytest.mark.parametrize("case,fixture,layout,wps,slot_rows", PLAN_CASES,
                          ids=[c[0] for c in PLAN_CASES])
 def test_wincache_plan_replay(case, fixture, layout, wps, slot_rows,
                               request):
-    """Replay the plan: every step's slots hold its windows' rows, no run
-    cuts a slice across blocks, every stage fits the slot budget, and the
-    plain version through the plan equals K1's plain version."""
+    """Replay the plan: stages and blocks partition the body, no slice is
+    cut across blocks, every stage fits the slot budget; the compact cells
+    are the body's real cells, each once, in step order per row, each
+    index inside its stage's rows and decoding to ``body_gather_index``'s
+    column; every width is its block's longest row; and the plain version
+    through the plan equals K1's plain version."""
     e = _port_artifact(request, fixture, layout, wps)
     p = ehyb_wincache.build_wincache_plan(e, slot_rows=slot_rows)
     offs = e.slice_offset.astype(np.int64)
@@ -247,23 +269,83 @@ def test_wincache_plan_replay(case, fixture, layout, wps, slot_rows,
                                                    > 1))
     if case in ("dual_tight", "quad_overflow"):
         assert p.stats["chunked_slices"] > 0, "no slice overflowed a stage"
-    # every step's windows are staged, 8 consecutive rows from its slot
-    wins = [a for a in (e.step_win, e.step_win_b, e.step_win_c,
-                        e.step_win_d) if a.size]
-    stage_of = np.searchsorted(p.stage_step[1:], np.arange(n_steps),
-                               side="right")
-    for j, a in enumerate(wins):
-        first = p.stage_row_ptr[stage_of] + p.step_slot[j, :n_steps]
-        assert np.all(p.step_slot[j, :n_steps] + 8 <= sizes[stage_of])
-        for h in range(8):
-            np.testing.assert_array_equal(p.stage_rows[first + h],
-                                          a[:n_steps] // 128 + h)
-    # the plan's staged reads give K1's plain answer exactly
+    # four row blocks per slice of each stage
+    np.testing.assert_array_equal(np.diff(p.stage_rb), 4 * (hi - lo))
+    # the compact cells against the body's real cells, both in row order
+    # and, within a row, in stage then cell order against step order
+    row, stage, k, col, val = _replay_cells(p)
+    real = val != 0
+    st, ln = np.nonzero(e.ell_val[:n_steps] != 0)
+    step_slice = np.repeat(np.arange(n_slices), np.diff(offs))
+    want_row = step_slice[st] * 128 + ln
+    want_stage = np.searchsorted(p.stage_step[1:], st, side="right")
+    want_col = body_gather_index(port_from_ref(e).to_torch()).numpy()[st, ln]
+    order = np.lexsort((k[real], stage[real], row[real]))
+    want = np.lexsort((st, want_row))
+    assert real.sum() == st.size == p.stats["real_cells"]
+    np.testing.assert_array_equal(row[real][order], want_row[want])
+    np.testing.assert_array_equal(stage[real][order], want_stage[want])
+    np.testing.assert_array_equal(col[real][order], want_col[want])
+    np.testing.assert_array_equal(val[real][order], e.ell_val[st, ln][want])
+    # a row's real cells fill its first places; the width is the longest
+    rb = np.repeat(np.arange(len(p.rb_cell) - 1), np.diff(p.rb_cell))
+    n_rb = len(p.rb_cell) - 1
+    count = np.zeros((n_rb, 32), np.int64)
+    np.add.at(count, (rb[real], row[real] % 32), 1)
+    kmax = np.full((n_rb, 32), -1)
+    np.maximum.at(kmax, (rb[real], row[real] % 32), k[real])
+    np.testing.assert_array_equal(kmax, count - 1)
+    np.testing.assert_array_equal(count.max(1), np.diff(p.rb_cell) // 32)
+    st_ = p.stats
+    assert st_["compact_cells"] == p.rb_cell[-1] <= st_["padded_cells"]
+    if case == "quad_overflow":
+        assert st_["compact_cells"] < st_["padded_cells"]
+    # the plan's staged reads give K1's plain answer exactly: the same
+    # products added in the same order (the dropped cells add zeros)
     d = port_from_ref(e).to_torch()
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         e.padded_x_rows).astype(np.float32))
     got = ehyb_wincache.wincache_body(d, p.to_torch(), x)
     assert torch.equal(got, ehyb_body(d, x))
+
+
+def test_wincache_compacts_poisson_to_four_cells_per_row(monkeypatch):
+    """A scrambled 2-D Poisson grid forced past residency takes the window
+    cache, and its compact body holds at most 4 cells per row (the diagonal
+    goes to DIA): the ratio pp4096's prediction rests on."""
+    monkeypatch.setattr(stream_plan, "X_RESIDENT_BYTES", 1024)
+    m = generate.permuted(generate.poisson2d(96), seed=3)
+    model = port.EhybSpmv(port.EhybConfig(artifact_cache=False),
+                          device="cpu").setup(coo_for(PORT, m))
+    st = model.module.wincache.stats
+    assert model.module.branch.startswith("streamed hbm")
+    assert st["max_width"] <= 4
+    assert st["real_cells"] <= st["compact_cells"] \
+        <= 4 * 128 * (model.ehyb.slice_offset.shape[0] - 1)
+    assert st["compact_cells"] < st["padded_cells"]
+    x = deterministic_x(m.dimension)
+    assert rel(model.matvec(x), oracle_spmv(m, x)) <= ORACLE_TOL
+
+
+def test_wincache_flagship_keeps_no_padded_body(scrambled, monkeypatch):
+    """Where the window cache runs, the flagship's device mirror gives up
+    the padded cells (the plan holds the body) and K1's models keep them;
+    the host artifact still has them, and K1's plain version on their
+    upload equals the plan's answer."""
+    m = coo_for(PORT, scrambled)
+    cfg = port.EhybConfig(artifact_cache=False)
+    k1_model = port.EhybSpmv(cfg, device="cpu").setup(m)
+    assert k1_model.module.wincache is None
+    assert k1_model.dev.ell_val is not None
+    monkeypatch.setattr(stream_plan, "X_RESIDENT_BYTES", 1024)
+    model = port.EhybSpmv(cfg, device="cpu").setup(m)
+    plan = model.module.wincache
+    assert plan is not None
+    assert model.dev.ell_col is None and model.dev.ell_val is None
+    x = model.prepare_x(deterministic_x(scrambled.dimension))
+    padded = model.ehyb.to_torch(dtype=model.config.dtype)
+    assert torch.equal(ehyb_wincache.wincache_body(model.dev, plan, x),
+                       ehyb_body(padded, x))
 
 
 # --- the window-cache kernel's plain version against the JAX kernels -------
