@@ -2,19 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from ``ehyb_spmv_torch/csrc/`` (one
-``nvcc`` each, all started together): K1, the streamed SELL body; K7 and K8,
-the routed engine's two stages; K9, the DIA body; and the x-window-cache
-body that serves the TPU's K3/K4.  Checks each against its plain PyTorch
-version on small matrices that land on every layout it serves (and K1
-where the JAX package would run K5 or K6), then drives four main paths end
-to end through the CLI and checks each against the exact-f64 oracle:
+Builds the port's four CUDA kernels from ``ehyb_spmv_torch/csrc/`` (one
+``nvcc`` each, all started together): K1, the streamed SELL body; the
+routed engine's one-pass kernel, which takes the place of the TPU's K7 and
+K8; K9, the DIA body; and the x-window-cache body that serves the TPU's
+K3/K4.  Checks each against its plain PyTorch version on small matrices
+that land on every layout it serves (and K1 where the JAX package would run
+K5 or K6, timed there), then drives four main paths end to end through the
+CLI and checks each against the exact-f64 oracle:
 
 * the flagship on ``permuted_poisson_512`` (262,144 rows, ~1.3M nnz), which
   runs K1 and K9;
 * the gather-wall row: ``ehyb`` on ``random_1m`` (1,048,576 rows, 16,769,356
   nnz), which the flagship's delegation gate hands to the routed engine
-  (K7, K8);
+  (the one-pass routed kernel);
 * the audikw-class FEM row ``fem3d_68_audikw_class`` (943,296 rows,
   74,181,672 nnz, all DIA), which runs K9 alone;
 * ``permuted_poisson_4096`` (16,777,216 rows, 83,869,696 nnz), whose x is
@@ -27,8 +28,11 @@ permuted_poisson_4096's body, beside the window cache, and both on
 ``permuted_poisson_1024`` forced past the residency limit, where the TPU
 runs K3), beside one cuSPARSE call (``torch.sparse_csr_tensor`` matvec) as
 a yardstick, and prints one JSON line of kernels with two bounds each:
-the bytes of the kernel's own layout, and the same work in any layout (each
-entry's value and column, x and y once).
+``bound_ms``, the bytes of the kernel's own inputs and output, and
+``same_work_bound_ms``, the same work in any layout (each entry's value and
+column, x and y once).  For the routed kernel the two are one: the partial
+y vectors of its plan are its own tiling choice, and their bytes stand
+beside it as ``layout_bound_ms``.
 
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
@@ -50,11 +54,12 @@ import torch
 import ehyb_spmv_torch as port
 from ehyb_spmv_torch import cli
 from ehyb_spmv_torch.core.coo import MatrixCOO, deterministic_x, oracle_spmv
-from ehyb_spmv_torch.core.route import build_routed
+from ehyb_spmv_torch.core.route import RoutedEpilogue, build_routed
 from ehyb_spmv_torch.io import generate
 from ehyb_spmv_torch.models import routed as routed_model
 from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
-from ehyb_spmv_torch.ops import stream_plan
+from ehyb_spmv_torch.ops import route_xcache, stream_plan
+from ehyb_spmv_torch.ops.build import BUILD_DIR
 from ehyb_spmv_torch.ops.torch_ops import body_gather_index
 from ehyb_spmv_torch.utils.timing import detect_hbm_bw
 
@@ -78,12 +83,11 @@ K1 = {"name": "ehyb_stream_body", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
       "replaces": f"{_PALLAS}:148 (K1); also serves {_PALLAS}:615 (K2), "
                   f"{_PALLAS}:84 (K5), {_PALLAS}:109 (K6)"}
-K7 = {"name": "route_at", "route": "cuda",
-      "source": "ehyb_spmv_torch/csrc/route_at.cu",
-      "replaces": "ehyb_spmv_gpu_tpu/ops/route_pallas.py:56"}
-K8 = {"name": "route_b", "route": "cuda",
-      "source": "ehyb_spmv_torch/csrc/route_b.cu",
-      "replaces": "ehyb_spmv_gpu_tpu/ops/route_pallas.py:87"}
+_ROUTE = "ehyb_spmv_gpu_tpu/ops/route_pallas.py"
+RX = {"name": "route_xcache", "route": "cuda",
+      "source": "ehyb_spmv_torch/csrc/route_xcache.cu",
+      "replaces": f"{_ROUTE}:56 (K7) and {_ROUTE}:87 (K8), one kernel for "
+                  "both, with the spill tail"}
 K9 = {"name": "dia", "route": "cuda", "source": "ehyb_spmv_torch/csrc/dia.cu",
       "replaces": "ehyb_spmv_gpu_tpu/ops/dia_pallas.py:68 (K9, inner "
                   "kernels :115 and :131)"}
@@ -238,33 +242,44 @@ def kernel_cases():
 
 
 def reset_launches() -> None:
-    for fn in (ehyb_stream.stream_body, route.route_at, route.route_b,
+    for fn in (ehyb_stream.stream_body, route_xcache.route_xcache,
                dia.dia_body, ehyb_wincache.wincache_body):
         fn.launches = 0
 
 
-def routed_plain(d, x: torch.Tensor) -> torch.Tensor:
-    """The routed apply of one schedule through the kernels' plain
-    versions."""
+def stages_plain(d, x: torch.Tensor) -> torch.Tensor:
+    """The schedule's dst-space y through the plain versions of the TPU's
+    two stages (K7, K8) and the spill tail."""
     y_dst = route.route_b_plain(d, route.route_at_plain(d, x))
-    return route.to_input_space(d, route.spill_tail(d, x, y_dst))
+    return route.spill_tail(d, x, y_dst)
 
 
-def check_schedule(name: str, d, x: torch.Tensor) -> None:
-    """K7, K8 and the full apply of one schedule against their plain
-    versions on the card."""
-    t_k = route.route_at(d, x)
-    t_p = route.route_at_plain(d, x)
+def routed_plain(d, x: torch.Tensor) -> torch.Tensor:
+    """The routed apply of one schedule through the plain K7/K8 pair."""
+    return route.to_input_space(d, stages_plain(d, x))
+
+
+def check_schedule(name: str, rm, ap, x: torch.Tensor) -> None:
+    """The one-pass kernel on one schedule's plan against its plain version
+    and against the plain K7/K8 pair (the schedule's stage arrays uploaded
+    for it), and the whole apply ``ap`` against the pair's."""
+    d = rm.to_torch(device=x.device)
+    p = ap.plan
+    y_k = route_xcache.route_xcache(p, x)
+    y_again = route_xcache.route_xcache(p, x)
+    y_p = route_xcache.route_xcache_plain(p, x)
+    y_s = stages_plain(d, x)
     torch.cuda.synchronize()
-    check(torch.equal(t_k, t_p), f"{name}: K7 equals its plain version "
-                                 f"({t_k.numel()} products)")
-    y_k = route.route_b(d, t_p)
-    y_p = route.route_b_plain(d, t_p)
-    torch.cuda.synchronize()
-    err = rel(y_k, y_p)
-    check(bool(torch.isfinite(y_k).all()) and err <= KERNEL_TOL,
-          f"{name}: K8 vs plain rel {err:.3e} <= {KERNEL_TOL}")
-    y_k = route.RoutedApply(d)(x)
+    err_p, err_s = rel(y_k, y_p), rel(y_k, y_s)
+    st = p.stats
+    check(bool(torch.isfinite(y_k).all()) and err_p <= KERNEL_TOL
+          and err_s <= KERNEL_TOL and torch.equal(y_k, y_again),
+          f"{name} ({st['n_tiles']} tiles of {st['group_rows']} rows x "
+          f"{st['parts']} parts, {st['n_segs']} segments, {st['passes']} "
+          f"passes, {st['entries']} entries): route_xcache vs plain rel "
+          f"{err_p:.3e}, vs the plain K7/K8 pair rel {err_s:.3e}, the same "
+          "bits twice")
+    y_k = ap(x)
     y_p = routed_plain(d, x)
     torch.cuda.synchronize()
     err = rel(y_k, y_p)
@@ -284,27 +299,31 @@ def block_mode_model(m: MatrixCOO, dev) -> port.RoutedSpmv:
 
 
 def check_routed_small(dev) -> None:
-    """Every layout K7 and K8 serve, on small matrices."""
+    """Every layout of the TPU's routed schedule, on small matrices."""
     cfg = port.EhybConfig()
     x_of = deterministic_x
     # slice layout, one block, identity dst
     m = generate.random_general(16384, 12, seed=3)
     model = port.RoutedSpmv(cfg, device=dev).setup(m)
     d = model.applies[0].d
-    check(len(model.blocks) == 1 and not d.octet and d.ident,
-          "slice: one block, slice layout, identity dst")
-    check_schedule("slice", d, model.prepare_x(x_of(m.dimension)))
+    check(len(model.blocks) == 1 and not model.blocks[0].octet and d.ident
+          and isinstance(d, RoutedEpilogue),
+          "slice: one block, slice layout, identity dst, no stage arrays on "
+          "the card")
+    check_schedule("slice", model.blocks[0], model.applies[0],
+                   model.prepare_x(x_of(m.dimension)))
     models = [("slice", m, model)]
     # octet layout, permuted dst (built as the JAX suite builds it)
     m = random_coo(1 << 17, 1, seed=41)
     rm = build_routed(m, R=4096, P=64)
-    d = rm.to_torch(device=dev)
-    check(d.octet, f"octet: octet layout ({rm.stats['b_steps']} B steps)")
+    ap = route.RoutedApply.of(rm, dev)
+    check(rm.octet == 1, f"octet: octet layout ({rm.stats['b_steps']} B "
+                         "steps)")
     x = np.zeros(rm.padded_x_rows, np.float32)
     x[:m.dimension] = x_of(m.dimension)
     x = torch.as_tensor(x, device=dev)
-    check_schedule("octet", d, x)
-    y = route.RoutedApply(d)(x).cpu().numpy()[:m.dimension]
+    check_schedule("octet", rm, ap, x)
+    y = ap(x).cpu().numpy()[:m.dimension]
     err = rel_np(y, oracle_spmv(m, x_of(m.dimension)))
     check(err <= ORACLE_TOL, f"octet: apply vs oracle rel {err:.3e} <= "
                              f"{ORACLE_TOL}")
@@ -313,18 +332,19 @@ def check_routed_small(dev) -> None:
     model = block_mode_model(m, dev)
     check(len(model.blocks) == 4, f"blocks: {len(model.blocks)} blocks")
     x = model.prepare_x(x_of(m.dimension))
-    for i, (ap, lo) in enumerate(zip(model.applies, model._lo)):
-        check_schedule(f"block {i}", ap.d, x[lo:lo + ap.d.padded_x_rows])
+    for i, (rm, ap, lo) in enumerate(zip(model.blocks, model.applies,
+                                         model._lo)):
+        check_schedule(f"block {i}", rm, ap, x[lo:lo + ap.d.padded_x_rows])
     models.append(("blocks", m, model))
     # slice layout with a spill tail
     m = generate.random_general(4096, 12, seed=9, power_law=0.8)
     model = port.RoutedSpmv(cfg, device=dev).setup(m)
     spill = model.blocks[0].stats["nnz_spill"]
     check(spill > 0, f"spill: {spill} spilled entries")
-    check_schedule("spill", model.applies[0].d,
+    check_schedule("spill", model.blocks[0], model.applies[0],
                    model.prepare_x(x_of(m.dimension)))
     models.append(("spill", m, model))
-    # the degree-split hybrid (K1 beside K7/K8)
+    # the degree-split hybrid (K1 beside the routed kernel)
     m = generate.random_general(1 << 14, 24, seed=4, power_law=0.7)
     models.append(("split", m, port.DegreeSplitSpmv(cfg, device=dev)
                    .setup(m)))
@@ -465,7 +485,8 @@ def check_wincache_small(dev) -> None:
 def check_k5_k6(dev) -> None:
     """K1 where the JAX package would run K5 (the stream turned off) or K6
     (x past residency, no window-cache geometry, 1024-aligned windows):
-    the flagship takes the TPU's branch and launches K1."""
+    the flagship takes the TPU's branch and launches K1, timed there on the
+    body it sees beside both bounds, its plain version and cuSPARSE."""
     m = generate.permuted(generate.poisson2d(96), seed=3)
     cases = [("K5", "resident-x", patched(env={"EHYB_STREAM_BODY": "0"}),
               port.EhybConfig()),
@@ -487,6 +508,9 @@ def check_k5_k6(dev) -> None:
         check(launches > 0 and err <= ORACLE_TOL,
               f"{kid}: K1 launched {launches} times, model vs oracle rel "
               f"{err:.3e}")
+        print(f"  {kid}: K1 on the {model.config.body_layout} body of "
+              f"{model.dev.ell_val.shape[0]} steps it runs there:")
+        time_k1(model, {"dim": m.dimension}, dev, n_eager=50)
 
 
 def drive(args):
@@ -497,7 +521,7 @@ def drive(args):
     code, result, model = cli.run(cli.build_parser().parse_args(args))
     wall = time.perf_counter() - t0
     launches = {"K1": ehyb_stream.stream_body.launches,
-                "K7": route.route_at.launches, "K8": route.route_b.launches,
+                "RX": route_xcache.route_xcache.launches,
                 "K9": dia.dia_body.launches,
                 "WC": ehyb_wincache.wincache_body.launches}
     print(json.dumps(result))
@@ -679,40 +703,55 @@ def time_dia(model, result, dev, n: int = 50) -> dict:
                 library_ms=lib_ms, **b, same_work_bound_ms=same["bound_ms"])
 
 
-def time_routed(model, m: MatrixCOO, dev) -> tuple:
-    """K7, K8 and the whole routed apply at random_1m's shapes, and one
-    cuSPARSE matvec over the whole matrix.  Neither stage alone computes
-    the product, so both carry the whole apply's same-work bound."""
+def time_routed(model, result, m: MatrixCOO, dev) -> dict:
+    """The one-pass routed kernel at random_1m's shapes against its plain
+    version and the plain K7/K8 pair, and the whole routed apply; cuSPARSE
+    over the same entries in dst order (the same function) and over the
+    whole matrix in the original order.  Bounds: the same work in any
+    layout (the kernel's ``bound_ms``), and the bytes of the plan's layout
+    (``layout_bound_ms``: the same work plus the partials and maps)."""
     check(len(model.applies) == 1, "random_1m runs one routed block")
-    d = model.applies[0].d
+    rm, ap = model.blocks[0], model.applies[0]
+    p = ap.plan
     x_dev = model.prepare_x(deterministic_x(m.dimension))
-    t_k = route.route_at(d, x_dev)
-    t_p = route.route_at_plain(d, x_dev)
-    y_k = route.route_b(d, t_p)
-    y_p = route.route_b_plain(d, t_p)
+    y_k = route_xcache.route_xcache(p, x_dev)
+    y_again = route_xcache.route_xcache(p, x_dev)
+    y_p = route_xcache.route_xcache_plain(p, x_dev)
     torch.cuda.synchronize()
-    at_abs = float((t_k - t_p).abs().max())
-    check(torch.equal(t_k, t_p), "K7 equals its plain version at full size")
-    b_abs = float((y_k - y_p).abs().max())
+    max_abs = float((y_k - y_p).abs().max())
     err = rel(y_k, y_p)
-    check(err <= KERNEL_TOL, f"K8 vs plain rel {err:.3e} <= {KERNEL_TOL} "
-                             f"(max abs {b_abs:.3e})")
-    del t_k, y_k, y_p
-    at_ms, at_plain, at_turns = in_turns(
-        lambda: route.route_at(d, x_dev),
-        lambda: route.route_at_plain(d, x_dev), 50, 5)
-    b_ms, b_plain, b_turns = in_turns(
-        lambda: route.route_b(d, t_p),
-        lambda: route.route_b_plain(d, t_p), 50, 5)
+    check(bool(torch.isfinite(y_k).all()) and err <= KERNEL_TOL
+          and torch.equal(y_k, y_again),
+          f"route_xcache vs plain rel {err:.3e} <= {KERNEL_TOL} (max abs "
+          f"{max_abs:.3e}, {p.n_ent} entries), the same bits twice")
+    del y_again
+    d = rm.to_torch(device=dev)
+    y_s = stages_plain(d, x_dev)
+    torch.cuda.synchronize()
+    err = rel(y_k, y_s)
+    check(err <= KERNEL_TOL, f"route_xcache vs the plain K7/K8 pair rel "
+                             f"{err:.3e}, max abs "
+                             f"{float((y_k - y_s).abs().max()):.3e}")
+    del d, y_s
+    ms, plain_ms, turns = in_turns(
+        lambda: route_xcache.route_xcache(p, x_dev),
+        lambda: route_xcache.route_xcache_plain(p, x_dev), 50, 5)
     apply_ms = device_ms_per_call(lambda: model.apply(x_dev), 20)
-    apply_plain = device_ms_per_call(lambda: routed_plain(d, x_dev), 5)
-    nnz_routed = int(model.blocks[0].stats["nnz_routed"])
-    b_at = bound(nbytes(d.a_col, d.a_val, d.a_win) + 4 * d.padded_x_rows
-                 + 4 * t_p.numel(), nnz_routed, dev)
-    b_b = bound(nbytes(d.b_idx, d.b_gmap, d.b_boff, d.seg_first, d.seg_last,
-                       t_p) + 4 * d.n_dst_rows, nnz_routed, dev)
-    # the yardstick: one cuSPARSE CSR matvec over the whole matrix, in the
-    # original ordering
+    # the same function in one library call: CSR over the plan's entries
+    row, col = route_xcache.plan_rows_cols(p)
+    a_dst = csr_of(row, col, p.ent_val, p.n_rows, p.n_x)
+    del row, col
+    err = rel(torch.mv(a_dst, x_dev), y_p)
+    check(err <= KERNEL_TOL, f"cuSPARSE over the same entries in dst order "
+                             f"vs plain rel {err:.3e}")
+    lib_ms = device_ms_per_call(lambda: torch.mv(a_dst, x_dev), 20)
+    del a_dst
+    st = p.stats
+    lay = bound(st["layout_bytes"], 2 * p.n_ent, dev)
+    # 1M columns need 32-bit column indices
+    same = same_work_bound(m.nnz, 4, m.dimension, m.n_rows, dev)
+    # the routed engine's first yardstick: one cuSPARSE CSR matvec over the
+    # whole matrix, in the original ordering
     a = csr_of(torch.as_tensor(m.row, device=dev).long(),
                torch.as_tensor(m.col, device=dev).long(),
                torch.as_tensor(m.val, dtype=torch.float32, device=dev),
@@ -723,28 +762,38 @@ def time_routed(model, m: MatrixCOO, dev) -> tuple:
     err = rel_np(y_l, oracle_spmv(m, deterministic_x(m.dimension)))
     check(err <= ORACLE_TOL, f"cuSPARSE over random_1m vs oracle rel "
                              f"{err:.3e}")
-    lib_ms = device_ms_per_call(lambda: torch.mv(a, x), 20)
-    a_bytes = nbytes(a.crow_indices(), a.col_indices(), a.values(), x) \
-        + 4 * m.n_rows
-    lib_bound = bound(a_bytes, 2 * m.nnz, dev)
-    # 1M columns need 32-bit column indices
-    same = same_work_bound(m.nnz, 4, m.dimension, m.n_rows, dev)
-    print(f"  K7 device ms (plain, kernel, kernel, plain): {at_turns}; "
-          f"bound {b_at['bound_ms']:.4f} ms ({b_at['bound_by']})")
-    print(f"  K8 device ms (plain, kernel, kernel, plain): {b_turns}; "
-          f"bound {b_b['bound_ms']:.4f} ms ({b_b['bound_by']})")
-    print(f"  routed apply (K7 + K8 + spill tail + epilogue) {apply_ms:.4f} "
-          f"ms device time, through the plain versions {apply_plain:.4f} "
-          f"ms; cuSPARSE CSR matvec over the whole matrix {lib_ms:.4f} ms "
-          f"(bound {lib_bound['bound_ms']:.4f} ms, {a_bytes} B; same-work "
-          f"bound {same['bound_ms']:.4f} ms, {same['bytes']} B): routed / "
-          f"cuSPARSE = {apply_ms / lib_ms:.3f}; the apply's device "
-          f"GFLOP/s {2e-6 * m.nnz / apply_ms:.2f}, cuSPARSE's "
-          f"{2e-6 * m.nnz / lib_ms:.2f}")
-    return (dict(max_abs_err=at_abs, ms=at_ms, plain_ms=at_plain,
-                 library_ms=None, **b_at, same_work_bound_ms=same["bound_ms"]),
-            dict(max_abs_err=b_abs, ms=b_ms, plain_ms=b_plain,
-                 library_ms=None, **b_b, same_work_bound_ms=same["bound_ms"]))
+    whole_ms = device_ms_per_call(lambda: torch.mv(a, x), 20)
+    print(f"  route_xcache device ms (plain, kernel, kernel, plain): {turns}")
+    print(f"  plan: {st['n_tiles']} blocks ({st['n_groups']} groups of "
+          f"{st['group_rows']} rows x {st['parts']} parts), "
+          f"{st['chunk_windows']} windows per chunk, {route_xcache.THREADS} "
+          f"threads, {st['smem_bytes']} B of shared memory; "
+          f"{st['n_segs']} segments, "
+          f"{st['passes']} passes; {st['entries']} entries "
+          f"({st['spilled']} spilled), largest tile "
+          f"{st['max_tile_entries']} (mean {st['mean_tile_entries']:.0f}); "
+          f"staged {st['staged_bytes'] / st['x_bytes']:.3f} x x "
+          f"({st['staged_bytes']} B from L2); built in "
+          f"{result['setup_seconds']['route_plan']:.2f} s")
+    print(f"  bounds: layout {lay['bound_ms']:.4f} ms ({st['layout_bytes']} "
+          f"B: entries {st['ent_bytes']}, x {st['x_bytes']}, partials "
+          f"{st['partial_bytes']}, y {st['y_bytes']}, maps "
+          f"{st['map_bytes']}; {lay['bound_ms'] / ms:.3f} of it reached); "
+          f"same work {same['bound_ms']:.4f} ms ({same['bytes']} B; "
+          f"{same['bound_ms'] / ms:.3f} reached)")
+    print(f"  cuSPARSE over the same entries in dst order {lib_ms:.4f} ms "
+          f"(route_xcache / cuSPARSE = {ms / lib_ms:.3f}); over the whole "
+          f"matrix in the original order {whole_ms:.4f} ms")
+    print(f"  routed apply (route_xcache + epilogue) {apply_ms:.4f} ms device "
+          f"time: apply / cuSPARSE = {apply_ms / whole_ms:.3f}; the apply's "
+          f"device GFLOP/s {2e-6 * m.nnz / apply_ms:.2f}, cuSPARSE's "
+          f"{2e-6 * m.nnz / whole_ms:.2f}")
+    # the partials are the plan's own tiling choice, not bytes the function
+    # needs: the bound is the same work's, the plan's bytes stand beside it
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=same["bound_ms"],
+                bound_by=same["bound_by"], layout_bound_ms=lay["bound_ms"],
+                same_work_bound_ms=same["bound_ms"])
 
 
 def profile_path(name: str, result: dict, model, n: int = 20) -> None:
@@ -796,9 +845,8 @@ def main() -> int:
           f"count {torch.cuda.device_count()}", flush=True)
 
     phase("2: build (one nvcc per source, all at once)")
-    builds = {"K1": ehyb_stream.build_kernel, "K7": route.build_route_at,
-              "K8": route.build_route_b, "K9": dia.build_kernel,
-              "WC": ehyb_wincache.build_kernel}
+    builds = {"K1": ehyb_stream.build_kernel, "RX": route_xcache.build_kernel,
+              "K9": dia.build_kernel, "WC": ehyb_wincache.build_kernel}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(b) for k, b in builds.items()}
         built = {k: f.result() for k, f in futures.items()}
@@ -829,8 +877,9 @@ def main() -> int:
         if kahan:
             check(y[0] == 100.0, f"{name}: compensated row 0 = {y[0]!r}")
 
-    phase("4: K7 and K8 vs plain versions on small matrices (slice, octet, "
-          "column blocks, spill) and the split model")
+    phase("4: the routed kernel vs its plain version and the plain K7/K8 "
+          "pair on small matrices (slice, octet, column blocks, spill) and "
+          "the split model")
     check_routed_small(dev)
 
     phase("5: K9 and the window cache vs plain versions on small matrices; "
@@ -860,9 +909,11 @@ def main() -> int:
     check(res2["dim"] == 1048576 and res2["nnz"] == 16769356,
           f"full size: dim {res2['dim']}, nnz {res2['nnz']}")
     print(f"  nnz_routed {res2['nnz_routed']}, nnz_spill {res2['nnz_spill']}")
-    for k in ("K7", "K8"):
-        check(launch2[k] > 0, f"{k} launched {launch2[k]} times during main "
-                              "path 2")
+    check(launch2["RX"] > 0, f"{RX['name']} launched {launch2['RX']} times "
+                             "during main path 2")
+    old = [f for f in os.listdir(BUILD_DIR)
+           if f.startswith(("libroute_at", "libroute_b"))]
+    check(not old, f"no K7/K8 library in the build directory {old}")
 
     phase("8: main path 3, the audikw-class FEM row "
           f"(python -m ehyb_spmv_torch {' '.join(FEM_ARGS)})")
@@ -900,7 +951,7 @@ def main() -> int:
     phase("10: kernels, plain versions and cuSPARSE at the main paths' "
           "shapes (device time, CUDA graph replay)")
     k1 = time_k1(model1, res1, dev)
-    k7, k8 = time_routed(model2, model2.m, dev)
+    rx = time_routed(model2, res2, model2.m, dev)
     k9 = time_dia(model3, res3, dev)
     print("  K9 on permuted_poisson_4096's diagonal:")
     time_dia(model4, res4, dev, n=20)
@@ -937,8 +988,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         dict(K1, launches=launch1["K1"], **k1),
-        dict(K7, launches=launch2["K7"], **k7),
-        dict(K8, launches=launch2["K8"], **k8),
+        dict(RX, launches=launch2["RX"], **rx),
         dict(K9, launches=launch3["K9"], **k9),
         dict(WC, launches=launch4["WC"], **wc)]}))
     print(card)

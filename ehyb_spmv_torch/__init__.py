@@ -5,10 +5,12 @@ as the reference.  This package imports ``torch`` and never ``jax``: the
 host layer (I/O, planner, partition + RCM ordering, two-level reorder, EHYB
 conversion, routed schedules) is a copy of the reference's, and so are its
 C++ sources (``native/*.cpp``).  The streamed SELL body runs as a
-hand-written CUDA kernel (``csrc/ehyb_stream.cu``); the ER tail, long rows,
-DIA and combine are torch ops.  Gather-wall matrices go to the routed engine,
-whose two stages are CUDA kernels too (``csrc/route_at.cu``,
-``csrc/route_b.cu``).
+hand-written CUDA kernel (``csrc/ehyb_stream.cu``); the ER tail, long rows
+and combine are torch ops, DIA a CUDA kernel (``csrc/dia.cu``), and a body
+past the TPU's x residency runs through an x-window cache
+(``csrc/ehyb_wincache.cu``).  Gather-wall matrices go to the routed engine,
+whose schedule runs as one CUDA kernel over x chunks staged in shared
+memory (``csrc/route_xcache.cu``).
 """
 from .config import EhybConfig, Features
 from .core.coo import MatrixCOO, deterministic_x, oracle_spmv

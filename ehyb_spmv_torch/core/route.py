@@ -53,7 +53,9 @@ Port copy of ``ehyb_spmv_gpu_tpu/core/route.py``: the machine with the GPU
 has no JAX, so the host layer lives in both packages and builds
 byte-identical schedules.  Keep the two in step.  :meth:`RoutedMatrix.to_torch`
 takes the place of ``to_jax``: it uploads the schedule as a
-:class:`RoutedDevice` for the CUDA kernels of ``ops/route.py``.
+:class:`RoutedDevice`, for the plain stages and the epilogue of
+``ops/route.py``; the card runs the schedule through the one-pass plan of
+``ops/route_xcache.py``.
 """
 from __future__ import annotations
 
@@ -167,31 +169,67 @@ class RoutedMatrix:
         return RoutedDevice(self, dtype=dtype).to(device)
 
 
-class RoutedDevice(torch.nn.Module):
-    """Device-side mirror of :class:`RoutedMatrix`.  Array fields are
-    buffers, so ``to(device)`` uploads all of them; the geometry stays plain
-    Python.
+def segment_bounds(rm: RoutedMatrix):
+    """First and last stage-B sub-tile of each segment (a dst slice in the
+    slice layout, an octet of 8 slices in the octet layout), from
+    ``b_reset``/``b_last``: int64 arrays of one entry per segment."""
+    b_last = rm.b_last.astype(np.int64)
+    if rm.octet:
+        # b_last holds rows: slice s sits at row s % 8 of its octet's last
+        # sub-tile
+        oct_last = b_last.reshape(-1, TS)
+        if not np.array_equal(oct_last, oct_last[:, :1] + np.arange(TS)):
+            raise ValueError("octet b_last rows are not consecutive")
+        seg_last = oct_last[:, 0] // TS
+    else:
+        seg_last = b_last
+    resets = np.flatnonzero(rm.b_reset)
+    seg_first = resets[np.searchsorted(resets, seg_last, side="right") - 1]
+    return seg_first, seg_last
+
+
+class RoutedEpilogue(torch.nn.Module):
+    """What the routed apply needs beside its entries: the sizes of x and y
+    and the map from dst space back to input space.  The scatter maps are
+    empty when the dst space is the input space (identity dst)."""
+
+    def __init__(self, rm: RoutedMatrix):
+        super().__init__()
+        self.dim = rm.dim
+        self.padded_x_rows = rm.padded_x_rows
+        self.n_dst_rows = rm.n_dst_rows
+        self.out_rows = rm.out_rows
+        self.ident = bool(np.array_equal(
+            rm.dst_rows[:rm.dim], np.arange(rm.dim, dtype=rm.dst_rows.dtype)))
+        if self.ident:
+            scat_src = scat_dst = np.zeros(0, dtype=np.int64)
+        else:
+            scat_src = np.flatnonzero(rm.dst_rows < rm.dim)
+            scat_dst = rm.dst_rows[scat_src].astype(np.int64)
+        self.register_buffer("scat_src",
+                             torch.from_numpy(scat_src.astype(np.int64)))
+        self.register_buffer("scat_dst", torch.from_numpy(scat_dst.copy()))
+
+
+class RoutedDevice(RoutedEpilogue):
+    """Device-side mirror of :class:`RoutedMatrix`: the epilogue and the
+    schedule's stage and spill arrays.  Array fields are buffers, so
+    ``to(device)`` uploads all of them; the geometry stays plain Python.
 
     Stage B's running sum is carried per SEGMENT (a dst slice in the slice
     layout, an octet of 8 slices in the octet layout): ``seg_first`` and
-    ``seg_last`` are the first and last stage-B sub-tiles of each segment,
-    derived here once from ``b_reset``/``b_last``, so a kernel block can
-    walk its segment without the TPU's sequential reset-carry and final
-    ``take``.  The epilogue's scatter maps are empty when the dst space is
-    the input space (identity dst)."""
+    ``seg_last`` are the first and last stage-B sub-tiles of each segment
+    (:func:`segment_bounds`), so the plain stage B walks each segment
+    without the TPU's sequential reset-carry and final ``take``."""
 
     def __init__(self, rm: RoutedMatrix, dtype: str = "float32"):
-        super().__init__()
-        self.dim = rm.dim
+        super().__init__(rm)
         self.n_bg = rm.n_bg
         self.gr = rm.group_rows
         self.chain = rm.chain
         self.bands_per_block = rm.bands_per_block
         self.s_b = rm.s_b
         self.octet = bool(rm.octet)
-        self.padded_x_rows = rm.padded_x_rows
-        self.n_dst_rows = rm.n_dst_rows
-        self.out_rows = rm.out_rows
         if rm.a_col.shape[0] != rm.a_real_steps:
             # the chooser guarantees it (n_win*P % 1024 == 0); the fused
             # A+T tiling of the stream relies on it
@@ -201,30 +239,11 @@ class RoutedDevice(torch.nn.Module):
         if n_groups * rm.bands_per_block > rm.n_bg * LANES:
             raise ValueError("stage-B grouping exceeds the T stream (rebuild "
                              "the schedule)")
-        b_last = rm.b_last.astype(np.int64)
-        if rm.octet:
-            # b_last holds rows: slice s sits at row s % 8 of its octet's
-            # last sub-tile
-            oct_last = b_last.reshape(-1, TS)
-            if not np.array_equal(oct_last,
-                                  oct_last[:, :1] + np.arange(TS)):
-                raise ValueError("octet b_last rows are not consecutive")
-            seg_last = oct_last[:, 0] // TS
-        else:
-            seg_last = b_last
-        resets = np.flatnonzero(rm.b_reset)
-        seg_first = resets[np.searchsorted(resets, seg_last,
-                                           side="right") - 1]
-        #: Sub-tiles summed over all segments (sizes the plain version's
-        #: index arrays without a device sync).
+        seg_first, seg_last = segment_bounds(rm)
+        #: Segments and the sub-tiles summed over all of them (sizes the
+        #: plain version's index arrays without a device sync).
+        self.n_segs = int(seg_last.shape[0])
         self.seg_subtiles = int((seg_last - seg_first + 1).sum())
-        self.ident = bool(np.array_equal(
-            rm.dst_rows[:rm.dim], np.arange(rm.dim, dtype=rm.dst_rows.dtype)))
-        if self.ident:
-            scat_src = scat_dst = np.zeros(0, dtype=np.int64)
-        else:
-            scat_src = np.flatnonzero(rm.dst_rows < rm.dim)
-            scat_dst = rm.dst_rows[scat_src].astype(np.int64)
         arrays = {
             "a_col": rm.a_col, "a_val": rm.a_val.astype(dtype),
             "a_win": rm.a_win.astype(np.int32),
@@ -234,16 +253,10 @@ class RoutedDevice(torch.nn.Module):
             "seg_last": seg_last.astype(np.int32),
             "sp_dst": rm.sp_dst.astype(np.int64),
             "sp_col": rm.sp_col.astype(np.int64),
-            "sp_val": rm.sp_val.astype(dtype),
-            "scat_src": scat_src.astype(np.int64), "scat_dst": scat_dst,
-        }
+            "sp_val": rm.sp_val.astype(dtype)}
         for name, a in arrays.items():
             self.register_buffer(
                 name, torch.from_numpy(np.ascontiguousarray(a).copy()))
-
-    @property
-    def n_segs(self) -> int:
-        return self.seg_first.shape[0]
 
 
 def _choose_params(n_rows: int, n_cols: int, nnz: int,

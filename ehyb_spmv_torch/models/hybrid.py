@@ -7,7 +7,8 @@ only when rows are sparse, and the routed engine wants bounded row degrees
 (degree dispersion overflows its cells into the spill tail).  So split by
 ROW DEGREE where the two collapse conditions cross (deg >= 48 <=> pooled
 fill >= 6, the delegation gate): the dense rows form an EHYB sub-matrix run
-by the flagship (K1), the bounded-degree remainder routes (K7, K8).  The
+by the flagship (K1), the bounded-degree remainder routes (the one-pass
+routed kernel, ``csrc/route_xcache.cu``).  The
 routed sub-matrix is built in the EHYB reordering's permuted space, so both
 engines consume the same permuted x and emit permuted y, and one device add
 combines them.  Rows are disjoint, so the sum is exact.

@@ -3,8 +3,10 @@
 Port counterpart of ``ehyb_spmv_gpu_tpu/models/routed.py``.  It covers the
 matrices where the EHYB window machinery has nothing to cache (fully
 unstructured sparsity, e.g. random_1m): the schedule of ``core/route.py``
-runs through the two kernels of ``ops/route.py`` (K7: gather-multiply into
-band-major products; K8: route and reduce) plus a torch spill tail.
+is built as on the TPU, then decoded once into the plan of
+``ops/route_xcache.py``, whose one kernel takes the place of the TPU's two
+stages (K7, K8) and its spill tail; the schedule's own stage arrays stay on
+the host.
 
 Beyond the single-level router's select-chain bound (~2M columns at
 16 nnz/row) the model switches to COLUMN-BLOCK mode: the matrix splits into
@@ -14,8 +16,8 @@ blocks' input-space outputs sum.
 The engine exists because the TPU has no hardware gather from HBM; the H100
 has one, and whether the routed engine pays there at all is measured beside
 one cuSPARSE matvec by ``chip_smoke.py`` (ROADMAP Queue 1 item 12).  Scope:
-f32 values, square matrices, one device.  A CUDA device runs the kernels; a
-CPU device runs their plain versions.
+f32 values, square matrices, one device.  A CUDA device runs the kernel; a
+CPU device runs its plain version.
 """
 from __future__ import annotations
 
@@ -27,11 +29,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..config import LANES, cdiv, round_up
+from ..config import cdiv, round_up
 from ..core.coo import MatrixCOO
-from ..core.route import (WIN, RoutedMatrix, _choose_params, build_routed,
-                          routed_row_perm)
+from ..core.route import (WIN, RoutedEpilogue, RoutedMatrix, _choose_params,
+                          build_routed, routed_row_perm)
 from ..ops.route import RoutedApply
+from ..ops.route_xcache import build_route_plan
 from ..utils.log import get_logger
 from .base import SpmvModel
 
@@ -107,8 +110,9 @@ def _block_ranges(dim: int, block_cols: int = None) -> List[tuple]:
 
 
 class RoutedSpmv(SpmvModel):
-    """Routed SpMV (gather-multiply + band-major write → route-reduce),
-    column-blocked past the single-level chain bound.
+    """Routed SpMV (the TPU's routed schedule, run on the card as one pass
+    over x chunks staged in shared memory), column-blocked past the
+    single-level chain bound.
 
     ``external_order=True`` skips the internal dst row permutation and
     builds identity-dst on the row order AS GIVEN — for composers (the
@@ -231,7 +235,7 @@ class RoutedSpmv(SpmvModel):
         self.blocks: List[RoutedMatrix] = []
         self.applies: List[RoutedApply] = []
         self._lo = []
-        convert_s = upload_s = 0.0
+        convert_s = upload_s = plan_s = 0.0
         ext = "-ext" if self._external_order else ""
         for i, (lo, hi) in enumerate(ranges):
             tag = ext + (f"-b{i}of{n_blocks}" if n_blocks > 1 else "")
@@ -255,15 +259,22 @@ class RoutedSpmv(SpmvModel):
                 if cfg.artifact_cache:
                     _save_routed(rm, path)
             t2 = time.perf_counter()
+            plan = build_route_plan(rm)
+            t3 = time.perf_counter()
+            plan_s += t3 - t2
+            # the card gets the plan and the epilogue's maps; the stage
+            # arrays stay on the host (self.blocks)
             self.blocks.append(rm)
             self.applies.append(RoutedApply(
-                rm.to_torch(dtype="float32", device=self.device)))
+                RoutedEpilogue(rm).to(self.device),
+                plan.to_torch(self.device)))
             self._lo.append(lo)
-            upload_s += time.perf_counter() - t2
+            upload_s += time.perf_counter() - t3
         if convert_s:
             self.setup_seconds["convert"] = convert_s
         else:
             self.setup_seconds["cache_load"] = time.perf_counter() - t0
+        self.setup_seconds["route_plan"] = plan_s
         self.setup_seconds["upload"] = upload_s
         self.routed = self.blocks[0]   # introspection convenience
         self.setup_seconds["total"] = time.perf_counter() - t0
@@ -289,24 +300,12 @@ class RoutedSpmv(SpmvModel):
         return out
 
     def bytes_model(self) -> int:
-        """Modeled device-memory bytes per iteration (roofline denominator):
-        the A stream (2 + 4 B per slot), the product array written by K7 and
-        read by K8, the B index stream, the y stream, the spill tail and x —
-        the JAX package's model, so both report the same denominator.
-        """
-        total = self._padded_x_rows * (4 + 8 * len(self.blocks))
-        for rm in self.blocks:
-            a_slots = rm.a_col.shape[0] * LANES
-            b_slots = rm.b_idx.shape[0] * LANES
-            prod = rm.n_bg * LANES * rm.group_rows * LANES * 4
-            total += int(a_slots * (2 + 4)     # a_col + a_val
-                         + prod                # fused A+T product write
-                         + prod                # B block reads (1x per group)
-                         + b_slots * 2         # b_idx
-                         # y stream: every row (octet) vs one row/sub-tile
-                         + (b_slots * 4 if rm.octet else b_slots // 8 * 4)
-                         + rm.sp_val.size * 12)  # spill tail
-        return total
+        """Device-memory bytes per iteration (roofline denominator): what
+        the routed kernel of each block moves (its plan's entries and maps,
+        x once, its partial y written and read back, y once).  The TPU's
+        stage streams and product array never reach the card, so they are
+        not counted."""
+        return sum(ap.plan.stats["layout_bytes"] for ap in self.applies)
 
     @torch.no_grad()
     def apply(self, x_dev: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from ehyb_spmv_torch import EhybConfig, EhybSpmv, RoutedSpmv, cli, native
-from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
+from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route_xcache
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,7 +31,9 @@ for mod in pkgutil.walk_packages(ehyb_spmv_torch.__path__,
     importlib.import_module(mod.name)
 import chip_smoke
 import chip_wincache_sweep
-for name in ("ops.stream_plan", "ops.dia", "ops.ehyb_wincache"):
+import chip_routed_sweep
+for name in ("ops.stream_plan", "ops.dia", "ops.ehyb_wincache",
+             "ops.route_xcache"):
     assert f"ehyb_spmv_torch.{name}" in sys.modules, name
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ehyb_spmv_gpu_tpu")]
@@ -92,9 +94,8 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_cuda_requests_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for build in (ehyb_stream.build_kernel, route.build_route_at,
-                  route.build_route_b, dia.build_kernel,
-                  ehyb_wincache.build_kernel):
+    for build in (ehyb_stream.build_kernel, route_xcache.build_kernel,
+                  dia.build_kernel, ehyb_wincache.build_kernel):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
     for model in (EhybSpmv, RoutedSpmv):

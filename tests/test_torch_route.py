@@ -1,10 +1,12 @@
 """The port's routed engine on the CPU, held against the JAX package.
 
 The same numpy-made matrices go through both builders (schedules byte for
-byte), both kernels' plain versions are held against the JAX stages in
-Pallas interpret mode (K7 exact: its products are single multiplies; K8 at
-rel 1e-6: the sums run in another order), and the models against the JAX
-models and the exact-f64 oracle at rel 5e-6, the suite's bound.  Then the
+byte), the plain versions of the TPU's two stages are held against the JAX
+stages in Pallas interpret mode (K7 exact: its products are single
+multiplies; K8 at rel 1e-6: the sums run in another order), and the models
+(which run the one-pass plan, ``tests/test_torch_route_plan.py``) against
+the JAX models and the exact-f64 oracle at rel 5e-6, the suite's bound.
+Then the
 flagship's delegation gate: gather wall → routed, heavy tail → split, a
 recoverable stencil and ``routed_delegate="never"`` keep the body, and a
 cached verdict skips the ordering."""
@@ -132,8 +134,8 @@ def test_build_routed_byte_identical(name, built):
 def test_stage_plain_versions_match_jax_stages(name, monkeypatch):
     """Plain K7 equals the JAX fused A+T stage exactly; plain K8 matches the
     JAX stage B within rel 1e-6 on the same products (octet layout, and the
-    slice layout with a spill tail); the wrappers take the plain versions on
-    the CPU and count no launch."""
+    slice layout with a spill tail): the CPU reference of the schedule that
+    the one-pass plan is held against."""
     import jax.numpy as jnp
 
     monkeypatch.setenv("EHYB_ROUTE_SB_MAX", SB_SMALL)
@@ -150,14 +152,11 @@ def test_stage_plain_versions_match_jax_stages(name, monkeypatch):
     y_ref = np.asarray(ap.stages[1](dev, jnp.asarray(t_ref)))
 
     d = rm_port.to_torch()
-    launches = (port_ops.route_at.launches, port_ops.route_b.launches)
-    t_port = port_ops.route_at(d, torch.from_numpy(xp))
+    t_port = port_ops.route_at_plain(d, torch.from_numpy(xp))
     assert np.array_equal(t_port.numpy(), t_ref.reshape(-1))
-    y_port = port_ops.route_b(d, torch.from_numpy(t_ref.reshape(-1)))
+    y_port = port_ops.route_b_plain(d, torch.from_numpy(t_ref.reshape(-1)))
     assert y_port.shape == y_ref.shape
     assert rel(y_port.numpy(), y_ref) <= STAGE_B_TOL
-    assert (port_ops.route_at.launches, port_ops.route_b.launches) \
-        == launches
 
 
 def test_permuted_dst_apply_matches_oracle(built):
@@ -165,8 +164,7 @@ def test_permuted_dst_apply_matches_oracle(built):
     identity_dst) lands on the oracle through the scatter epilogue."""
     m, _, rm_port = built["powerlaw_spill"]
     assert not port_route.RoutedDevice(rm_port).ident
-    y = port_ops.RoutedApply(rm_port.to_torch())(
-        torch.from_numpy(_x_pad(rm_port, m)))
+    y = port_ops.RoutedApply.of(rm_port)(torch.from_numpy(_x_pad(rm_port, m)))
     x = deterministic_x(m.dimension)
     assert rel(y.numpy()[:m.dimension], oracle_spmv(m, x)) <= ORACLE_TOL
 
