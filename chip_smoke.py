@@ -7,9 +7,10 @@ Builds the port's four CUDA kernels from ``ehyb_spmv_torch/csrc/`` (one
 routed engine's one-pass kernel, which takes the place of the TPU's K7 and
 K8; K9, the DIA body; and the x-window-cache body that serves the TPU's
 K3/K4.  Checks each against its plain PyTorch version on small matrices
-that land on every layout it serves (and K1 where the JAX package would run
-K5 or K6, timed there), then drives four main paths end to end through the
-CLI and checks each against the exact-f64 oracle:
+that land on every layout it serves (K9 at every built variant, in both of
+its x modes, on cases that reach its tile and x edges; and K1 where the JAX
+package would run K5 or K6, timed there), then drives four main paths end to
+end through the CLI and checks each against the exact-f64 oracle:
 
 * the flagship on ``permuted_poisson_512`` (262,144 rows, ~1.3M nnz), which
   runs K1 and K9;
@@ -32,7 +33,10 @@ a yardstick, and prints one JSON line of kernels with two bounds each:
 ``same_work_bound_ms``, the same work in any layout (each entry's value and
 column, x and y once).  For the routed kernel the two are one: the partial
 y vectors of its plan are its own tiling choice, and their bytes stand
-beside it as ``layout_bound_ms``.
+beside it as ``layout_bound_ms``.  K9 is also timed with its other x mode,
+in turns.  Beside each main path's GFLOP/s it prints the card's SM clock,
+power draw, temperature and active throttle reasons, read right after the
+timed loop.
 
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
@@ -40,6 +44,7 @@ output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -97,6 +102,23 @@ WC = {"name": "ehyb_wincache_body", "route": "cuda",
 #: float32 peak outside the tensor cores (NVIDIA's data sheets), matched like
 #: the bandwidth table of utils/timing.py: the first key in the name wins.
 PEAK_F32 = {"h100 pcie": 51e12, "h100": 67e12}
+
+
+#: What the card runs at, read beside every timed row.
+CARD_STATE = ("clocks.sm,power.draw,temperature.gpu,"
+              "clocks_throttle_reasons.active")
+
+
+def card_state() -> str:
+    """The SM clock, power draw, temperature and active throttle reasons
+    (a bit mask, 0x0 when none) as ``nvidia-smi`` reads them now."""
+    for query in (CARD_STATE, CARD_STATE.replace("throttle", "event")):
+        proc = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        if proc.returncode == 0:
+            return f"card: {query} = {proc.stdout.strip()}"
+    return f"card: nvidia-smi could not read {CARD_STATE}: {proc.stderr}"
 
 
 def check(ok: bool, what: str) -> None:
@@ -379,36 +401,67 @@ class patched:
                 os.environ[k] = v
 
 
+def dia_geometries():
+    """Every built K9 variant (256 threads) in both x modes and both walks,
+    the default geometry, and 128 and 512 threads."""
+    out = [dia.DiaGeometry(threads=256, step=s, quads=q, x_mode=mode,
+                           walk=walk)
+           for s, q in dia.BUILT_STEPS for mode in dia.X_MODES
+           for walk in dia.WALKS]
+    out += [dia.GEOMETRY]
+    out += [dia.DiaGeometry(threads=t, x_mode=mode, walk=walk)
+            for t in (128, 512) for mode in dia.X_MODES
+            for walk in dia.WALKS]
+    return out
+
+
+def check_dia_case(name: str, e, x: torch.Tensor) -> None:
+    """K9 at every geometry of :func:`dia_geometries` against its plain
+    version on one DIA part."""
+    y_p = dia.dia_body_plain(e, x)
+    worst, worst_at = 0.0, None
+    for g in dia_geometries():
+        y_k = dia._launch(e, x, g)
+        torch.cuda.synchronize()
+        err = rel(y_k, y_p)
+        if not bool(torch.isfinite(y_k).all()) or err > KERNEL_TOL:
+            check(False, f"K9 {name} at {g}: vs plain rel {err:.3e}")
+        if err >= worst:
+            worst, worst_at = err, g
+    check(True, f"K9 {name} ({len(e.dia_offsets)} diagonals in "
+                f"{len(dia.offset_runs(e.dia_offsets))} runs, "
+                f"{e.dia_val.shape[1]} rows, x {x.shape[0]}): "
+                f"{len(dia_geometries())} geometries, vs plain rel <= "
+                f"{worst:.3e} (at {worst_at}) <= {KERNEL_TOL}")
+
+
 def check_dia_small(dev) -> None:
-    """K9 against its plain version: one diagonal; fem3d_16's 99; offsets
-    past the block edges both ways with rows that are not a multiple of
-    the block; a span too wide to stage."""
+    """K9 against its plain version at every variant: one diagonal; rows
+    not a multiple of 4 (the 4-B value loads) with a ragged last tile;
+    offsets past both ends of x (the guarded x reads, the zero-filled
+    windows); a run wider than a tile; fem3d_16's 99 diagonals in 9 runs."""
     rng = np.random.default_rng(5)
-    cases = [("K=1", (0,), 100_003),
-             ("edges", (-5000, -2049, -1, 0, 1, 2047, 2048, 5000), 12_345),
-             ("wide span", (-40_000, -3, 0, 3, 40_000), 100_000)]
-    for name, offs, dim_r in cases:
+    cases = [("one diagonal", (0,), 100_000, 100_000),
+             ("ragged rows", (-3, 0, 5), 100_003, 100_003 - 77),
+             ("past both ends of x",
+              (-15_000, -5000, -2049, -1, 0, 1, 2047, 2048, 5000, 15_000),
+              12_344, 12_344 - 77),
+             ("a run wider than a tile", tuple(range(-2000, 2001, 10)),
+              50_000, 50_000)]
+    for name, offs, dim_r, n_x in cases:
         e = types.SimpleNamespace(dia_offsets=offs, dia_val=torch.as_tensor(
             rng.standard_normal((len(offs), dim_r)), dtype=torch.float32,
             device=dev))
-        x = torch.as_tensor(rng.standard_normal(dim_r - 77),
-                            dtype=torch.float32, device=dev)
-        y_k, y_p = dia.dia_body(e, x), dia.dia_body_plain(e, x)
-        torch.cuda.synchronize()
-        err = rel(y_k, y_p)
-        check(bool(torch.isfinite(y_k).all()) and err <= KERNEL_TOL,
-              f"K9 {name} ({'staged' if dia.stages_x(offs) else '__ldg'}): "
-              f"vs plain rel {err:.3e} <= {KERNEL_TOL}")
+        x = torch.as_tensor(rng.standard_normal(n_x), dtype=torch.float32,
+                            device=dev)
+        check_dia_case(name, e, x)
     m = generate.fem3d(16)
     model = port.EhybSpmv(port.EhybConfig(), device=dev).setup(m)
     e = model.dev
-    x_dev = model.prepare_x(deterministic_x(m.dimension))
-    y_k, y_p = dia.dia_body(e, x_dev), dia.dia_body_plain(e, x_dev)
-    torch.cuda.synchronize()
-    err = rel(y_k, y_p)
-    check(len(e.dia_offsets) == 99 and err <= KERNEL_TOL,
-          f"K9 fem3d_16 ({len(e.dia_offsets)} diagonals): vs plain rel "
-          f"{err:.3e} <= {KERNEL_TOL}")
+    check(len(e.dia_offsets) == 99, f"fem3d_16: {len(e.dia_offsets)} "
+                                    "diagonals")
+    check_dia_case("fem3d_16", e, model.prepare_x(
+        deterministic_x(m.dimension)))
     x = deterministic_x(m.dimension)
     err = rel_np(model.matvec(x), oracle_spmv(m, x))
     check(err <= ORACLE_TOL, f"fem3d_16 model vs oracle rel {err:.3e}")
@@ -533,6 +586,9 @@ def drive(args):
           f"rel error vs exact-f64 oracle {result['rel_error']:.3e} "
           f"<= {ORACLE_TOL}")
     print(f"  launches during the run: {launches}")
+    # read right after the timed loop, beside its GFLOP/s
+    result["card"] = card_state()
+    print(f"  {result['gflops']:.2f} GFLOP/s; {result['card']}")
     return result, model, launches
 
 
@@ -658,7 +714,8 @@ def dia_csr(e, n_x: int, dev) -> torch.Tensor:
 
 def time_dia(model, result, dev, n: int = 50) -> dict:
     """K9 at a flagship path's shapes: kernel, plain version and cuSPARSE
-    over the same DIA entries."""
+    over the same DIA entries, both bounds, and the A/B of the two x modes
+    (the default geometry with the other mode, in turns)."""
     e = model.dev
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
     y_k = dia.dia_body(e, x_dev)
@@ -675,30 +732,41 @@ def time_dia(model, result, dev, n: int = 50) -> dict:
     err = rel(y_l, y_p)
     check(err <= KERNEL_TOL, f"cuSPARSE over the {a.values().numel()} DIA "
                              f"entries vs plain rel {err:.3e}")
+    g0 = dia.GEOMETRY
+    other = dataclasses.replace(
+        g0, x_mode=next(m for m in dia.X_MODES if m != g0.x_mode))
+    y_o = dia._launch(e, x_dev, other)
+    torch.cuda.synchronize()
+    err = rel(y_o, y_p)
+    check(err <= KERNEL_TOL, f"K9 with x {other.x_mode} vs plain rel "
+                             f"{err:.3e}")
+    del y_l, y_o
     ms, plain_ms, turns = in_turns(lambda: dia.dia_body(e, x_dev),
                                    lambda: dia.dia_body_plain(e, x_dev),
                                    n, max(n // 10, 2))
+    ab = in_turns(lambda: dia.dia_body(e, x_dev),
+                  lambda: dia._launch(e, x_dev, other), n, n)[2]
     lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), n)
     k, dim_r = e.dia_val.shape
-    n_bytes = (k * dim_r + 2 * dim_r) * 4
-    b = bound(n_bytes, 2 * k * dim_r, dev)
+    plan, _ = dia.device_plan(e.dia_offsets, dim_r, dim_r % 4 == 0, dev)
+    st = plan.stats
+    b = bound(st["layout_bytes"], 2 * k * dim_r, dev)
     # the diagonals carry no column: each entry's value, x and y once
     same = same_work_bound(a.values().numel(), 0, x_dev.numel(), dim_r, dev)
-    staged = dia.stages_x(e.dia_offsets)
-    print(f"  K9 ({k} diagonals, {dim_r} rows, x "
-          f"{'staged' if staged else 'through __ldg'}) device ms per call "
-          f"(plain, kernel, kernel, plain): {turns}; cuSPARSE over its "
-          f"entries {lib_ms:.4f} ms; layout bound {b['bound_ms']:.4f} ms "
-          f"({n_bytes} B, {b['bound_by']}); same-work bound "
-          f"{same['bound_ms']:.4f} ms ({same['bytes']} B)")
-    if staged:
-        # the A/B of staging: the same kernel reading x through __ldg
-        limit, dia.STAGE_LIMIT_BYTES = dia.STAGE_LIMIT_BYTES, 0
-        try:
-            ldg_ms = device_ms_per_call(lambda: dia.dia_body(e, x_dev), n)
-        finally:
-            dia.STAGE_LIMIT_BYTES = limit
-        print(f"  K9 with x through __ldg instead: {ldg_ms:.4f} ms")
+    print(f"  K9 ({k} diagonals in {st['runs']} runs, {dim_r} rows; "
+          f"{g0.threads} threads, {g0.quads} quads, step {g0.step}, x "
+          f"{g0.x_mode}, walk {g0.walk}; grid {st['grid']}, tiles of "
+          f"{st['tile_rows']} "
+          f"rows, {st['smem_bytes']} B of shared memory) device ms per call "
+          f"(plain, kernel, kernel, plain): {turns}")
+    print(f"  cuSPARSE over its entries {lib_ms:.4f} ms (K9 / cuSPARSE = "
+          f"{ms / lib_ms:.3f}); layout bound {b['bound_ms']:.4f} ms "
+          f"({st['layout_bytes']} B, {b['bound_by']}; "
+          f"{b['bound_ms'] / ms:.3f} of it reached); same-work bound "
+          f"{same['bound_ms']:.4f} ms ({same['bytes']} B; "
+          f"{same['bound_ms'] / ms:.3f} reached)")
+    print(f"  x-mode A/B ({other.x_mode}, {g0.x_mode}, {g0.x_mode}, "
+          f"{other.x_mode}): {ab}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, **b, same_work_bound_ms=same["bound_ms"])
 
@@ -978,7 +1046,8 @@ def main() -> int:
     for res in (res1, res2, res3, res4):
         print(f"  {res['matrix']}: {res['gflops']:.2f} GFLOP/s end to end "
               f"({res['iters']} iterations in {res['seconds']:.4f} s, "
-              f"{1e3 * res['seconds'] / res['iters']:.4f} ms each)")
+              f"{1e3 * res['seconds'] / res['iters']:.4f} ms each); "
+              f"{res['card']}")
 
     phase("11: where the device time goes per iteration")
     for res, model in ((res1, model1), (res2, model2), (res3, model3),

@@ -64,7 +64,7 @@ def run(args: argparse.Namespace):
     from .config import EhybConfig
     from .core.coo import deterministic_x, oracle_spmv
     from .io import generate, read_mtx
-    from .utils.timing import bench_apply, spmv_bytes_model
+    from .utils.timing import bench_apply
     from .utils.validate import compare, rel_error
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -115,25 +115,17 @@ def run(args: argparse.Namespace):
     # --- timed loop (spmv.cu:100-122 protocol) ---
     x_dev = model.prepare_x(x)
     e = getattr(model, "ehyb", None)
-    if e is not None:
-        mcfg = model.config      # authoritative: the flagship pins int16
-        bm = spmv_bytes_model(
-            e.stats, dim=m.dimension,
-            value_bytes=np.dtype(mcfg.dtype).itemsize,
-            ell_index_bytes=np.dtype(mcfg.index_dtype).itemsize)
-    else:
-        bm = model.bytes_model()  # the routed and split engines' own model
     res = bench_apply(f"{args.model}:{name}",
                       lambda n: model.iterate(x_dev, n), nnz=m.nnz,
                       device=device, iters=args.iters, warmup=args.warmup,
-                      bytes_model=bm)
+                      bytes_model=model.bytes_model())
     print(res)
     result = {
         "matrix": name, "model": args.model, "engine": type(model).__name__,
         "device": res.device, "nnz": m.nnz, "dim": m.dimension,
         "iters": res.iters, "seconds": res.seconds, "gflops": res.gflops,
         "gnnz_per_sec": res.nnz_per_sec / 1e9,
-        "roofline_frac": res.roofline_frac,
+        "roofline_frac": res.roofline_frac, "bytes_model": res.bytes_model,
         "rel_error": err, "valid": cmp_res.ok,
         "setup_seconds": {"load": load_s, **model.setup_seconds},
     }

@@ -5,7 +5,7 @@
 // `kernel` at :131) and x streamed as block pairs (:115).  One kernel serves
 // both here, since the card reads x from device memory at any size.
 //
-// For i < dim_r, with the K static offsets d_k:
+// For i < dim_r, with the K static offsets d_k (sorted ascending):
 //
 //   y[i] = sum over k of dia_val[k * dim_r + i] * x[i + d_k]
 //
@@ -15,122 +15,378 @@
 //
 // What the TPU needed and this leaves behind: pack_dia's (nb, K*Brows, 128)
 // blocking, the lane roll and the sublane select that build each shifted x
-// window in registers.  Here dia_val stays (K, dim_r) row-major, so the
-// threads of a warp read consecutive rows of one diagonal: every load of the
-// value stream is coalesced.
-//
-// Design.  A block of 512 threads owns a run of 2048 rows (4 per thread, 4
-// independent sums).  When the run's x span [r0 + d_min, r0 + 2048 + d_max)
-// fits in shared memory it is staged there once (fem3d_68's 99 diagonals
-// span 28,162 rows: ~121 KB of dynamic shared memory), and each x element
-// then comes from device memory once per block instead of K times.  A span
-// too wide to stage is read through __ldg instead (STAGED = false).  The
-// offsets are a small device array that each block copies to shared memory.
+// window in registers.  Here dia_val stays (K, dim_r) row-major.
 //
 // Bound on the H100: bytes.  Each call reads dia_val once and x and writes y:
-// (K * dim_r + 2 * dim_r) * 4 B, ~381 MB at fem3d_68 (~114 us at 3.35 TB/s);
-// the staged x re-reads come from L2.
+// (K * dim_r + 2 * dim_r) * 4 B, ~381 MB at fem3d_68 (~114 us at 3.35 TB/s).
+// Design:
+//
+// * Bytes in flight.  A thread owns quads of 4 consecutive rows and reads
+//   each diagonal's 4 values with one 16-B streaming load (__ldcs: read
+//   once, evicted first, so x keeps the caches).  STEP diagonals' loads are
+//   issued together before any is summed, and several blocks share an SM,
+//   so tens of KB per SM are requested at any time.
+// * A persistent grid.  The host plan (ops/dia.py::make_plan) launches as
+//   many blocks as stay resident, and every block walks the same number of
+//   equal tiles of at most tile_quads quads (no wave tail), in one of two
+//   walks: a chunk of quads [b * nq / grid, (b + 1) * nq / grid) per block,
+//   or tiles b, b + grid, b + 2 * grid, ... dealt round-robin.  The
+//   round-robin walk is the default: all blocks then stream one window of
+//   each array at a time, and the card's memory serves that faster than a
+//   few hundred chunks far apart (chip_dia_sweep.py: 4-6%).
+// * x in one of two modes (the plan's x_mode):
+//   - LDG: x through __ldg, from L1 and L2 (x is 3.77 MB at fem3d_68 and
+//     stays in the 50 MB L2).  A tile whose reads all lie inside x takes an
+//     unguarded path; in the few tiles at x's ends each thread checks its
+//     own reads.
+//   - STAGED: x per offset run (the plan's maximal runs of offsets with
+//     small gaps; 9 runs of 11 at fem3d_68), one window of
+//     T + span + 8 values per run and tile, zero-filled outside x.  The
+//     windows of tile j + 1 are filled by cp.async while tile j is summed
+//     (two buffers), so staging overlaps the value stream.
+// * Shifted x without scalar loads: the quad at row i (a multiple of 4)
+//   needs x[i + d .. i + d + 3], which starts d & 3 past a 16-B boundary
+//   for every thread alike.  Two aligned 16-B loads and a select on that
+//   warp-uniform shift give the four values.
+//
+// Template parameters: STEP diagonals per step, QUADS quads per thread per
+// tile, STAGED x mode, VEC 16-B value loads (dim_r a multiple of 4 and
+// dia_val 16-B aligned; else four guarded 4-B loads), EDGE guarded x reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kPerThread = 4;
-constexpr int kRows = kThreads * kPerThread;
+constexpr int kMaxThreads = 512;
 
-template <bool STAGED>
-__global__ void __launch_bounds__(kThreads) dia_kernel(
-    const float* __restrict__ val, const int* __restrict__ offsets, int n_diag,
-    long long dim_r, int d_min, int span, const float* __restrict__ x,
-    long long n_x, float* __restrict__ y) {
-  extern __shared__ int smem[];
-  int* s_off = smem;
-  // x staging area after the offsets (offsets padded to 4 ints)
-  float* xs = reinterpret_cast<float*>(smem + ((n_diag + 3) & ~3));
-  const long long r0 = (long long)blockIdx.x * kRows;
-  const int t = threadIdx.x;
-  for (int k = t; k < n_diag; k += kThreads) s_off[k] = offsets[k];
-  if (STAGED) {
-    const long long g0 = r0 + d_min;  // x index held by xs[0]
-    for (int j = t; j < span; j += kThreads) {
-      const long long g = g0 + j;
-      xs[j] = (g >= 0 && g < n_x) ? __ldg(x + g) : 0.0f;
-    }
+struct DiaArgs {
+  const float* val;    // (n_diag, dim_r) row-major
+  const int* table;    // [d_0..d_{K-1}, xo_0..xo_{K-1}, 4 ints per run]
+  const float* x;      // n_x values, 16-B aligned
+  float* y;            // dim_r values
+  long long dim_r, n_x;
+  int n_diag, n_runs;
+  int d_min, d_max;    // first and last offset
+  int tile_quads;      // most quads in a tile (threads * QUADS)
+  int stage_floats;    // floats of one buffer of staged windows
+  int interleave;      // the walk: tiles b, b + grid, ... (else a chunk)
+};
+
+// Block b's tiles: n_tiles of tq quads, the j-th starting at quad
+// first + j * stride, cut at end (ops/dia.py::DiaPlan.tiles).
+struct Walk {
+  long long first, stride, tq, n_tiles, end;
+};
+
+__device__ __forceinline__ Walk block_walk(const DiaArgs& a) {
+  const long long nq = (a.dim_r + 3) / 4;
+  const long long g = gridDim.x, b = blockIdx.x;
+  Walk w;
+  if (a.interleave) {
+    // tiles of one size, as many for every block, dealt round-robin
+    const long long rounds = (nq + g * a.tile_quads - 1) / (g * a.tile_quads);
+    w.tq = (nq + g * rounds - 1) / (g * rounds);
+    w.first = b * w.tq;
+    w.stride = g * w.tq;
+    w.n_tiles = w.first < nq ? (nq - w.first + w.stride - 1) / w.stride : 0;
+    w.end = nq;
+  } else {
+    // one chunk of quads per block, in equal tiles
+    const long long q0 = b * nq / g, q1 = (b + 1) * nq / g;
+    w.n_tiles = (q1 - q0 + a.tile_quads - 1) / a.tile_quads;
+    w.tq = w.n_tiles ? (q1 - q0 + w.n_tiles - 1) / w.n_tiles : 0;
+    w.first = q0;
+    w.stride = w.tq;
+    w.end = q1;
   }
-  __syncthreads();
-  float acc[kPerThread];
+  return w;
+}
+
+__device__ __forceinline__ float4 shift4(float4 a, float4 b, int sh) {
+  // values sh .. sh + 3 of the eight a.x .. b.w; sh is warp-uniform
+  float4 r;
+  r.x = sh == 0 ? a.x : sh == 1 ? a.y : sh == 2 ? a.z : a.w;
+  r.y = sh == 0 ? a.y : sh == 1 ? a.z : sh == 2 ? a.w : b.x;
+  r.z = sh == 0 ? a.z : sh == 1 ? a.w : sh == 2 ? b.x : b.y;
+  r.w = sh == 0 ? a.w : sh == 1 ? b.x : sh == 2 ? b.y : b.z;
+  return r;
+}
+
+template <bool VEC>
+__device__ __forceinline__ float4 load_val(const float* vk, long long i,
+                                           long long dim_r) {
+  if (VEC) return __ldcs(reinterpret_cast<const float4*>(vk + i));
+  float4 v;
+  v.x = i < dim_r ? __ldcs(vk + i) : 0.0f;
+  v.y = i + 1 < dim_r ? __ldcs(vk + i + 1) : 0.0f;
+  v.z = i + 2 < dim_r ? __ldcs(vk + i + 2) : 0.0f;
+  v.w = i + 3 < dim_r ? __ldcs(vk + i + 3) : 0.0f;
+  return v;
+}
+
+__device__ __forceinline__ float ldg_or_zero(const float* x, long long n_x,
+                                             long long g) {
+  return (g >= 0 && g < n_x) ? __ldg(x + g) : 0.0f;
+}
+
+// x[g .. g + 3] through L1/L2; g = i + d with i a multiple of 4.  In an
+// edge tile only a thread whose pair of 16-B loads crosses an end of x reads
+// the four values one by one, guarded.
+template <bool EDGE>
+__device__ __forceinline__ float4 load_x(const float* x, long long n_x,
+                                         long long g) {
+  const int sh = (int)(g & 3);
+  const long long a = g - sh;
+  if (EDGE && (a < 0 || a + 8 > n_x)) {
+    return make_float4(ldg_or_zero(x, n_x, g), ldg_or_zero(x, n_x, g + 1),
+                       ldg_or_zero(x, n_x, g + 2), ldg_or_zero(x, n_x, g + 3));
+  }
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(x + a));
+  const float4 hi =
+      sh ? __ldg(reinterpret_cast<const float4*>(x + a + 4)) : lo;
+  return shift4(lo, hi, sh);
+}
+
+__device__ __forceinline__ float4 add_products(float4 acc, float4 v,
+                                               float4 xv) {
+  acc.x = __fadd_rn(acc.x, __fmul_rn(v.x, xv.x));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(v.y, xv.y));
+  acc.z = __fadd_rn(acc.z, __fmul_rn(v.z, xv.z));
+  acc.w = __fadd_rn(acc.w, __fmul_rn(v.w, xv.w));
+  return acc;
+}
+
+// One tile: quads [qa, qb) of the rows, x from `xs` (STAGED: the tile's
+// windows, holding x[4 * qa + wlo_r + j] at xs[base_r + j]) or from x.
+template <int STEP, int QUADS, bool STAGED, bool VEC, bool EDGE>
+__device__ __forceinline__ void tile_sums(const DiaArgs& a, const int* s_d,
+                                          const int* s_xo, const float* xs,
+                                          long long qa, long long qb) {
+  long long row[QUADS];
+  bool live[QUADS];
+  float4 acc[QUADS];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) acc[j] = 0.0f;
-  for (int k = 0; k < n_diag; ++k) {
-    const int d = s_off[k];
-    const float* vk = val + (size_t)k * dim_r;
+  for (int p = 0; p < QUADS; ++p) {
+    const long long q = qa + threadIdx.x + (long long)p * blockDim.x;
+    row[p] = 4 * q;
+    live[p] = q < qb;
+    acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  const long long t0 = 4 * qa;
+  for (int k0 = 0; k0 < a.n_diag; k0 += STEP) {
+    float4 v[STEP][QUADS];
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int r = t + j * kThreads;  // row within the run
-      const long long i = r0 + r;
-      if (i < dim_r) {
-        float xv;
+    for (int u = 0; u < STEP; ++u) {
+      const int k = k0 + u;
+      const float* vk = a.val + (size_t)k * a.dim_r;
+#pragma unroll
+      for (int p = 0; p < QUADS; ++p)
+        v[u][p] = (k < a.n_diag && live[p])
+                      ? load_val<VEC>(vk, row[p], a.dim_r)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < STEP; ++u) {
+      const int k = k0 + u;
+      if (k >= a.n_diag) break;
+      const int d = s_d[k];
+#pragma unroll
+      for (int p = 0; p < QUADS; ++p) {
+        if (!live[p]) continue;
+        float4 xv;
         if (STAGED) {
-          xv = xs[r + d - d_min];
+          const int sh = d & 3;
+          const float* w = xs + s_xo[k] + (int)(row[p] - t0);
+          const float4 lo = *reinterpret_cast<const float4*>(w);
+          const float4 hi = sh ? *reinterpret_cast<const float4*>(w + 4) : lo;
+          xv = shift4(lo, hi, sh);
         } else {
-          const long long g = i + d;
-          xv = (g >= 0 && g < n_x) ? __ldg(x + g) : 0.0f;
+          xv = load_x<EDGE>(a.x, a.n_x, row[p] + d);
         }
-        acc[j] = __fadd_rn(acc[j], __fmul_rn(__ldg(vk + i), xv));
+        acc[p] = add_products(acc[p], v[u][p], xv);
       }
     }
   }
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const long long i = r0 + t + j * kThreads;
-    if (i < dim_r) y[i] = acc[j];
+  for (int p = 0; p < QUADS; ++p) {
+    if (!live[p]) continue;
+    const long long i = row[p];
+    if (VEC) {
+      *reinterpret_cast<float4*>(a.y + i) = acc[p];
+    } else {
+      a.y[i] = acc[p].x;
+      if (i + 1 < a.dim_r) a.y[i + 1] = acc[p].y;
+      if (i + 2 < a.dim_r) a.y[i + 2] = acc[p].z;
+      if (i + 3 < a.dim_r) a.y[i + 3] = acc[p].w;
+    }
   }
 }
 
-template <bool STAGED>
-int launch(const float* val, const int* offsets, int n_diag, long long dim_r,
-           int d_min, int span, const float* x, long long n_x, float* y,
-           size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        dia_kernel<STAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+// Fill one buffer with the windows of the tile that starts at row t0:
+// run r's window holds x[t0 + wlo_r + j] for j < width_r at buf[base_r + j],
+// zero outside [0, n_x).
+__device__ __forceinline__ void stage_windows(const DiaArgs& a,
+                                              const int* s_run, float* buf,
+                                              long long t0) {
+  for (int r = 0; r < a.n_runs; ++r) {
+    const int base = s_run[4 * r], wlo = s_run[4 * r + 1];
+    const int chunks = s_run[4 * r + 2] >> 2;
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+      const long long g = t0 + wlo + 4 * c;  // a multiple of 4
+      long long n = g >= 0 ? (a.n_x - g) * 4 : 0;
+      n = n < 0 ? 0 : (n > 16 ? 16 : n);
+      cp_async16(buf + base + 4 * c, n ? a.x + g : a.x, (int)n);
+    }
   }
-  const long long blocks = (dim_r + kRows - 1) / kRows;
-  dia_kernel<STAGED><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      val, offsets, n_diag, dim_r, d_min, span, x, n_x, y);
-  return 0;
+}
+
+template <int STEP, int QUADS, bool STAGED, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  // staged buffers first (16-B aligned), then the table
+  float* bufs = smem;
+  int* s_d = reinterpret_cast<int*>(smem + (STAGED ? 2 * a.stage_floats : 0));
+  int* s_xo = s_d + a.n_diag;
+  int* s_run = s_xo + a.n_diag;
+  const int n_table = (STAGED ? 2 * a.n_diag + 4 * a.n_runs : a.n_diag);
+  for (int j = threadIdx.x; j < n_table; j += blockDim.x)
+    s_d[j] = a.table[j];
+
+  const Walk w = block_walk(a);
+  __syncthreads();
+
+  if (STAGED) {
+    if (w.n_tiles > 0) stage_windows(a, s_run, bufs, 4 * w.first);
+    asm volatile("cp.async.commit_group;\n" ::);
+    for (long long j = 0; j < w.n_tiles; ++j) {
+      const long long qa = w.first + j * w.stride;
+      const long long qb = qa + w.tq < w.end ? qa + w.tq : w.end;
+      if (j + 1 < w.n_tiles)
+        stage_windows(a, s_run, bufs + ((j + 1) & 1) * a.stage_floats,
+                      4 * (qa + w.stride));
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+      __syncthreads();
+      tile_sums<STEP, QUADS, true, VEC, false>(
+          a, s_d, s_xo, bufs + (j & 1) * a.stage_floats, qa, qb);
+      __syncthreads();
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  } else {
+    for (long long j = 0; j < w.n_tiles; ++j) {
+      const long long qa = w.first + j * w.stride;
+      const long long qb = qa + w.tq < w.end ? qa + w.tq : w.end;
+      // every pair of 16-B x loads of the tile inside [0, n_x)?
+      const bool inside = 4 * qa + (a.d_min & ~3) >= 0 &&
+                          4 * qb + (a.d_max & ~3) + 4 <= a.n_x;
+      if (inside)
+        tile_sums<STEP, QUADS, false, VEC, false>(a, s_d, s_xo, nullptr, qa,
+                                                  qb);
+      else
+        tile_sums<STEP, QUADS, false, VEC, true>(a, s_d, s_xo, nullptr, qa,
+                                                 qb);
+    }
+  }
+}
+
+using KernelFn = void (*)(DiaArgs);
+
+template <int STEP, int QUADS>
+KernelFn pick_xv(int staged, int vec) {
+  if (staged)
+    return vec ? dia_kernel<STEP, QUADS, true, true>
+               : dia_kernel<STEP, QUADS, true, false>;
+  return vec ? dia_kernel<STEP, QUADS, false, true>
+             : dia_kernel<STEP, QUADS, false, false>;
+}
+
+// The kernel variant, or nullptr where none is built.
+KernelFn pick(int step, int quads, int staged, int vec) {
+  switch (step * 10 + quads) {
+    case 21: return pick_xv<2, 1>(staged, vec);
+    case 41: return pick_xv<4, 1>(staged, vec);
+    case 81: return pick_xv<8, 1>(staged, vec);
+    case 22: return pick_xv<2, 2>(staged, vec);
+    case 42: return pick_xv<4, 2>(staged, vec);
+    default: return nullptr;
+  }
+}
+
+int allow_smem(KernelFn fn, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
 
-// Rows each block owns (the wrapper sizes the staged span with it).
-extern "C" int ehyb_dia_block_rows() { return kRows; }
+// Blocks of `threads` threads and `smem` bytes of dynamic shared memory
+// that stay resident on one SM for a variant (0 where none can), or a
+// negative CUDA error.  cudaErrorInvalidValue (-1) where no such variant is
+// built.
+extern "C" int ehyb_dia_resident_blocks(int step, int quads, int staged,
+                                        int vec, int threads, long long smem) {
+  const KernelFn fn = pick(step, quads, staged, vec);
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  int rc = allow_smem(fn, (size_t)smem);
+  if (rc != 0) return -rc;
+  int blocks = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, threads, (size_t)smem);
+  return rc != 0 ? -rc : blocks;
+}
+
+// Registers a thread of a variant takes (cudaFuncGetAttributes), or a
+// negative CUDA error.
+extern "C" int ehyb_dia_registers(int step, int quads, int staged, int vec) {
+  const KernelFn fn = pick(step, quads, staged, vec);
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const int rc = (int)cudaFuncGetAttributes(&attr, fn);
+  return rc != 0 ? -rc : attr.numRegs;
+}
 
 // Launches the DIA body on `stream` (a cudaStream_t) and returns
-// cudaGetLastError(); 0 means the launch was accepted.  `offsets` is a
-// device array of n_diag int32 offsets with minimum d_min and maximum d_max;
-// `staged` selects the shared-memory x span (the wrapper checks that it
-// fits).
-extern "C" int ehyb_dia(const float* val, const int* offsets, int n_diag,
-                        long long dim_r, int d_min, int d_max,
-                        const float* x, long long n_x, float* y, int staged,
-                        void* stream) {
+// cudaGetLastError(); 0 means the launch was accepted.  `table` is the
+// plan's device array (ops/dia.py::DiaPlan.table); `grid`, `threads`,
+// `tile_quads`, `stage_floats`, `interleave` and `smem` are the plan's.
+extern "C" int ehyb_dia(const float* val, const int* table, int n_diag,
+                        int n_runs, int d_min, int d_max, long long dim_r,
+                        const float* x, long long n_x, float* y, int step,
+                        int quads, int staged, int vec, int threads, int grid,
+                        int tile_quads, int stage_floats, int interleave,
+                        long long smem, void* stream) {
   if (dim_r <= 0 || n_diag <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t off_bytes = (size_t)((n_diag + 3) & ~3) * sizeof(int);
-  int rc;
-  if (staged) {
-    const int span = d_max - d_min + kRows;
-    rc = launch<true>(val, offsets, n_diag, dim_r, d_min, span, x, n_x, y,
-                      off_bytes + (size_t)span * sizeof(float), st);
-  } else {
-    rc = launch<false>(val, offsets, n_diag, dim_r, d_min, 0, x, n_x, y,
-                       off_bytes, st);
-  }
+  const KernelFn fn = pick(step, quads, staged, vec);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const int rc = allow_smem(fn, (size_t)smem);
   if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  DiaArgs a;
+  a.val = val;
+  a.table = table;
+  a.x = x;
+  a.y = y;
+  a.dim_r = dim_r;
+  a.n_x = n_x;
+  a.n_diag = n_diag;
+  a.n_runs = n_runs;
+  a.d_min = d_min;
+  a.d_max = d_max;
+  a.tile_quads = tile_quads;
+  a.stage_floats = stage_floats;
+  a.interleave = interleave;
+  void* args[] = {&a};
+  const cudaError_t launched = cudaLaunchKernel(
+      reinterpret_cast<const void*>(fn), dim3(grid), dim3(threads), args,
+      (size_t)smem, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(launched != cudaSuccess ? launched : last);
 }

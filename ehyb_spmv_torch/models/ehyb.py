@@ -48,6 +48,7 @@ from ..ops.stream_plan import SUBTILES, TILE_STEPS
 from ..ops.torch_ops import EhybApply
 from ..partition import partition_rows
 from ..utils.log import get_logger
+from ..utils.timing import spmv_bytes_model
 from .base import SpmvModel
 
 log = get_logger(__name__)
@@ -237,6 +238,24 @@ class EhybPlainSpmv(SpmvModel):
     def recover_y(self, y) -> np.ndarray:
         y_np = y.detach().cpu().numpy().astype(np.float64)[: self.m.n_rows]
         return self.reordering.vector_recover(y_np)
+
+    def bytes_model(self) -> int:
+        """Device-memory bytes per iteration (the roofline's denominator):
+        the artifact's streams, x once and y once.  Where the body runs
+        through the window cache the card reads the plan's compact cells
+        and staged rows, not the padded body it dropped at upload: the
+        plan's ``layout_bytes`` stand in for the body's cells."""
+        cfg = self.config
+        stats = self.ehyb.stats
+        wincache = getattr(getattr(self, "module", None), "wincache", None)
+        body = 0
+        if wincache is not None:
+            stats = dict(stats, nnz_ell=0, waste_ell=0)
+            body = wincache.stats["layout_bytes"]
+        return body + spmv_bytes_model(
+            stats, dim=self.m.dimension,
+            value_bytes=np.dtype(cfg.dtype).itemsize,
+            ell_index_bytes=np.dtype(cfg.index_dtype).itemsize)
 
 
 class EhybSpmv(EhybPlainSpmv):

@@ -117,10 +117,4 @@ class DegreeSplitSpmv(SpmvModel):
         return self.e.apply(x_e)[:n] + self.r.apply(x_r)[:n]
 
     def bytes_model(self) -> int:
-        from ..utils.timing import spmv_bytes_model
-
-        vb = np.dtype(self.e.config.dtype).itemsize
-        ib = np.dtype(self.e.config.index_dtype).itemsize
-        return spmv_bytes_model(self.e.ehyb.stats, value_bytes=vb,
-                                ell_index_bytes=ib,
-                                dim=self.m.dimension) + self.r.bytes_model()
+        return self.e.bytes_model() + self.r.bytes_model()

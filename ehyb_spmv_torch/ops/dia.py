@@ -1,11 +1,15 @@
-"""The DIA body on the GPU: wrapper and plain version.
+"""The DIA body on the GPU: host plan, wrapper and plain version.
 
 Port counterpart of ``ehyb_spmv_gpu_tpu/ops/dia_pallas.py``
 (``make_dia_pallas_apply``, the Pallas kernel K9, in both its x-resident and
 x-streamed variants).  The kernel is ``csrc/dia.cu``; its header says what
-it computes, what bounds it on the H100 and what it leaves behind of the
-TPU's blocked layout: it reads the (K, dim_r) ``dia_val`` the device mirror
-already holds.
+it computes, what bounds it on the H100 and how its design answers that.
+
+The kernel's geometry is a host plan (:func:`make_plan`): the offset runs,
+the tile rows, the persistent grid, the staged x windows and the table the
+kernel reads.  :func:`device_plan` makes it once per (offsets, rows, layout,
+device) and keeps its table on the card, so a call copies nothing to the
+card and can be captured in a CUDA graph.
 
 :func:`dia_body` launches the kernel for tensors on a CUDA device and takes
 the plain version :func:`dia_body_plain` (the shifted-slice torch op) only
@@ -14,7 +18,9 @@ for tensors on the CPU.  A CUDA call launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
+from typing import Iterator, Tuple
 
 import torch
 
@@ -22,16 +28,193 @@ from ..core.ehyb import EhybDevice
 from .build import BuiltLibrary, build_cuda_library
 from .torch_ops import ehyb_dia
 
-#: Shared memory the kernel may take for its offsets and staged x span;
-#: wider spans read x through __ldg instead.
-STAGE_LIMIT_BYTES = 200 * 1024
+#: Shared memory one block may hold on the H100 (232,448 bytes).
+SMEM_LIMIT_BYTES = 227 * 1024
+#: Two neighbouring offsets at most this far apart fall in one run (one
+#: staged window); fem3d's 27-point stencil gives 9 runs of 11.
+RUN_GAP = 16
+#: The (STEP, QUADS) pairs ``csrc/dia.cu`` is built for.
+BUILT_STEPS = ((2, 1), (4, 1), (8, 1), (2, 2), (4, 2))
+X_MODES = ("ldg", "staged")
+WALKS = ("chunk", "interleaved")
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaGeometry:
+    """How the kernel walks the rows.
+
+    ``threads`` per block; ``quads`` groups of 4 rows per thread per tile
+    (a tile is ``4 * threads * quads`` rows); ``step`` diagonals whose
+    values each thread requests together; ``blocks_per_sm`` the persistent
+    grid's blocks on each SM (fewer where they do not fit); ``x_mode``
+    ``"ldg"`` (x through L1/L2) or ``"staged"`` (x per offset run in shared
+    memory, filled a tile ahead); ``walk`` ``"chunk"`` (block b takes the
+    b-th of ``grid`` equal chunks of rows) or ``"interleaved"`` (tiles b,
+    b + grid, ...)."""
+    threads: int = 128
+    quads: int = 1
+    step: int = 4
+    blocks_per_sm: int = 8
+    x_mode: str = "ldg"
+    walk: str = "interleaved"
+
+    @property
+    def tile_rows(self) -> int:
+        return 4 * self.threads * self.quads
+
+    def check(self) -> None:
+        if (self.step, self.quads) not in BUILT_STEPS:
+            raise ValueError(f"no kernel built for step {self.step}, quads "
+                             f"{self.quads} (built: {BUILT_STEPS})")
+        if self.x_mode not in X_MODES:
+            raise ValueError(f"x_mode {self.x_mode!r} not in {X_MODES}")
+        if self.walk not in WALKS:
+            raise ValueError(f"walk {self.walk!r} not in {WALKS}")
+        if not (32 <= self.threads <= 512 and self.threads % 32 == 0):
+            raise ValueError(f"threads {self.threads}: a multiple of 32 up "
+                             "to 512")
+        if self.blocks_per_sm < 1:
+            raise ValueError("blocks_per_sm must be at least 1")
+
+
+#: The geometry every call takes (``chip_dia_sweep.py`` chose it).
+GEOMETRY = DiaGeometry()
+
+
+def offset_runs(offsets) -> Tuple[Tuple[int, int, int, int], ...]:
+    """Maximal runs of the sorted offsets whose neighbours are at most
+    ``RUN_GAP`` apart, as (first offset, last offset, first k, end k)."""
+    runs, k0 = [], 0
+    for k in range(1, len(offsets) + 1):
+        if k == len(offsets) or offsets[k] - offsets[k - 1] > RUN_GAP:
+            runs.append((offsets[k0], offsets[k - 1], k0, k))
+            k0 = k
+    return tuple(runs)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaPlan:
+    """The kernel's geometry for one DIA part (see ``csrc/dia.cu``).
+
+    The rows are ``nq = ceil(dim_r / 4)`` quads of 4, cut into tiles of at
+    most ``tile_quads`` quads (:meth:`tiles`).  In the staged mode run r's window for the tile
+    that starts at row t0 holds x[t0 + wlo_r + j], j < width_r, at
+    ``base_r + j`` of a buffer of ``stage_floats``; diagonal k reads its
+    pairs of 16-B loads from ``xo_k + (row - t0)``."""
+    geometry: DiaGeometry
+    offsets: Tuple[int, ...]
+    dim_r: int
+    grid: int
+    runs: Tuple[Tuple[int, int, int, int], ...]
+    #: Per run: (base, wlo, width) in floats (all multiples of 4).
+    windows: Tuple[Tuple[int, int, int], ...]
+    #: Per diagonal: where its reads start in the staged buffer.
+    xo: Tuple[int, ...]
+    stage_floats: int
+    smem_bytes: int
+
+    @property
+    def staged(self) -> bool:
+        return self.geometry.x_mode == "staged"
+
+    @property
+    def tile_quads(self) -> int:
+        return self.geometry.threads * self.geometry.quads
+
+    def table(self) -> list:
+        """The int32 table the kernel copies to shared memory: the offsets,
+        then (staged) each diagonal's window start and each run's (base,
+        wlo, width, 0)."""
+        out = list(self.offsets)
+        if self.staged:
+            out += list(self.xo)
+            for w in self.windows:
+                out += [*w, 0]
+        return out
+
+    def tiles(self, b: int) -> Iterator[Tuple[int, int]]:
+        """Block b's tiles as row ranges [t0, t1), in the kernel's order
+        (``csrc/dia.cu::block_walk``): the b-th of ``grid`` equal chunks of
+        quads in equal tiles, or (interleaved) tiles b, b + grid, ... of
+        one size, as many for every block."""
+        nq, g = (self.dim_r + 3) // 4, self.grid
+        if self.geometry.walk == "interleaved":
+            rounds = -(-nq // (g * self.tile_quads))
+            tq = -(-nq // (g * rounds))
+            first, stride, end = b * tq, g * tq, nq
+            n_tiles = -(-(nq - first) // stride) if first < nq else 0
+        else:
+            first, end = b * nq // g, (b + 1) * nq // g
+            n_tiles = -(-(end - first) // self.tile_quads)
+            tq = -(-(end - first) // n_tiles) if n_tiles else 0
+            stride = tq
+        for j in range(n_tiles):
+            qa = first + j * stride
+            yield 4 * qa, min(4 * min(qa + tq, end), self.dim_r)
+
+    def window(self, r: int, t0: int) -> Tuple[int, int]:
+        """The x indices [start, stop) run r's window stages for the tile
+        that starts at row t0."""
+        _, wlo, width = self.windows[r]
+        return t0 + wlo, t0 + wlo + width
+
+    @property
+    def stats(self) -> dict:
+        k, n = len(self.offsets), self.dim_r
+        n_tiles = sum(1 for b in range(self.grid) for _ in self.tiles(b))
+        return dict(
+            grid=self.grid, runs=len(self.runs),
+            tile_rows=self.geometry.tile_rows, smem_bytes=self.smem_bytes,
+            # x the staged windows read from L2, all tiles together
+            staged_bytes=4 * n_tiles * self.stage_floats,
+            # what the function needs: each value once, x and y once
+            layout_bytes=4 * (k * n + 2 * n))
+
+
+def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
+              blocks: int = 8 * 132) -> DiaPlan:
+    """The kernel's geometry for ``len(offsets)`` diagonals of ``dim_r``
+    rows, on a grid of at most ``blocks`` blocks (the resident blocks of the
+    card; fewer where the rows are fewer than a tile per block)."""
+    geometry.check()
+    offsets = tuple(int(d) for d in offsets)
+    if not offsets or list(offsets) != sorted(set(offsets)):
+        raise ValueError("offsets must be distinct, sorted and not empty")
+    if max(abs(offsets[0]), abs(offsets[-1])) >= 2 ** 30:
+        raise ValueError("diagonal offsets out of int32 range")
+    runs = offset_runs(offsets)
+    t = geometry.tile_rows
+    windows, xo, base = [], [0] * len(offsets), 0
+    for lo, hi, k0, k1 in runs:
+        wlo = lo & ~3
+        # the last quad of a tile reads 8 values from (t - 4) + (hi & ~3)
+        width = t + 4 + (hi & ~3) - wlo
+        windows.append((base, wlo, width))
+        for k in range(k0, k1):
+            xo[k] = base + (offsets[k] & ~3) - wlo
+        base += width
+    staged = geometry.x_mode == "staged"
+    stage_floats = base if staged else 0
+    n_table = len(offsets) + (len(offsets) + 4 * len(runs) if staged else 0)
+    smem = 4 * (2 * stage_floats + n_table)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"DIA plan needs {smem} B of shared memory per "
+                         f"block ({len(runs)} runs of tiles of {t} rows), "
+                         f"above {SMEM_LIMIT_BYTES}")
+    nq = (dim_r + 3) // 4
+    grid = max(1, min(blocks, -(-nq // (geometry.threads * geometry.quads))))
+    return DiaPlan(geometry=geometry, offsets=offsets, dim_r=int(dim_r),
+                   grid=grid, runs=runs, windows=tuple(windows),
+                   xo=tuple(xo), stage_floats=stage_floats, smem_bytes=smem)
+
 
 _lock = threading.Lock()
 _built = None
 _lib = None
-#: (offsets, device) → the offsets as a device int32 tensor, made once so
-#: that a call (and a CUDA graph capture of it) copies nothing to the card.
-_offsets_on_device: dict = {}
+#: (offsets, dim_r, vec, geometry, device) → (plan, its table on the card),
+#: made once so that a call (and a CUDA graph capture of it) copies nothing
+#: to the card.
+_plans: dict = {}
 
 
 def build_kernel() -> BuiltLibrary:
@@ -47,33 +230,64 @@ def build_kernel() -> BuiltLibrary:
             lib = ctypes.CDLL(built.path)
             lib.ehyb_dia.restype = ctypes.c_int
             lib.ehyb_dia.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_void_p]
-            lib.ehyb_dia_block_rows.restype = ctypes.c_int
-            lib.ehyb_dia_block_rows.argtypes = []
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+            lib.ehyb_dia_registers.restype = ctypes.c_int
+            lib.ehyb_dia_registers.argtypes = [ctypes.c_int] * 4
+            lib.ehyb_dia_resident_blocks.restype = ctypes.c_int
+            lib.ehyb_dia_resident_blocks.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_longlong]
             _built, _lib = built, lib
         return _built
 
 
-def stages_x(offsets) -> bool:
-    """Whether the kernel stages each block's x span in shared memory: the
-    span and the offsets, as ``csrc/dia.cu`` lays them out, fit
-    ``STAGE_LIMIT_BYTES``."""
+def resident_blocks(geometry: DiaGeometry, smem_bytes: int, vec: bool,
+                    device) -> int:
+    """Blocks of this geometry that stay resident on one SM of ``device``
+    (the kernel's occupancy at its registers and shared memory); raises
+    where not one does, as the launch would be refused."""
     build_kernel()
-    n = len(offsets)
-    span = max(offsets) - min(offsets) + _lib.ehyb_dia_block_rows()
-    return 4 * ((n + 3) // 4 * 4 + span) <= STAGE_LIMIT_BYTES
+    with torch.cuda.device(device):
+        n = _lib.ehyb_dia_resident_blocks(
+            geometry.step, geometry.quads, int(geometry.x_mode == "staged"),
+            int(vec), geometry.threads, smem_bytes)
+    if n <= 0:
+        raise RuntimeError(f"DIA kernel {geometry} with {smem_bytes} B of "
+                           f"shared memory cannot run (occupancy {n})")
+    return n
 
 
-def _offsets_tensor(offsets: tuple, device) -> torch.Tensor:
-    key = (offsets, device)
-    t = _offsets_on_device.get(key)
-    if t is None:
-        t = torch.tensor(offsets, dtype=torch.int32, device=device)
-        _offsets_on_device[key] = t
-    return t
+def registers(geometry: DiaGeometry, vec: bool) -> int:
+    """Registers a thread of the geometry's kernel variant takes."""
+    build_kernel()
+    return _lib.ehyb_dia_registers(geometry.step, geometry.quads,
+                                   int(geometry.x_mode == "staged"),
+                                   int(vec))
+
+
+def device_plan(offsets: tuple, dim_r: int, vec: bool, device,
+                geometry: DiaGeometry = None):
+    """The plan for these diagonals on ``device`` and its table on the card
+    (made once and kept)."""
+    geometry = GEOMETRY if geometry is None else geometry
+    device = torch.device(device)
+    key = (offsets, dim_r, vec, geometry, device)
+    hit = _plans.get(key)
+    if hit is None:
+        probe = make_plan(offsets, dim_r, geometry, 1)
+        per_sm = min(geometry.blocks_per_sm,
+                     resident_blocks(geometry, probe.smem_bytes, vec, device))
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = make_plan(offsets, dim_r, geometry, per_sm * n_sm)
+        hit = (plan, torch.tensor(plan.table(), dtype=torch.int32,
+                                  device=device))
+        _plans[key] = hit
+    return hit
 
 
 def _check(e: EhybDevice, x_pad: torch.Tensor) -> None:
@@ -81,6 +295,9 @@ def _check(e: EhybDevice, x_pad: torch.Tensor) -> None:
     if x_pad.dtype != torch.float32 or x_pad.dim() != 1 \
             or not x_pad.is_contiguous():
         raise ValueError("x_pad must be a contiguous 1-D float32 tensor")
+    if x_pad.data_ptr() % 16:
+        raise ValueError("x_pad must start on a 16-byte boundary (the "
+                         "kernel reads x with 16-byte loads)")
     v = e.dia_val
     if v.dtype != torch.float32 or v.dim() != 2 or not v.is_contiguous():
         raise ValueError("dia_val must be a contiguous (K, dim_r) float32 "
@@ -90,8 +307,32 @@ def _check(e: EhybDevice, x_pad: torch.Tensor) -> None:
                          f"{len(e.dia_offsets)} offsets")
     if v.device != x_pad.device:
         raise ValueError(f"dia_val on {v.device}, x_pad on {x_pad.device}")
-    if max(abs(d) for d in e.dia_offsets) >= 2 ** 30:
-        raise ValueError("diagonal offsets out of int32 range")
+
+
+def _launch(e: EhybDevice, x_pad: torch.Tensor,
+            geometry: DiaGeometry = None) -> torch.Tensor:
+    """One launch at ``geometry`` (the default where None), counted."""
+    _check(e, x_pad)
+    v = e.dia_val
+    dim_r = v.shape[1]
+    vec = dim_r % 4 == 0 and v.data_ptr() % 16 == 0
+    plan, table = device_plan(e.dia_offsets, dim_r, vec, x_pad.device,
+                              geometry)
+    g = plan.geometry
+    y = torch.empty(dim_r, dtype=torch.float32, device=x_pad.device)
+    if not dim_r:
+        return y
+    rc = _lib.ehyb_dia(
+        v.data_ptr(), table.data_ptr(), len(plan.offsets), len(plan.runs),
+        plan.offsets[0], plan.offsets[-1], dim_r, x_pad.data_ptr(),
+        x_pad.shape[0], y.data_ptr(), g.step, g.quads, int(plan.staged),
+        int(vec), g.threads, plan.grid, plan.tile_quads, plan.stage_floats,
+        int(g.walk == "interleaved"), plan.smem_bytes,
+        torch.cuda.current_stream(x_pad.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ehyb_dia launch failed: CUDA error {rc}")
+    dia_body.launches += 1
+    return y
 
 
 def dia_body(e: EhybDevice, x_pad: torch.Tensor) -> torch.Tensor:
@@ -106,21 +347,7 @@ def dia_body(e: EhybDevice, x_pad: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {x_pad.device}")
     if not e.dia_offsets:
         return x_pad.new_zeros(0)
-    _check(e, x_pad)
-    build_kernel()
-    offs = e.dia_offsets
-    dim_r = e.dia_val.shape[1]
-    y = torch.empty(dim_r, dtype=torch.float32, device=x_pad.device)
-    rc = _lib.ehyb_dia(
-        e.dia_val.data_ptr(), _offsets_tensor(offs, x_pad.device).data_ptr(),
-        len(offs), dim_r, min(offs), max(offs), x_pad.data_ptr(),
-        x_pad.shape[0], y.data_ptr(), int(stages_x(offs)),
-        torch.cuda.current_stream(x_pad.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ehyb_dia launch failed: CUDA error {rc}")
-    if dim_r:
-        dia_body.launches += 1
-    return y
+    return _launch(e, x_pad)
 
 
 #: Kernel launches since the count was last reset (a run sets it to 0 to

@@ -1,11 +1,14 @@
 """The port's DIA body on the CPU: its plain version (the one the DIA
 kernel's wrapper takes for CPU tensors) against the JAX Pallas DIA kernel K9
-in interpret mode, in both of K9's variants, and the flagship on an all-DIA
-FEM matrix against the JAX flagship with K9 forced.
+in interpret mode, in both of K9's variants and on a multi-run offset set,
+the flagship on an all-DIA FEM matrix against the JAX flagship with K9
+forced, and the kernel's host plan (offset runs, tiles, staged windows),
+replayed in numpy as ``csrc/dia.cu`` walks it.
 
 Bounds: f32 rel <= 2e-6 in norm against the JAX kernel (the same products,
 summed in another order); rel <= 5e-6 against the exact-f64 oracle (the
 suite's bound)."""
+import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -20,6 +23,7 @@ from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
 from ehyb_spmv_gpu_tpu.io import generate
 
 import ehyb_spmv_torch as port
+from ehyb_spmv_torch.io import generate as port_generate
 from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache
 from test_torch_parity import PORT, assert_same_ehyb, coo_for, rel
 
@@ -117,3 +121,166 @@ def test_flagship_all_dia_fem_matches_jax_with_k9(monkeypatch):
     # the CPU path runs the plain versions: no kernel launch is counted
     assert (dia.dia_body.launches, ehyb_stream.stream_body.launches,
             ehyb_wincache.wincache_body.launches) == before
+
+
+def _fem_offsets(n=16):
+    """fem3d(n)'s diagonals: 27-point node stencil x 3 DOFs, 9 runs of 11."""
+    m = port_generate.fem3d(n)
+    return tuple(int(d) for d in np.unique(m.col - m.row)), m.n_rows
+
+
+def test_dia_plain_matches_pallas_interpret_multi_run():
+    """K9 in interpret mode on three runs of five offsets (fem3d's shape of
+    offsets, smaller) against the port's DIA body."""
+    offsets = tuple(b + j for b in (-600, 0, 600) for j in range(-2, 3))
+    rng = np.random.default_rng(7)
+    dim = 4096
+    val = rng.standard_normal((len(offsets), dim)).astype(np.float32)
+    x = rng.standard_normal(dim).astype(np.float32)
+    packed, _ = dp.pack_dia(val, block_rows=4096)
+    apply = dp.make_dia_pallas_apply(offsets, dim, "float32",
+                                     block_rows=4096, interpret=True)
+    want = np.asarray(apply(jnp.asarray(packed), jnp.asarray(x)))[:dim]
+    assert len(dia.offset_runs(offsets)) == 3
+    e = types.SimpleNamespace(dia_offsets=offsets,
+                              dia_val=torch.from_numpy(val))
+    got = dia.dia_body(e, torch.from_numpy(x)).numpy()
+    assert rel(got, want) <= PARITY_TOL, rel(got, want)
+    assert rel(got, _exact(val, x, offsets)) <= PARITY_TOL
+
+
+# --- the kernel's host plan -------------------------------------------------
+
+_FEM, _FEM_DIM = _fem_offsets()
+#: (name, offsets, dim_r, x length)
+PLAN_CASES = [
+    ("fem3d_16", _FEM, _FEM_DIM, _FEM_DIM),
+    ("one diagonal", (0,), 100_000, 100_000),
+    ("wider than a tile", (-40_000, -3, 0, 3, 40_000), 100_000, 99_923),
+    ("a run wider than a tile", tuple(range(-2000, 2001, 10)), 20_000,
+     20_000),
+    ("ragged rows", (-5, -1, 0, 2, 7), 10_003, 9_926),
+]
+G0 = dia.DiaGeometry(threads=256, quads=1, step=4, blocks_per_sm=4,
+                     x_mode="staged")
+GEOMETRIES = [G0, dataclasses.replace(G0, quads=2, step=2),
+              dataclasses.replace(G0, threads=128, blocks_per_sm=2),
+              dataclasses.replace(G0, walk="interleaved"),
+              dataclasses.replace(G0, threads=128, walk="interleaved")]
+
+
+@pytest.mark.parametrize("name,offsets", [
+    ("fem3d_16", _FEM), ("one diagonal", (0,)),
+    ("wide", (-40_000, -3, 0, 3, 40_000)),
+    ("gaps at the limit", (0, dia.RUN_GAP, 2 * dia.RUN_GAP + 1))])
+def test_offset_runs_cover_every_offset_once(name, offsets):
+    runs = dia.offset_runs(offsets)
+    ks = [k for _, _, k0, k1 in runs for k in range(k0, k1)]
+    assert ks == list(range(len(offsets)))
+    for lo, hi, k0, k1 in runs:
+        assert (lo, hi) == (offsets[k0], offsets[k1 - 1])
+        assert all(b - a <= dia.RUN_GAP
+                   for a, b in zip(offsets[k0:k1], offsets[k0 + 1:k1]))
+    for (_, hi, _, _), (lo, _, _, _) in zip(runs, runs[1:]):
+        assert lo - hi > dia.RUN_GAP
+    if name == "fem3d_16":
+        assert [k1 - k0 for _, _, k0, k1 in runs] == [11] * 9
+    if name == "gaps at the limit":
+        assert len(runs) == 2
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES,
+                         ids=["chunk", "quads2", "threads128", "interleaved",
+                              "interleaved128"])
+@pytest.mark.parametrize("name,offsets,dim_r,n_x", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_staged_windows_cover_every_read(name, offsets, dim_r, n_x,
+                                         geometry):
+    """The blocks' tiles cover every row once; each run's window for a tile
+    holds every x index its diagonals need there and every 16-B pair the
+    kernel loads; the windows are 16-B aligned and apart in the buffer."""
+    plan = dia.make_plan(offsets, dim_r, geometry, blocks=4 * 132)
+    assert plan.smem_bytes <= dia.SMEM_LIMIT_BYTES
+    seen = np.zeros(dim_r, np.int64)
+    per_block = [len(list(plan.tiles(b))) for b in range(plan.grid)]
+    # every block has the same number of tiles, give or take one
+    assert max(per_block) - min(per_block) <= 1
+    for b in range(plan.grid):
+        for t0, t1 in plan.tiles(b):
+            assert t0 % 4 == 0 and 0 < t1 - t0 <= geometry.tile_rows
+            seen[t0:t1] += 1
+            last_quad = (t1 - 1) // 4 * 4
+            for r, (lo, hi, k0, k1) in enumerate(plan.runs):
+                start, stop = plan.window(r, t0)
+                for d in offsets[k0:k1]:
+                    # the function's reads, and the kernel's 16-B pairs
+                    assert start <= t0 + d and t1 - 1 + d < stop
+                    assert start <= t0 + (d & ~3)
+                    assert last_quad + (d & ~3) + 8 <= stop
+    assert (seen == 1).all()
+    ends = []
+    for (base, wlo, width), (lo, hi, k0, k1) in zip(plan.windows, plan.runs):
+        assert base % 4 == 0 and wlo % 4 == 0 and width % 4 == 0
+        ends.append((base, base + width))
+        for k in range(k0, k1):
+            assert plan.xo[k] == base + (offsets[k] & ~3) - wlo
+    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+    assert ends[-1][1] == plan.stage_floats
+
+
+def _replay(plan, val, x):
+    """y as ``csrc/dia.cu`` computes it from the plan, in f32, each term
+    added in order of k: staged windows zero-filled outside x, or x read
+    through a guard."""
+    n_x = x.shape[0]
+    y = np.zeros(plan.dim_r, np.float32)
+    for b in range(plan.grid):
+        for t0, t1 in plan.tiles(b):
+            rows = np.arange(t0, t1)
+            if plan.staged:
+                buf = np.zeros(plan.stage_floats, np.float32)
+                for r, (base, _, width) in enumerate(plan.windows):
+                    g = np.arange(*plan.window(r, t0))
+                    ok = (g >= 0) & (g < n_x)
+                    buf[base:base + width][ok] = x[g[ok]]
+            for k, d in enumerate(plan.offsets):
+                if plan.staged:
+                    xv = buf[plan.xo[k] + (d & 3) + rows - t0]
+                else:
+                    g = rows + d
+                    ok = (g >= 0) & (g < n_x)
+                    xv = np.where(ok, x[np.clip(g, 0, n_x - 1)], 0)
+                y[t0:t1] = y[t0:t1] + val[k, t0:t1] * xv.astype(np.float32)
+    return y
+
+
+@pytest.mark.parametrize("walk", dia.WALKS)
+@pytest.mark.parametrize("x_mode", dia.X_MODES)
+@pytest.mark.parametrize("name,offsets,dim_r,n_x", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_plan_replay_matches_plain(name, offsets, dim_r, n_x, x_mode, walk):
+    """The kernel's walk of the plan, replayed in numpy, against the plain
+    version and the exact sum."""
+    rng = np.random.default_rng(11)
+    val = rng.standard_normal((len(offsets), dim_r)).astype(np.float32)
+    x = rng.standard_normal(n_x).astype(np.float32)
+    plan = dia.make_plan(offsets, dim_r,
+                         dataclasses.replace(G0, x_mode=x_mode, walk=walk))
+    got = _replay(plan, val, x)
+    e = types.SimpleNamespace(dia_offsets=offsets,
+                              dia_val=torch.from_numpy(val))
+    plain = dia.dia_body_plain(e, torch.from_numpy(x)).numpy()
+    assert rel(got, plain) <= PARITY_TOL
+    assert rel(got, _exact(val, x, offsets)) <= PARITY_TOL
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="step"):
+        dia.make_plan((0,), 100, dataclasses.replace(G0, step=3))
+    with pytest.raises(ValueError, match="sorted"):
+        dia.make_plan((1, 0), 100)
+    with pytest.raises(ValueError, match="shared memory"):
+        # 200 runs of 1 offset: 200 windows of a tile each, two buffers
+        dia.make_plan(tuple(range(0, 200 * 100, 100)), 100_000, G0)
+    # the grid shrinks to the tiles there are, never below one block
+    assert dia.make_plan((0,), 100, G0).grid == 1

@@ -32,6 +32,8 @@ for mod in pkgutil.walk_packages(ehyb_spmv_torch.__path__,
 import chip_smoke
 import chip_wincache_sweep
 import chip_routed_sweep
+import chip_dia_sweep
+import chip_dia_ab
 for name in ("ops.stream_plan", "ops.dia", "ops.ehyb_wincache",
              "ops.route_xcache"):
     assert f"ehyb_spmv_torch.{name}" in sys.modules, name

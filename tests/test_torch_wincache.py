@@ -348,6 +348,45 @@ def test_wincache_flagship_keeps_no_padded_body(scrambled, monkeypatch):
                        ehyb_body(padded, x))
 
 
+def test_bytes_model_counts_the_window_cache_plan(scrambled, monkeypatch,
+                                                  tmp_path):
+    """Past residency the card reads the window-cache plan's compact cells
+    and staged rows, not the padded body it dropped at upload: the
+    roofline's bytes count the plan's ``layout_bytes`` for the body, and
+    the DIA, ER, long-row, x and y bytes as before.  The CLI reports that
+    count."""
+    from ehyb_spmv_torch import cli
+    from ehyb_spmv_torch.io import write_mtx
+    from ehyb_spmv_torch.utils.timing import spmv_bytes_model
+
+    m = coo_for(PORT, scrambled)
+    cfg = port.EhybConfig(artifact_cache=False)
+    k1_model = port.EhybSpmv(cfg, device="cpu").setup(m)
+    ib = np.dtype(k1_model.config.index_dtype).itemsize
+    assert k1_model.module.wincache is None
+    assert k1_model.bytes_model() == spmv_bytes_model(
+        k1_model.ehyb.stats, dim=m.dimension, value_bytes=4,
+        ell_index_bytes=ib)
+    monkeypatch.setattr(stream_plan, "X_RESIDENT_BYTES", 1024)
+    model = port.EhybSpmv(cfg, device="cpu").setup(m)
+    plan_st = model.module.wincache.stats
+    st = model.ehyb.stats
+    assert st["nnz_ell"] > 0 and st["nnz_dia"] > 0
+    padded = spmv_bytes_model(st, dim=m.dimension, value_bytes=4,
+                              ell_index_bytes=ib)
+    body = (st["nnz_ell"] + st["waste_ell"]) * (4 + ib)
+    assert plan_st["layout_bytes"] == plan_st["cell_bytes"] \
+        + plan_st["staged_bytes"] + plan_st["y_bytes"]
+    assert model.bytes_model() == padded - body + plan_st["layout_bytes"]
+    assert plan_st["cell_bytes"] < body
+    path = str(tmp_path / "scrambled.mtx")
+    write_mtx(path, m)
+    code, result, cli_model = cli.run(cli.build_parser().parse_args(
+        ["-m", path, "-i", "2", "--warmup", "1", "--device", "cpu"]))
+    assert code == 0 and cli_model.module.wincache is not None
+    assert result["bytes_model"] == model.bytes_model()
+
+
 # --- the window-cache kernel's plain version against the JAX kernels -------
 
 # (case, fixture, windows per sub-tile, TPU variant, compensated)
