@@ -402,16 +402,13 @@ class patched:
 
 
 def dia_geometries():
-    """Every built K9 variant (256 threads) in both x modes and both walks,
-    the default geometry, and 128 and 512 threads."""
-    out = [dia.DiaGeometry(threads=256, step=s, quads=q, x_mode=mode,
-                           walk=walk)
-           for s, q in dia.BUILT_STEPS for mode in dia.X_MODES
-           for walk in dia.WALKS]
+    """Every built K9 variant (256 threads) in both x modes, the default
+    geometry, and 128 and 512 threads."""
+    out = [dia.DiaGeometry(threads=256, step=s, quads=q, x_mode=mode)
+           for s, q in dia.BUILT_STEPS for mode in dia.X_MODES]
     out += [dia.GEOMETRY]
-    out += [dia.DiaGeometry(threads=t, x_mode=mode, walk=walk)
-            for t in (128, 512) for mode in dia.X_MODES
-            for walk in dia.WALKS]
+    out += [dia.DiaGeometry(threads=t, x_mode=mode)
+            for t in (128, 512) for mode in dia.X_MODES]
     return out
 
 
@@ -755,8 +752,7 @@ def time_dia(model, result, dev, n: int = 50) -> dict:
     same = same_work_bound(a.values().numel(), 0, x_dev.numel(), dim_r, dev)
     print(f"  K9 ({k} diagonals in {st['runs']} runs, {dim_r} rows; "
           f"{g0.threads} threads, {g0.quads} quads, step {g0.step}, x "
-          f"{g0.x_mode}, walk {g0.walk}; grid {st['grid']}, tiles of "
-          f"{st['tile_rows']} "
+          f"{g0.x_mode}; grid {st['grid']}, tiles of {st['tile_rows']} "
           f"rows, {st['smem_bytes']} B of shared memory) device ms per call "
           f"(plain, kernel, kernel, plain): {turns}")
     print(f"  cuSPARSE over its entries {lib_ms:.4f} ms (K9 / cuSPARSE = "

@@ -27,13 +27,13 @@
 //   issued together before any is summed, and several blocks share an SM,
 //   so tens of KB per SM are requested at any time.
 // * A persistent grid.  The host plan (ops/dia.py::make_plan) launches as
-//   many blocks as stay resident, and every block walks the same number of
-//   equal tiles of at most tile_quads quads (no wave tail), in one of two
-//   walks: a chunk of quads [b * nq / grid, (b + 1) * nq / grid) per block,
-//   or tiles b, b + grid, b + 2 * grid, ... dealt round-robin.  The
-//   round-robin walk is the default: all blocks then stream one window of
-//   each array at a time, and the card's memory serves that faster than a
-//   few hundred chunks far apart (chip_dia_sweep.py: 4-6%).
+//   many blocks as stay resident, and deals equal tiles of at most
+//   tile_quads quads to them round-robin: block b takes tiles b, b + grid,
+//   b + 2 * grid, ..., as many as every other block give or take one (no
+//   wave tail).  All
+//   blocks then stream one window of each array at a time, which the card's
+//   memory serves faster than one far-apart chunk of rows per block
+//   (chip_dia_sweep.py: 4-6%).
 // * x in one of two modes (the plan's x_mode):
 //   - LDG: x through __ldg, from L1 and L2 (x is 3.77 MB at fem3d_68 and
 //     stays in the 50 MB L2).  A tile whose reads all lie inside x takes an
@@ -70,11 +70,11 @@ struct DiaArgs {
   int d_min, d_max;    // first and last offset
   int tile_quads;      // most quads in a tile (threads * QUADS)
   int stage_floats;    // floats of one buffer of staged windows
-  int interleave;      // the walk: tiles b, b + grid, ... (else a chunk)
 };
 
 // Block b's tiles: n_tiles of tq quads, the j-th starting at quad
-// first + j * stride, cut at end (ops/dia.py::DiaPlan.tiles).
+// first + j * stride, cut at end (ops/dia.py::DiaPlan.tiles).  Tiles of one
+// size, as many for every block, dealt round-robin.
 struct Walk {
   long long first, stride, tq, n_tiles, end;
 };
@@ -82,24 +82,13 @@ struct Walk {
 __device__ __forceinline__ Walk block_walk(const DiaArgs& a) {
   const long long nq = (a.dim_r + 3) / 4;
   const long long g = gridDim.x, b = blockIdx.x;
+  const long long rounds = (nq + g * a.tile_quads - 1) / (g * a.tile_quads);
   Walk w;
-  if (a.interleave) {
-    // tiles of one size, as many for every block, dealt round-robin
-    const long long rounds = (nq + g * a.tile_quads - 1) / (g * a.tile_quads);
-    w.tq = (nq + g * rounds - 1) / (g * rounds);
-    w.first = b * w.tq;
-    w.stride = g * w.tq;
-    w.n_tiles = w.first < nq ? (nq - w.first + w.stride - 1) / w.stride : 0;
-    w.end = nq;
-  } else {
-    // one chunk of quads per block, in equal tiles
-    const long long q0 = b * nq / g, q1 = (b + 1) * nq / g;
-    w.n_tiles = (q1 - q0 + a.tile_quads - 1) / a.tile_quads;
-    w.tq = w.n_tiles ? (q1 - q0 + w.n_tiles - 1) / w.n_tiles : 0;
-    w.first = q0;
-    w.stride = w.tq;
-    w.end = q1;
-  }
+  w.tq = (nq + g * rounds - 1) / (g * rounds);
+  w.first = b * w.tq;
+  w.stride = g * w.tq;
+  w.n_tiles = w.first < nq ? (nq - w.first + w.stride - 1) / w.stride : 0;
+  w.end = nq;
   return w;
 }
 
@@ -314,7 +303,6 @@ KernelFn pick(int step, int quads, int staged, int vec) {
     case 21: return pick_xv<2, 1>(staged, vec);
     case 41: return pick_xv<4, 1>(staged, vec);
     case 81: return pick_xv<8, 1>(staged, vec);
-    case 22: return pick_xv<2, 2>(staged, vec);
     case 42: return pick_xv<4, 2>(staged, vec);
     default: return nullptr;
   }
@@ -357,13 +345,13 @@ extern "C" int ehyb_dia_registers(int step, int quads, int staged, int vec) {
 // Launches the DIA body on `stream` (a cudaStream_t) and returns
 // cudaGetLastError(); 0 means the launch was accepted.  `table` is the
 // plan's device array (ops/dia.py::DiaPlan.table); `grid`, `threads`,
-// `tile_quads`, `stage_floats`, `interleave` and `smem` are the plan's.
+// `tile_quads`, `stage_floats` and `smem` are the plan's.
 extern "C" int ehyb_dia(const float* val, const int* table, int n_diag,
                         int n_runs, int d_min, int d_max, long long dim_r,
                         const float* x, long long n_x, float* y, int step,
                         int quads, int staged, int vec, int threads, int grid,
-                        int tile_quads, int stage_floats, int interleave,
-                        long long smem, void* stream) {
+                        int tile_quads, int stage_floats, long long smem,
+                        void* stream) {
   if (dim_r <= 0 || n_diag <= 0) return 0;
   const KernelFn fn = pick(step, quads, staged, vec);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
@@ -382,7 +370,6 @@ extern "C" int ehyb_dia(const float* val, const int* table, int n_diag,
   a.d_max = d_max;
   a.tile_quads = tile_quads;
   a.stage_floats = stage_floats;
-  a.interleave = interleave;
   void* args[] = {&a};
   const cudaError_t launched = cudaLaunchKernel(
       reinterpret_cast<const void*>(fn), dim3(grid), dim3(threads), args,

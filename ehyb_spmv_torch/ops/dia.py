@@ -33,10 +33,10 @@ SMEM_LIMIT_BYTES = 227 * 1024
 #: Two neighbouring offsets at most this far apart fall in one run (one
 #: staged window); fem3d's 27-point stencil gives 9 runs of 11.
 RUN_GAP = 16
-#: The (STEP, QUADS) pairs ``csrc/dia.cu`` is built for.
-BUILT_STEPS = ((2, 1), (4, 1), (8, 1), (2, 2), (4, 2))
+#: The (STEP, QUADS) pairs ``csrc/dia.cu`` is built for: the default
+#: geometry's and its neighbours along each axis, for the sweep.
+BUILT_STEPS = ((2, 1), (4, 1), (8, 1), (4, 2))
 X_MODES = ("ldg", "staged")
-WALKS = ("chunk", "interleaved")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,15 +48,13 @@ class DiaGeometry:
     values each thread requests together; ``blocks_per_sm`` the persistent
     grid's blocks on each SM (fewer where they do not fit); ``x_mode``
     ``"ldg"`` (x through L1/L2) or ``"staged"`` (x per offset run in shared
-    memory, filled a tile ahead); ``walk`` ``"chunk"`` (block b takes the
-    b-th of ``grid`` equal chunks of rows) or ``"interleaved"`` (tiles b,
-    b + grid, ...)."""
+    memory, filled a tile ahead).  The blocks take the tiles round-robin
+    (:meth:`DiaPlan.tiles`)."""
     threads: int = 128
     quads: int = 1
     step: int = 4
     blocks_per_sm: int = 8
     x_mode: str = "ldg"
-    walk: str = "interleaved"
 
     @property
     def tile_rows(self) -> int:
@@ -68,8 +66,6 @@ class DiaGeometry:
                              f"{self.quads} (built: {BUILT_STEPS})")
         if self.x_mode not in X_MODES:
             raise ValueError(f"x_mode {self.x_mode!r} not in {X_MODES}")
-        if self.walk not in WALKS:
-            raise ValueError(f"walk {self.walk!r} not in {WALKS}")
         if not (32 <= self.threads <= 512 and self.threads % 32 == 0):
             raise ValueError(f"threads {self.threads}: a multiple of 32 up "
                              "to 512")
@@ -134,23 +130,13 @@ class DiaPlan:
 
     def tiles(self, b: int) -> Iterator[Tuple[int, int]]:
         """Block b's tiles as row ranges [t0, t1), in the kernel's order
-        (``csrc/dia.cu::block_walk``): the b-th of ``grid`` equal chunks of
-        quads in equal tiles, or (interleaved) tiles b, b + grid, ... of
-        one size, as many for every block."""
+        (``csrc/dia.cu::block_walk``): tiles b, b + grid, ... of one size,
+        as many for every block give or take one."""
         nq, g = (self.dim_r + 3) // 4, self.grid
-        if self.geometry.walk == "interleaved":
-            rounds = -(-nq // (g * self.tile_quads))
-            tq = -(-nq // (g * rounds))
-            first, stride, end = b * tq, g * tq, nq
-            n_tiles = -(-(nq - first) // stride) if first < nq else 0
-        else:
-            first, end = b * nq // g, (b + 1) * nq // g
-            n_tiles = -(-(end - first) // self.tile_quads)
-            tq = -(-(end - first) // n_tiles) if n_tiles else 0
-            stride = tq
-        for j in range(n_tiles):
-            qa = first + j * stride
-            yield 4 * qa, min(4 * min(qa + tq, end), self.dim_r)
+        rounds = -(-nq // (g * self.tile_quads))
+        tq = -(-nq // (g * rounds))
+        for qa in range(b * tq, nq, g * tq):
+            yield 4 * qa, min(4 * (qa + tq), self.dim_r)
 
     def window(self, r: int, t0: int) -> Tuple[int, int]:
         """The x indices [start, stop) run r's window stages for the tile
@@ -235,7 +221,7 @@ def build_kernel() -> BuiltLibrary:
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+                ctypes.c_longlong, ctypes.c_void_p]
             lib.ehyb_dia_registers.restype = ctypes.c_int
             lib.ehyb_dia_registers.argtypes = [ctypes.c_int] * 4
             lib.ehyb_dia_resident_blocks.restype = ctypes.c_int
@@ -327,7 +313,7 @@ def _launch(e: EhybDevice, x_pad: torch.Tensor,
         plan.offsets[0], plan.offsets[-1], dim_r, x_pad.data_ptr(),
         x_pad.shape[0], y.data_ptr(), g.step, g.quads, int(plan.staged),
         int(vec), g.threads, plan.grid, plan.tile_quads, plan.stage_floats,
-        int(g.walk == "interleaved"), plan.smem_bytes,
+        plan.smem_bytes,
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ehyb_dia launch failed: CUDA error {rc}")

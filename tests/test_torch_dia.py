@@ -163,10 +163,10 @@ PLAN_CASES = [
 ]
 G0 = dia.DiaGeometry(threads=256, quads=1, step=4, blocks_per_sm=4,
                      x_mode="staged")
-GEOMETRIES = [G0, dataclasses.replace(G0, quads=2, step=2),
+GEOMETRIES = [G0, dataclasses.replace(G0, quads=2),
               dataclasses.replace(G0, threads=128, blocks_per_sm=2),
-              dataclasses.replace(G0, walk="interleaved"),
-              dataclasses.replace(G0, threads=128, walk="interleaved")]
+              dataclasses.replace(G0, threads=512),
+              dataclasses.replace(dia.GEOMETRY, x_mode="staged")]
 
 
 @pytest.mark.parametrize("name,offsets", [
@@ -190,8 +190,8 @@ def test_offset_runs_cover_every_offset_once(name, offsets):
 
 
 @pytest.mark.parametrize("geometry", GEOMETRIES,
-                         ids=["chunk", "quads2", "threads128", "interleaved",
-                              "interleaved128"])
+                         ids=["threads256", "quads2", "threads128",
+                              "threads512", "default"])
 @pytest.mark.parametrize("name,offsets,dim_r,n_x", PLAN_CASES,
                          ids=[c[0] for c in PLAN_CASES])
 def test_staged_windows_cover_every_read(name, offsets, dim_r, n_x,
@@ -254,18 +254,20 @@ def _replay(plan, val, x):
     return y
 
 
-@pytest.mark.parametrize("walk", dia.WALKS)
+@pytest.mark.parametrize("threads", [128, 256])
 @pytest.mark.parametrize("x_mode", dia.X_MODES)
 @pytest.mark.parametrize("name,offsets,dim_r,n_x", PLAN_CASES,
                          ids=[c[0] for c in PLAN_CASES])
-def test_plan_replay_matches_plain(name, offsets, dim_r, n_x, x_mode, walk):
-    """The kernel's walk of the plan, replayed in numpy, against the plain
-    version and the exact sum."""
+def test_plan_replay_matches_plain(name, offsets, dim_r, n_x, x_mode,
+                                   threads):
+    """The kernel's walk of the plan (tiles of 512 or 1,024 rows), replayed
+    in numpy, against the plain version and the exact sum."""
     rng = np.random.default_rng(11)
     val = rng.standard_normal((len(offsets), dim_r)).astype(np.float32)
     x = rng.standard_normal(n_x).astype(np.float32)
     plan = dia.make_plan(offsets, dim_r,
-                         dataclasses.replace(G0, x_mode=x_mode, walk=walk))
+                         dataclasses.replace(G0, x_mode=x_mode,
+                                             threads=threads))
     got = _replay(plan, val, x)
     e = types.SimpleNamespace(dia_offsets=offsets,
                               dia_val=torch.from_numpy(val))

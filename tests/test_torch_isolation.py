@@ -33,7 +33,6 @@ import chip_smoke
 import chip_wincache_sweep
 import chip_routed_sweep
 import chip_dia_sweep
-import chip_dia_ab
 for name in ("ops.stream_plan", "ops.dia", "ops.ehyb_wincache",
              "ops.route_xcache"):
     assert f"ehyb_spmv_torch.{name}" in sys.modules, name
