@@ -3,14 +3,17 @@
     python3 chip_smoke.py
 
 Builds the port's four CUDA kernels from ``ehyb_spmv_torch/csrc/`` (one
-``nvcc`` each, all started together): K1, the streamed SELL body; the
-routed engine's one-pass kernel, which takes the place of the TPU's K7 and
-K8; K9, the DIA body; and the x-window-cache body that serves the TPU's
-K3/K4.  Checks each against its plain PyTorch version on small matrices
-that land on every layout it serves (K9 at every built variant, in both of
-its x modes, on cases that reach its tile and x edges; and K1 where the JAX
-package would run K5 or K6, timed there), then drives four main paths end to
-end through the CLI and checks each against the exact-f64 oracle:
+``nvcc`` each, all started together): K1, the streamed SELL body over its
+compact plan; the routed engine's one-pass kernel, which takes the place of
+the TPU's K7 and K8; K9, the DIA body; and the x-window-cache body that
+serves the TPU's K3/K4.  Checks each against its plain PyTorch version on
+small matrices that land on every layout it serves (K1 at every built
+variant on nwin 1/2/4, Kahan, int32 columns and a synthetic body with a
+ragged last slice, a zero-width row block and row blocks cut for the 16-bit
+range, bit for bit where Kahan is off; K9 at every built variant, in both
+of its x modes, on cases that reach its tile and x edges; and K1 where the
+JAX package would run K5 or K6, timed there), then drives four main paths
+end to end through the CLI and checks each against the exact-f64 oracle:
 
 * the flagship on ``permuted_poisson_512`` (262,144 rows, ~1.3M nnz), which
   runs K1 and K9;
@@ -25,16 +28,18 @@ end through the CLI and checks each against the exact-f64 oracle:
 Each path runs with the launch counts set to 0 just before it and read just
 after, to show it went through its kernels.  Then it times every kernel and
 its plain version at its main path's shapes (K1 also on
-permuted_poisson_4096's body, beside the window cache, and both on
+``permuted_poisson_1024`` on its own resident path, and on
+permuted_poisson_4096's body beside the window cache; both on
 ``permuted_poisson_1024`` forced past the residency limit, where the TPU
 runs K3), beside one cuSPARSE call (``torch.sparse_csr_tensor`` matvec) as
-a yardstick, and prints one JSON line of kernels with two bounds each:
+a yardstick, with K1 and K9 also in their other x mode, in turns, and
+prints one JSON line of kernels with two bounds each:
 ``bound_ms``, the bytes of the kernel's own inputs and output, and
 ``same_work_bound_ms``, the same work in any layout (each entry's value and
 column, x and y once).  For the routed kernel the two are one: the partial
 y vectors of its plan are its own tiling choice, and their bytes stand
-beside it as ``layout_bound_ms``.  K9 is also timed with its other x mode,
-in turns.  Beside each main path's GFLOP/s it prints the card's SM clock,
+beside it as ``layout_bound_ms``.  Beside each main path's GFLOP/s and
+each kernel's time it prints the card's SM clock,
 power draw, temperature and active throttle reasons, read right after the
 timed loop.
 
@@ -65,7 +70,8 @@ from ehyb_spmv_torch.models import routed as routed_model
 from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
 from ehyb_spmv_torch.ops import route_xcache, stream_plan
 from ehyb_spmv_torch.ops.build import BUILD_DIR
-from ehyb_spmv_torch.ops.torch_ops import body_gather_index
+from ehyb_spmv_torch.ops.stream_cells import build_stream_cells
+from ehyb_spmv_torch.ops.torch_ops import body_gather_index, ehyb_body
 from ehyb_spmv_torch.utils.timing import detect_hbm_bw
 
 #: Kernel vs plain version, f32 both: only the summation order differs.
@@ -261,6 +267,84 @@ def kernel_cases():
          cfg(body_layout="sell_rx", relax_body="never",
              compensated_sum=True), 2, True),
     ]
+
+
+def edge_body(seed: int = 7) -> port.EhybMatrix:
+    """A synthetic ``sell_mw`` body (nwin 1, unaligned windows) that reaches
+    the edges of K1's plan: slice 0's row blocks read 80 windows of 8 x
+    rows (640 x rows, past a 16-bit table: each is cut into pieces),
+    slice 1 has a row block with no cell (width 0), and slice 2 is ragged
+    (its last 51 rows hold nothing, the others rows of random lengths)."""
+    rng = np.random.default_rng(seed)
+    win, widths = 1024, (80, 16, 24)
+    dim = widths[0] * win
+    offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+    n_steps = int(offs[-1])
+    step_win = np.concatenate([
+        np.arange(widths[0]) * win,
+        rng.integers(0, dim, widths[1] + widths[2])]).astype(np.int32)
+    ell_col = rng.integers(0, win, (n_steps, 128)).astype(np.int16)
+    ell_val = rng.standard_normal((n_steps, 128)).astype(np.float32)
+    ell_val[offs[1]:offs[2], 32:64] = 0.0
+    last = ell_val[offs[2]:]
+    length = rng.integers(0, widths[2] + 1, 128)
+    length[77:] = 0
+    last[np.arange(widths[2])[:, None] >= length[None, :]] = 0.0
+    nnz = int(np.count_nonzero(ell_val))
+    i32, f32 = np.int32, np.float32
+    return port.EhybMatrix(
+        dim=dim, nnz_total=nnz, window_rows=win, n_parts=1,
+        ell_col=ell_col, ell_val=ell_val, slice_offset=offs,
+        slice_win_start=step_win[offs[:-1]], step_win=step_win,
+        er_col=np.zeros((0, 128), i32), er_val=np.zeros((0, 128), f32),
+        er_slice_offset=np.zeros(1, i32), er_rows=np.zeros(0, i32),
+        long_col=np.zeros(0, i32), long_val=np.zeros(0, f32),
+        long_seg=np.zeros(0, i32), long_rows=np.zeros(0, i32),
+        stats={"nnz_ell": nnz, "waste_ell": n_steps * 128 - nnz})
+
+
+def k1_geometries():
+    """Every built K1 variant (rows per thread, x mode) at 128 threads, and
+    the default geometry."""
+    return [ehyb_stream.StreamGeometry(threads=128, rows=r, x_mode=mode)
+            for r in ehyb_stream.BUILT_ROWS
+            for mode in ehyb_stream.X_MODES] + [ehyb_stream.GEOMETRY]
+
+
+def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
+                  cells=None) -> None:
+    """K1 over the compact plan of body ``e`` (an EhybMatrix) at every
+    geometry of :func:`k1_geometries`: against its plain version on the
+    card within KERNEL_TOL, bit for bit against the plain version on the
+    CPU (which adds in the kernel's order) where Kahan is off, and against
+    the padded body's plain version.  ``cells``, the plan on the card,
+    defaults to a fresh build of ``e``'s."""
+    plan = build_stream_cells(e)
+    p = plan.to_torch(dev) if cells is None else cells
+    x_dev = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    y_p = ehyb_stream.stream_body_plain(p, x_dev, kahan)
+    y_cpu = ehyb_stream.stream_body_plain(plan.to_torch(), x_dev.cpu(),
+                                          kahan)
+    y_pad = ehyb_body(e.to_torch(device=dev), x_dev, compensated=kahan)
+    worst, same = 0.0, True
+    for g in k1_geometries():
+        y_k = ehyb_stream._launch(p, x_dev, kahan, g)
+        torch.cuda.synchronize()
+        err = max(rel(y_k, y_p), rel(y_k, y_pad))
+        if not bool(torch.isfinite(y_k).all()) or err > KERNEL_TOL:
+            check(False, f"K1 {name} at {g}: vs plain rel {rel(y_k, y_p):.3e}"
+                         f", vs the padded body's rel {rel(y_k, y_pad):.3e}")
+        worst = max(worst, err)
+        same = same and torch.equal(y_k.cpu(), y_cpu)
+    st = plan.stats
+    check(kahan or same,
+          f"K1 {name} ({st['n_rb']} row blocks, {st['n_pieces']} pieces, "
+          f"{st['split_rbs']} cut for the 16-bit range, max width "
+          f"{st['max_width']}; {st['compact_cells']} of {st['padded_cells']} "
+          f"cells): {len(k1_geometries())} geometries, vs plain and the "
+          f"padded body rel <= {worst:.3e} <= {KERNEL_TOL}"
+          + ("" if kahan else "; bit for bit with the plain version on the "
+             "CPU"))
 
 
 def reset_launches() -> None:
@@ -465,19 +549,21 @@ def check_dia_small(dev) -> None:
 
 
 def padded_body(model, dev):
-    """The model's artifact on the card with the padded SELL body that K1
-    reads: a model whose body runs through the window cache keeps only the
-    plan's compact cells there."""
+    """The model's artifact on the card with its padded SELL body, for the
+    yardsticks that read the TPU's layout (cuSPARSE's operand, the padded
+    body's plain version): the flagship keeps only its body plan's compact
+    cells there."""
     return model.ehyb.to_torch(dtype=model.config.dtype, device=dev)
 
 
-def check_wincache_plan(name: str, e, p, x_dev, kahan: bool) -> None:
+def check_wincache_plan(name: str, e, p, k1, x_dev, kahan: bool) -> None:
     """The window-cache kernel on one plan against its plain version and
-    against K1 on the same body; prints the largest difference from K1
-    (0 where the summation order is kept, as it is for finite x)."""
+    against K1 on the same body (``k1``, its plan on the card); prints the
+    largest difference from K1 (0 where the summation order is kept, as it
+    is for finite x)."""
     y_w = ehyb_wincache.wincache_body(e, p, x_dev, kahan)
     y_p = ehyb_wincache.wincache_body_plain(e, p, x_dev, kahan)
-    y_1 = ehyb_stream.stream_body(e, x_dev, kahan)
+    y_1 = ehyb_stream.stream_body(k1, x_dev, kahan)
     torch.cuda.synchronize()
     err_p, err_1 = rel(y_w, y_p), rel(y_w, y_1)
     st = p.stats
@@ -497,7 +583,8 @@ def check_wincache_small(dev) -> None:
     for name, m, cfg, nwin, kahan in kernel_cases():
         with patched(X_RESIDENT_BYTES=1024):
             model = port.EhybSpmv(cfg, device=dev).setup(m)
-        e, plan = padded_body(model, dev), model.module.wincache
+        e, plan = model.dev, model.module.wincache
+        k1 = build_stream_cells(model.ehyb).to_torch(dev)
         check(e.nwin == nwin and plan is not None
               and model.module.branch.startswith("streamed hbm")
               and model.dev.ell_val is None,
@@ -505,10 +592,10 @@ def check_wincache_small(dev) -> None:
               f"padded body on the card")
         x = deterministic_x(m.dimension) if not kahan else np.ones(m.dimension)
         x_dev = model.prepare_x(x)
-        check_wincache_plan(name, e, plan, x_dev, kahan)
+        check_wincache_plan(name, e, plan, k1, x_dev, kahan)
         tight = ehyb_wincache.build_wincache_plan(model.ehyb, slot_rows=32)
         if tight.stats["chunked_slices"]:
-            check_wincache_plan(f"{name} tight", e, tight.to_torch(dev),
+            check_wincache_plan(f"{name} tight", e, tight.to_torch(dev), k1,
                                 x_dev, kahan)
         y = model.matvec(x)
         err = rel_np(y, oracle_spmv(m, x))
@@ -522,14 +609,14 @@ def check_wincache_small(dev) -> None:
     with patched(X_RESIDENT_BYTES=1024):
         model = port.EhybSpmv(cfg, device=dev).setup(m)
     x_dev = model.prepare_x(deterministic_x(m.dimension))
-    e = padded_body(model, dev)
+    k1 = build_stream_cells(model.ehyb).to_torch(dev)
     for groups in (1, 4):
         p = ehyb_wincache.build_wincache_plan(model.ehyb, slot_rows=64,
                                               groups=groups)
         check(p.stats["chunked_slices"] > 0, "scattered 32k quad: slices "
                                              "overflow 64 slot rows")
-        check_wincache_plan(f"scattered 32k quad, {groups} groups", e,
-                            p.to_torch(dev), x_dev, False)
+        check_wincache_plan(f"scattered 32k quad, {groups} groups", model.dev,
+                            p.to_torch(dev), k1, x_dev, False)
 
 
 def check_k5_k6(dev) -> None:
@@ -547,6 +634,7 @@ def check_k5_k6(dev) -> None:
         with ctx:
             model = port.EhybSpmv(cfg, device=dev).setup(m)
         check(model.module.branch == branch and model.module.wincache is None
+              and model.module.cells is not None
               and model.config.body_layout == "sell_mw",
               f"{kid}: TPU branch {model.module.branch}, layout "
               f"{model.config.body_layout}")
@@ -559,7 +647,7 @@ def check_k5_k6(dev) -> None:
               f"{kid}: K1 launched {launches} times, model vs oracle rel "
               f"{err:.3e}")
         print(f"  {kid}: K1 on the {model.config.body_layout} body of "
-              f"{model.dev.ell_val.shape[0]} steps it runs there:")
+              f"{model.ehyb.ell_val.shape[0]} steps it runs there:")
         time_k1(model, {"dim": m.dimension}, dev, n_eager=50)
 
 
@@ -603,42 +691,82 @@ def body_csr(e, n_rows: int, n_cols: int, dev) -> torch.Tensor:
                   e.ell_val[keep], n_rows, n_cols)
 
 
-def time_k1(model, result, dev, e=None, n: int = 100, n_plain: int = 20,
+def other_x_mode(g0):
+    """The geometry ``g0`` in the other x mode, with fewer rows a thread,
+    then 128 threads, where its staged rows do not fit a block's shared
+    memory."""
+    mode = next(m for m in ehyb_stream.X_MODES if m != g0.x_mode)
+    for rows in sorted(ehyb_stream.BUILT_ROWS, reverse=True):
+        for threads in (g0.threads, 128):
+            g = dataclasses.replace(g0, x_mode=mode, rows=min(rows, g0.rows),
+                                    threads=threads)
+            if ehyb_stream.smem_bytes(g) <= dia.SMEM_LIMIT_BYTES:
+                return g
+    raise RuntimeError(f"no geometry of K1 fits in the {mode} mode")
+
+
+def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
             n_eager: int = 200) -> dict:
     """K1 at a flagship path's shapes: kernel, plain version and cuSPARSE
-    over the body's own entries.  ``e``, the artifact on the card, defaults
-    to the model's own."""
-    e = model.dev if e is None else e
+    over the body's own entries (the padded body, uploaded for it), both
+    bounds, the card's state, and the A/B of the two x modes (the default
+    geometry with the other mode, in turns).  ``cells``, K1's plan on the
+    card, defaults to the model's own."""
+    p = model.module.cells if cells is None else cells
     kahan = model.module.kahan
+    body_nnz = model.dev.body_nnz
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
-    y_k = ehyb_stream.stream_body(e, x_dev, kahan)
-    y_p = ehyb_stream.stream_body_plain(e, x_dev, kahan)
+    y_k = ehyb_stream.stream_body(p, x_dev, kahan)
+    y_p = ehyb_stream.stream_body_plain(p, x_dev, kahan)
     torch.cuda.synchronize()
     max_abs = float((y_k - y_p).abs().max())
     err = rel(y_k, y_p)
     check(err <= KERNEL_TOL, f"K1 vs plain rel {err:.3e} <= {KERNEL_TOL} "
-                             f"(max abs {max_abs:.3e}, "
-                             f"{e.ell_val.shape[0]} steps)")
+                             f"(max abs {max_abs:.3e}, {p.n_rb} row blocks)")
+    e = padded_body(model, dev)
+    err = rel(y_k, ehyb_body(e, x_dev, compensated=kahan))
+    check(err <= KERNEL_TOL, f"K1 vs the padded body's plain version rel "
+                             f"{err:.3e}")
     a = body_csr(e, y_k.shape[0], x_dev.shape[0], dev)
+    del e
     y_l = torch.mv(a, x_dev)
     torch.cuda.synchronize()
     err = rel(y_l, y_p)
     check(err <= KERNEL_TOL, f"cuSPARSE over K1's {a.values().numel()} body "
                              f"entries vs plain rel {err:.3e}")
+    g0 = ehyb_stream.GEOMETRY
+    other = other_x_mode(g0)
+    err = rel(ehyb_stream._launch(p, x_dev, kahan, other), y_p)
+    check(err <= KERNEL_TOL, f"K1 with x {other.x_mode} vs plain rel "
+                             f"{err:.3e}")
     del y_l
-    kernel = lambda: ehyb_stream.stream_body(e, x_dev, kahan)  # noqa: E731
-    plain = lambda: ehyb_stream.stream_body_plain(e, x_dev, kahan)  # noqa
+    kernel = lambda: ehyb_stream.stream_body(p, x_dev, kahan)  # noqa: E731
+    plain = lambda: ehyb_stream.stream_body_plain(p, x_dev, kahan)  # noqa
     ms, plain_ms, turns = in_turns(kernel, plain, n, n_plain)
+    ab = in_turns(kernel, lambda: ehyb_stream._launch(p, x_dev, kahan, other),
+                  n, n)[2]
     lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), n)
-    n_bytes = nbytes(e.ell_col, e.ell_val, e.slice_offset,
-                     *[e.step_win, e.step_win_b, e.step_win_c,
-                       e.step_win_d][:e.nwin], x_dev, y_k)
-    b = bound(n_bytes, 2 * e.body_nnz, dev)
-    same = same_work_bound(e.body_nnz, 2, x_dev.numel(), y_k.numel(), dev)
-    print(f"  K1 device ms per call (plain, kernel, kernel, plain): "
-          f"{turns}; cuSPARSE over its body {lib_ms:.4f} ms; layout bound "
-          f"{b['bound_ms']:.4f} ms ({n_bytes} B, {b['bound_by']}); "
-          f"same-work bound {same['bound_ms']:.4f} ms ({same['bytes']} B)")
+    state = card_state()
+    st = p.stats
+    b = bound(st["layout_bytes"], 2 * body_nnz, dev)
+    same = same_work_bound(body_nnz, 2, x_dev.numel(), y_k.numel(), dev)
+    grid = ehyb_stream.grid_of(p, g0, kahan, dev)
+    print(f"  K1 ({g0.threads} threads, {g0.rows} rows a thread, "
+          f"{g0.blocks_per_sm} blocks/SM asked, x {g0.x_mode}; grid {grid}; "
+          f"{st['n_rb']} row blocks, {st['n_pieces']} pieces, "
+          f"{st['split_rbs']} cut, max width {st['max_width']}, max table "
+          f"{st['max_table_rows']} rows) device ms per call (plain, kernel, "
+          f"kernel, plain): {turns}")
+    print(f"  cuSPARSE over its body {lib_ms:.4f} ms (K1 / cuSPARSE = "
+          f"{ms / lib_ms:.3f}); layout bound {b['bound_ms']:.4f} ms "
+          f"({st['layout_bytes']} B: cells {st['cell_bytes']}, maps "
+          f"{st['map_bytes']}, x {st['x_bytes']}, y {st['y_bytes']}; "
+          f"{b['bound_ms'] / ms:.3f} of it reached); same-work bound "
+          f"{same['bound_ms']:.4f} ms ({same['bytes']} B; "
+          f"{same['bound_ms'] / ms:.3f} reached); the padded body would "
+          f"move {st['body_bytes']} B of cells")
+    print(f"  x-mode A/B ({other}, the default, the default, the other): "
+          f"{ab}; {state}")
     print(f"  eager calls back to back (host launch cost included): "
           f"K1 {ms_per_call(kernel, n_eager):.4f} ms, full apply "
           f"{ms_per_call(lambda: model.apply(x_dev), n_eager):.4f} ms")
@@ -646,18 +774,18 @@ def time_k1(model, result, dev, e=None, n: int = 100, n_plain: int = 20,
                 library_ms=lib_ms, **b, same_work_bound_ms=same["bound_ms"])
 
 
-def time_wincache(model, result, dev, k1: dict, e) -> dict:
+def time_wincache(model, result, dev, k1: dict, cells) -> dict:
     """The window-cache body at a path's shapes against its plain version,
     beside K1 on the same body and cuSPARSE over the same entries (``k1``,
-    from :func:`time_k1` on ``e``, the artifact with its padded body), with
-    the cells it reads against the padded body's and both bounds: the bytes
+    from :func:`time_k1` with ``cells``, K1's plan of that body), with the
+    cells it reads against the padded body's and both bounds: the bytes
     its layout moves, and the same work in any layout."""
     d, p = model.dev, model.module.wincache
     kahan = model.module.kahan
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
     y_k = ehyb_wincache.wincache_body(d, p, x_dev, kahan)
     y_p = ehyb_wincache.wincache_body_plain(d, p, x_dev, kahan)
-    y_1 = ehyb_stream.stream_body(e, x_dev, kahan)
+    y_1 = ehyb_stream.stream_body(cells, x_dev, kahan)
     torch.cuda.synchronize()
     max_abs = float((y_k - y_p).abs().max())
     err = rel(y_k, y_p)
@@ -671,15 +799,15 @@ def time_wincache(model, result, dev, k1: dict, e) -> dict:
         lambda: ehyb_wincache.wincache_body(d, p, x_dev, kahan),
         lambda: ehyb_wincache.wincache_body_plain(d, p, x_dev, kahan), 20, 2)
     st = p.stats
-    check(st["compact_cells"] <= 1.1 * e.body_nnz,
+    check(st["compact_cells"] <= 1.1 * d.body_nnz,
           f"compact cells {st['compact_cells']} of {st['padded_cells']} "
-          f"padded ({st['real_cells']} real; body nnz {e.body_nnz}): "
-          f"{st['compact_cells'] / e.body_nnz:.5f} x the body's entries")
-    lay = bound(st["layout_bytes"], 2 * e.body_nnz, dev)
-    same = same_work_bound(e.body_nnz, 2, x_dev.numel(), y_k.numel(), dev)
+          f"padded ({st['real_cells']} real; body nnz {d.body_nnz}): "
+          f"{st['compact_cells'] / d.body_nnz:.5f} x the body's entries")
+    lay = bound(st["layout_bytes"], 2 * d.body_nnz, dev)
+    same = same_work_bound(d.body_nnz, 2, x_dev.numel(), y_k.numel(), dev)
     print(f"  window cache device ms per call (plain, kernel, kernel, "
           f"plain): {turns}; K1 on the same body {k1['ms']:.4f} ms; "
-          f"cuSPARSE over the body {k1['library_ms']:.4f} ms")
+          f"cuSPARSE over the body {k1['library_ms']:.4f} ms; {card_state()}")
     print(f"  bounds: layout {lay['bound_ms']:.4f} ms ({st['layout_bytes']} "
           f"B: cells {st['cell_bytes']}, staged rows {st['staged_bytes']}, y "
           f"{st['y_bytes']}; {lay['bound_ms'] / ms:.3f} of it reached); same "
@@ -924,22 +1052,36 @@ def main() -> int:
     for name, m, cfg, nwin, kahan in kernel_cases():
         model = port.EhybSpmv(cfg, device=dev).setup(m)
         e = model.dev
-        check(e.nwin == nwin and e.body_nnz > 0 and model.module.kahan == kahan,
-              f"{name}: layout nwin={e.nwin}, body nnz {e.body_nnz}")
+        check(e.nwin == nwin and e.body_nnz > 0 and model.module.kahan == kahan
+              and model.module.cells is not None and e.ell_val is None,
+              f"{name}: layout nwin={e.nwin}, body nnz {e.body_nnz}, K1's "
+              "plan on the card and no padded body")
         x = deterministic_x(m.dimension) if not kahan else np.ones(m.dimension)
         x_dev = model.prepare_x(x)
-        y_k = ehyb_stream.stream_body(e, x_dev, kahan)
-        y_p = ehyb_stream.stream_body_plain(e, x_dev, kahan)
-        torch.cuda.synchronize()
-        err = rel(y_k, y_p)
-        check(torch.isfinite(y_k).all().item() and err <= KERNEL_TOL,
-              f"{name}: kernel vs plain rel {err:.3e} <= {KERNEL_TOL}")
+        check_k1_case(name, model.ehyb, x_dev.cpu().numpy(), kahan, dev,
+                      model.module.cells)
         y = model.matvec(x)
         err = rel_np(y, oracle_spmv(m, x))
         check(err <= ORACLE_TOL,
               f"{name}: model vs oracle rel {err:.3e} <= {ORACLE_TOL}")
         if kahan:
             check(y[0] == 100.0, f"{name}: compensated row 0 = {y[0]!r}")
+    m = generate.permuted(generate.poisson2d(96), seed=3)
+    e32 = port.EhybPlainSpmv(port.EhybConfig(index_dtype="int32"),
+                             device=dev).setup(m).ehyb
+    check(e32.ell_col.dtype == np.int32, f"int32 columns: {e32.ell_col.dtype}")
+    rng = np.random.default_rng(3)
+    check_k1_case("int32 columns", e32, rng.standard_normal(
+        e32.padded_x_rows), False, dev)
+    e = edge_body()
+    plan = build_stream_cells(e)
+    width = np.diff(plan.piece[:plan.n_rb + 1, 0]) // 32
+    check(plan.stats["split_rbs"] > 0 and np.any(width[4:8] == 0),
+          f"edge body: {plan.stats['split_rbs']} row blocks cut, widths of "
+          f"slice 1's row blocks {width[4:8].tolist()}")
+    for kahan in (False, True):
+        check_k1_case(f"edge body{' kahan' if kahan else ''}", e,
+                      rng.standard_normal(e.padded_x_rows), kahan, dev)
 
     phase("4: the routed kernel vs its plain version and the plain K7/K8 "
           "pair on small matrices (slice, octet, column blocks, spill) and "
@@ -964,6 +1106,11 @@ def main() -> int:
     check(launch1["K1"] > 0 and launch1["K9"] > 0,
           f"{K1['name']} launched {launch1['K1']} times, {K9['name']} "
           f"{launch1['K9']} times during main path 1")
+    cells = model1.module.cells
+    check(cells is not None and model1.dev.ell_val is None,
+          f"K1's plan on the card ({nbytes(*cells.buffers())} B, built in "
+          f"{res1['setup_seconds']['k1_plan']:.2f} s), no padded body "
+          f"({cells.stats['body_bytes']} B)")
 
     phase("7: main path 2, the gather-wall row "
           f"(python -m ehyb_spmv_torch {' '.join(GATHER_ARGS)})")
@@ -1014,18 +1161,37 @@ def main() -> int:
 
     phase("10: kernels, plain versions and cuSPARSE at the main paths' "
           "shapes (device time, CUDA graph replay)")
+    print("  K1 on permuted_poisson_512's body (main path 1):")
     k1 = time_k1(model1, res1, dev)
+    print("  K1 on permuted_poisson_1024 on its own resident path:")
+    m6 = generate.load_corpus("permuted_poisson_1024")
+    model6 = port.EhybSpmv(port.EhybConfig(), device=dev).setup(m6)
+    check(model6.module.branch == "streamed v3"
+          and model6.module.cells is not None and model6.dev.ell_val is None,
+          f"TPU branch {model6.module.branch}: K1 over its plan, built in "
+          f"{model6.setup_seconds['k1_plan']:.2f} s")
+    reset_launches()
+    x6 = deterministic_x(m6.dimension)
+    err = rel_np(model6.matvec(x6), oracle_spmv(m6, x6))
+    check(err <= ORACLE_TOL and ehyb_stream.stream_body.launches == 1,
+          f"permuted_poisson_1024 model vs oracle rel {err:.3e}, K1 "
+          f"launched {ehyb_stream.stream_body.launches} times")
+    time_k1(model6, {"dim": m6.dimension}, dev, n_plain=10, n_eager=20)
+    del model6
     rx = time_routed(model2, res2, model2.m, dev)
     k9 = time_dia(model3, res3, dev)
     print("  K9 on permuted_poisson_4096's diagonal:")
     time_dia(model4, res4, dev, n=20)
-    print("  K1 on permuted_poisson_4096's padded body, uploaded for it "
-          "(the TPU's K2 regime; L2 instead of the window cache):")
-    e4 = padded_body(model4, dev)
-    k1_big = time_k1(model4, res4, dev, e4, n=20, n_plain=2, n_eager=20)
+    print("  K1 on permuted_poisson_4096's body, its plan built for it (the "
+          "TPU's K2 regime; L2 instead of the window cache):")
+    t0 = time.perf_counter()
+    c4 = build_stream_cells(model4.ehyb).to_torch(dev)
+    print(f"  K1's plan built and uploaded in {time.perf_counter() - t0:.1f} "
+          f"s")
+    k1_big = time_k1(model4, res4, dev, c4, n=20, n_plain=2, n_eager=20)
     print("  the window cache on permuted_poisson_4096's body:")
-    wc = time_wincache(model4, res4, dev, k1_big, e4)
-    del e4
+    wc = time_wincache(model4, res4, dev, k1_big, c4)
+    del c4
     print("  permuted_poisson_1024 forced past the residency limit "
           "in-process (the TPU's K3 branch): K1, then the window cache")
     with patched(X_RESIDENT_BYTES=1024):
@@ -1035,10 +1201,10 @@ def main() -> int:
           and model5.module.wincache is not None,
           f"TPU branch {model5.module.branch}: the window cache runs")
     res5 = {"dim": m5.dimension}
-    e5 = padded_body(model5, dev)
-    time_wincache(model5, res5, dev, time_k1(model5, res5, dev, e5,
-                                             n_plain=10, n_eager=20), e5)
-    del model5, e5
+    c5 = build_stream_cells(model5.ehyb).to_torch(dev)
+    time_wincache(model5, res5, dev, time_k1(model5, res5, dev, c5,
+                                             n_plain=10, n_eager=20), c5)
+    del model5, c5
     for res in (res1, res2, res3, res4):
         print(f"  {res['matrix']}: {res['gflops']:.2f} GFLOP/s end to end "
               f"({res['iters']} iterations in {res['seconds']:.4f} s, "

@@ -28,6 +28,7 @@ import ehyb_spmv_torch as port
 from ehyb_spmv_torch.core.coo import deterministic_x
 from ehyb_spmv_torch.io import generate
 from ehyb_spmv_torch.ops import ehyb_stream, ehyb_wincache
+from ehyb_spmv_torch.ops.stream_cells import build_stream_cells
 
 #: (slot rows, groups, most slices per stage): the default, and smaller and
 #: larger stages.
@@ -39,10 +40,11 @@ GEOMETRIES_1024 = [(160, 8, 128), (160, 8, 32), (160, 8, 16), (96, 4, 16)]
 
 
 def sweep(name: str, model, geometries) -> None:
-    e = cs.padded_body(model, model.dev.slice_offset.device)
+    e = model.dev
+    c = build_stream_cells(model.ehyb).to_torch(e.slice_offset.device)
     x = model.prepare_x(deterministic_x(model.m.dimension))
-    y1 = ehyb_stream.stream_body(e, x)
-    k1 = cs.device_ms_per_call(lambda: ehyb_stream.stream_body(e, x), 20)
+    y1 = ehyb_stream.stream_body(c, x)
+    k1 = cs.device_ms_per_call(lambda: ehyb_stream.stream_body(c, x), 20)
     print(f"{name}: TPU branch {model.module.branch}; K1 {k1:.4f} ms",
           flush=True)
     for rows, groups, run in geometries:

@@ -1,43 +1,64 @@
-// Streamed SELL body of the EHYB format, x resident in device memory.
+// Streamed SELL body of the EHYB format, x resident in device memory, over
+// K1's compact plan.
 //
 // Replaces ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py::_make_stream_resident_kernel
-// (the Pallas kernel K1).  For slice s, whose width-steps are
-// [slice_offset[s], slice_offset[s+1]), and lane l in 0..127:
+// (the Pallas kernel K1), and serves the bodies the TPU gives to K2, K5 and
+// K6.  For every body row it computes the sum over the row's cells, in
+// step order, of value * x[col], plain or with Neumaier compensation
+// (KAHAN), each product rounded on its own (__fmul_rn) so the compiler
+// cannot contract it into the sum.
 //
-//   y[s*128 + l] = sum over steps of ell_val[step, l] * x[col(step, l)]
-//   nwin = 1:    col = step_win[step] + ell_col[step, l]
-//   nwin = 2, 4: lo = ell_col[step, l] & 127,  a = ell_col[step, lo],
-//                sel = a >> 10,  hi = (a >> 7) & 7,
-//                col = win_sel[step] + (hi << 7) + lo
+// What the TPU needed and this leaves behind: the 128-lane width steps of
+// window-local or relaxed lo-slot columns, padded to each slice's width and
+// to what two-stage gathers address (50% padding at permuted_poisson_512,
+// 76% at permuted_poisson_4096), and the sequential grid that carries a
+// running sum across steps.  The host plan
+// (ops/stream_cells.py::build_stream_cells) decodes the body once and keeps
+// its real cells in row blocks of 32 rows with one width each; a cell is a
+// float32 value and a uint16 index slot * 128 + lane into the row block's
+// table of x rows (128 floats each), stored column-major (cell k of row r
+// at cell0 + 32 k + r).  A row block whose cells touch more than 512 x rows
+// is cut between its steps into pieces, chained by `next`.  A row's cells
+// keep their step order, so the sums equal the padded body's bit for bit
+// for finite x.
 //
-// The (sel, hi) bits are the slot attributes at lane lo of the SAME step
-// row, not the entry's own bits.  Each chunk of steps is staged in shared
-// memory so that read is a shared-memory load.
+// Bound on the H100: bytes.  It moves the plan's cells (6 B each), its
+// pieces and tables, x once and y once: ~8.7 MB at permuted_poisson_512,
+// ~2.6 us at 3.35 TB/s, where a kernel launch costs a few us.  Design:
 //
-// Design.  The TPU grid runs in order and carries a running sum across grid
-// steps, resetting it at slice starts; the caller then gathers each slice's
-// last sub-tile.  CUDA blocks run in no order, so each slice is one block of
-// 128 threads and thread l owns row lane l: it loops over the slice's steps
-// and writes its finished sum.  No reset flags, no gather, no atomics, and
-// the result is deterministic.  The kernel masks its own ragged edge, so
-// ell_col/ell_val need no stream-tile padding.
-//
-// Bound on the H100: the streamed bytes (6 B per slot with int16 columns)
-// plus the x gathers, which hit L1/L2 (a 1 MB x sits in the 50 MB L2).  This
-// first version keeps the simple one-block-per-slice shape; TMA streaming,
-// shared-memory x windows and persistent blocks are later work.
-//
-// Compensated variant (kahan): the same loop with a Neumaier compensation
-// register.  Products are rounded on their own (__fmul_rn) so the compiler
-// cannot contract them into the two-sum.
+// * A persistent grid.  The wrapper launches as many blocks as stay
+//   resident (at most blocks_per_sm on each SM), and each warp takes groups
+//   of V row blocks round-robin (warp w: groups w, w + warps, ...), so
+//   neighbouring warps stream neighbouring cells and every SM is busy.
+// * Loads in flight.  A group of 32 / V threads owns one row block; a
+//   thread owns V neighbouring rows and reads their cells of one column
+//   with one 4 V-byte value load and one 2 V-byte index load (16 B and 8 B
+//   at V = 4), kUnroll columns before it sums any, with streaming loads
+//   (__ldcs: read once, evicted first, so x keeps the caches).  Warps in
+//   flight matter most: chip_k1_sweep.py chose V = 1 and four blocks of
+//   512 threads an SM, so permuted_poisson_512's 8,192 row blocks give
+//   every warp one.
+// * x in one of two modes (STAGED):
+//   - ldg: x[table[slot] * 128 + lane] through __ldg, from L1 and L2 (x is
+//     1 MB at permuted_poisson_512, 4 MB at permuted_poisson_1024, both
+//     well inside the 50 MB L2);
+//   - staged: the group copies its piece's table rows into its own
+//     kStageRows x 512 B of shared memory with cp.async and reads x there
+//     by the cell's index; a piece whose table is larger reads through
+//     __ldg.
+// * No host work and no device sync per call, so a call can be captured in
+//   a CUDA graph.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kChunk = 32;  // steps staged in shared memory per pass
+constexpr int kRows = 32;        // rows of a row block
+constexpr int kLanes = 128;      // floats of an x row
+constexpr int kUnroll = 4;       // cell columns a thread loads before summing
+constexpr int kStageRows = 16;   // x rows a group stages (staged mode)
+constexpr int kMaxThreads = 512;
 
 __device__ __forceinline__ void neumaier_add(float& sum, float& comp,
                                              float v) {
@@ -50,114 +71,267 @@ __device__ __forceinline__ void neumaier_add(float& sum, float& comp,
   sum = t;
 }
 
-template <int NWIN, bool KAHAN, typename IdxT>
-__global__ void __launch_bounds__(kLanes) stream_body_kernel(
-    const IdxT* __restrict__ ell_col, const float* __restrict__ ell_val,
-    const int* __restrict__ slice_offset, const int* __restrict__ win0,
-    const int* __restrict__ win1, const int* __restrict__ win2,
-    const int* __restrict__ win3, const float* __restrict__ x,
-    float* __restrict__ y) {
-  __shared__ IdxT s_col[NWIN > 1 ? kChunk : 1][kLanes];
-  const int s = blockIdx.x;
-  const int l = threadIdx.x;
-  const int beg = slice_offset[s];
-  const int end = slice_offset[s + 1];
-  float sum = 0.0f;
-  float comp = 0.0f;
-  for (int base = beg; base < end; base += kChunk) {
-    const int n = min(kChunk, end - base);
-    if (NWIN > 1) {
-      __syncthreads();  // the previous chunk is fully consumed
-      for (int k = 0; k < n; ++k) {
-        s_col[k][l] = ell_col[(size_t)(base + k) * kLanes + l];
-      }
-      __syncthreads();
-    }
-    for (int k = 0; k < n; ++k) {
-      const int step = base + k;
-      const size_t cell = (size_t)step * kLanes + l;
-      int c;
-      if (NWIN == 1) {
-        c = win0[step] + (int)ell_col[cell];
-      } else {
-        const int lo = (int)s_col[k][l] & 127;
-        const int a = (int)s_col[k][lo];
-        const int sel = a >> 10;
-        const int hi = (a >> 7) & 7;
-        int w = win0[step];
-        if (sel == 1) w = win1[step];
-        if (NWIN == 4) {
-          if (sel == 2) w = win2[step];
-          if (sel == 3) w = win3[step];
-        }
-        c = w + (hi << 7) + lo;
-      }
-      const float p = __fmul_rn(ell_val[cell], __ldg(x + c));
-      if (KAHAN) {
-        neumaier_add(sum, comp, p);
-      } else {
-        sum += p;
-      }
-    }
-  }
-  y[(size_t)s * kLanes + l] = KAHAN ? sum + comp : sum;
-}
-
-template <int NWIN, bool KAHAN, typename IdxT>
-void launch(const void* ell_col, const float* ell_val,
-            const int* slice_offset, const int* w0, const int* w1,
-            const int* w2, const int* w3, const float* x, float* y,
-            int n_slices, cudaStream_t stream) {
-  stream_body_kernel<NWIN, KAHAN, IdxT><<<n_slices, kLanes, 0, stream>>>(
-      static_cast<const IdxT*>(ell_col), ell_val, slice_offset, w0, w1, w2,
-      w3, x, y);
-}
-
-template <typename IdxT>
-int dispatch(int nwin, int kahan, const void* ell_col, const float* ell_val,
-             const int* slice_offset, const int* w0, const int* w1,
-             const int* w2, const int* w3, const float* x, float* y,
-             int n_slices, cudaStream_t st) {
-#define EHYB_LAUNCH(NW, K)                                                  \
-  launch<NW, K, IdxT>(ell_col, ell_val, slice_offset, w0, w1, w2, w3, x, y, \
-                      n_slices, st)
-  if (nwin == 1) {
-    kahan ? EHYB_LAUNCH(1, true) : EHYB_LAUNCH(1, false);
-  } else if (nwin == 2) {
-    kahan ? EHYB_LAUNCH(2, true) : EHYB_LAUNCH(2, false);
-  } else if (nwin == 4) {
-    kahan ? EHYB_LAUNCH(4, true) : EHYB_LAUNCH(4, false);
+template <bool KAHAN>
+__device__ __forceinline__ void add(float& sum, float& comp, float p) {
+  if (KAHAN) {
+    neumaier_add(sum, comp, p);
   } else {
-    return (int)cudaErrorInvalidValue;
+    sum = __fadd_rn(sum, p);
   }
-#undef EHYB_LAUNCH
-  return 0;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Cells c .. c + V - 1 (V neighbouring rows of one column): values and
+// indices, with one streaming load each.
+template <int V>
+__device__ __forceinline__ void load_cells(const float* __restrict__ val,
+                                           const uint16_t* __restrict__ idx,
+                                           int c, float (&v)[V],
+                                           int (&j)[V]) {
+  if constexpr (V == 4) {
+    const float4 f = __ldcs(reinterpret_cast<const float4*>(val + c));
+    const uint2 i = __ldcs(reinterpret_cast<const uint2*>(idx + c));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+    j[0] = (int)(i.x & 0xffffu);
+    j[1] = (int)(i.x >> 16);
+    j[2] = (int)(i.y & 0xffffu);
+    j[3] = (int)(i.y >> 16);
+  } else if constexpr (V == 2) {
+    const float2 f = __ldcs(reinterpret_cast<const float2*>(val + c));
+    const unsigned i = __ldcs(reinterpret_cast<const unsigned*>(idx + c));
+    v[0] = f.x;
+    v[1] = f.y;
+    j[0] = (int)(i & 0xffffu);
+    j[1] = (int)(i >> 16);
+  } else {
+    v[0] = __ldcs(val + c);
+    j[0] = (int)__ldcs(idx + c);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_rows(float* y, const float (&s)[V]) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<float4*>(y), make_float4(s[0], s[1], s[2], s[3]));
+  } else if constexpr (V == 2) {
+    __stcs(reinterpret_cast<float2*>(y), make_float2(s[0], s[1]));
+  } else {
+    __stcs(y, s[0]);
+  }
+}
+
+// x at a cell's index: from the staged rows, or through the table and L1/L2.
+__device__ __forceinline__ float read_x(bool staged, const float* stage,
+                                        const int* __restrict__ tab,
+                                        const float* __restrict__ x, int j) {
+  if (staged) return stage[j];
+  return __ldg(x + (size_t)__ldg(tab + (j >> 7)) * kLanes + (j & (kLanes - 1)));
+}
+
+// piece[p] = (first cell, first table row, next piece or -1, row block);
+// piece[p + 1] ends both ranges.
+template <int V, bool STAGED, bool KAHAN>
+__global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
+    const int4* __restrict__ piece, const int* __restrict__ rows,
+    const float* __restrict__ cell_val, const uint16_t* __restrict__ cell_idx,
+    const float* __restrict__ x, float* __restrict__ y, int n_rb) {
+  constexpr int T = kRows / V;  // threads of a row block
+  extern __shared__ __align__(16) float xs[];
+  const int lane = threadIdx.x & 31;
+  const int g = lane / T;
+  const int t = lane % T;
+  constexpr unsigned kGroupLanes =
+      T >= 32 ? 0xffffffffu : (1u << (T & 31)) - 1u;
+  const unsigned mask = kGroupLanes << (g * T);  // the group's lanes
+  const int warps = blockDim.x >> 5;
+  const int n_warps = gridDim.x * warps;
+  float* stage = STAGED ? xs + ((threadIdx.x >> 5) * V + g) *
+                                   (kStageRows * kLanes)
+                        : nullptr;
+  const int n_groups = (n_rb + V - 1) / V;
+  for (int j = blockIdx.x * warps + (threadIdx.x >> 5); j < n_groups;
+       j += n_warps) {
+    const int rb = j * V + g;
+    if (rb >= n_rb) continue;  // the whole group skips
+    float sum[V], comp[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      sum[i] = 0.0f;
+      comp[i] = 0.0f;
+    }
+    int p = rb;
+    do {
+      const int4 a = __ldg(piece + p);
+      const int4 b = __ldg(piece + p + 1);
+      const int* tab = rows + a.y;
+      bool staged = false;
+      if (STAGED && b.y - a.y <= kStageRows) {
+        staged = true;
+        __syncwarp(mask);  // the group's previous piece is consumed
+        const int n = (b.y - a.y) * (kLanes / 4);
+        for (int q = t; q < n; q += T) {
+          const int r = q >> 5;
+          const int o = (q & 31) * 4;
+          cp_async16(stage + r * kLanes + o,
+                     x + (size_t)__ldg(tab + r) * kLanes + o);
+        }
+        cp_async_wait_all();
+        __syncwarp(mask);
+      }
+      int c = a.x + V * t;
+      for (; c + (kUnroll - 1) * kRows < b.x; c += kUnroll * kRows) {
+        float v[kUnroll][V];
+        int ix[kUnroll][V];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          load_cells<V>(cell_val, cell_idx, c + u * kRows, v[u], ix[u]);
+        }
+        float xv[kUnroll][V];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            xv[u][i] = read_x(staged, stage, tab, x, ix[u][i]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            add<KAHAN>(sum[i], comp[i], __fmul_rn(v[u][i], xv[u][i]));
+          }
+        }
+      }
+      for (; c < b.x; c += kRows) {
+        float v[V];
+        int ix[V];
+        load_cells<V>(cell_val, cell_idx, c, v, ix);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          add<KAHAN>(sum[i], comp[i],
+                     __fmul_rn(v[i], read_x(staged, stage, tab, x, ix[i])));
+        }
+      }
+      p = a.z;
+    } while (p >= 0);
+    if (KAHAN) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) sum[i] = sum[i] + comp[i];
+    }
+    store_rows<V>(y + (size_t)rb * kRows + V * t, sum);
+  }
+}
+
+using KernelFn = void (*)(const int4*, const int*, const float*,
+                          const uint16_t*, const float*, float*, int);
+
+template <int V>
+KernelFn pick_v(int staged, int kahan) {
+  if (staged) {
+    return kahan ? stream_body_kernel<V, true, true>
+                 : stream_body_kernel<V, true, false>;
+  }
+  return kahan ? stream_body_kernel<V, false, true>
+               : stream_body_kernel<V, false, false>;
+}
+
+// The kernel variant, or nullptr where none is built.
+KernelFn pick(int rows_per_thread, int staged, int kahan) {
+  switch (rows_per_thread) {
+    case 1: return pick_v<1>(staged, kahan);
+    case 2: return pick_v<2>(staged, kahan);
+    case 4: return pick_v<4>(staged, kahan);
+    default: return nullptr;
+  }
+}
+
+size_t smem_bytes(int rows_per_thread, int staged, int threads) {
+  return staged ? (size_t)(threads / 32) * rows_per_thread * kStageRows *
+                      kLanes * sizeof(float)
+                : 0;
+}
+
+// A failed call also leaves its error for the next cudaGetLastError(): take
+// it back, so that a refused geometry does not fail a later launch.
+int clear(cudaError_t rc) {
+  if (rc != cudaSuccess) (void)cudaGetLastError();
+  return (int)rc;
+}
+
+int allow_smem(KernelFn fn, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return clear(cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
 }
 
 }  // namespace
 
-// Launches the body on `stream` (a cudaStream_t) and returns
-// cudaGetLastError(); 0 means the launch was accepted.  idx_bytes is 2 for
-// int16 columns and 4 for int32.  Unused window maps may alias win0.
-extern "C" int ehyb_stream_body(const void* ell_col, int idx_bytes,
-                                const float* ell_val,
-                                const int* slice_offset, const int* win0,
-                                const int* win1, const int* win2,
-                                const int* win3, int nwin, int kahan,
-                                const float* x, float* y, int n_slices,
-                                void* stream) {
-  if (n_slices <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (idx_bytes == 2) {
-    rc = dispatch<int16_t>(nwin, kahan, ell_col, ell_val, slice_offset, win0,
-                           win1, win2, win3, x, y, n_slices, st);
-  } else if (idx_bytes == 4) {
-    rc = dispatch<int32_t>(nwin, kahan, ell_col, ell_val, slice_offset, win0,
-                           win1, win2, win3, x, y, n_slices, st);
-  } else {
-    rc = (int)cudaErrorInvalidValue;
+// Bytes of dynamic shared memory a block of the variant takes.
+extern "C" long long ehyb_stream_smem_bytes(int rows_per_thread, int staged,
+                                            int threads) {
+  return (long long)smem_bytes(rows_per_thread, staged, threads);
+}
+
+// Blocks of `threads` threads of a variant that stay resident on one SM (0
+// where none can), or a negative CUDA error; -cudaErrorInvalidValue where
+// no such variant is built.
+extern "C" int ehyb_stream_resident_blocks(int rows_per_thread, int staged,
+                                           int kahan, int threads) {
+  const KernelFn fn = pick(rows_per_thread, staged, kahan);
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(rows_per_thread, staged, threads);
+  int rc = allow_smem(fn, smem);
+  if (rc != 0) return -rc;
+  int blocks = 0;
+  rc = clear(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                           threads, smem));
+  return rc != 0 ? -rc : blocks;
+}
+
+// Registers a thread of a variant takes, or a negative CUDA error.
+extern "C" int ehyb_stream_registers(int rows_per_thread, int staged,
+                                     int kahan) {
+  const KernelFn fn = pick(rows_per_thread, staged, kahan);
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const int rc = clear(cudaFuncGetAttributes(&attr, fn));
+  return rc != 0 ? -rc : attr.numRegs;
+}
+
+// Launches the body on `stream` (a cudaStream_t): `grid` blocks of
+// `threads` threads over the plan's n_rb row blocks, rows_per_thread row
+// blocks a warp at a time; returns cudaGetLastError(), 0 when the launch
+// was accepted.  `piece` is (n_pieces + 1, 4) int32, `cell_idx` uint16,
+// every buffer 16-byte aligned.
+extern "C" int ehyb_stream_body(const void* piece, const int* rows,
+                                const float* cell_val, const void* cell_idx,
+                                const float* x, float* y, int n_rb,
+                                int rows_per_thread, int staged, int kahan,
+                                int threads, int grid, void* stream) {
+  if (n_rb <= 0) return 0;
+  const KernelFn fn = pick(rows_per_thread, staged, kahan);
+  if (fn == nullptr || threads < 32 || threads > kMaxThreads ||
+      threads % 32 || grid <= 0) {
+    return (int)cudaErrorInvalidValue;
   }
+  const size_t smem = smem_bytes(rows_per_thread, staged, threads);
+  const int rc = allow_smem(fn, smem);
   if (rc != 0) return rc;
+  fn<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(piece), rows, cell_val,
+      static_cast<const uint16_t*>(cell_idx), x, y, n_rb);
   return (int)cudaGetLastError();
 }

@@ -242,16 +242,22 @@ class EhybPlainSpmv(SpmvModel):
     def bytes_model(self) -> int:
         """Device-memory bytes per iteration (the roofline's denominator):
         the artifact's streams, x once and y once.  Where the body runs
-        through the window cache the card reads the plan's compact cells
-        and staged rows, not the padded body it dropped at upload: the
-        plan's ``layout_bytes`` stand in for the body's cells."""
+        through a plan the card reads the plan's compact cells, not the
+        padded body it dropped at upload: the window cache's
+        ``layout_bytes`` (cells and staged rows) or K1's ``stream_bytes``
+        (cells, pieces and tables) stand in for the body's cells."""
         cfg = self.config
         stats = self.ehyb.stats
-        wincache = getattr(getattr(self, "module", None), "wincache", None)
+        module = getattr(self, "module", None)
+        wincache = getattr(module, "wincache", None)
+        cells = getattr(module, "cells", None)
         body = 0
         if wincache is not None:
             stats = dict(stats, nnz_ell=0, waste_ell=0)
             body = wincache.stats["layout_bytes"]
+        elif cells is not None:
+            stats = dict(stats, nnz_ell=0, waste_ell=0)
+            body = cells.stats["stream_bytes"]
         return body + spmv_bytes_model(
             stats, dim=self.m.dimension,
             value_bytes=np.dtype(cfg.dtype).itemsize,
@@ -286,14 +292,15 @@ class EhybSpmv(EhybPlainSpmv):
             e_rx, np.dtype(self.config.dtype).itemsize)
 
     def _make_module(self):
-        t0 = time.perf_counter()
         module = make_stream_apply(self.ehyb, self.dev,
                                    kahan=self.config.compensated_sum,
                                    value_bytes=np.dtype(
                                        self.config.dtype).itemsize)
+        # the body plan's build, a part of the upload phase
         if module.wincache is not None:
-            # the window-cache plan's build, a part of the upload phase
-            self.setup_seconds["wincache_plan"] = time.perf_counter() - t0
+            self.setup_seconds["wincache_plan"] = module.plan_seconds
+        elif module.cells is not None:
+            self.setup_seconds["k1_plan"] = module.plan_seconds
         return module
 
     def _gate_preconditions(self, m: MatrixCOO) -> bool:

@@ -5,11 +5,11 @@ Port counterpart of the resident streamed body in
 ``ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py`` (``_make_stream_resident_kernel``
 and the branch of ``make_ehyb_pallas_apply`` that runs it).  The kernel is
 ``csrc/ehyb_stream.cu``; see its header for what it computes, what bounds
-it on the H100, and how it replaces the TPU's sequential-grid carry.  It
-reads its window maps from device memory at any size, so it also computes
-the bodies the TPU gives to K2 (maps in HBM meta blocks), K5 and K6 (the
-per-slice chunk-sync bodies).  :func:`make_stream_apply` picks K1 or the
-window-cache kernel (``ops/ehyb_wincache.py``) by the TPU's branch.
+it on the H100 and how its design answers that.  It reads the compact plan
+of ``ops/stream_cells.py``, built once per artifact at upload, so it also
+computes the bodies the TPU gives to K2, K5 and K6 and to its XLA
+fallbacks.  :func:`make_stream_apply` picks K1 or the window-cache kernel
+(``ops/ehyb_wincache.py``) by the TPU's branch.
 
 :func:`stream_body` launches the kernel for tensors on a CUDA device and
 takes the plain version :func:`stream_body_plain` only for tensors on the
@@ -18,7 +18,9 @@ CPU.  A CUDA call launches the kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
+import time
 
 import torch
 
@@ -27,15 +29,56 @@ from ..core.ehyb import EhybDevice, EhybMatrix
 from ..utils.log import get_logger
 from . import stream_plan
 from .build import BuiltLibrary, build_cuda_library
-from .dia import dia_body
+from .dia import SMEM_LIMIT_BYTES, dia_body
 from .ehyb_wincache import WinCacheDevice, build_wincache_plan, wincache_body
-from .torch_ops import combine_ehyb, ehyb_body, ehyb_er, ehyb_long
+from .stream_cells import (BLOCK_ROWS, PIECE_CELL, PIECE_RB, PIECE_ROW,
+                           StreamCellsDevice, build_stream_cells)
+from .torch_ops import combine_ehyb, ehyb_er, ehyb_long
 
 log = get_logger(__name__)
+
+X_MODES = ("ldg", "staged")
+#: The rows per thread (row blocks a warp takes at once) K1 is built for.
+BUILT_ROWS = (1, 2, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamGeometry:
+    """How K1 walks the plan: ``threads`` per block; ``rows`` row blocks a
+    warp takes at once (each thread owns ``rows`` neighbouring rows of one
+    and reads their cells with one load); ``blocks_per_sm`` the persistent
+    grid's blocks on each SM (fewer where they do not fit); ``x_mode``
+    ``"ldg"`` (x through L1/L2) or ``"staged"`` (each piece's table rows
+    copied to shared memory first)."""
+    threads: int = 512
+    rows: int = 1
+    blocks_per_sm: int = 4
+    x_mode: str = "ldg"
+
+    def check(self) -> None:
+        if self.rows not in BUILT_ROWS:
+            raise ValueError(f"no kernel built for {self.rows} rows per "
+                             f"thread (built: {BUILT_ROWS})")
+        if self.x_mode not in X_MODES:
+            raise ValueError(f"x_mode {self.x_mode!r} not in {X_MODES}")
+        if not (32 <= self.threads <= 512 and self.threads % 32 == 0):
+            raise ValueError(f"threads {self.threads}: a multiple of 32 up "
+                             "to 512")
+        if self.blocks_per_sm < 1:
+            raise ValueError("blocks_per_sm must be at least 1")
+
+
+#: The geometry every call takes.  ``chip_k1_sweep.py`` chose it: the
+#: fastest at permuted_poisson_1024 within 3% of the fastest at
+#: permuted_poisson_512 (four blocks of 512 threads fill an SM; one row a
+#: thread gives pp512's 8,192 row blocks the most warps).
+GEOMETRY = StreamGeometry()
 
 _lock = threading.Lock()
 _built = None
 _lib = None
+#: (geometry, kahan, device) → blocks of it resident on one SM.
+_resident: dict = {}
 
 
 def build_kernel() -> BuiltLibrary:
@@ -51,72 +94,122 @@ def build_kernel() -> BuiltLibrary:
             lib = ctypes.CDLL(built.path)
             lib.ehyb_stream_body.restype = ctypes.c_int
             lib.ehyb_stream_body.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-                + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
+            lib.ehyb_stream_resident_blocks.restype = ctypes.c_int
+            lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 4
+            lib.ehyb_stream_registers.restype = ctypes.c_int
+            lib.ehyb_stream_registers.argtypes = [ctypes.c_int] * 3
+            lib.ehyb_stream_smem_bytes.restype = ctypes.c_longlong
+            lib.ehyb_stream_smem_bytes.argtypes = [ctypes.c_int] * 3
             _built, _lib = built, lib
         return _built
 
 
-def _check(e: EhybDevice, x_pad: torch.Tensor) -> None:
+def resident_blocks(geometry: StreamGeometry, kahan: bool, device) -> int:
+    """Blocks of this geometry that stay resident on one SM of ``device``
+    (made once and kept); raises where not one does, as the launch would
+    be refused."""
+    key = (geometry, bool(kahan), torch.device(device))
+    n = _resident.get(key)
+    if n is None:
+        smem = smem_bytes(geometry)
+        if smem > SMEM_LIMIT_BYTES:
+            raise RuntimeError(f"K1 {geometry} needs {smem} B of shared "
+                               f"memory a block, above {SMEM_LIMIT_BYTES}")
+        with torch.cuda.device(key[2]):
+            n = _lib.ehyb_stream_resident_blocks(
+                geometry.rows, int(geometry.x_mode == "staged"), int(kahan),
+                geometry.threads)
+        if n <= 0:
+            raise RuntimeError(f"K1 {geometry} cannot run (occupancy {n})")
+        _resident[key] = n
+    return n
+
+
+def registers(geometry: StreamGeometry, kahan: bool = False) -> int:
+    """Registers a thread of the geometry's kernel variant takes."""
+    build_kernel()
+    return _lib.ehyb_stream_registers(
+        geometry.rows, int(geometry.x_mode == "staged"), int(kahan))
+
+
+def smem_bytes(geometry: StreamGeometry) -> int:
+    """Dynamic shared memory a block of the geometry takes."""
+    build_kernel()
+    return _lib.ehyb_stream_smem_bytes(
+        geometry.rows, int(geometry.x_mode == "staged"), geometry.threads)
+
+
+def grid_of(p: StreamCellsDevice, geometry: StreamGeometry, kahan: bool,
+            device) -> int:
+    """The persistent grid: the resident blocks of the card, or fewer where
+    the plan's row-block groups do not give every warp one."""
+    per_sm = min(geometry.blocks_per_sm,
+                 resident_blocks(geometry, kahan, device))
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    groups = -(-p.n_rb // geometry.rows)
+    return max(1, min(per_sm * n_sm, -(-groups // (geometry.threads // 32))))
+
+
+def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
     """Refuse anything the kernel does not take."""
     dev = x_pad.device
     if x_pad.dtype != torch.float32 or x_pad.dim() != 1 \
             or not x_pad.is_contiguous():
         raise ValueError("x_pad must be a contiguous 1-D float32 tensor")
-    if x_pad.shape[0] < e.padded_x_rows:
-        raise ValueError(f"x_pad has {x_pad.shape[0]} rows; the windows "
-                         f"need {e.padded_x_rows}")
-    steps = e.ell_col.shape[0]
-    if e.ell_col.dtype not in (torch.int16, torch.int32):
-        raise ValueError(f"ell_col must be int16 or int32, not "
-                         f"{e.ell_col.dtype}")
-    if e.ell_val.dtype != torch.float32:
-        raise ValueError(f"ell_val must be float32, not {e.ell_val.dtype}")
-    if e.ell_col.dim() != 2 or e.ell_col.shape[1] != LANES \
-            or e.ell_val.shape != e.ell_col.shape:
-        raise ValueError("ell_col/ell_val must both be (steps, 128)")
-    n_slices = e.slice_offset.shape[0] - 1
-    if e.slice_offset.dtype != torch.int32 or n_slices < 0:
-        raise ValueError("slice_offset must be int32 (n_slices + 1,)")
-    wins = [e.step_win, e.step_win_b, e.step_win_c, e.step_win_d][:e.nwin]
-    for w in wins:
-        if w.dtype != torch.int32 or w.shape != (steps,):
-            raise ValueError("window maps must be int32 (steps,)")
-    for t in [e.ell_col, e.ell_val, e.slice_offset, *wins]:
+    n_x = p.stats["x_bytes"] // 4
+    if x_pad.shape[0] < n_x:
+        raise ValueError(f"x_pad has {x_pad.shape[0]} rows; the plan reads "
+                         f"{n_x}")
+    if p.cell_val.dtype != torch.float32 or p.cell_idx.dtype != torch.int16:
+        raise ValueError("the plan's cells must be float32 values and "
+                         "16-bit indices")
+    for t in (x_pad, p.piece, p.rows, p.cell_val, p.cell_idx):
         if t.device != dev:
             raise ValueError(f"tensor on {t.device}, x_pad on {dev}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("kernel inputs must be 16-byte aligned (16-B "
+                             "cell loads, cp.async)")
 
 
-def stream_body(e: EhybDevice, x_pad: torch.Tensor,
+def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
+            geometry: StreamGeometry = None) -> torch.Tensor:
+    """One launch at ``geometry`` (the default where None), counted."""
+    g = GEOMETRY if geometry is None else geometry
+    g.check()
+    _check(p, x_pad)
+    build_kernel()
+    y = torch.empty(p.n_rb * BLOCK_ROWS, dtype=torch.float32,
+                    device=x_pad.device)
+    if not p.n_rb:
+        return y
+    rc = _lib.ehyb_stream_body(
+        p.piece.data_ptr(), p.rows.data_ptr(), p.cell_val.data_ptr(),
+        p.cell_idx.data_ptr(), x_pad.data_ptr(), y.data_ptr(), p.n_rb,
+        g.rows, int(g.x_mode == "staged"), int(bool(kahan)), g.threads,
+        grid_of(p, g, kahan, x_pad.device),
+        torch.cuda.current_stream(x_pad.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ehyb_stream_body launch failed: CUDA error {rc}")
+    stream_body.launches += 1
+    return y
+
+
+def stream_body(p: StreamCellsDevice, x_pad: torch.Tensor,
                 kahan: bool = False) -> torch.Tensor:
-    """SELL-body sums per row lane, flattened to (n_slices * 128,).
+    """SELL-body sums per row, flattened to (n_slices * 128,), over K1's
+    compact plan ``p``.
 
     CPU tensors take :func:`stream_body_plain`; CUDA tensors launch the
     kernel (``kahan`` selects the compensated variant) or raise."""
     if x_pad.device.type == "cpu":
-        return stream_body_plain(e, x_pad, kahan)
+        return stream_body_plain(p, x_pad, kahan)
     if x_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {x_pad.device}")
-    _check(e, x_pad)
-    build_kernel()
-    n_slices = e.slice_offset.shape[0] - 1
-    y = torch.empty(n_slices * LANES, dtype=torch.float32,
-                    device=x_pad.device)
-    w = [e.step_win, e.step_win_b, e.step_win_c, e.step_win_d][:e.nwin]
-    w = w + [e.step_win] * (4 - len(w))       # unused maps alias win0
-    rc = _lib.ehyb_stream_body(
-        e.ell_col.data_ptr(), e.ell_col.element_size(), e.ell_val.data_ptr(),
-        e.slice_offset.data_ptr(), *(t.data_ptr() for t in w), e.nwin,
-        int(bool(kahan)), x_pad.data_ptr(), y.data_ptr(), n_slices,
-        torch.cuda.current_stream(x_pad.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ehyb_stream_body launch failed: CUDA error {rc}")
-    if n_slices:
-        stream_body.launches += 1
-    return y
+    return _launch(p, x_pad, kahan)
 
 
 #: Kernel launches since the count was last reset (a run sets it to 0 to
@@ -124,12 +217,32 @@ def stream_body(e: EhybDevice, x_pad: torch.Tensor,
 stream_body.launches = 0
 
 
-def stream_body_plain(e: EhybDevice, x_pad: torch.Tensor,
+def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
                       kahan: bool = False) -> torch.Tensor:
-    """Plain-torch version of the kernel (same inputs, same output).  With
+    """Plain-torch version of the kernel: read each cell's x through its
+    piece's table and add the products per row in cell order (a row's step
+    order; a row block's later pieces follow the main ones).  With
     ``kahan`` it sums in float64 and rounds once, the answer the
     compensated kernel reaches to about one ulp."""
-    return ehyb_body(e, x_pad, compensated=kahan)
+    dev = x_pad.device
+    acc = torch.float64 if kahan else x_pad.dtype
+    y = torch.zeros(p.n_rb * BLOCK_ROWS, dtype=acc, device=dev)
+    if p.n_cells == 0:
+        return y.to(x_pad.dtype)
+    piece = p.piece.long()
+    cell_piece = torch.repeat_interleave(
+        torch.arange(p.n_pieces, device=dev), torch.diff(piece[:, PIECE_CELL]),
+        output_size=p.n_cells)
+    first = piece[cell_piece]
+    idx = p.cell_idx.long() & 0xFFFF
+    col = p.rows.long()[first[:, PIECE_ROW] + (idx >> 7)] * LANES \
+        + (idx & (LANES - 1))
+    row = first[:, PIECE_RB] * BLOCK_ROWS \
+        + (torch.arange(p.n_cells, device=dev) - first[:, PIECE_CELL]) \
+        % BLOCK_ROWS
+    contrib = p.cell_val.to(x_pad.dtype) * x_pad[col]
+    y.index_add_(0, row, contrib.to(acc))
+    return y.to(x_pad.dtype)
 
 
 class EhybStreamApply(torch.nn.Module):
@@ -137,13 +250,19 @@ class EhybStreamApply(torch.nn.Module):
     torch ER, long-row and combine phases.  ``forward(x_pad)`` → padded y.
 
     The body runs through the window-cache kernel when ``wincache`` (its
-    plan on the device) is given, else through K1."""
+    plan on the device) is given, else through K1 over ``cells`` (its
+    plan on the device)."""
 
     def __init__(self, e: EhybDevice, kahan: bool = False,
+                 cells: StreamCellsDevice = None,
                  wincache: WinCacheDevice = None, branch: str = ""):
         super().__init__()
+        if e.body_nnz and (cells is None) == (wincache is None):
+            raise ValueError("a body needs exactly one plan: K1's cells or "
+                             "the window cache's")
         self.e = e
         self.kahan = kahan
+        self.cells = cells
         self.wincache = wincache
         #: The TPU branch the JAX flagship takes for this artifact.
         self.branch = branch
@@ -156,7 +275,7 @@ class EhybStreamApply(torch.nn.Module):
         elif self.wincache is not None:
             y_body = wincache_body(e, self.wincache, x_pad, self.kahan)
         else:
-            y_body = stream_body(e, x_pad, self.kahan)
+            y_body = stream_body(self.cells, x_pad, self.kahan)
         return combine_ehyb(e, y_body, ehyb_er(e, x_pad),
                             ehyb_long(e, x_pad), dia_body(e, x_pad))
 
@@ -169,15 +288,17 @@ def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,
     through the window-cache kernel; everywhere else through K1, which
     computes the bodies of K2, K5 and K6 and the XLA fallbacks too.
 
-    The window-cache plan holds the body's real cells in a layout of its
-    own, so ``dev`` then gives up its padded cells (``ell_col`` and
-    ``ell_val`` become None); ``e`` keeps them on the host."""
+    Both kernels read a plan of the body's real cells, built here from
+    ``e`` and uploaded beside ``dev``, so ``dev`` then gives up its padded
+    cells (``ell_col`` and ``ell_val`` become None); ``e`` keeps them on
+    the host.  The plan's build seconds are ``apply.plan_seconds``."""
     branch = stream_plan.tpu_body_branch(e, value_bytes)
-    wincache = None
+    device = dev.slice_offset.device
+    cells = wincache = None
+    t0 = time.perf_counter()
     if stream_plan.BRANCH_KERNEL[branch] in ("K3", "K4"):
         plan = build_wincache_plan(e)
-        wincache = plan.to_torch(dev.ell_col.device)
-        dev.ell_col = dev.ell_val = None
+        wincache = plan.to_torch(device)
         st = plan.stats
         log.info("body [%s on the TPU]: window-cache kernel, %d "
                  "blocks, %d stages (%d chunked slices), %.1f MB of cells "
@@ -186,8 +307,19 @@ def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,
                  st["chunked_slices"], st["cell_bytes"] / 1e6,
                  st["body_bytes"] / 1e6, st["staged_bytes"] / 1e6,
                  st["x_bytes"] / 1e6)
+    elif branch != "skipped":
+        plan = build_stream_cells(e)
+        cells = plan.to_torch(device)
+        st = plan.stats
+        log.info("body [%s on the TPU]: K1, %d row blocks (%d cut for the "
+                 "16-bit range), %.1f MB of cells in place of %.1f MB "
+                 "padded", branch, st["n_rb"], st["split_rbs"],
+                 st["cell_bytes"] / 1e6, st["body_bytes"] / 1e6)
     else:
-        log.info("body [%s on the TPU]: %s", branch,
-                 "none (all DIA/ER/long)" if branch == "skipped" else "K1")
-    return EhybStreamApply(dev, kahan=kahan, wincache=wincache,
-                           branch=branch)
+        log.info("body [%s on the TPU]: none (all DIA/ER/long)", branch)
+    if cells is not None or wincache is not None:
+        dev.ell_col = dev.ell_val = None
+    apply = EhybStreamApply(dev, kahan=kahan, cells=cells,
+                            wincache=wincache, branch=branch)
+    apply.plan_seconds = time.perf_counter() - t0
+    return apply

@@ -33,8 +33,9 @@ import chip_smoke
 import chip_wincache_sweep
 import chip_routed_sweep
 import chip_dia_sweep
+import chip_k1_sweep
 for name in ("ops.stream_plan", "ops.dia", "ops.ehyb_wincache",
-             "ops.route_xcache"):
+             "ops.route_xcache", "ops.stream_cells"):
     assert f"ehyb_spmv_torch.{name}" in sys.modules, name
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ehyb_spmv_gpu_tpu")]

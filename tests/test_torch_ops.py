@@ -116,7 +116,8 @@ def test_stream_plain_matches_pallas_interpret(case, layout, nwin, kahan,
     m = cancellation_matrix(REF) if kahan else scrambled
     cfg = config_for(REF, True, layout, max(nwin, 2), compensated_sum=kahan)
     _, r_ref, e_ref = host_pipeline(REF, m, cfg)
-    d_pt = port_from_ref(e_ref).to_torch()
+    e_pt = port_from_ref(e_ref)
+    d_pt = e_pt.to_torch()
     assert d_pt.nwin == nwin and e_ref.stats["nnz_ell"] > 0
 
     apply = make_ehyb_pallas_apply(e_ref, cfg, interpret=True, streaming=True)
@@ -127,15 +128,20 @@ def test_stream_plain_matches_pallas_interpret(case, layout, nwin, kahan,
     want = np.asarray(jax.jit(apply)(d_ref, jnp.asarray(x)))
 
     xt = torch.from_numpy(x)
-    got = ehyb_stream.EhybStreamApply(d_pt, kahan=kahan)(xt).numpy()
+    # the flagship's apply: K1 over its compact plan of this artifact
+    flagship = ehyb_stream.make_stream_apply(e_pt, d_pt, kahan=kahan)
+    assert flagship.cells is not None and d_pt.ell_val is None
+    got = flagship(xt).numpy()
     assert got.shape == want.shape
     assert rel(got, want) <= TOL, rel(got, want)
     # on a CPU tensor the wrapper IS the plain version
-    body = ehyb_stream.stream_body(d_pt, xt, kahan)
-    assert torch.equal(body, ehyb_stream.stream_body_plain(d_pt, xt, kahan))
+    body = ehyb_stream.stream_body(flagship.cells, xt, kahan)
+    assert torch.equal(body, ehyb_stream.stream_body_plain(flagship.cells,
+                                                           xt, kahan))
     if kahan:
         # row 0 of the cancellation matrix sums to 100 exactly
         r0 = int(r_ref.old_to_new[0])
         assert got[r0] == want[r0] == 100.0
-        naive = ehyb_stream.EhybStreamApply(d_pt, kahan=False)(xt).numpy()
+        naive = ehyb_stream.make_stream_apply(e_pt, e_pt.to_torch())(
+            xt).numpy()
         assert abs(naive[r0] - 100.0) > 1e-4   # the stress has teeth

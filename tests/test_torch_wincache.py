@@ -329,14 +329,15 @@ def test_wincache_compacts_poisson_to_four_cells_per_row(monkeypatch):
 
 def test_wincache_flagship_keeps_no_padded_body(scrambled, monkeypatch):
     """Where the window cache runs, the flagship's device mirror gives up
-    the padded cells (the plan holds the body) and K1's models keep them;
-    the host artifact still has them, and K1's plain version on their
-    upload equals the plan's answer."""
+    the padded cells (the plan holds the body), as it does where K1 runs
+    over its own plan; the host artifact still has them, and the padded
+    body's plain version on their upload equals the plan's answer."""
     m = coo_for(PORT, scrambled)
     cfg = port.EhybConfig(artifact_cache=False)
     k1_model = port.EhybSpmv(cfg, device="cpu").setup(m)
     assert k1_model.module.wincache is None
-    assert k1_model.dev.ell_val is not None
+    assert k1_model.module.cells is not None
+    assert k1_model.dev.ell_val is None
     monkeypatch.setattr(stream_plan, "X_RESIDENT_BYTES", 1024)
     model = port.EhybSpmv(cfg, device="cpu").setup(m)
     plan = model.module.wincache
@@ -364,9 +365,13 @@ def test_bytes_model_counts_the_window_cache_plan(scrambled, monkeypatch,
     k1_model = port.EhybSpmv(cfg, device="cpu").setup(m)
     ib = np.dtype(k1_model.config.index_dtype).itemsize
     assert k1_model.module.wincache is None
+    # K1's own plan stands in for the padded body there
+    # (test_bytes_model_counts_the_k1_plan)
+    k1_st = k1_model.ehyb.stats
     assert k1_model.bytes_model() == spmv_bytes_model(
-        k1_model.ehyb.stats, dim=m.dimension, value_bytes=4,
-        ell_index_bytes=ib)
+        k1_st, dim=m.dimension, value_bytes=4, ell_index_bytes=ib) \
+        - (k1_st["nnz_ell"] + k1_st["waste_ell"]) * (4 + ib) \
+        + k1_model.module.cells.stats["stream_bytes"]
     monkeypatch.setattr(stream_plan, "X_RESIDENT_BYTES", 1024)
     model = port.EhybSpmv(cfg, device="cpu").setup(m)
     plan_st = model.module.wincache.stats
@@ -384,6 +389,39 @@ def test_bytes_model_counts_the_window_cache_plan(scrambled, monkeypatch,
     code, result, cli_model = cli.run(cli.build_parser().parse_args(
         ["-m", path, "-i", "2", "--warmup", "1", "--device", "cpu"]))
     assert code == 0 and cli_model.module.wincache is not None
+    assert result["bytes_model"] == model.bytes_model()
+
+
+def test_bytes_model_counts_the_k1_plan(scrambled, tmp_path):
+    """Where K1 runs, the card reads K1's compact plan (cells, pieces and
+    tables), not the padded body it dropped at upload: the roofline's bytes
+    count the plan's ``stream_bytes`` for the body, and the DIA, ER,
+    long-row, x and y bytes as before.  The CLI reports that count."""
+    from ehyb_spmv_torch import cli
+    from ehyb_spmv_torch.io import write_mtx
+    from ehyb_spmv_torch.utils.timing import spmv_bytes_model
+
+    m = coo_for(PORT, scrambled)
+    model = port.EhybSpmv(port.EhybConfig(artifact_cache=False),
+                          device="cpu").setup(m)
+    plan_st = model.module.cells.stats
+    st = model.ehyb.stats
+    ib = np.dtype(model.config.index_dtype).itemsize
+    assert model.module.branch == "streamed v3"
+    assert st["nnz_ell"] > 0 and st["nnz_dia"] > 0
+    padded = spmv_bytes_model(st, dim=m.dimension, value_bytes=4,
+                              ell_index_bytes=ib)
+    body = (st["nnz_ell"] + st["waste_ell"]) * (4 + ib)
+    assert plan_st["stream_bytes"] == plan_st["cell_bytes"] \
+        + plan_st["map_bytes"]
+    assert plan_st["cell_bytes"] == plan_st["compact_cells"] * 6
+    assert model.bytes_model() == padded - body + plan_st["stream_bytes"]
+    assert plan_st["stream_bytes"] < body
+    path = str(tmp_path / "scrambled.mtx")
+    write_mtx(path, m)
+    code, result, cli_model = cli.run(cli.build_parser().parse_args(
+        ["-m", path, "-i", "2", "--warmup", "1", "--device", "cpu"]))
+    assert code == 0 and cli_model.module.cells is not None
     assert result["bytes_model"] == model.bytes_model()
 
 
