@@ -26,7 +26,10 @@ end to end through the CLI and checks each against the exact-f64 oracle:
   past the TPU's residency limit: the window-cache body and K9.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after, to show it went through its kernels.  Then it times every kernel and
+after, to show it went through its kernels.  The CLI's timed loop replays
+CUDA graphs of the apply (captured in its warm-up); a replay adds the
+launches its graph holds to the counts, so they read captured launches
+times replays.  Then it times every kernel and
 its plain version at its main path's shapes (K1 also on
 ``permuted_poisson_1024`` on its own resident path, and on
 permuted_poisson_4096's body beside the window cache; both on
@@ -43,6 +46,16 @@ each kernel's time it prints the card's SM clock,
 power draw, temperature and active throttle reasons, read right after the
 timed loop.
 
+Then the device loops: on each of the four rows the chained loop as
+CUDA-graph replays against the eager loop (the same y within rel 1e-6 at eps
+0 and 0.1, both timed in turns with no capture inside the timed calls, the
+graph no slower), where the device time goes under the graph
+(``torch.profiler`` and ``phase_breakdown``), CG on ``permuted_poisson_512``
+through the flagship with and without Jacobi (graph against eager, the true
+residual from the exact-f64 oracle, a checkpointed solve cut at 500
+iterations and resumed), power iteration (graph against eager), and the
+``csr``, ``bcoo`` and ``hyb`` baselines through the CLI beside ``ehyb``.
+
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
@@ -54,6 +67,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -67,17 +81,38 @@ from ehyb_spmv_torch.core.coo import MatrixCOO, deterministic_x, oracle_spmv
 from ehyb_spmv_torch.core.route import RoutedEpilogue, build_routed
 from ehyb_spmv_torch.io import generate
 from ehyb_spmv_torch.models import routed as routed_model
+from ehyb_spmv_torch.models.solver import CgSolver, PowerIteration
 from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
 from ehyb_spmv_torch.ops import route_xcache, stream_plan
 from ehyb_spmv_torch.ops.build import BUILD_DIR
 from ehyb_spmv_torch.ops.stream_cells import build_stream_cells
 from ehyb_spmv_torch.ops.torch_ops import body_gather_index, ehyb_body
-from ehyb_spmv_torch.utils.timing import detect_hbm_bw
+from ehyb_spmv_torch.utils.graphs import CapturedGraph, launch_counters
+from ehyb_spmv_torch.utils.profiling import phase_breakdown
+from ehyb_spmv_torch.utils.timing import detect_hbm_bw, timed_seconds
 
 #: Kernel vs plain version, f32 both: only the summation order differs.
 KERNEL_TOL = 1e-6
 #: End to end vs the exact-f64 oracle: the suite's bound.
 ORACLE_TOL = 5e-6
+#: The graph loop vs the eager loop, f32 both: the ER and long-row scatters
+#: add with atomics, so the sums' order differs between runs.
+LOOP_TOL = 1e-6
+#: The graph loop may read this much slower than the eager loop in a
+#: paired run before the check fails (the card-bound rows' run-to-run
+#: spread; the host-bound row is expected far faster).
+LOOP_SLACK = 1.03
+#: CG on permuted_poisson_512 in f32: b = A·x_true takes ~50 iterations to
+#: 1e-4 and ~800 to 1e-7, where the true residual sits at f32's floor
+#: (~7e-7); 2e-7 takes several hundred, so a checkpoint can cut it at 500,
+#: and keeps the true residual within 10x of the tolerance.
+CG_TOL = 2e-7
+CG_MAX = 5000
+#: Power iteration, graph vs eager after 100 f32 steps.
+POWER_TOL = 1e-5
+#: The baselines of ``--model`` on the headline row, through the CLI.
+BASELINE_ARGS = ["-g", "permuted_poisson_512", "-i", "500", "--json",
+                 "--device", "cuda", "--model"]
 MAIN_ARGS = ["-g", "permuted_poisson_512", "-i", "500", "--json",
              "--device", "cuda"]
 #: bench.py's gather-wall row: ehyb through the gate, 100 iterations.
@@ -348,8 +383,7 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
 
 
 def reset_launches() -> None:
-    for fn in (ehyb_stream.stream_body, route_xcache.route_xcache,
-               dia.dia_body, ehyb_wincache.wincache_body):
+    for fn in launch_counters():
         fn.launches = 0
 
 
@@ -988,30 +1022,164 @@ def time_routed(model, result, m: MatrixCOO, dev) -> dict:
                 same_work_bound_ms=same["bound_ms"])
 
 
-def profile_path(name: str, result: dict, model, n: int = 20) -> None:
-    """Device time by kernel over ``n`` iterations of a main path
-    (``torch.profiler``), and the device's busy share of the unprofiled
-    wall time per iteration the CLI measured."""
+def check_loop(res: dict, model, dev) -> dict:
+    """The chained loop of one main path as CUDA-graph replays against the
+    eager loop: the same y at eps 0 and 0.1 over 3 iterations (rel <=
+    LOOP_TOL), then both loops timed in turns (eager, graph, graph, eager)
+    at the CLI's iteration count, with no capture inside the timed calls.
+    Returns the graph's and the eager loop's seconds per iteration."""
+    x_dev = model.prepare_x(deterministic_x(res["dim"]))
+    for eps in (0.0, 0.1):
+        err = rel(model.iterate(x_dev, 3, eps),
+                  model.iterate_eager(x_dev, 3, eps))
+        check(err <= LOOP_TOL, f"{res['matrix']}: graph vs eager loop at eps "
+                               f"{eps}, 3 iterations: rel {err:.3e}")
+    n = res["iters"]
+    model.iterate(x_dev, n)          # every graph of the row captured
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    captures = CapturedGraph.captures
+    loops = {"eager": model.iterate_eager, "graph": model.iterate}
+    readings = {k: [] for k in loops}
+    for k in ("eager", "graph", "graph", "eager"):
+        readings[k].append(timed_seconds(lambda: loops[k](x_dev, n), dev) / n)
+    check(CapturedGraph.captures == captures,
+          f"{res['matrix']}: no graph captured inside the timed calls "
+          f"({captures} before, {CapturedGraph.captures} after)")
+    out = {k: sum(v) / len(v) for k, v in readings.items()}
+    gf = {k: 2e-9 * res["nnz"] / t for k, t in out.items()}
+    print(f"  {res['matrix']}: graph {1e6 * out['graph']:.2f} us/iter "
+          f"({gf['graph']:.2f} GFLOP/s; readings "
+          + ", ".join(f"{1e6 * t:.2f}" for t in readings["graph"])
+          + f"), eager {1e6 * out['eager']:.2f} us/iter ({gf['eager']:.2f} "
+            "GFLOP/s; readings "
+          + ", ".join(f"{1e6 * t:.2f}" for t in readings["eager"])
+          + f"); graph/eager {out['graph'] / out['eager']:.3f}; peak device "
+            f"memory in the loops {torch.cuda.max_memory_allocated(dev)} B; "
+          + card_state())
+    check(out["graph"] <= LOOP_SLACK * out["eager"],
+          f"{res['matrix']}: the graph loop no slower than the eager loop "
+          f"(within {LOOP_SLACK:g}x)")
+    return out
+
+
+def profile_path(name: str, result: dict, model, graph_s: float,
+                 n: int = 20) -> None:
+    """Device time by kernel over ``n`` iterations of a main path's graph
+    loop (``torch.profiler``), the device's busy share of the unprofiled
+    graph loop's time per iteration, and ``phase_breakdown``'s device time
+    per phase.  Where the profiler sees no kernel inside the graph
+    replays, the split comes from the eager loop instead (said so)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
-    model.iterate(x_dev, 2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        model.iterate(x_dev, n)
+    source = "graph replays"
+    for loop in (model.iterate, model.iterate_eager):
+        loop(x_dev, 2)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loop(x_dev, n)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0]
+        if kernels:
+            break
+        source = "the eager loop (the profiler saw no kernel in the graph)"
     busy_us = sum(e.device_time_total for e in kernels) / n
-    wall_us = 1e6 * result["seconds"] / result["iters"]
+    wall_us = 1e6 * graph_s
     print(f"  {name}: device busy {busy_us:.2f} us per iteration "
-          f"(torch.profiler, {n} iterations) of {wall_us:.2f} us wall "
-          f"unprofiled: {100 * busy_us / wall_us:.1f}% busy")
+          f"(torch.profiler over {source}, {n} iterations) of "
+          f"{wall_us:.2f} us of the unprofiled graph loop: "
+          f"{100 * busy_us / wall_us:.1f}% busy")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
         print(f"    {e.device_time_total / n:10.2f} us  x{e.count / n:g}  "
               f"{e.key[:90]}")
+    phases = phase_breakdown(model, x_dev, iters=n)
+    print("    phase_breakdown (device us per call, CUDA graph replay): "
+          + ", ".join(f"{k} {1e6 * v:.2f}" for k, v in phases.items()))
+
+
+def check_cg(model, dev) -> None:
+    """CG on a main path's model, b = A·x_true (x_true = deterministic_x),
+    with and without Jacobi: the graph solve against the eager one (counts
+    within 1%), the true residual from the exact-f64 oracle within
+    ``10 * CG_TOL``, the kernels launched in the graph, µs per iteration;
+    then a checkpointed solve cut at 500 iterations and resumed."""
+    m = model.m
+    b = oracle_spmv(m, deterministic_x(m.dimension))
+    nb = float(np.linalg.norm(b))
+
+    def true_rel(x: np.ndarray) -> float:
+        return float(np.linalg.norm(b - oracle_spmv(m, x))) / nb
+
+    for pre in ("none", "jacobi"):
+        cg = CgSolver(model, pre)
+        cg.solve(b, tol=CG_TOL, max_iters=CG_MAX)          # captures
+        reset_launches()
+        captures = CapturedGraph.captures
+        t0 = time.perf_counter()
+        g = cg.solve(b, tol=CG_TOL, max_iters=CG_MAX)
+        t_g = time.perf_counter() - t0
+        check(CapturedGraph.captures == captures and
+              ehyb_stream.stream_body.launches > 0
+              and dia.dia_body.launches > 0,
+              f"CG ({pre}): the graph solve replayed its graphs (no capture) "
+              f"with K1 launched {ehyb_stream.stream_body.launches} times and "
+              f"K9 {dia.dia_body.launches} times")
+        t0 = time.perf_counter()
+        e = cg.solve_eager(b, tol=CG_TOL, max_iters=CG_MAX)
+        t_e = time.perf_counter() - t0
+        check(g.converged and e.converged
+              and abs(g.iterations - e.iterations) <= 0.01 * e.iterations,
+              f"CG ({pre}) to {CG_TOL:g}: graph {g.iterations} iterations, "
+              f"eager {e.iterations}, both converged")
+        tr = true_rel(g.x)
+        check(tr <= 10 * CG_TOL,
+              f"CG ({pre}): true residual |b - A x| / |b| = {tr:.3e} (exact "
+              f"f64 oracle) <= {10 * CG_TOL:g}; eager's {true_rel(e.x):.3e}")
+        print(f"  CG ({pre}), the solve's wall over its iterations: graph "
+              f"{1e6 * t_g / g.iterations:.2f} us per iteration "
+              f"({t_g:.4f} s), eager {1e6 * t_e / e.iterations:.2f} us per "
+              f"iteration ({t_e:.4f} s); eager/graph "
+              f"{t_e / e.iterations / (t_g / g.iterations):.2f}x; "
+              + card_state())
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cg.npz")
+        r1 = CgSolver(model).solve(b, tol=CG_TOL, max_iters=500,
+                                   checkpoint_every=500, checkpoint_path=path)
+        check(not r1.converged and r1.iterations == 500
+              and os.path.exists(path),
+              f"checkpointed CG cut at {r1.iterations} iterations")
+        saved = int(np.load(path)["iterations"])
+        check(saved == 500, f"the checkpoint holds {saved} iterations")
+        r2 = CgSolver(model).solve(b, tol=CG_TOL, max_iters=CG_MAX,
+                                   checkpoint_every=500,
+                                   checkpoint_path=path)
+        tr = true_rel(r2.x)
+        check(r2.converged and r2.iterations > 500 and tr <= 10 * CG_TOL
+              and not os.path.exists(path),
+              f"resumed to convergence at {r2.iterations} iterations, true "
+              f"residual {tr:.3e}, checkpoint removed")
+
+
+def check_power(model) -> None:
+    """Power iteration, 100 steps: the graph against the eager loop."""
+    pw = PowerIteration(model)
+    pw.run(iters=2)                                        # captures
+    t0 = time.perf_counter()
+    _, lam_g = pw.run(iters=100)
+    t_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, lam_e = pw.run_eager(iters=100)
+    t_e = time.perf_counter() - t0
+    err = abs(lam_g - lam_e) / abs(lam_e)
+    check(err <= POWER_TOL, f"power iteration, 100 steps: lambda graph "
+                            f"{lam_g!r}, eager {lam_e!r}: rel {err:.3e}")
+    print(f"  a run of 100 steps, the start vector's host work included: "
+          f"graph {1e3 * t_g:.2f} ms, eager {1e3 * t_e:.2f} ms")
 
 
 def main() -> int:
@@ -1211,10 +1379,36 @@ def main() -> int:
               f"{1e3 * res['seconds'] / res['iters']:.4f} ms each); "
               f"{res['card']}")
 
-    phase("11: where the device time goes per iteration")
-    for res, model in ((res1, model1), (res2, model2), (res3, model3),
-                       (res4, model4)):
-        profile_path(res["matrix"], res, model)
+    rows = ((res1, model1), (res2, model2), (res3, model3), (res4, model4))
+    phase("11: the chained loop as CUDA-graph replays against the eager "
+          "loop, in turns")
+    loop_s = {res["matrix"]: check_loop(res, model, dev)
+              for res, model in rows}
+
+    phase("12: where the device time goes per iteration under the graph")
+    for res, model in rows:
+        profile_path(res["matrix"], res, model,
+                     loop_s[res["matrix"]]["graph"])
+
+    phase(f"13: CG on {res1['matrix']} through the flagship (K1 and K9 in "
+          "the graph)")
+    check_cg(model1, dev)
+
+    phase(f"14: power iteration on {res1['matrix']}")
+    check_power(model1)
+
+    phase(f"15: the baselines on {res1['matrix']} through the CLI")
+    base = {}
+    for name in ("csr", "bcoo", "hyb"):
+        res, model, _ = drive(BASELINE_ARGS + [name])
+        check(res["engine"] == type(model).__name__ == {
+            "csr": "CsrSpmv", "bcoo": "BcooSpmv", "hyb": "HybSpmv"}[name],
+            f"--model {name} ran {res['engine']}")
+        base[name] = res["gflops"]
+        del model
+    print(f"  {res1['matrix']}: ehyb {res1['gflops']:.2f} GFLOP/s, "
+          + ", ".join(f"{k} {v:.2f}" for k, v in base.items())
+          + " GFLOP/s (the CLI's graph loop, 500 iterations each)")
     print(f"  script wall {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -10,15 +10,23 @@ and combine are torch ops, DIA a CUDA kernel (``csrc/dia.cu``), and a body
 past the TPU's x residency runs through an x-window cache
 (``csrc/ehyb_wincache.cu``).  Gather-wall matrices go to the routed engine,
 whose schedule runs as one CUDA kernel over x chunks staged in shared
-memory (``csrc/route_xcache.cu``).
+memory (``csrc/route_xcache.cu``).  The baselines (``csr``, ``bcoo``,
+``hyb``), the CG and power-iteration solvers (``models/solver.py``) and the
+chained benchmark loop run over any model; on a card every loop replays
+CUDA graphs of the apply.
 """
 from .config import EhybConfig, Features
-from .core.coo import MatrixCOO, deterministic_x, oracle_spmv
+from .core.coo import MatrixCOO, MatrixCSR, deterministic_x, oracle_spmv
+from .core.convert import coo_to_ehyb
 from .core.ehyb import EhybDevice, EhybMatrix, ehyb_from_arrays
-from .models.ehyb import EhybPlainSpmv, EhybSpmv
+from .core.planner import Plan, make_plan
+from .core.reorder import Reordering, two_level_reorder
+from .models.csr import BcooSpmv, CsrSpmv
+from .models.ehyb import EhybPlainSpmv, EhybSpmv, HybSpmv
 from .models.hybrid import DegreeSplitSpmv
 from .models.routed import RoutedSpmv
 from .utils.validate import compare, rel_error
 
-MODELS = {m.name: m for m in (EhybPlainSpmv, EhybSpmv, RoutedSpmv,
-                              DegreeSplitSpmv)}
+MODELS = {m.name: m for m in
+          (CsrSpmv, BcooSpmv, EhybPlainSpmv, EhybSpmv, HybSpmv, RoutedSpmv,
+           DegreeSplitSpmv)}

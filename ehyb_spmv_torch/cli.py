@@ -1,19 +1,22 @@
 """Command-line entry point — the analog of the reference's ``main``
 (``solver_test.c:267-408``).
 
-Port counterpart of ``ehyb_spmv_gpu_tpu/cli.py`` (its core flags)::
+Port counterpart of ``ehyb_spmv_gpu_tpu/cli.py``, with every flag of it but
+``--platform`` (the device is ``--device``)::
 
     python -m ehyb_spmv_torch -g permuted_poisson_512 -i 2000 --json
     python -m ehyb_spmv_torch -m audikw_1 --read-dir ./read
 
 Run flow: read/generate → setup (plan/partition/reorder/convert/upload) →
-validate against the exact-f64 host oracle → warm-up → timed iterations →
-report GFLOP/s.  The device is ``cuda`` unless ``--device cpu`` is given;
+validate against the exact-f64 host oracle → warm-up → timed iterations
+(CUDA-graph replays on a card, captured during the warm-up) → report
+GFLOP/s.  The device is ``cuda`` unless ``--device cpu`` is given;
 without a CUDA device the CLI exits non-zero rather than run elsewhere.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -23,10 +26,12 @@ import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from . import MODELS
+
     p = argparse.ArgumentParser(
         prog="ehyb_spmv_torch",
         description="EHYB SpMV on PyTorch + CUDA")
-    src = p.add_mutually_exclusive_group(required=True)
+    src = p.add_mutually_exclusive_group()
     src.add_argument("-m", "--matrix", metavar="NAME",
                      help="matrix name: reads <read-dir>/<NAME>.mtx "
                           "(reference -m flag, solver_test.c:284)")
@@ -40,19 +45,85 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=10,
                    help="warm-up iterations (reference hardcodes 10, "
                         "spmv.cu:100)")
-    p.add_argument("--model", default="ehyb",
-                   choices=["ehyb", "ehyb_xla", "ehyb_routed", "ehyb_split"],
+    p.add_argument("--model", default="ehyb", choices=sorted(MODELS),
                    help="SpMV model: ehyb (flagship, CUDA kernel body; "
                         "hands gather-wall matrices to the routed engine) | "
-                        "ehyb_xla (plain torch ops) | ehyb_routed (routed "
-                        "engine) | ehyb_split (degree-split hybrid)")
+                        "ehyb_xla (plain torch ops) | hyb (one window, no "
+                        "reordering) | csr (COO gather + index_add_) | bcoo "
+                        "(torch.sparse_csr_tensor: cuSPARSE on a card) | "
+                        "ehyb_routed (routed engine) | ehyb_split "
+                        "(degree-split hybrid)")
+    p.add_argument("--window", type=int, default=None,
+                   help="x-window rows (multiple of 1024); default "
+                        "planner-chosen")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64"])
+    p.add_argument("--partitioner", default="auto",
+                   choices=["auto", "native", "blocks"])
+    p.add_argument("--no-reorder", action="store_true",
+                   help="disable partition+reorder (RODR=off)")
+    p.add_argument("--no-sort", action="store_true",
+                   help="disable in-partition density sort")
+    p.add_argument("--no-dia", action="store_true",
+                   help="disable the gather-free DIA diagonal body")
+    p.add_argument("--layout", default=None,
+                   choices=["sell", "sell_cs", "sell_mw", "sell_rx"],
+                   help="force a SELL body layout (default: model-chosen, "
+                        "with relax_body auto-switching mw→rx)")
+    p.add_argument("--no-relax", action="store_true",
+                   help="disable the relaxed-layout (sell_rx) auto-switch")
+    p.add_argument("--windows-per-subtile", type=int, default=None,
+                   choices=[2, 4],
+                   help="relaxed-layout windows per 8-step sub-tile (2 dual, "
+                        "4 quad; default: auto-arbitrated)")
+    p.add_argument("--dword", action="store_true",
+                   help="double-word value precision (not ported yet: "
+                        "refused with exit code 2)")
+    p.add_argument("--compensated", action="store_true",
+                   help="compensated (Kahan) summation in the body kernels")
     p.add_argument("--tol", type=float, default=0.01,
                    help="validation relative tolerance (reference: 1%%)")
+    p.add_argument("--cache", action="store_true",
+                   help="cache converted EHYB artifacts to disk")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device to run on (default cuda)")
     p.add_argument("--json", action="store_true",
                    help="emit a single JSON result line")
+    p.add_argument("--profile", action="store_true",
+                   help="print the per-phase roofline audit and phase "
+                        "times; with --trace-dir also write a "
+                        "torch.profiler trace")
+    p.add_argument("--trace-dir", default=None,
+                   help="directory for the torch.profiler trace (Chrome "
+                        "trace JSON)")
+    p.add_argument("--list-corpus", action="store_true",
+                   help="list generator corpus names and exit")
     return p
+
+
+def config_from_args(args: argparse.Namespace):
+    """The EhybConfig the flags ask for (the JAX CLI's mapping,
+    ``ehyb_spmv_gpu_tpu/cli.py:135-154``)."""
+    from .config import EhybConfig, Features
+
+    cfg = EhybConfig(
+        dtype=args.dtype,
+        window_rows=args.window,
+        partitioner=args.partitioner,
+        artifact_cache=args.cache,
+        relax_body="never" if args.no_relax else "auto",
+        compensated_sum=bool(args.compensated),
+        dword_values=bool(args.dword),
+        features=Features(reorder=not args.no_reorder,
+                          sort_rows=not args.no_sort,
+                          dia=not args.no_dia),
+    )
+    if args.layout:
+        cfg = dataclasses.replace(cfg, body_layout=args.layout)
+    if args.windows_per_subtile:
+        cfg = dataclasses.replace(
+            cfg, windows_per_subtile=args.windows_per_subtile)
+    return cfg
 
 
 def run(args: argparse.Namespace):
@@ -61,18 +132,31 @@ def run(args: argparse.Namespace):
     import torch
 
     from . import MODELS
-    from .config import EhybConfig
     from .core.coo import deterministic_x, oracle_spmv
     from .io import generate, read_mtx
     from .utils.timing import bench_apply
     from .utils.validate import compare, rel_error
 
+    if args.list_corpus:
+        for name in generate.CORPUS:
+            print(name)
+        return 0, None, None
+    if not (args.matrix or args.generate):
+        print("error: one of -m/--matrix or -g/--generate is required",
+              file=sys.stderr)
+        return 2, None, None
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but CUDA is not available "
               "(use --device cpu to run the plain versions on the CPU)",
               file=sys.stderr)
         return 2, None, None
     device = torch.device(args.device)
+    try:
+        cfg = config_from_args(args)
+        model = MODELS[args.model](cfg, device=device)
+    except NotImplementedError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2, None, None
 
     # --- load or generate the matrix (role of matrixRead_*, solver_test.c) ---
     t0 = time.perf_counter()
@@ -90,8 +174,8 @@ def run(args: argparse.Namespace):
         name = args.matrix
     else:
         if args.generate not in generate.CORPUS:
-            print(f"error: unknown corpus entry {args.generate!r}",
-                  file=sys.stderr)
+            print(f"error: unknown corpus entry {args.generate!r} "
+                  "(use --list-corpus)", file=sys.stderr)
             return 2, None, None
         m = generate.load_corpus(args.generate)
         name = args.generate
@@ -99,7 +183,7 @@ def run(args: argparse.Namespace):
     print(f"matrix {name}: {m.n_rows}x{m.n_cols}, nnz={m.nnz}, "
           f"maxCol={m.max_col()}")
 
-    model = MODELS[args.model](EhybConfig(), device=device).setup(m)
+    model = model.setup(m)
 
     # --- validate vs exact-f64 oracle (solver_test.c:389) ---
     x = deterministic_x(m.dimension)
@@ -120,6 +204,19 @@ def run(args: argparse.Namespace):
                       device=device, iters=args.iters, warmup=args.warmup,
                       bytes_model=model.bytes_model())
     print(res)
+    if args.profile:
+        from .utils.profiling import phase_breakdown, roofline_report, trace
+
+        print(roofline_report(model, res))
+        where = "device" if device.type == "cuda" else "cpu host"
+        print(f"phase breakdown ({where} us per call): " + ", ".join(
+            f"{k} {1e6 * v:.2f}" for k, v in
+            phase_breakdown(model, x_dev, iters=20).items()))
+        if args.trace_dir:
+            with trace(args.trace_dir):
+                model.iterate(x_dev, 20)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
     result = {
         "matrix": name, "model": args.model, "engine": type(model).__name__,
         "device": res.device, "nnz": m.nnz, "dim": m.dimension,

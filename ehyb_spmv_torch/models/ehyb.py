@@ -9,6 +9,8 @@ upload.
 Variants:
   * :class:`EhybPlainSpmv` (``ehyb_xla``) — the plain-torch apply
     (``ops/torch_ops.py``) on whatever plan the config requests;
+  * :class:`HybSpmv` (``hyb``) — the same apply on one whole-matrix window
+    without reordering (the plain HYB ablation);
   * :class:`EhybSpmv` (``ehyb``) — the flagship: it pins the layout the TPU
     flagship pins for its Pallas kernels, takes its decisions (the relaxed
     layout only where a streamed body schedules; the TPU branch of the
@@ -24,7 +26,7 @@ Variants:
 
 The layout switches use the TPU's per-vreg cycle constants, kept here so that
 both packages land on the same ``EhybMatrix``; re-deriving them for the H100
-is ROADMAP Queue 1 item 12.
+is ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from ..ops.stream_plan import SUBTILES, TILE_STEPS
 from ..ops.torch_ops import EhybApply
 from ..partition import partition_rows
 from ..utils.log import get_logger
-from ..utils.timing import spmv_bytes_model
+from ..utils.timing import phase_roofline
 from .base import SpmvModel
 
 log = get_logger(__name__)
@@ -97,10 +99,6 @@ class EhybPlainSpmv(SpmvModel):
 
     def setup(self, m: MatrixCOO) -> "EhybPlainSpmv":
         cfg = self.config
-        if cfg.dword_values:
-            raise NotImplementedError(
-                "double-word precision is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
         self.m = m
         dim = m.dimension
         #: Host preprocessing wall-times per phase.
@@ -239,29 +237,45 @@ class EhybPlainSpmv(SpmvModel):
         y_np = y.detach().cpu().numpy().astype(np.float64)[: self.m.n_rows]
         return self.reordering.vector_recover(y_np)
 
-    def bytes_model(self) -> int:
-        """Device-memory bytes per iteration (the roofline's denominator):
-        the artifact's streams, x once and y once.  Where the body runs
-        through a plan the card reads the plan's compact cells, not the
-        padded body it dropped at upload: the window cache's
-        ``layout_bytes`` (cells and staged rows) or K1's ``stream_bytes``
-        (cells, pieces and tables) stand in for the body's cells."""
+    def roofline_phases(self) -> dict:
+        """(flops, device-memory bytes) per iteration of each phase: the
+        artifact's streams, x once and y once.  Where the body runs through
+        a plan the card reads the plan's compact cells, not the padded body
+        it dropped at upload: the window cache's ``layout_bytes`` (cells
+        and staged rows) or K1's ``stream_bytes`` (cells, pieces and
+        tables) stand in for the body's cells."""
         cfg = self.config
-        stats = self.ehyb.stats
+        phases = phase_roofline(
+            self.ehyb.stats, dim=self.m.dimension,
+            value_bytes=np.dtype(cfg.dtype).itemsize,
+            ell_index_bytes=np.dtype(cfg.index_dtype).itemsize)
         module = getattr(self, "module", None)
         wincache = getattr(module, "wincache", None)
         cells = getattr(module, "cells", None)
-        body = 0
         if wincache is not None:
-            stats = dict(stats, nnz_ell=0, waste_ell=0)
-            body = wincache.stats["layout_bytes"]
+            phases["body"] = (phases["body"][0],
+                              wincache.stats["layout_bytes"])
         elif cells is not None:
-            stats = dict(stats, nnz_ell=0, waste_ell=0)
-            body = cells.stats["stream_bytes"]
-        return body + spmv_bytes_model(
-            stats, dim=self.m.dimension,
-            value_bytes=np.dtype(cfg.dtype).itemsize,
-            ell_index_bytes=np.dtype(cfg.index_dtype).itemsize)
+            phases["body"] = (phases["body"][0], cells.stats["stream_bytes"])
+        return phases
+
+
+class HybSpmv(EhybPlainSpmv):
+    """Plain HYB ablation: no windows (one window over the whole matrix),
+    no reordering, the plain-torch apply.  The reference's CACHE=off
+    (``spmv.h:10``); port of ``ehyb_spmv_gpu_tpu/models/ehyb.py:856-872``."""
+
+    name = "hyb"
+
+    def setup(self, m: MatrixCOO) -> "HybSpmv":
+        self.config = dataclasses.replace(
+            self.config,
+            window_rows=round_up(m.dimension, 1024),
+            min_parts=1,
+            features=dataclasses.replace(self.config.features,
+                                         reorder=False, cache=False),
+        )
+        return super().setup(m)
 
 
 class EhybSpmv(EhybPlainSpmv):

@@ -14,8 +14,8 @@ engines consume the same permuted x and emit permuted y, and one device add
 combines them.  Rows are disjoint, so the sum is exact.
 
 No kernel of its own: it composes :class:`~.ehyb.EhybSpmv` and
-:class:`~.routed.RoutedSpmv`.  ``iterate`` is the base class's eager loop,
-which chains y into both engines' x forms.
+:class:`~.routed.RoutedSpmv`.  ``iterate`` is the base class's loop, which
+chains y into both engines' x forms.
 """
 from __future__ import annotations
 
@@ -116,5 +116,7 @@ class DegreeSplitSpmv(SpmvModel):
         n = self.m.n_rows
         return self.e.apply(x_e)[:n] + self.r.apply(x_r)[:n]
 
-    def bytes_model(self) -> int:
-        return self.e.bytes_model() + self.r.bytes_model()
+    def roofline_phases(self) -> dict:
+        return {f"{part.name} {k}": v
+                for part in (self.e, self.r)
+                for k, v in part.roofline_phases().items()}

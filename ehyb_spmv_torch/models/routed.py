@@ -15,7 +15,7 @@ blocks' input-space outputs sum.
 
 The engine exists because the TPU has no hardware gather from HBM; the H100
 has one, and whether the routed engine pays there at all is measured beside
-one cuSPARSE matvec by ``chip_smoke.py`` (ROADMAP Queue 1 item 12).  Scope:
+one cuSPARSE matvec by ``chip_smoke.py`` (ROADMAP Queue 1 item 9).  Scope:
 f32 values, square matrices, one device.  A CUDA device runs the kernel; a
 CPU device runs its plain version.
 """
@@ -299,13 +299,14 @@ class RoutedSpmv(SpmvModel):
             np.float64)[: self.m.n_rows]
         return out
 
-    def bytes_model(self) -> int:
-        """Device-memory bytes per iteration (roofline denominator): what
-        the routed kernel of each block moves (its plan's entries and maps,
-        x once, its partial y written and read back, y once).  The TPU's
-        stage streams and product array never reach the card, so they are
-        not counted."""
-        return sum(ap.plan.stats["layout_bytes"] for ap in self.applies)
+    def roofline_phases(self) -> dict:
+        """(flops, device-memory bytes) per iteration: what the routed
+        kernel of each block moves (its plan's entries and maps, x once,
+        its partial y written and read back, y once).  The TPU's stage
+        streams and product array never reach the card, so they are not
+        counted."""
+        return {"routed": (2 * self.m.nnz, sum(
+            ap.plan.stats["layout_bytes"] for ap in self.applies))}
 
     @torch.no_grad()
     def apply(self, x_dev: torch.Tensor) -> torch.Tensor:

@@ -267,17 +267,26 @@ class EhybStreamApply(torch.nn.Module):
         #: The TPU branch the JAX flagship takes for this artifact.
         self.branch = branch
 
-    def forward(self, x_pad: torch.Tensor) -> torch.Tensor:
+    def body(self, x_pad: torch.Tensor) -> torch.Tensor:
         e = self.e
         if e.body_nnz == 0:
             # everything went to DIA/ER/long: nothing for the body to do
-            y_body = x_pad.new_zeros(e.slice_win_start.shape[0] * LANES)
-        elif self.wincache is not None:
-            y_body = wincache_body(e, self.wincache, x_pad, self.kahan)
-        else:
-            y_body = stream_body(self.cells, x_pad, self.kahan)
-        return combine_ehyb(e, y_body, ehyb_er(e, x_pad),
+            return x_pad.new_zeros(e.slice_win_start.shape[0] * LANES)
+        if self.wincache is not None:
+            return wincache_body(e, self.wincache, x_pad, self.kahan)
+        return stream_body(self.cells, x_pad, self.kahan)
+
+    def forward(self, x_pad: torch.Tensor) -> torch.Tensor:
+        e = self.e
+        return combine_ehyb(e, self.body(x_pad), ehyb_er(e, x_pad),
                             ehyb_long(e, x_pad), dia_body(e, x_pad))
+
+    def phases(self) -> dict:
+        """Each phase of the apply as a function of x_pad, by name."""
+        e = self.e
+        return {"dia": lambda x: dia_body(e, x), "body": self.body,
+                "er": lambda x: ehyb_er(e, x),
+                "long": lambda x: ehyb_long(e, x)}
 
 
 def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,

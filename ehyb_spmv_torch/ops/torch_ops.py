@@ -1,6 +1,7 @@
 """Plain-torch EHYB ops: the SELL body, ER tail, long rows, DIA and combine.
 
-Port counterpart of ``ehyb_spmv_gpu_tpu/ops/xla_ops.py`` (the EHYB part).
+Port counterpart of ``ehyb_spmv_gpu_tpu/ops/xla_ops.py``: the COO product of
+the ``csr`` baseline and the EHYB phases.
 These are the port's always-available formulations: they run on the CPU
 (tests, oracle cross-checks) and on the GPU, where the flagship model keeps
 the ER tail, long rows, DIA and combine as torch ops (the JAX package leaves
@@ -16,6 +17,14 @@ import torch
 
 from ..config import LANES
 from ..core.ehyb import EhybDevice
+
+
+def coo_spmv(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+             x: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """y = A·x from COO triples: gather x by column, scatter-add the
+    products by row (the JAX package's ``segment_sum``; rows need not be
+    sorted)."""
+    return x.new_zeros(n_rows).index_add_(0, row, val * x.index_select(0, col))
 
 
 def _segment_rows(offset: torch.Tensor, n_steps: int) -> torch.Tensor:
@@ -159,3 +168,11 @@ class EhybApply(torch.nn.Module):
 
     def forward(self, x_pad: torch.Tensor) -> torch.Tensor:
         return ehyb_apply(self.e, x_pad)
+
+    def phases(self) -> dict:
+        """Each phase of the apply as a function of x_pad, by name."""
+        e = self.e
+        return {"dia": lambda x: ehyb_dia(e, x),
+                "body": lambda x: ehyb_body(e, x),
+                "er": lambda x: ehyb_er(e, x),
+                "long": lambda x: ehyb_long(e, x)}

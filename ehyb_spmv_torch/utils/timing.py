@@ -17,6 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .graphs import CapturedGraph
 from .log import get_logger
 
 log = get_logger(__name__)
@@ -71,20 +72,32 @@ class BenchResult:
                 f"({self.nnz_per_sec / 1e9:.2f} Gnnz/s){roof}")
 
 
+def phase_roofline(stats: dict, value_bytes: int = 4,
+                   ell_index_bytes: int = 4, dim: int = 0) -> dict:
+    """(flops, device-memory bytes) per iteration of each EHYB phase from
+    the converter's stats: streamed values and indices (padding included:
+    zeros move bytes too; the diagonals carry no indices), plus one x read
+    and one y write."""
+    st = stats.get
+    return {
+        "x/y vectors": (0, 2 * dim * value_bytes),
+        "dia": (2 * st("nnz_dia", 0),
+                (st("nnz_dia", 0) + st("waste_dia", 0)) * value_bytes),
+        "body": (2 * st("nnz_ell", 0),
+                 (st("nnz_ell", 0) + st("waste_ell", 0))
+                 * (value_bytes + ell_index_bytes)),
+        "er": (2 * st("nnz_er", 0),
+               (st("nnz_er", 0) + st("waste_er", 0)) * (value_bytes + 4)),
+        "long": (2 * st("nnz_long", 0), st("nnz_long", 0) * (value_bytes + 4)),
+    }
+
+
 def spmv_bytes_model(stats: dict, value_bytes: int = 4,
                      ell_index_bytes: int = 4, dim: int = 0) -> int:
-    """Modeled device-memory bytes per SpMV iteration: stream values +
-    indices (including padding waste), plus one x read and one y write."""
-    ell = (stats.get("nnz_ell", 0) + stats.get("waste_ell", 0))
-    er = (stats.get("nnz_er", 0) + stats.get("waste_er", 0))
-    lng = stats.get("nnz_long", 0)
-    dia = (stats.get("nnz_dia", 0) + stats.get("waste_dia", 0))
-    n_bytes = ell * (value_bytes + ell_index_bytes)
-    n_bytes += er * (value_bytes + 4)
-    n_bytes += lng * (value_bytes + 4)
-    n_bytes += dia * value_bytes          # diagonals carry no indices
-    n_bytes += 2 * dim * value_bytes
-    return int(n_bytes)
+    """Modeled device-memory bytes per SpMV iteration: the sum of
+    :func:`phase_roofline`'s bytes."""
+    return int(sum(b for _, b in phase_roofline(
+        stats, value_bytes, ell_index_bytes, dim).values()))
 
 
 def timed_seconds(fn: Callable[[], object], device: torch.device) -> float:
@@ -109,10 +122,17 @@ def bench_apply(name: str, apply_iters: Callable[[int], torch.Tensor],
                 warmup: int = 10,
                 bytes_model: Optional[int] = None) -> BenchResult:
     """Time ``apply_iters(n)`` (n chained SpMVs): ``warmup`` iterations,
-    then one timed region of ``iters`` (``spmv.cu:100-119``)."""
+    then one timed region of ``iters`` (``spmv.cu:100-119``).  Raises if a
+    CUDA graph was captured inside the timed region."""
     device = torch.device(device)
     apply_iters(warmup)
+    captures = CapturedGraph.captures
     dt = timed_seconds(lambda: apply_iters(iters), device)
+    if CapturedGraph.captures != captures:
+        raise RuntimeError(
+            f"{CapturedGraph.captures - captures} CUDA graph(s) captured "
+            "inside the timed region: the warm-up call must capture every "
+            "graph the timed call replays")
     gflops = 1e-9 * (2.0 * nnz) * iters / dt
     bw = detect_hbm_bw(device)
     bm = bytes_model if bytes_model is not None else nnz * 8
