@@ -2,7 +2,7 @@
 its A/B.
 
     python3 chip_k1_sweep.py            # the geometry sweep
-    python3 chip_k1_sweep.py --ab TAG   # K1 as shipped, and its rows
+    python3 chip_k1_sweep.py --ab TAG [SHAPE ...]  # K1 as shipped, its rows
 
 Sets up ``permuted_poisson_512`` (262,144 rows) and
 ``permuted_poisson_1024`` (1,048,576 rows) through the flagship, as the CLI
@@ -17,11 +17,12 @@ ends with its fastest geometries and the default's rank; the choice is
 the fastest at permuted_poisson_1024 that is within 3% of the fastest at
 permuted_poisson_512: ``ops/ehyb_stream.py::GEOMETRY``.
 
-``--ab TAG`` compares two checkouts on one card: for both shapes it times
-the body kernel as the checkout ships it (three CUDA-graph readings) and
-the whole apply, checks the kernel against its plain version, drives
-``permuted_poisson_512`` through the CLI, and prints one JSON line per
-measurement, tagged ``TAG``, with the card's state.  It takes K1's plan
+``--ab TAG`` compares two checkouts on one card: for both shapes (or the
+``SHAPE`` names given after ``TAG``) it times the body kernel as the
+checkout ships it (three CUDA-graph readings) and the whole apply, checks
+the kernel against its plain version, drives ``permuted_poisson_512``
+through the CLI, and prints one JSON line per measurement, tagged ``TAG``,
+with the card's state.  It takes K1's plan
 where the checkout's flagship has one (``model.module.cells``) and the
 padded body where it does not, so it runs in an older checkout too: copy
 this file to the root of the other checkout and run it from the root of
@@ -138,12 +139,12 @@ def run_sweep(dev) -> int:
     return 0
 
 
-def run_ab(tag: str, dev) -> int:
+def run_ab(tag: str, dev, shapes=SHAPES) -> int:
     def out(**row):
         print(json.dumps({"tree": tag, **row, "card": smi(CARD)}),
               flush=True)
 
-    for name in SHAPES:
+    for name in shapes:
         model, x = flagship(name, dev)
         kahan = model.module.kahan
         body = getattr(model.module, "cells", None)
@@ -169,9 +170,13 @@ def run_ab(tag: str, dev) -> int:
 
 
 def main() -> int:
-    ab = sys.argv[1:3] if sys.argv[1:2] == ["--ab"] else None
-    if len(sys.argv) != (3 if ab else 1):
-        print("usage: chip_k1_sweep.py [--ab TAG]", file=sys.stderr)
+    args = sys.argv[1:]
+    ab = args[:2] if args[:1] == ["--ab"] else None
+    shapes = tuple(args[2:]) or SHAPES
+    if (ab is None and args) or (ab is not None and (
+            len(ab) != 2 or not set(shapes) <= set(SHAPES))):
+        print(f"usage: chip_k1_sweep.py [--ab TAG [SHAPE ...]], SHAPE one "
+              f"of {', '.join(SHAPES)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("error: needs a CUDA device; none is available",
@@ -179,8 +184,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     print(smi("name,power.limit"), flush=True)
-    return run_ab(ab[1], dev) if ab else run_sweep(dev)
-
+    return run_ab(ab[1], dev, shapes) if ab else run_sweep(dev)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -56,6 +56,21 @@ residual from the exact-f64 oracle, a checkpointed solve cut at 500
 iterations and resumed), power iteration (graph against eager), and the
 ``csr``, ``bcoo`` and ``hyb`` baselines through the CLI beside ``ehyb``.
 
+Last, the sharded path (``ehyb_spmv_torch/parallel/``): K1 with a
+row-block list against its plain version (a sharded stencil's interior,
+boundary, both and empty lists, row blocks cut for the 16-bit range,
+Kahan, at every built variant); ``ShardedEhybSpmv`` at one rank on
+``permuted_poisson_1024`` with no process group, through the graph loop
+(its launch counts set to 0 before it and read after; against the oracle,
+the flagship and, in turns, the flagship's graph loop); two and four gloo
+ranks on the one card (``parallel/launch.py``; NCCL refuses two ranks on
+one device), each rank's interior and boundary row blocks, the exchange
+size and its eager µs per apply (the ranks share the card: not scaling);
+the sharded K1 per rank and list, timed on its own; the sharded routed
+engine at one rank on ``random_1m`` and, with the sharded degree split, at
+two ranks on small matrices.  The ``kernels`` line lists the sharded K1
+beside the other four.
+
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
@@ -85,7 +100,15 @@ from ehyb_spmv_torch.models.solver import CgSolver, PowerIteration
 from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
 from ehyb_spmv_torch.ops import route_xcache, stream_plan
 from ehyb_spmv_torch.ops.build import BUILD_DIR
-from ehyb_spmv_torch.ops.stream_cells import build_stream_cells
+from ehyb_spmv_torch.ops.stream_cells import (PIECE_CELL, PIECE_RB,
+                                              PIECE_ROW, build_stream_cells)
+from ehyb_spmv_torch.parallel import launch
+from ehyb_spmv_torch.parallel.comm import rank_device
+from ehyb_spmv_torch.parallel.hybrid import ShardedDegreeSplitSpmv
+from ehyb_spmv_torch.parallel.routed import ShardedRoutedSpmv
+from ehyb_spmv_torch.parallel.shard_cells import build_shard_cells
+from ehyb_spmv_torch.parallel.spmv import (ShardedEhybSpmv, plan_sharded,
+                                           shard_matrix)
 from ehyb_spmv_torch.ops.torch_ops import body_gather_index, ehyb_body
 from ehyb_spmv_torch.utils.graphs import CapturedGraph, launch_counters
 from ehyb_spmv_torch.utils.profiling import phase_breakdown
@@ -140,6 +163,16 @@ K9 = {"name": "dia", "route": "cuda", "source": "ehyb_spmv_torch/csrc/dia.cu",
 WC = {"name": "ehyb_wincache_body", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/ehyb_wincache.cu",
       "replaces": f"{_PALLAS}:293 (K3), {_PALLAS}:489 (K4)"}
+SK1 = {"name": "ehyb_stream_body (row-block list)", "route": "cuda",
+       "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
+       "replaces": "ehyb_spmv_gpu_tpu/parallel/spmv.py:511 (_stream_call, "
+                   "pallas_call :538)"}
+#: The sharded path's matrix and config: 1024-row windows, the TPU's
+#: Pallas branch of the JAX ShardedEhybSpmv (the multi-window layouts).
+SHARDED_MATRIX = "permuted_poisson_1024"
+SHARDED_CFG = {"window_rows": 1024}
+#: Seconds a spawn of sharded ranks may take before they are killed.
+RANK_TIMEOUT_S = 300
 #: float32 peak outside the tensor cores (NVIDIA's data sheets), matched like
 #: the bandwidth table of utils/timing.py: the first key in the name wins.
 PEAK_F32 = {"h100 pcie": 51e12, "h100": 67e12}
@@ -1182,6 +1215,361 @@ def check_power(model) -> None:
           f"graph {1e3 * t_g:.2f} ms, eager {1e3 * t_e:.2f} ms")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the sharded path.
+# ---------------------------------------------------------------------------
+
+def rb_rows(rbs: torch.Tensor) -> torch.Tensor:
+    """The y rows of row blocks ``rbs``."""
+    return (rbs.long()[:, None] * 32
+            + torch.arange(32, device=rbs.device)).reshape(-1)
+
+
+def check_k1_list(name: str, plan, rbs: np.ndarray, x: np.ndarray,
+                  kahan: bool, dev) -> None:
+    """K1 over the row-block list ``rbs`` of ``plan`` (a host
+    StreamCellsPlan) at every geometry of :func:`k1_geometries`, into a y
+    of sentinels: the listed rows against the plain version on the card
+    (within KERNEL_TOL) and on the CPU (bit for bit where Kahan is off),
+    every other row untouched."""
+    p, p_cpu = plan.to_torch(dev), plan.to_torch()
+    x_dev = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    lst = torch.as_tensor(np.ascontiguousarray(rbs, dtype=np.int32),
+                          device=dev)
+    fill = -7.0
+    y_p = torch.full((p.n_rb * 32,), fill, device=dev)
+    ehyb_stream.stream_body_plain(p, x_dev, kahan, rb_list=lst, out=y_p)
+    y_cpu = torch.full((p.n_rb * 32,), fill)
+    ehyb_stream.stream_body_plain(p_cpu, x_dev.cpu(), kahan,
+                                  rb_list=lst.cpu(), out=y_cpu)
+    rows = rb_rows(lst)
+    other = torch.ones(p.n_rb * 32, dtype=torch.bool, device=dev)
+    other[rows] = False
+    worst, same = 0.0, True
+    for g in k1_geometries():
+        y = torch.full((p.n_rb * 32,), fill, device=dev)
+        ehyb_stream._launch(p, x_dev, kahan, g, rb_list=lst, out=y)
+        torch.cuda.synchronize()
+        err = rel(y[rows], y_p[rows]) if rows.numel() else 0.0
+        if not bool(torch.isfinite(y).all()) or err > KERNEL_TOL \
+                or not bool((y[other] == fill).all()):
+            check(False, f"K1 list {name} at {g}: rel {err:.3e}, rows "
+                         "outside the list written")
+        worst = max(worst, err)
+        same = same and torch.equal(y.cpu(), y_cpu)
+    check(kahan or same,
+          f"K1 list {name} ({len(rbs)} of {p.n_rb} row blocks, "
+          f"{plan.stats['split_rbs']} of the plan's cut for the 16-bit "
+          f"range): {len(k1_geometries())} geometries, listed rows vs plain "
+          f"rel <= {worst:.3e}, the others untouched"
+          + ("" if kahan else "; bit for bit with the plain version on the "
+             "CPU"))
+
+
+def check_k1_lists(dev) -> None:
+    """16a: K1 with a row-block list against its plain version: a sharded
+    scrambled stencil's interior, boundary, both and empty lists at two
+    ranks; the row blocks cut for the 16-bit range; Kahan."""
+    m = generate.permuted(generate.poisson2d(96), seed=3)
+    sh = plan_sharded(m, port.EhybConfig(**SHARDED_CFG), 2).sharded
+    rng = np.random.default_rng(16)
+    for d in range(2):
+        sc = build_shard_cells(shard_matrix(sh, d), sh)
+        check(sc.interior.size > 0 and sc.boundary.size > 0,
+              f"scrambled stencil shard {d}/2: {sc.interior.size} interior, "
+              f"{sc.boundary.size} boundary row blocks")
+        n_x = sh.rows_per_dev + 2 * sh.window_rows
+        x = rng.standard_normal(n_x)
+        lists = {"interior": sc.interior, "boundary": sc.boundary,
+                 "both": np.concatenate([sc.interior, sc.boundary]),
+                 "empty": np.zeros(0, np.int32)}
+        for kind, rbs in lists.items():
+            check_k1_list(f"shard {d} {kind}", sc.plan, rbs, x, False, dev)
+        check_k1_list(f"shard {d} boundary kahan", sc.plan, sc.boundary, x,
+                      True, dev)
+    e = edge_body()
+    plan = build_stream_cells(e)
+    cut = np.unique(plan.piece[plan.n_rb:-1, PIECE_RB])
+    rbs = np.union1d(cut, rng.permutation(plan.n_rb)[: plan.n_rb // 2])
+    check(cut.size > 0, f"edge body: {cut.size} row blocks cut, listed")
+    x = rng.standard_normal(e.padded_x_rows)
+    for kahan in (False, True):
+        check_k1_list(f"edge body{' kahan' if kahan else ''}", plan,
+                      rng.permutation(rbs).astype(np.int32), x, kahan, dev)
+
+
+def list_work(p, rbs: np.ndarray, n_x: int, dev) -> dict:
+    """What K1 over the list ``rbs`` of the plan ``p`` (on the card) must
+    move: its cells, pieces and table rows, the list, the x rows of its
+    tables and its y rows; the real entries (nonzero cells) with their
+    decoded columns; and those entries as a CSR of the plan's rows
+    (cuSPARSE's operand)."""
+    plan = types.SimpleNamespace(
+        piece=p.piece.cpu().numpy(), rows=p.rows.cpu().numpy(),
+        cell_val=p.cell_val.cpu().numpy(), cell_idx=p.cell_idx.cpu().numpy(),
+        n_rb=p.n_rb)
+    piece = plan.piece.astype(np.int64)
+    sel = np.isin(piece[:-1, PIECE_RB], rbs)
+    n_cells = np.diff(piece[:, PIECE_CELL])
+    n_rows = np.diff(piece[:, PIECE_ROW])
+    cell_sel = np.repeat(sel, n_cells)
+    row_sel = np.repeat(sel, n_rows)
+    x_rows = np.unique(plan.rows[row_sel])
+    pid = np.repeat(np.arange(len(piece) - 1), n_cells)
+    cell = np.flatnonzero(cell_sel & (plan.cell_val != 0))
+    first = piece[pid[cell]]
+    idx = plan.cell_idx[cell].astype(np.int64) & 0xFFFF
+    col = plan.rows[first[:, PIECE_ROW] + (idx >> 7)].astype(np.int64) \
+        * 128 + (idx & 127)
+    row = first[:, PIECE_RB] * 32 + (cell - first[:, PIECE_CELL]) % 32
+    layout = (int(cell_sel.sum()) * 6 + int(sel.sum()) * 16
+              + int(row_sel.sum()) * 4 + rbs.size * 4
+              + x_rows.size * 512 + rbs.size * 128)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    a = csr_of(t(row), t(col), t(plan.cell_val[cell]), plan.n_rb * 32, n_x)
+    return dict(layout_bytes=layout, nnz=int(cell.size),
+                n_cols=int(np.unique(col).size), csr=a)
+
+
+def time_k1_list(p, rbs: np.ndarray, x_dev: torch.Tensor, kahan: bool, dev,
+                 n: int = 100, n_plain: int = 10) -> dict:
+    """K1 over one row-block list at its real shapes: kernel and plain
+    version in turns, cuSPARSE over the same entries, the layout and
+    same-work bounds."""
+    lst = torch.as_tensor(np.ascontiguousarray(rbs, dtype=np.int32),
+                          device=dev)
+    y = torch.zeros(p.n_rb * 32, device=dev)
+    y_p = torch.zeros(p.n_rb * 32, device=dev)
+    ehyb_stream.stream_body(p, x_dev, kahan, rb_list=lst, out=y)
+    ehyb_stream.stream_body_plain(p, x_dev, kahan, rb_list=lst, out=y_p)
+    w = list_work(p, rbs, x_dev.numel(), dev)
+    y_l = torch.mv(w["csr"], x_dev)
+    torch.cuda.synchronize()
+    rows = rb_rows(lst)
+    max_abs = float((y - y_p).abs().max())
+    err = rel(y[rows], y_p[rows])
+    check(err <= KERNEL_TOL and rel(y_l[rows], y_p[rows]) <= KERNEL_TOL,
+          f"K1 over {len(rbs)} listed row blocks vs plain rel {err:.3e} "
+          f"(max abs {max_abs:.3e}); cuSPARSE over their {w['nnz']} entries "
+          f"rel {rel(y_l[rows], y_p[rows]):.3e}")
+    ms, plain_ms, turns = in_turns(
+        lambda: ehyb_stream.stream_body(p, x_dev, kahan, rb_list=lst, out=y),
+        lambda: ehyb_stream.stream_body_plain(p, x_dev, kahan, rb_list=lst,
+                                              out=y_p), n, n_plain)
+    lib_ms = device_ms_per_call(lambda: torch.mv(w["csr"], x_dev), n)
+    b = bound(w["layout_bytes"], 2 * w["nnz"], dev)
+    same = same_work_bound(w["nnz"], 2, w["n_cols"], rows.numel(), dev)
+    print(f"    device ms (plain, kernel, kernel, plain): {turns}; cuSPARSE "
+          f"{lib_ms:.4f} ms; layout bound {b['bound_ms']:.4f} ms "
+          f"({w['layout_bytes']} B, {b['bound_ms'] / ms:.3f} reached); "
+          f"same-work bound {same['bound_ms']:.4f} ms ({same['bytes']} B)")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **b, same_work_bound_ms=same["bound_ms"],
+                row_blocks=int(len(rbs)), nnz=w["nnz"])
+
+
+def time_graph_loops(models: dict, x: dict, nnz: int, dev, card: str,
+                     n: int = 500) -> dict:
+    """The graph loops of ``models`` (name → model, every graph captured
+    first) timed in turns (a, b, b, a): GFLOP/s each, beside the card
+    (``card``: its name and power limit) and its state."""
+    for k, mod in models.items():
+        mod.iterate(x[k], n)
+    torch.cuda.synchronize(dev)
+    captures = CapturedGraph.captures
+    a, b = list(models)
+    readings = {k: [] for k in models}
+    for k in (a, b, b, a):
+        readings[k].append(timed_seconds(
+            lambda: models[k].iterate(x[k], n), dev) / n)
+    check(CapturedGraph.captures == captures,
+          "no graph captured inside the timed loops")
+    out = {k: 2e-9 * nnz * len(v) / sum(v) for k, v in readings.items()}
+    print("  graph loop, in turns: " + "; ".join(
+        f"{k} {out[k]:.2f} GFLOP/s (us/iter "
+        + ", ".join(f"{1e6 * t:.2f}" for t in readings[k]) + ")"
+        for k in models) + f"; {card}; {card_state()}")
+    return out
+
+
+def sharded_rank(rank: int, world: int, m, host, extra: bool) -> dict:
+    """One rank of the sharded path on the card (16c/16d): the sharded
+    EHYB model on ``host`` (its y against nothing here: rank 0 returns the
+    gathered y), its row-block counts, K1's launches in one apply, the
+    eager chained loop against one apply, and the host-clock microseconds
+    per eager apply; with ``extra``, the sharded routed engine and the
+    sharded degree split on small matrices, against the oracle."""
+    dev = rank_device("cuda", rank)
+    cfg = port.EhybConfig(**SHARDED_CFG)
+    model = ShardedEhybSpmv(cfg, device=dev).setup(m, host)
+    x = deterministic_x(m.dimension)
+    xd = model.prepare_x(x)
+    reset_launches()
+    y = model.apply(xd)
+    torch.cuda.synchronize(dev)
+    launches = ehyb_stream.stream_body.launches
+    y_host = model.recover_y(y)
+    err_loop = rel(model.iterate(xd, 3), y)
+    torch.distributed.barrier()
+    n = 20
+    t0 = time.perf_counter()
+    for _ in range(n):
+        model.apply(xd)
+    torch.cuda.synchronize(dev)
+    us = 1e6 * (time.perf_counter() - t0) / n
+    st = model.module.cells.stats
+    out = dict(rank=rank, interior=st["n_interior"],
+               boundary=st["n_boundary"], S=model.sharded.exchange_slots,
+               staged=model.module.ex.staged, loop=model.loop,
+               launches=launches, err_loop=err_loop, us_per_apply=us,
+               y=y_host if rank == 0 else None)
+    if extra:
+        rm = random_coo(131072, 8, seed=21)
+        xr = deterministic_x(rm.dimension)
+        r = ShardedRoutedSpmv(port.EhybConfig(), device=dev).setup(rm)
+        reset_launches()
+        out["routed_err"] = rel_np(r.matvec(xr), oracle_spmv(rm, xr))
+        out["routed_launches"] = route_xcache.route_xcache.launches
+        mh = generate.random_general(65536, 24, seed=4, power_law=0.7)
+        xh = deterministic_x(mh.dimension)
+        h = ShardedDegreeSplitSpmv(port.EhybConfig(**SHARDED_CFG),
+                                   device=dev).setup(mh, threshold=32)
+        reset_launches()
+        out["split_err"] = rel_np(h.matvec(xh), oracle_spmv(mh, xh))
+        out["split_launches"] = (ehyb_stream.stream_body.launches,
+                                 route_xcache.route_xcache.launches)
+        out["split_nnz"] = (h.e.m.nnz, h.r.m.nnz)
+    return out
+
+
+def check_sharded(m, model_flat, m_gather, dev, card: str) -> dict:
+    """16b-16d: the sharded path; returns the sharded K1's JSON fields.
+    ``card`` is the card's name and power limit, printed beside the
+    graph loops' GFLOP/s."""
+    cfg = port.EhybConfig(**SHARDED_CFG)
+    x = deterministic_x(m.dimension)
+    want = oracle_spmv(m, x)
+
+    print(f"  16b: ShardedEhybSpmv at world 1 on {SHARDED_MATRIX} (no "
+          "process group), through the graph loop")
+    host1 = plan_sharded(m, cfg, 1)
+    print(f"  host setup {host1.seconds}; layout "
+          f"{host1.config.body_layout}, {host1.config.windows_per_subtile} "
+          f"windows a sub-tile")
+    model = ShardedEhybSpmv(cfg, device=dev).setup(m, host1)
+    cells = model.module.cells
+    st = cells.stats
+    check(model.loop == "graph" and st["n_interior"] == 0
+          and st["n_boundary"] == cells.plan.n_rb,
+          f"world 1: loop {model.loop}, {st['n_interior']} interior and "
+          f"{st['n_boundary']} boundary row blocks (all boundary, as the "
+          "JAX package at D=1)")
+    xd = model.prepare_x(x)
+    n_iter = 500
+    reset_launches()
+    y = model.recover_y(model.apply(xd))
+    model.iterate(xd, n_iter)
+    torch.cuda.synchronize(dev)
+    launches = ehyb_stream.stream_body.launches
+    check(launches > 0, f"{SK1['name']} launched {launches} times in one "
+                        f"apply and the {n_iter}-step graph loop")
+    err = rel_np(y, want)
+    check(err <= ORACLE_TOL, f"world 1 vs oracle rel {err:.3e} <= "
+                             f"{ORACLE_TOL}")
+    y_flat = model_flat.matvec(x)
+    err = rel_np(y, y_flat)
+    check(err <= KERNEL_TOL, f"world 1 vs the flagship ehyb rel {err:.3e} "
+                             f"<= {KERNEL_TOL}")
+    time_graph_loops({"ehyb": model_flat, "ehyb_sharded D=1": model},
+                     {"ehyb": model_flat.prepare_x(x),
+                      "ehyb_sharded D=1": xd}, m.nnz, dev, card)
+    print(f"  the sharded K1 at D=1 over all {st['n_boundary']} row blocks "
+          "(the boundary list):")
+    sk1 = time_k1_list(cells.plan, cells.boundary.cpu().numpy(),
+                       model.module.ex.x_buf, model.module.kahan, dev)
+    y1 = y
+    del model
+
+    print(f"  16c: D=2 and D=4 gloo ranks on the one card, on "
+          f"{SHARDED_MATRIX} (the ranks share cuda:0, so their times are "
+          "not scaling)")
+    any_s = False
+    hosts = {}
+    for world in (2, 4):
+        hosts[world] = host = plan_sharded(m, cfg, world)
+        print(f"  D={world}: host setup {host.seconds}; layout "
+              f"{host.config.body_layout}; R={host.sharded.rows_per_dev}; "
+              f"exchange slots S={host.sharded.exchange_slots}")
+        res = launch.spawn(sharded_rank, world, "gloo",
+                           args=(m, host, world == 2),
+                           timeout=RANK_TIMEOUT_S)
+        for r in res:
+            print(f"    rank {r['rank']}: {r['interior']} interior, "
+                  f"{r['boundary']} boundary row blocks; S={r['S']}; "
+                  f"staged {r['staged']}; loop {r['loop']}; K1 launches in "
+                  f"one apply {r['launches']}; eager loop vs apply rel "
+                  f"{r['err_loop']:.3e}; {r['us_per_apply']:.1f} us per "
+                  "eager apply")
+            check(r["interior"] > 0 and r["boundary"] > 0
+                  and r["launches"] == 2 and r["loop"] == "eager"
+                  and r["err_loop"] <= LOOP_TOL,
+                  f"D={world} rank {r['rank']}: both kinds of row block, "
+                  "two K1 launches an apply, the eager loop")
+        any_s = any_s or res[0]["S"] > 0
+        err, err1 = rel_np(res[0]["y"], want), rel_np(res[0]["y"], y1)
+        check(err <= ORACLE_TOL and err1 <= KERNEL_TOL,
+              f"D={world} vs oracle rel {err:.3e} <= {ORACLE_TOL}, vs "
+              f"world 1 rel {err1:.3e} <= {KERNEL_TOL}")
+        if world == 2:
+            r0 = res[0]
+            check(r0["routed_err"] <= ORACLE_TOL
+                  and r0["routed_launches"] > 0,
+                  f"16d: ShardedRoutedSpmv at D=2 (random 131072 x 8) vs "
+                  f"oracle rel {r0['routed_err']:.3e}, "
+                  f"{r0['routed_launches']} routed launches on rank 0")
+            check(r0["split_err"] <= 1e-5 and min(r0["split_nnz"]) > 0
+                  and min(r0["split_launches"]) > 0,
+                  f"16d: ShardedDegreeSplitSpmv at D=2 (power law 65536 x "
+                  f"24) vs oracle rel {r0['split_err']:.3e} <= 1e-05; nnz "
+                  f"(body, routed) {r0['split_nnz']}; launches (K1, routed) "
+                  f"{r0['split_launches']}")
+    check(any_s, "the compressed exchange ran (S > 0) at D >= 2")
+
+    print("  the sharded K1 per rank at D=4, each list on its own (the "
+          "shard's plan, x_ext random):")
+    sh4 = hosts[4].sharded
+    rng = np.random.default_rng(4)
+    per_rank = []
+    for r in range(4):
+        sc = build_shard_cells(shard_matrix(sh4, r), sh4)
+        p = sc.plan.to_torch(dev)
+        x_ext = torch.as_tensor(rng.standard_normal(
+            sh4.rows_per_dev + 2 * sh4.window_rows + 4 * sh4.exchange_slots),
+            dtype=torch.float32, device=dev)
+        for kind in ("interior", "boundary"):
+            print(f"   rank {r} {kind}:")
+            t = time_k1_list(p, getattr(sc, kind), x_ext, False, dev,
+                             n=50, n_plain=5)
+            per_rank.append(dict(rank=r, kind=kind, ms=t["ms"],
+                                 plain_ms=t["plain_ms"],
+                                 library_ms=t["library_ms"],
+                                 bound_ms=t["bound_ms"],
+                                 same_work_bound_ms=t["same_work_bound_ms"],
+                                 row_blocks=t["row_blocks"]))
+    del hosts
+
+    print(f"  16d: ShardedRoutedSpmv at world 1 on random_1m")
+    xg = deterministic_x(m_gather.dimension)
+    rmodel = ShardedRoutedSpmv(port.EhybConfig(), device=dev).setup(m_gather)
+    reset_launches()
+    err = rel_np(rmodel.matvec(xg), oracle_spmv(m_gather, xg))
+    check(err <= ORACLE_TOL and route_xcache.route_xcache.launches > 0,
+          f"world 1 routed vs oracle rel {err:.3e} <= {ORACLE_TOL}; "
+          f"{route_xcache.route_xcache.launches} routed launches; "
+          f"setup {rmodel.setup_seconds}")
+    return dict(launches=launches, **sk1, d4_per_rank=per_rank)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device; none is available",
@@ -1345,7 +1733,6 @@ def main() -> int:
           f"permuted_poisson_1024 model vs oracle rel {err:.3e}, K1 "
           f"launched {ehyb_stream.stream_body.launches} times")
     time_k1(model6, {"dim": m6.dimension}, dev, n_plain=10, n_eager=20)
-    del model6
     rx = time_routed(model2, res2, model2.m, dev)
     k9 = time_dia(model3, res3, dev)
     print("  K9 on permuted_poisson_4096's diagonal:")
@@ -1409,13 +1796,21 @@ def main() -> int:
     print(f"  {res1['matrix']}: ehyb {res1['gflops']:.2f} GFLOP/s, "
           + ", ".join(f"{k} {v:.2f}" for k, v in base.items())
           + " GFLOP/s (the CLI's graph loop, 500 iterations each)")
+
+    phase(f"16: the sharded path: K1 with a row-block list, then "
+          f"ShardedEhybSpmv at 1, 2 and 4 ranks on {SHARDED_MATRIX}, and "
+          "the sharded routed and degree-split engines")
+    print("  16a: K1 with a row-block list vs its plain version")
+    check_k1_lists(dev)
+    sk1 = check_sharded(m6, model6, model2.m, dev, card)
     print(f"  script wall {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         dict(K1, launches=launch1["K1"], **k1),
         dict(RX, launches=launch2["RX"], **rx),
         dict(K9, launches=launch3["K9"], **k9),
-        dict(WC, launches=launch4["WC"], **wc)]}))
+        dict(WC, launches=launch4["WC"], **wc),
+        dict(SK1, **sk1)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,17 @@
 //     __ldg.
 // * No host work and no device sync per call, so a call can be captured in
 //   a CUDA graph.
+// * A row-block list (optional, a variant of its own).  The sharded path
+//   (ehyb_spmv_torch/parallel/) launches K1 twice per apply over one
+//   shard's plan, once over the row blocks whose x rows are all local
+//   (before the halos arrive) and once over the rest, into one y: with a
+//   list, group j takes row block list[j * V + g] in place of j * V + g and
+//   only the listed rows of y are written.  LIST is a template flag, so
+//   the full walk the flagship launches keeps a body with no list test.
+//   This replaces the TPU's _stream_call
+//   (ehyb_spmv_gpu_tpu/parallel/spmv.py:511), which runs K1 over the
+//   interior or boundary tile group at a tile offset and combines the two
+//   by take and mask.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,11 +154,12 @@ __device__ __forceinline__ float read_x(bool staged, const float* stage,
 
 // piece[p] = (first cell, first table row, next piece or -1, row block);
 // piece[p + 1] ends both ranges.
-template <int V, bool STAGED, bool KAHAN>
+template <int V, bool STAGED, bool KAHAN, bool LIST>
 __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
     const int4* __restrict__ piece, const int* __restrict__ rows,
     const float* __restrict__ cell_val, const uint16_t* __restrict__ cell_idx,
-    const float* __restrict__ x, float* __restrict__ y, int n_rb) {
+    const float* __restrict__ x, float* __restrict__ y, int n_rb,
+    const int* __restrict__ rb_list, int n_list) {
   constexpr int T = kRows / V;  // threads of a row block
   extern __shared__ __align__(16) float xs[];
   const int lane = threadIdx.x & 31;
@@ -161,11 +173,13 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
   float* stage = STAGED ? xs + ((threadIdx.x >> 5) * V + g) *
                                    (kStageRows * kLanes)
                         : nullptr;
-  const int n_groups = (n_rb + V - 1) / V;
+  const int n_items = LIST ? n_list : n_rb;
+  const int n_groups = (n_items + V - 1) / V;
   for (int j = blockIdx.x * warps + (threadIdx.x >> 5); j < n_groups;
        j += n_warps) {
-    const int rb = j * V + g;
-    if (rb >= n_rb) continue;  // the whole group skips
+    const int item = j * V + g;
+    if (item >= n_items) continue;  // the whole group skips
+    const int rb = LIST ? __ldg(rb_list + item) : item;
     float sum[V], comp[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) {
@@ -236,26 +250,34 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
 }
 
 using KernelFn = void (*)(const int4*, const int*, const float*,
-                          const uint16_t*, const float*, float*, int);
+                          const uint16_t*, const float*, float*, int,
+                          const int*, int);
 
-template <int V>
+template <int V, bool LIST>
 KernelFn pick_v(int staged, int kahan) {
   if (staged) {
-    return kahan ? stream_body_kernel<V, true, true>
-                 : stream_body_kernel<V, true, false>;
+    return kahan ? stream_body_kernel<V, true, true, LIST>
+                 : stream_body_kernel<V, true, false, LIST>;
   }
-  return kahan ? stream_body_kernel<V, false, true>
-               : stream_body_kernel<V, false, false>;
+  return kahan ? stream_body_kernel<V, false, true, LIST>
+               : stream_body_kernel<V, false, false, LIST>;
 }
 
-// The kernel variant, or nullptr where none is built.
-KernelFn pick(int rows_per_thread, int staged, int kahan) {
+template <bool LIST>
+KernelFn pick_l(int rows_per_thread, int staged, int kahan) {
   switch (rows_per_thread) {
-    case 1: return pick_v<1>(staged, kahan);
-    case 2: return pick_v<2>(staged, kahan);
-    case 4: return pick_v<4>(staged, kahan);
+    case 1: return pick_v<1, LIST>(staged, kahan);
+    case 2: return pick_v<2, LIST>(staged, kahan);
+    case 4: return pick_v<4, LIST>(staged, kahan);
     default: return nullptr;
   }
+}
+
+// The kernel variant (the list variant where `list`), or nullptr where none
+// is built.
+KernelFn pick(int rows_per_thread, int staged, int kahan, bool list = false) {
+  return list ? pick_l<true>(rows_per_thread, staged, kahan)
+              : pick_l<false>(rows_per_thread, staged, kahan);
 }
 
 size_t smem_bytes(int rows_per_thread, int staged, int threads) {
@@ -312,17 +334,20 @@ extern "C" int ehyb_stream_registers(int rows_per_thread, int staged,
 }
 
 // Launches the body on `stream` (a cudaStream_t): `grid` blocks of
-// `threads` threads over the plan's n_rb row blocks, rows_per_thread row
-// blocks a warp at a time; returns cudaGetLastError(), 0 when the launch
-// was accepted.  `piece` is (n_pieces + 1, 4) int32, `cell_idx` uint16,
-// every buffer 16-byte aligned.
+// `threads` threads over the plan's n_rb row blocks, or over the n_list
+// row blocks of `rb_list` where it is not null, rows_per_thread row blocks
+// a warp at a time; returns cudaGetLastError(), 0 when the launch was
+// accepted.  `piece` is (n_pieces + 1, 4) int32, `cell_idx` uint16, every
+// buffer 16-byte aligned.
 extern "C" int ehyb_stream_body(const void* piece, const int* rows,
                                 const float* cell_val, const void* cell_idx,
                                 const float* x, float* y, int n_rb,
+                                const int* rb_list, int n_list,
                                 int rows_per_thread, int staged, int kahan,
                                 int threads, int grid, void* stream) {
-  if (n_rb <= 0) return 0;
-  const KernelFn fn = pick(rows_per_thread, staged, kahan);
+  if (n_rb <= 0 || (rb_list != nullptr && n_list <= 0)) return 0;
+  const KernelFn fn =
+      pick(rows_per_thread, staged, kahan, /*list=*/rb_list != nullptr);
   if (fn == nullptr || threads < 32 || threads > kMaxThreads ||
       threads % 32 || grid <= 0) {
     return (int)cudaErrorInvalidValue;
@@ -332,6 +357,6 @@ extern "C" int ehyb_stream_body(const void* piece, const int* rows,
   if (rc != 0) return rc;
   fn<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(piece), rows, cell_val,
-      static_cast<const uint16_t*>(cell_idx), x, y, n_rb);
+      static_cast<const uint16_t*>(cell_idx), x, y, n_rb, rb_list, n_list);
   return (int)cudaGetLastError();
 }

@@ -94,8 +94,8 @@ def build_kernel() -> BuiltLibrary:
             lib = ctypes.CDLL(built.path)
             lib.ehyb_stream_body.restype = ctypes.c_int
             lib.ehyb_stream_body.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                + [ctypes.c_void_p])
+                [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             lib.ehyb_stream_resident_blocks.restype = ctypes.c_int
             lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 4
             lib.ehyb_stream_registers.restype = ctypes.c_int
@@ -142,13 +142,15 @@ def smem_bytes(geometry: StreamGeometry) -> int:
 
 
 def grid_of(p: StreamCellsDevice, geometry: StreamGeometry, kahan: bool,
-            device) -> int:
+            device, n_rb: int = None) -> int:
     """The persistent grid: the resident blocks of the card, or fewer where
-    the plan's row-block groups do not give every warp one."""
+    the row-block groups (of the plan, or of ``n_rb`` listed row blocks) do
+    not give every warp one."""
     per_sm = min(geometry.blocks_per_sm,
                  resident_blocks(geometry, kahan, device))
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    groups = -(-p.n_rb // geometry.rows)
+    n_rb = p.n_rb if n_rb is None else n_rb
+    groups = -(-n_rb // geometry.rows)
     return max(1, min(per_sm * n_sm, -(-groups // (geometry.threads // 32))))
 
 
@@ -175,22 +177,45 @@ def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
                              "cell loads, cp.async)")
 
 
+def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
+    """The y a call writes: ``out`` (checked), or a new one, zeros where a
+    list leaves rows unwritten."""
+    n = p.n_rb * BLOCK_ROWS
+    if rb_list is not None:
+        if rb_list.dtype != torch.int32 or rb_list.dim() != 1 \
+                or not rb_list.is_contiguous():
+            raise ValueError("rb_list must be a contiguous 1-D int32 tensor")
+        if rb_list.device != x_pad.device:
+            raise ValueError(f"rb_list on {rb_list.device}, x_pad on "
+                             f"{x_pad.device}")
+    if out is None:
+        return (torch.empty if rb_list is None else torch.zeros)(
+            n, dtype=torch.float32, device=x_pad.device)
+    if out.dtype != torch.float32 or out.shape != (n,) \
+            or not out.is_contiguous() or out.device != x_pad.device:
+        raise ValueError(f"out must be a contiguous ({n},) float32 tensor "
+                         f"on {x_pad.device}")
+    return out
+
+
 def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
-            geometry: StreamGeometry = None) -> torch.Tensor:
+            geometry: StreamGeometry = None, rb_list: torch.Tensor = None,
+            out: torch.Tensor = None) -> torch.Tensor:
     """One launch at ``geometry`` (the default where None), counted."""
     g = GEOMETRY if geometry is None else geometry
     g.check()
     _check(p, x_pad)
+    y = _output(p, x_pad, rb_list, out)
     build_kernel()
-    y = torch.empty(p.n_rb * BLOCK_ROWS, dtype=torch.float32,
-                    device=x_pad.device)
-    if not p.n_rb:
+    n = p.n_rb if rb_list is None else rb_list.shape[0]
+    if not n:
         return y
     rc = _lib.ehyb_stream_body(
         p.piece.data_ptr(), p.rows.data_ptr(), p.cell_val.data_ptr(),
         p.cell_idx.data_ptr(), x_pad.data_ptr(), y.data_ptr(), p.n_rb,
+        None if rb_list is None else rb_list.data_ptr(), n,
         g.rows, int(g.x_mode == "staged"), int(bool(kahan)), g.threads,
-        grid_of(p, g, kahan, x_pad.device),
+        grid_of(p, g, kahan, x_pad.device, n),
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ehyb_stream_body launch failed: CUDA error {rc}")
@@ -199,17 +224,23 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
 
 
 def stream_body(p: StreamCellsDevice, x_pad: torch.Tensor,
-                kahan: bool = False) -> torch.Tensor:
+                kahan: bool = False, rb_list: torch.Tensor = None,
+                out: torch.Tensor = None) -> torch.Tensor:
     """SELL-body sums per row, flattened to (n_slices * 128,), over K1's
     compact plan ``p``.
+
+    With ``rb_list`` (int32 row-block ids, each at most once) only those
+    row blocks are computed and only their rows of the output are written:
+    into ``out`` where it is given (the sharded path fills one y with two
+    calls over disjoint lists), else into a new y of zeros.
 
     CPU tensors take :func:`stream_body_plain`; CUDA tensors launch the
     kernel (``kahan`` selects the compensated variant) or raise."""
     if x_pad.device.type == "cpu":
-        return stream_body_plain(p, x_pad, kahan)
+        return stream_body_plain(p, x_pad, kahan, rb_list, out)
     if x_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {x_pad.device}")
-    return _launch(p, x_pad, kahan)
+    return _launch(p, x_pad, kahan, rb_list=rb_list, out=out)
 
 
 #: Kernel launches since the count was last reset (a run sets it to 0 to
@@ -218,31 +249,40 @@ stream_body.launches = 0
 
 
 def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
-                      kahan: bool = False) -> torch.Tensor:
+                      kahan: bool = False, rb_list: torch.Tensor = None,
+                      out: torch.Tensor = None) -> torch.Tensor:
     """Plain-torch version of the kernel: read each cell's x through its
     piece's table and add the products per row in cell order (a row's step
     order; a row block's later pieces follow the main ones).  With
     ``kahan`` it sums in float64 and rounds once, the answer the
-    compensated kernel reaches to about one ulp."""
+    compensated kernel reaches to about one ulp.  With ``rb_list`` it
+    writes the listed row blocks' rows of the full sums into ``out`` (or
+    into zeros), as the kernel does."""
     dev = x_pad.device
     acc = torch.float64 if kahan else x_pad.dtype
     y = torch.zeros(p.n_rb * BLOCK_ROWS, dtype=acc, device=dev)
-    if p.n_cells == 0:
-        return y.to(x_pad.dtype)
-    piece = p.piece.long()
-    cell_piece = torch.repeat_interleave(
-        torch.arange(p.n_pieces, device=dev), torch.diff(piece[:, PIECE_CELL]),
-        output_size=p.n_cells)
-    first = piece[cell_piece]
-    idx = p.cell_idx.long() & 0xFFFF
-    col = p.rows.long()[first[:, PIECE_ROW] + (idx >> 7)] * LANES \
-        + (idx & (LANES - 1))
-    row = first[:, PIECE_RB] * BLOCK_ROWS \
-        + (torch.arange(p.n_cells, device=dev) - first[:, PIECE_CELL]) \
-        % BLOCK_ROWS
-    contrib = p.cell_val.to(x_pad.dtype) * x_pad[col]
-    y.index_add_(0, row, contrib.to(acc))
-    return y.to(x_pad.dtype)
+    if p.n_cells:
+        piece = p.piece.long()
+        cell_piece = torch.repeat_interleave(
+            torch.arange(p.n_pieces, device=dev),
+            torch.diff(piece[:, PIECE_CELL]), output_size=p.n_cells)
+        first = piece[cell_piece]
+        idx = p.cell_idx.long() & 0xFFFF
+        col = p.rows.long()[first[:, PIECE_ROW] + (idx >> 7)] * LANES \
+            + (idx & (LANES - 1))
+        row = first[:, PIECE_RB] * BLOCK_ROWS \
+            + (torch.arange(p.n_cells, device=dev) - first[:, PIECE_CELL]) \
+            % BLOCK_ROWS
+        contrib = p.cell_val.to(x_pad.dtype) * x_pad[col]
+        y.index_add_(0, row, contrib.to(acc))
+    y = y.to(x_pad.dtype)
+    if rb_list is None:
+        return y if out is None else out.copy_(y)
+    out = _output(p, x_pad, rb_list, out)
+    rb = rb_list.long()
+    out.view(-1, BLOCK_ROWS).index_copy_(
+        0, rb, y.view(-1, BLOCK_ROWS).index_select(0, rb))
+    return out
 
 
 class EhybStreamApply(torch.nn.Module):

@@ -193,13 +193,15 @@ def _chunk(e: EhybMatrix, s0: int, s1: int, offs: np.ndarray, n_xrows: int):
             np.asarray(extra_rb, np.int64), int(st.size))
 
 
-def build_stream_cells(e: EhybMatrix) -> StreamCellsPlan:
+def build_stream_cells(e: EhybMatrix, x_rows: int = None) -> StreamCellsPlan:
     """Decode the body of ``e`` once and re-encode its real cells as K1's
-    compact plan."""
+    compact plan.  ``x_rows`` is the length of the x the body reads
+    (``e.padded_x_rows`` where None; a shard's ``x_ext`` is longer)."""
     offs = e.slice_offset.astype(np.int64)
     n_slices = offs.shape[0] - 1
     n_steps = int(offs[-1]) if n_slices else 0
-    n_xrows = -(-e.padded_x_rows // LANES)
+    x_rows = e.padded_x_rows if x_rows is None else x_rows
+    n_xrows = -(-x_rows // LANES)
     main, extra = [], []
     n_real = 0
     s0 = 0
@@ -246,7 +248,7 @@ def build_stream_cells(e: EhybMatrix) -> StreamCellsPlan:
         raise ValueError("K1 plan too large for int32 maps")
     cell_bytes = n_cells * (cell_val.itemsize + 2)
     map_bytes = piece.size * 4 + rows.size * 4
-    x_bytes = e.padded_x_rows * 4
+    x_bytes = x_rows * 4
     y_bytes = n_slices * LANES * 4
     stats = dict(
         n_rb=n_rb, n_pieces=n_pieces, split_rbs=int(np.unique(x_rb).size),
