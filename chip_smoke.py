@@ -71,6 +71,22 @@ engine at one rank on ``random_1m`` and, with the sharded degree split, at
 two ranks on small matrices.  The ``kernels`` line lists the sharded K1
 beside the other four.
 
+Then the precision mode (``--dword``: f64 values, x, y and sums; phase 17):
+K1 and K9 in f64 against their f64 plain versions (rel <= 1e-12) on the
+f64 layouts of the K1 cases, the edge body, the stress matrix of
+``tests/test_dword.py`` and K9's cases with odd and negative offsets;
+``permuted_poisson_512 --dword`` at full size through the CLI (rel <= 1e-12
+against the oracle, K1 f64 launched, the window cache not) beside the f32
+row; ``fem3d_68_audikw_class --dword`` (K9 f64 on its DIA part); then K1
+f64 and K9 f64 timed (also K9 f64 at fem3d_68's 99 diagonals) beside both
+bounds at 8-byte values, their plain versions and cuSPARSE in f64.  Last
+the small gate (phase 18): ``ehyb`` on ``random_16k`` and
+``powerlaw_16k``, each with a fresh cache, times the candidate engine
+against the body through the graph loop and keeps the one the 5% rule
+picks; a warm setup reads the verdict without measuring, and
+``stencil3d(24, 27)`` keeps the body without measuring.  The ``kernels``
+line gains ``ehyb_stream_body (f64)`` and ``dia (f64)``.
+
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
@@ -92,7 +108,8 @@ import torch
 
 import ehyb_spmv_torch as port
 from ehyb_spmv_torch import cli
-from ehyb_spmv_torch.core.coo import MatrixCOO, deterministic_x, oracle_spmv
+from ehyb_spmv_torch.core.coo import (MatrixCOO, coalesce, deterministic_x,
+                                      oracle_spmv)
 from ehyb_spmv_torch.core.route import RoutedEpilogue, build_routed
 from ehyb_spmv_torch.io import generate
 from ehyb_spmv_torch.models import routed as routed_model
@@ -116,6 +133,10 @@ from ehyb_spmv_torch.utils.timing import detect_hbm_bw, timed_seconds
 
 #: Kernel vs plain version, f32 both: only the summation order differs.
 KERNEL_TOL = 1e-6
+#: The precision mode (f64 kernels against their f64 plain versions, and
+#: end to end against the exact-f64 oracle): the JAX double-word mode's
+#: bound (tests/test_dword.py).
+F64_TOL = 1e-12
 #: End to end vs the exact-f64 oracle: the suite's bound.
 ORACLE_TOL = 5e-6
 #: The graph loop vs the eager loop, f32 both: the ER and long-row scatters
@@ -147,6 +168,13 @@ FEM_ARGS = ["-g", "fem3d_68_audikw_class", "--model", "ehyb", "-i", "200",
 #: x past the TPU's residency limit: the window-cache body and K9.
 HBM_ARGS = ["-g", "permuted_poisson_4096", "--model", "ehyb", "-i", "50",
             "--json", "--device", "cuda"]
+#: The precision mode's main path: the headline row in f64.
+DWORD_ARGS = MAIN_ARGS + ["--dword"]
+#: fem3d_68 in the precision mode: its layout's DIA part at HBM scale.
+DWORD_FEM_ARGS = ["-g", "fem3d_68_audikw_class", "--model", "ehyb", "-i",
+                  "50", "--json", "--device", "cuda", "--dword"]
+#: Scattered matrices under the small gate's 65,536 rows (nnz >= 2^18).
+SMALL_GATE_MATRICES = ("random_16k", "powerlaw_16k")
 _PALLAS = "ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py"
 K1 = {"name": "ehyb_stream_body", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
@@ -163,6 +191,15 @@ K9 = {"name": "dia", "route": "cuda", "source": "ehyb_spmv_torch/csrc/dia.cu",
 WC = {"name": "ehyb_wincache_body", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/ehyb_wincache.cu",
       "replaces": f"{_PALLAS}:293 (K3), {_PALLAS}:489 (K4)"}
+K1F64 = {"name": "ehyb_stream_body (f64)", "route": "cuda",
+         "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
+         "replaces": f"{_PALLAS}:148 (K1) in f64, the body of the precision "
+                     "mode (ehyb_spmv_gpu_tpu/ops/dword.py, XLA on the TPU)"}
+K9F64 = {"name": "dia (f64)", "route": "cuda",
+         "source": "ehyb_spmv_torch/csrc/dia.cu",
+         "replaces": "ehyb_spmv_gpu_tpu/ops/dia_pallas.py:68 (K9) in f64, "
+                     "the DIA phase of the precision mode "
+                     "(ehyb_spmv_gpu_tpu/ops/dword.py)"}
 SK1 = {"name": "ehyb_stream_body (row-block list)", "route": "cuda",
        "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
        "replaces": "ehyb_spmv_gpu_tpu/parallel/spmv.py:511 (_stream_call, "
@@ -176,6 +213,8 @@ RANK_TIMEOUT_S = 300
 #: float32 peak outside the tensor cores (NVIDIA's data sheets), matched like
 #: the bandwidth table of utils/timing.py: the first key in the name wins.
 PEAK_F32 = {"h100 pcie": 51e12, "h100": 67e12}
+#: float64 peak outside the tensor cores (the same data sheets).
+PEAK_F64 = {"h100 pcie": 26e12, "h100": 34e12}
 
 
 #: What the card runs at, read beside every timed row.
@@ -265,25 +304,30 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, n_ops: int, dev: torch.device) -> dict:
+def bound(n_bytes: int, n_ops: int, dev: torch.device,
+          f64: bool = False) -> dict:
     """The least time the card could take: the larger of the bytes over its
-    memory rate and the f32 operations over its peak rate."""
+    memory rate and the operations over its peak rate for their type (f32,
+    or f64 where ``f64``)."""
     name = torch.cuda.get_device_name(dev).lower()
     bw = detect_hbm_bw(dev)
-    peak = next((v for k, v in PEAK_F32.items() if k in name), None)
+    peaks = PEAK_F64 if f64 else PEAK_F32
+    peak = next((v for k, v in peaks.items() if k in name), None)
     if bw is None or peak is None:
-        raise RuntimeError(f"no memory or f32 peak rate for {name!r}")
+        raise RuntimeError(f"no memory or peak rate for {name!r}")
     t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def same_work_bound(nnz: int, idx_bytes: int, n_x: int, n_y: int,
-                    dev: torch.device) -> dict:
-    """The bound of the same product in any layout: each entry's f32 value
-    and ``idx_bytes`` of column once, x once and y once (f32)."""
-    n_bytes = nnz * (4 + idx_bytes) + 4 * (n_x + n_y)
-    return dict(bound(n_bytes, 2 * nnz, dev), bytes=n_bytes)
+                    dev: torch.device, value_bytes: int = 4) -> dict:
+    """The bound of the same product in any layout: each entry's value
+    (f32, or f64 where ``value_bytes`` is 8) and ``idx_bytes`` of column
+    once, x once and y once."""
+    n_bytes = nnz * (value_bytes + idx_bytes) + value_bytes * (n_x + n_y)
+    return dict(bound(n_bytes, 2 * nnz, dev, value_bytes == 8),
+                bytes=n_bytes)
 
 
 def csr_of(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
@@ -318,6 +362,27 @@ def cancellation_matrix() -> port.MatrixCOO:
         dim, dim, np.concatenate([np.zeros(n, np.int64), np.arange(1, dim)]),
         np.concatenate([np.arange(n), np.arange(1, dim)]),
         np.concatenate([vals, np.ones(dim - 1)]))
+
+
+def stress_matrix(dim: int = 2048, seed: int = 3) -> MatrixCOO:
+    """Values that need every f64 bit (``tests/test_dword.py``'s matrix):
+    magnitudes spanning 1e-8..1e8 with cancellation pairs and low-order
+    perturbations at the 1e-13 level; f32 storage alone loses them."""
+    rng = np.random.default_rng(seed)
+    base = generate.random_general(dim, 8, seed=seed)
+    val = base.val.copy()
+    val *= 1.0 + rng.standard_normal(val.shape[0]) * 1e-13
+    # cancellation rows: pairs (big, -big + eps)
+    n_pairs = 64
+    rows = rng.choice(dim, size=n_pairs, replace=False).astype(np.int64)
+    cols_a = rng.integers(0, dim, size=n_pairs)
+    cols_b = (cols_a + 1 + rng.integers(0, dim - 2, size=n_pairs)) % dim
+    big = 10.0 ** rng.uniform(6, 8, size=n_pairs)
+    eps = rng.standard_normal(n_pairs) * 1e-5
+    return coalesce(MatrixCOO(
+        dim, dim, np.concatenate([base.row, rows, rows]),
+        np.concatenate([base.col, cols_a, cols_b]),
+        np.concatenate([val, big, -big + eps])))
 
 
 def kernel_cases():
@@ -371,35 +436,43 @@ def edge_body(seed: int = 7) -> port.EhybMatrix:
         stats={"nnz_ell": nnz, "waste_ell": n_steps * 128 - nnz})
 
 
-def k1_geometries():
+def k1_geometries(f64: bool = False):
     """Every built K1 variant (rows per thread, x mode) at 128 threads, and
-    the default geometry."""
-    return [ehyb_stream.StreamGeometry(threads=128, rows=r, x_mode=mode)
-            for r in ehyb_stream.BUILT_ROWS
-            for mode in ehyb_stream.X_MODES] + [ehyb_stream.GEOMETRY]
+    the default geometry; in f64 those of them built in f64 (one row a
+    thread, x ldg)."""
+    out = [ehyb_stream.StreamGeometry(threads=128, rows=r, x_mode=mode)
+           for r in ehyb_stream.BUILT_ROWS
+           for mode in ehyb_stream.X_MODES] + [ehyb_stream.GEOMETRY]
+    if f64:
+        out = [g for g in out if g.rows == 1 and g.x_mode == "ldg"]
+    return out
 
 
 def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
                   cells=None) -> None:
-    """K1 over the compact plan of body ``e`` (an EhybMatrix) at every
-    geometry of :func:`k1_geometries`: against its plain version on the
-    card within KERNEL_TOL, bit for bit against the plain version on the
-    CPU (which adds in the kernel's order) where Kahan is off, and against
-    the padded body's plain version.  ``cells``, the plan on the card,
-    defaults to a fresh build of ``e``'s."""
+    """K1 over the compact plan of body ``e`` (an EhybMatrix, f32 or f64
+    values) at every geometry of :func:`k1_geometries` for its type:
+    against its plain version on the card within KERNEL_TOL (F64_TOL in
+    f64), bit for bit against the plain version on the CPU (which adds in
+    the kernel's order) where Kahan is off, and against the padded body's
+    plain version.  ``cells``, the plan on the card, defaults to a fresh
+    build of ``e``'s."""
+    f64 = e.ell_val.dtype == np.float64
+    tol = F64_TOL if f64 else KERNEL_TOL
     plan = build_stream_cells(e)
     p = plan.to_torch(dev) if cells is None else cells
-    x_dev = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    x_dev = torch.as_tensor(
+        x, dtype=torch.float64 if f64 else torch.float32, device=dev)
     y_p = ehyb_stream.stream_body_plain(p, x_dev, kahan)
     y_cpu = ehyb_stream.stream_body_plain(plan.to_torch(), x_dev.cpu(),
                                           kahan)
     y_pad = ehyb_body(e.to_torch(device=dev), x_dev, compensated=kahan)
     worst, same = 0.0, True
-    for g in k1_geometries():
+    for g in k1_geometries(f64):
         y_k = ehyb_stream._launch(p, x_dev, kahan, g)
         torch.cuda.synchronize()
         err = max(rel(y_k, y_p), rel(y_k, y_pad))
-        if not bool(torch.isfinite(y_k).all()) or err > KERNEL_TOL:
+        if not bool(torch.isfinite(y_k).all()) or err > tol:
             check(False, f"K1 {name} at {g}: vs plain rel {rel(y_k, y_p):.3e}"
                          f", vs the padded body's rel {rel(y_k, y_pad):.3e}")
         worst = max(worst, err)
@@ -409,8 +482,9 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
           f"K1 {name} ({st['n_rb']} row blocks, {st['n_pieces']} pieces, "
           f"{st['split_rbs']} cut for the 16-bit range, max width "
           f"{st['max_width']}; {st['compact_cells']} of {st['padded_cells']} "
-          f"cells): {len(k1_geometries())} geometries, vs plain and the "
-          f"padded body rel <= {worst:.3e} <= {KERNEL_TOL}"
+          f"cells{', f64' if f64 else ''}): {len(k1_geometries(f64))} "
+          f"geometries, vs plain and the padded body rel <= {worst:.3e} <= "
+          f"{tol}"
           + ("" if kahan else "; bit for bit with the plain version on the "
              "CPU"))
 
@@ -552,11 +626,13 @@ class patched:
                 os.environ[k] = v
 
 
-def dia_geometries():
+def dia_geometries(f64: bool = False):
     """Every built K9 variant (256 threads) in both x modes, the default
-    geometry, and 128 and 512 threads."""
+    geometry, and 128 and 512 threads; in f64 those of them built in f64
+    (the default STEP and QUADS)."""
+    built = dia.BUILT_STEPS_F64 if f64 else dia.BUILT_STEPS
     out = [dia.DiaGeometry(threads=256, step=s, quads=q, x_mode=mode)
-           for s, q in dia.BUILT_STEPS for mode in dia.X_MODES]
+           for s, q in built for mode in dia.X_MODES]
     out += [dia.GEOMETRY]
     out += [dia.DiaGeometry(threads=t, x_mode=mode)
             for t in (128, 512) for mode in dia.X_MODES]
@@ -564,33 +640,50 @@ def dia_geometries():
 
 
 def check_dia_case(name: str, e, x: torch.Tensor) -> None:
-    """K9 at every geometry of :func:`dia_geometries` against its plain
-    version on one DIA part."""
+    """K9 at every geometry of :func:`dia_geometries` for x's type against
+    its plain version on one DIA part (within KERNEL_TOL, F64_TOL in
+    f64)."""
+    f64 = x.dtype == torch.float64
+    tol = F64_TOL if f64 else KERNEL_TOL
     y_p = dia.dia_body_plain(e, x)
-    worst, worst_at = 0.0, None
-    for g in dia_geometries():
+    worst, worst_at, n_run = 0.0, None, 0
+    for g in dia_geometries(f64):
+        try:
+            dia.make_plan(e.dia_offsets, e.dia_val.shape[1], g, 1,
+                          x.element_size())
+        except ValueError as exc:
+            # the staged windows of a wide tile past a block's shared
+            # memory (f64 at 512 threads on fem3d_16): the wrapper refuses
+            print(f"  K9 {name} at {g}: not run ({exc})")
+            continue
+        n_run += 1
         y_k = dia._launch(e, x, g)
         torch.cuda.synchronize()
         err = rel(y_k, y_p)
-        if not bool(torch.isfinite(y_k).all()) or err > KERNEL_TOL:
+        if not bool(torch.isfinite(y_k).all()) or err > tol:
             check(False, f"K9 {name} at {g}: vs plain rel {err:.3e}")
         if err >= worst:
             worst, worst_at = err, g
     check(True, f"K9 {name} ({len(e.dia_offsets)} diagonals in "
                 f"{len(dia.offset_runs(e.dia_offsets))} runs, "
-                f"{e.dia_val.shape[1]} rows, x {x.shape[0]}): "
-                f"{len(dia_geometries())} geometries, vs plain rel <= "
-                f"{worst:.3e} (at {worst_at}) <= {KERNEL_TOL}")
+                f"{e.dia_val.shape[1]} rows, x {x.shape[0]}, {x.dtype}): "
+                f"{n_run} geometries, vs plain rel <= "
+                f"{worst:.3e} (at {worst_at}) <= {tol}")
 
 
-def check_dia_small(dev) -> None:
-    """K9 against its plain version at every variant: one diagonal; rows
-    not a multiple of 4 (the 4-B value loads) with a ragged last tile;
+def check_dia_small(dev, dtype=torch.float32) -> None:
+    """K9 against its plain version at every variant of ``dtype``: one
+    diagonal; rows not a multiple of 4 (the scalar value loads) with a
+    ragged last tile; odd and negative offsets (the shifted 16-B loads);
     offsets past both ends of x (the guarded x reads, the zero-filled
-    windows); a run wider than a tile; fem3d_16's 99 diagonals in 9 runs."""
+    windows); a run wider than a tile; fem3d_16's 99 diagonals in 9 runs
+    (in f64 through the precision mode)."""
+    f64 = dtype == torch.float64
     rng = np.random.default_rng(5)
     cases = [("one diagonal", (0,), 100_000, 100_000),
              ("ragged rows", (-3, 0, 5), 100_003, 100_003 - 77),
+             ("odd and negative offsets", (-7, -3, -1, 0, 1, 3, 5), 100_000,
+              100_000),
              ("past both ends of x",
               (-15_000, -5000, -2049, -1, 0, 1, 2047, 2048, 5000, 15_000),
               12_344, 12_344 - 77),
@@ -598,21 +691,23 @@ def check_dia_small(dev) -> None:
               50_000, 50_000)]
     for name, offs, dim_r, n_x in cases:
         e = types.SimpleNamespace(dia_offsets=offs, dia_val=torch.as_tensor(
-            rng.standard_normal((len(offs), dim_r)), dtype=torch.float32,
+            rng.standard_normal((len(offs), dim_r)), dtype=dtype,
             device=dev))
-        x = torch.as_tensor(rng.standard_normal(n_x), dtype=torch.float32,
+        x = torch.as_tensor(rng.standard_normal(n_x), dtype=dtype,
                             device=dev)
         check_dia_case(name, e, x)
     m = generate.fem3d(16)
-    model = port.EhybSpmv(port.EhybConfig(), device=dev).setup(m)
+    model = port.EhybSpmv(port.EhybConfig(dword_values=f64),
+                          device=dev).setup(m)
     e = model.dev
-    check(len(e.dia_offsets) == 99, f"fem3d_16: {len(e.dia_offsets)} "
-                                    "diagonals")
+    check(len(e.dia_offsets) == 99 and e.dia_val.dtype == dtype,
+          f"fem3d_16: {len(e.dia_offsets)} diagonals, {e.dia_val.dtype}")
     check_dia_case("fem3d_16", e, model.prepare_x(
         deterministic_x(m.dimension)))
     x = deterministic_x(m.dimension)
     err = rel_np(model.matvec(x), oracle_spmv(m, x))
-    check(err <= ORACLE_TOL, f"fem3d_16 model vs oracle rel {err:.3e}")
+    tol = F64_TOL if f64 else ORACLE_TOL
+    check(err <= tol, f"fem3d_16 model vs oracle rel {err:.3e} <= {tol}")
 
 
 def padded_body(model, dev):
@@ -781,6 +876,8 @@ def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
     card, defaults to the model's own."""
     p = model.module.cells if cells is None else cells
     kahan = model.module.kahan
+    f64 = p.cell_val.dtype == torch.float64
+    tol = F64_TOL if f64 else KERNEL_TOL
     body_nnz = model.dev.body_nnz
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
     y_k = ehyb_stream.stream_body(p, x_dev, kahan)
@@ -788,35 +885,38 @@ def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
     torch.cuda.synchronize()
     max_abs = float((y_k - y_p).abs().max())
     err = rel(y_k, y_p)
-    check(err <= KERNEL_TOL, f"K1 vs plain rel {err:.3e} <= {KERNEL_TOL} "
-                             f"(max abs {max_abs:.3e}, {p.n_rb} row blocks)")
+    check(err <= tol, f"K1 vs plain rel {err:.3e} <= {tol} (max abs "
+                      f"{max_abs:.3e}, {p.n_rb} row blocks, {x_dev.dtype})")
     e = padded_body(model, dev)
     err = rel(y_k, ehyb_body(e, x_dev, compensated=kahan))
-    check(err <= KERNEL_TOL, f"K1 vs the padded body's plain version rel "
-                             f"{err:.3e}")
+    check(err <= tol, f"K1 vs the padded body's plain version rel "
+                      f"{err:.3e}")
     a = body_csr(e, y_k.shape[0], x_dev.shape[0], dev)
     del e
     y_l = torch.mv(a, x_dev)
     torch.cuda.synchronize()
     err = rel(y_l, y_p)
-    check(err <= KERNEL_TOL, f"cuSPARSE over K1's {a.values().numel()} body "
-                             f"entries vs plain rel {err:.3e}")
+    check(err <= tol, f"cuSPARSE over K1's {a.values().numel()} body "
+                      f"entries ({a.dtype}) vs plain rel {err:.3e}")
     g0 = ehyb_stream.GEOMETRY
-    other = other_x_mode(g0)
-    err = rel(ehyb_stream._launch(p, x_dev, kahan, other), y_p)
-    check(err <= KERNEL_TOL, f"K1 with x {other.x_mode} vs plain rel "
-                             f"{err:.3e}")
+    # the f64 kernel is built in the default geometry's x mode only
+    other = None if f64 else other_x_mode(g0)
+    if other is not None:
+        err = rel(ehyb_stream._launch(p, x_dev, kahan, other), y_p)
+        check(err <= tol, f"K1 with x {other.x_mode} vs plain rel "
+                          f"{err:.3e}")
     del y_l
     kernel = lambda: ehyb_stream.stream_body(p, x_dev, kahan)  # noqa: E731
     plain = lambda: ehyb_stream.stream_body_plain(p, x_dev, kahan)  # noqa
     ms, plain_ms, turns = in_turns(kernel, plain, n, n_plain)
-    ab = in_turns(kernel, lambda: ehyb_stream._launch(p, x_dev, kahan, other),
-                  n, n)[2]
+    ab = None if other is None else in_turns(
+        kernel, lambda: ehyb_stream._launch(p, x_dev, kahan, other), n, n)[2]
     lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), n)
     state = card_state()
     st = p.stats
-    b = bound(st["layout_bytes"], 2 * body_nnz, dev)
-    same = same_work_bound(body_nnz, 2, x_dev.numel(), y_k.numel(), dev)
+    b = bound(st["layout_bytes"], 2 * body_nnz, dev, f64)
+    same = same_work_bound(body_nnz, 2, x_dev.numel(), y_k.numel(), dev,
+                           8 if f64 else 4)
     grid = ehyb_stream.grid_of(p, g0, kahan, dev)
     print(f"  K1 ({g0.threads} threads, {g0.rows} rows a thread, "
           f"{g0.blocks_per_sm} blocks/SM asked, x {g0.x_mode}; grid {grid}; "
@@ -832,8 +932,10 @@ def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
           f"{same['bound_ms']:.4f} ms ({same['bytes']} B; "
           f"{same['bound_ms'] / ms:.3f} reached); the padded body would "
           f"move {st['body_bytes']} B of cells")
-    print(f"  x-mode A/B ({other}, the default, the default, the other): "
-          f"{ab}; {state}")
+    if ab is not None:
+        print(f"  x-mode A/B ({other}, the default, the default, the "
+              f"other): {ab}")
+    print(f"  {state}")
     print(f"  eager calls back to back (host launch cost included): "
           f"K1 {ms_per_call(kernel, n_eager):.4f} ms, full apply "
           f"{ms_per_call(lambda: model.apply(x_dev), n_eager):.4f} ms")
@@ -905,33 +1007,39 @@ def dia_csr(e, n_x: int, dev) -> torch.Tensor:
 
 
 def time_dia(model, result, dev, n: int = 50) -> dict:
-    """K9 at a flagship path's shapes: kernel, plain version and cuSPARSE
-    over the same DIA entries, both bounds, and the A/B of the two x modes
-    (the default geometry with the other mode, in turns)."""
-    e = model.dev
-    x_dev = model.prepare_x(deterministic_x(result["dim"]))
+    """K9 at a flagship path's shapes (:func:`time_dia_part` on the model's
+    DIA part and its x)."""
+    return time_dia_part(model.dev, model.prepare_x(
+        deterministic_x(result["dim"])), dev, n)
+
+
+def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50) -> dict:
+    """K9 on the DIA part ``e`` (f32 or f64, as x): kernel, plain version
+    and cuSPARSE over the same DIA entries, both bounds, and the A/B of the
+    two x modes (the default geometry with the other mode, in turns)."""
+    f64 = x_dev.dtype == torch.float64
+    tol, vb = (F64_TOL, 8) if f64 else (KERNEL_TOL, 4)
     y_k = dia.dia_body(e, x_dev)
     y_p = dia.dia_body_plain(e, x_dev)
     torch.cuda.synchronize()
     max_abs = float((y_k - y_p).abs().max())
     err = rel(y_k, y_p)
-    check(err <= KERNEL_TOL, f"K9 vs plain rel {err:.3e} <= {KERNEL_TOL} "
-                             f"(max abs {max_abs:.3e}, "
-                             f"{len(e.dia_offsets)} diagonals)")
+    check(err <= tol, f"K9 vs plain rel {err:.3e} <= {tol} (max abs "
+                      f"{max_abs:.3e}, {len(e.dia_offsets)} diagonals, "
+                      f"{x_dev.dtype})")
     a = dia_csr(e, x_dev.shape[0], dev)
     y_l = torch.mv(a, x_dev)
     torch.cuda.synchronize()
     err = rel(y_l, y_p)
-    check(err <= KERNEL_TOL, f"cuSPARSE over the {a.values().numel()} DIA "
-                             f"entries vs plain rel {err:.3e}")
+    check(err <= tol, f"cuSPARSE over the {a.values().numel()} DIA "
+                      f"entries ({a.dtype}) vs plain rel {err:.3e}")
     g0 = dia.GEOMETRY
     other = dataclasses.replace(
         g0, x_mode=next(m for m in dia.X_MODES if m != g0.x_mode))
     y_o = dia._launch(e, x_dev, other)
     torch.cuda.synchronize()
     err = rel(y_o, y_p)
-    check(err <= KERNEL_TOL, f"K9 with x {other.x_mode} vs plain rel "
-                             f"{err:.3e}")
+    check(err <= tol, f"K9 with x {other.x_mode} vs plain rel {err:.3e}")
     del y_l, y_o
     ms, plain_ms, turns = in_turns(lambda: dia.dia_body(e, x_dev),
                                    lambda: dia.dia_body_plain(e, x_dev),
@@ -940,11 +1048,13 @@ def time_dia(model, result, dev, n: int = 50) -> dict:
                   lambda: dia._launch(e, x_dev, other), n, n)[2]
     lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), n)
     k, dim_r = e.dia_val.shape
-    plan, _ = dia.device_plan(e.dia_offsets, dim_r, dim_r % 4 == 0, dev)
+    plan, _ = dia.device_plan(e.dia_offsets, dim_r, dim_r % 4 == 0, dev,
+                              None, vb)
     st = plan.stats
-    b = bound(st["layout_bytes"], 2 * k * dim_r, dev)
+    b = bound(st["layout_bytes"], 2 * k * dim_r, dev, f64)
     # the diagonals carry no column: each entry's value, x and y once
-    same = same_work_bound(a.values().numel(), 0, x_dev.numel(), dim_r, dev)
+    same = same_work_bound(a.values().numel(), 0, x_dev.numel(), dim_r, dev,
+                           vb)
     print(f"  K9 ({k} diagonals in {st['runs']} runs, {dim_r} rows; "
           f"{g0.threads} threads, {g0.quads} quads, step {g0.step}, x "
           f"{g0.x_mode}; grid {st['grid']}, tiles of {st['tile_rows']} "
@@ -1570,6 +1680,117 @@ def check_sharded(m, model_flat, m_gather, dev, card: str) -> dict:
     return dict(launches=launches, **sk1, d4_per_rank=per_rank)
 
 
+# ---------------------------------------------------------------------------
+# Phases 17 and 18: the precision mode and the small gate.
+# ---------------------------------------------------------------------------
+
+def check_f64_small(dev) -> None:
+    """K1 and K9 in f64 against their f64 plain versions on small matrices
+    that reach every f64 variant: K1 on the layouts of
+    :func:`kernel_cases` with f64 values (the flagship at
+    ``dtype="float64"``: nwin 1/2/4), on the edge body (cut row blocks, a
+    zero-width one, a ragged slice) and on the precision mode's stress
+    matrix end to end (rel <= F64_TOL against the oracle); K9 through
+    :func:`check_dia_small` in f64 (odd and negative offsets, both x
+    modes, the guarded edges, fem3d_16 in the precision mode)."""
+    for name, m, cfg, nwin, kahan in kernel_cases():
+        if kahan:
+            continue  # no compensated f64 kernel: f64 sums need none
+        model = port.EhybSpmv(dataclasses.replace(cfg, dtype="float64"),
+                              device=dev).setup(m)
+        check(model.dev.nwin == nwin and model.module.cells is not None
+              and model.module.cells.cell_val.dtype == torch.float64,
+              f"{name} f64: layout nwin={model.dev.nwin}, K1's plan in f64")
+        x = deterministic_x(m.dimension)
+        check_k1_case(f"{name} f64", model.ehyb,
+                      model.prepare_x(x).cpu().numpy(), False, dev,
+                      model.module.cells)
+        err = rel_np(model.matvec(x), oracle_spmv(m, x))
+        check(err <= F64_TOL, f"{name} f64: model vs oracle rel {err:.3e}")
+    e = edge_body()
+    rng = np.random.default_rng(3)
+    e.ell_val = np.where(e.ell_val != 0, rng.standard_normal(
+        e.ell_val.shape), 0.0)
+    check_k1_case("edge body f64", e, rng.standard_normal(e.padded_x_rows),
+                  False, dev)
+    m = stress_matrix()
+    model = port.EhybSpmv(port.EhybConfig(dword_values=True),
+                          device=dev).setup(m)
+    check(model.module.branch == "dword xla"
+          and model.module.wincache is None,
+          f"stress: precision-mode branch {model.module.branch}")
+    x = deterministic_x(m.dimension)
+    check_k1_case("stress (precision mode)", model.ehyb,
+                  model.prepare_x(x).cpu().numpy(), False, dev,
+                  model.module.cells)
+    reset_launches()
+    err = rel_np(model.matvec(x), oracle_spmv(m, x))
+    check(err <= F64_TOL and ehyb_stream.stream_body.launches == 1,
+          f"stress: precision mode vs oracle rel {err:.3e} <= {F64_TOL}, K1 "
+          f"launched {ehyb_stream.stream_body.launches} time")
+    check_dia_small(dev, torch.float64)
+
+
+def check_small_gate(dev, card: str) -> dict:
+    """The small gate on the card: ``ehyb`` on each of SMALL_GATE_MATRICES
+    with a fresh cache directory: the A/B's verdict, both GFLOP/s, the
+    engine returned (the one the 5% rule picks from those numbers) and its
+    error against the oracle; a warm setup reads the verdict without
+    measuring.  Then stencil3d(24, 27) keeps the body without measuring.
+    Returns each matrix's record; ``card`` (the card's name and power
+    limit) stands beside each timed row."""
+    def measured(*_):
+        raise RuntimeError("the gate measured where it should not")
+
+    names = {"routed": "RoutedSpmv", "split": "DegreeSplitSpmv"}
+    out = {}
+    for name in SMALL_GATE_MATRICES:
+        m = generate.load_corpus(name)
+        with tempfile.TemporaryDirectory() as cache:
+            cfg = port.EhybConfig(artifact_cache=True, cache_dir=cache)
+            gate = port.EhybSpmv(cfg, device=dev)
+            t0 = time.perf_counter()
+            model = gate.setup(m)
+            setup_s = time.perf_counter() - t0
+            g = gate.small_gate
+            check(g is not None and "kind" in g,
+                  f"{name} ({m.dimension} rows, {m.nnz} nnz): the A/B ran, "
+                  f"est {g['est'] / g['floor']:.3f}x the floor")
+            cand = g["candidate_gflops"] > 1.05 * g["body_gflops"]
+            verdict = gate._load_gate_decision(m)
+            engine = type(model).__name__
+            x = deterministic_x(m.dimension)
+            err = rel_np(model.matvec(x), oracle_spmv(m, x))
+            print(f"  {name}: {g['kind']} {g['candidate_gflops']:.2f} vs "
+                  f"body {g['body_gflops']:.2f} GFLOP/s (the graph loop; "
+                  f"{card}) "
+                  f"-> verdict {verdict!r}, engine {engine}; gate "
+                  f"{model.setup_seconds['small_gate']:.2f} s of "
+                  f"{setup_s:.2f} s setup; {card_state()}")
+            check(engine == (names[g["kind"]] if cand else "EhybSpmv")
+                  and verdict == (g["kind"] if cand else False)
+                  and model.small_gate is g,
+                  f"{name}: the 5% rule picks {engine} (verdict "
+                  f"{verdict!r})")
+            check(err <= ORACLE_TOL, f"{name}: {engine} vs oracle rel "
+                                     f"{err:.3e} <= {ORACLE_TOL}")
+            warm = port.EhybSpmv(cfg, device=dev)
+            warm._measured_gflops = measured
+            check(type(warm.setup(m)).__name__ == engine,
+                  f"{name}: a warm setup reads the verdict and returns "
+                  f"{engine} without measuring")
+        out[name] = dict(g, engine=engine, rel_error=err)
+    m = generate.stencil3d(24, 27)
+    model = port.EhybSpmv(port.EhybConfig(), device=dev)
+    model._measured_gflops = measured
+    g = model.setup(m).small_gate
+    check(g is not None and "kind" not in g
+          and g["est"] <= model._SMALL_EST_K * g["floor"],
+          f"stencil3d(24, 27): est {g['est'] / g['floor']:.3f}x the floor, "
+          "the body kept without measuring")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device; none is available",
@@ -1803,14 +2024,72 @@ def main() -> int:
     print("  16a: K1 with a row-block list vs its plain version")
     check_k1_lists(dev)
     sk1 = check_sharded(m6, model6, model2.m, dev, card)
-    print(f"  script wall {time.perf_counter() - t_start:.1f} s")
+    del model6, m6
 
+    t17 = time.perf_counter()
+    phase("17: the precision mode: K1 and K9 in f64 against their f64 plain "
+          "versions, pp512 and fem3d_68 with --dword through the CLI, and "
+          "the f64 kernels timed")
+    print("  17a: the f64 kernels vs their f64 plain versions on small "
+          "matrices")
+    check_f64_small(dev)
+    print(f"  17b: python -m ehyb_spmv_torch {' '.join(DWORD_ARGS)}")
+    res7, model7, launch7 = drive(DWORD_ARGS)
+    print(f"  layout: {res7['layout']}; TPU branch {model7.module.branch}")
+    check(res7["engine"] == "EhybSpmv" and res7["dim"] == 262144
+          and res7["nnz"] == res1["nnz"],
+          f"full size in the precision mode: dim {res7['dim']}, nnz "
+          f"{res7['nnz']}, engine {res7['engine']}")
+    check(res7["rel_error"] <= F64_TOL,
+          f"f64 rel error vs the oracle {res7['rel_error']:.3e} <= {F64_TOL}")
+    check(launch7["K1"] > 0 and launch7["K9"] > 0 and launch7["WC"] == 0
+          and launch7["RX"] == 0
+          and model7.module.cells.cell_val.dtype == torch.float64,
+          f"{K1F64['name']} launched {launch7['K1']} times, {K9F64['name']} "
+          f"{launch7['K9']} times, the window cache {launch7['WC']} times")
+    print(f"  {res7['matrix']}: {res7['gflops']:.2f} GFLOP/s in f64 beside "
+          f"{res1['gflops']:.2f} in f32 (phase 6), both the CLI's graph "
+          f"loop of {res7['iters']} iterations; {card}")
+    print(f"  17c: python -m ehyb_spmv_torch {' '.join(DWORD_FEM_ARGS)}")
+    res8, model8, launch8 = drive(DWORD_FEM_ARGS)
+    lay = res8["layout"]
+    print(f"  layout: {lay}; {len(model8.dev.dia_offsets)} diagonals "
+          f"(nnz_dia {lay['nnz_dia']} of {res8['nnz']}), TPU branch "
+          f"{model8.module.branch}")
+    check(res8["dim"] == 943296 and res8["rel_error"] <= F64_TOL
+          and launch8["K9"] > 0 and launch8["WC"] == 0,
+          f"fem3d_68 in f64: rel {res8['rel_error']:.3e}, {K9F64['name']} "
+          f"launched {launch8['K9']} times, K1 {launch8['K1']} times; "
+          f"{res8['gflops']:.2f} GFLOP/s beside {res3['gflops']:.2f} in "
+          "f32 (phase 8)")
+    print(f"  17d: K1 in f64 on pp512's precision-mode body ({card}):")
+    k1f64 = time_k1(model7, res7, dev, n_eager=50)
+    print(f"  K9 in f64 on fem3d_68's precision-mode DIA part ({card}):")
+    k9f64 = time_dia(model8, res8, dev, n=20)
+    print("  K9 in f64 at fem3d_68's 99 diagonals (phase 8's DIA part, its "
+          f"values in f64; {card}):")
+    e99 = types.SimpleNamespace(dia_offsets=model3.dev.dia_offsets,
+                                dia_val=model3.dev.dia_val.double())
+    time_dia_part(e99, model3.prepare_x(
+        deterministic_x(res3["dim"])).double(), dev, n=10)
+    del e99, model8
+    t18 = time.perf_counter()
+    phase("18: the small gate on the card: "
+          + ", ".join(SMALL_GATE_MATRICES) + " and stencil3d(24, 27)")
+    gates = check_small_gate(dev, card)
+    t_end = time.perf_counter()
+    print(f"  phase 17 {t18 - t17:.1f} s, phase 18 {t_end - t18:.1f} s; "
+          f"script wall {t_end - t_start:.1f} s")
+
+    print(json.dumps({"small_gate": gates}))
     print(json.dumps({"kernels": [
         dict(K1, launches=launch1["K1"], **k1),
         dict(RX, launches=launch2["RX"], **rx),
         dict(K9, launches=launch3["K9"], **k9),
         dict(WC, launches=launch4["WC"], **wc),
-        dict(SK1, **sk1)]}))
+        dict(SK1, **sk1),
+        dict(K1F64, launches=launch7["K1"], **k1f64),
+        dict(K9F64, launches=launch8["K9"], **k9f64)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

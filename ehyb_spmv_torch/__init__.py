@@ -10,10 +10,14 @@ and combine are torch ops, DIA a CUDA kernel (``csrc/dia.cu``), and a body
 past the TPU's x residency runs through an x-window cache
 (``csrc/ehyb_wincache.cu``).  Gather-wall matrices go to the routed engine,
 whose schedule runs as one CUDA kernel over x chunks staged in shared
-memory (``csrc/route_xcache.cu``).  The baselines (``csr``, ``bcoo``,
+memory (``csrc/route_xcache.cu``); below 65,536 rows the flagship's gate
+decides by timing both engines on the card.  The precision mode
+(``dword_values``, ``ops/dword.py``; ``ehyb``, ``ehyb_xla`` and ``hyb``)
+runs the body and DIA kernels in f64.  The baselines (``csr``, ``bcoo``,
 ``hyb``), the CG and power-iteration solvers (``models/solver.py``) and the
 chained benchmark loop run over any model; on a card every loop replays
-CUDA graphs of the apply.
+CUDA graphs of the apply.  On the CPU every kernel's wrapper takes its
+plain PyTorch version.
 """
 from .config import EhybConfig, Features
 from .core.coo import MatrixCOO, MatrixCSR, deterministic_x, oracle_spmv

@@ -5,6 +5,7 @@ Port counterpart of ``ehyb_spmv_gpu_tpu/cli.py``, with every flag of it but
 ``--platform`` (the device is ``--device``)::
 
     python -m ehyb_spmv_torch -g permuted_poisson_512 -i 2000 --json
+    python -m ehyb_spmv_torch -g permuted_poisson_512 --dword
     python -m ehyb_spmv_torch -m audikw_1 --read-dir ./read
 
 Run flow: read/generate → setup (plan/partition/reorder/convert/upload) →
@@ -77,8 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="relaxed-layout windows per 8-step sub-tile (2 dual, "
                         "4 quad; default: auto-arbitrated)")
     p.add_argument("--dword", action="store_true",
-                   help="double-word value precision (not ported yet: "
-                        "refused with exit code 2)")
+                   help="precision mode: f64 values, x, y and sums (the "
+                        "body and DIA kernels in f64 on the card); taken by "
+                        "ehyb, ehyb_xla and hyb, refused with exit code 2 "
+                        "by the other models")
     p.add_argument("--compensated", action="store_true",
                    help="compensated (Kahan) summation in the body kernels")
     p.add_argument("--tol", type=float, default=0.01,
@@ -226,6 +229,9 @@ def run(args: argparse.Namespace):
         "rel_error": err, "valid": cmp_res.ok,
         "setup_seconds": {"load": load_s, **model.setup_seconds},
     }
+    if getattr(model, "small_gate", None) is not None:
+        # the small-matrix gate's estimate and, where it ran, its A/B
+        result["small_gate"] = model.small_gate
     if e is not None:
         result["layout"] = {
             "body_layout": model.config.body_layout, "nwin": model.dev.nwin,

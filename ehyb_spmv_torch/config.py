@@ -159,13 +159,14 @@ class EhybConfig:
     #: (spmv.h:46; the hardware has no f64 VPU).  Costs extra VPU ops; off
     #: by default.
     compensated_sum: bool = False
-    #: Double-word (f32x2) value precision: values AND x carried as (hi, lo)
-    #: f32 pairs, products via Dekker two-product, ordered Neumaier
-    #: reductions — the full f64 value contract of the reference
-    #: (spmv.h:46) on f64-less VPU hardware (ops/dword.py).  ~1e-14
-    #: relative vs the exact-f64 oracle; runs through the XLA formulation
-    #: (a precision mode, ~10x slower than the f32 flagship).  Implies
-    #: row_split_threshold=0 and no long-row extraction.
+    #: The precision mode: the reference's f64 value contract
+    #: (spmv.h:46).  The JAX package carries (hi, lo) f32 pairs, since the
+    #: TPU has no f64; the port stores values, x and y in f64 and sums in
+    #: f64, the body (K1) and DIA (K9) kernels in their f64 variants on the
+    #: card (ops/dword.py).  Taken by ehyb, ehyb_xla and hyb, which plan
+    #: with dtype float64, row_split_threshold=0 and relax_body='never' (the
+    #: flagship pins no layout in this mode); every other model refuses it.
+    #: Held to rel <= 1e-12 against the exact-f64 oracle.
     dword_values: bool = False
     #: Multi-window layout: minimum entries a (slice, window) group needs to be
     #: packed into body tiles; smaller groups spill to the ER tail.  Measured

@@ -18,8 +18,8 @@
 // window in registers.  Here dia_val stays (K, dim_r) row-major.
 //
 // Bound on the H100: bytes.  Each call reads dia_val once and x and writes y:
-// (K * dim_r + 2 * dim_r) * 4 B, ~381 MB at fem3d_68 (~114 us at 3.35 TB/s).
-// Design:
+// (K * dim_r + 2 * dim_r) * 4 B, ~381 MB at fem3d_68 (~114 us at 3.35 TB/s;
+// twice that in float64).  Design:
 //
 // * Bytes in flight.  A thread owns quads of 4 consecutive rows and reads
 //   each diagonal's 4 values with one 16-B streaming load (__ldcs: read
@@ -49,9 +49,20 @@
 //   for every thread alike.  Two aligned 16-B loads and a select on that
 //   warp-uniform shift give the four values.
 //
-// Template parameters: STEP diagonals per step, QUADS quads per thread per
-// tile, STAGED x mode, VEC 16-B value loads (dim_r a multiple of 4 and
-// dia_val 16-B aligned; else four guarded 4-B loads), EDGE guarded x reads.
+// * float64 (the precision mode, ops/dword.py: f64 values, x, y and sums,
+//   where the TPU carries (hi, lo) float pairs).  The tile stays four rows
+//   a thread wide, so the plan's tiles, runs and walk are the float
+//   kernel's; what 16 B hold changes.  A quad's four values are two 16-B
+//   loads, and its shifted x is two aligned 16-B loads (three where
+//   d is odd) and a select on the warp-uniform d & 1: every load stays
+//   16-B aligned for every offset, where a two-rows-wide tile would halve
+//   the bytes a thread has in flight.  The x windows are 16-B aligned in
+//   doubles (wlo even), and the edge tests count two doubles a 16-B load.
+//
+// Template parameters: T the value type (float or double), STEP diagonals
+// per step, QUADS quads per thread per tile, STAGED x mode, VEC 16-B value
+// loads (dim_r a multiple of 4 and dia_val 16-B aligned; else four guarded
+// scalar loads), EDGE guarded x reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,17 +71,45 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 
+template <typename T>
 struct DiaArgs {
-  const float* val;    // (n_diag, dim_r) row-major
+  const T* val;        // (n_diag, dim_r) row-major
   const int* table;    // [d_0..d_{K-1}, xo_0..xo_{K-1}, 4 ints per run]
-  const float* x;      // n_x values, 16-B aligned
-  float* y;            // dim_r values
+  const T* x;          // n_x values, 16-B aligned
+  T* y;                // dim_r values
   long long dim_r, n_x;
   int n_diag, n_runs;
   int d_min, d_max;    // first and last offset
   int tile_quads;      // most quads in a tile (threads * QUADS)
-  int stage_floats;    // floats of one buffer of staged windows
+  int stage_floats;    // values of one buffer of staged windows
 };
+
+// Four rows' doubles: two 16-B halves.
+struct dquad {
+  double x, y, z, w;
+};
+
+// The quad type of a value type, and how many values one 16-B load holds
+// (kVec, 2^kVecShift).
+template <typename T>
+struct Quad;
+template <>
+struct Quad<float> {
+  using type = float4;
+  static constexpr int kVec = 4, kVecShift = 2;
+};
+template <>
+struct Quad<double> {
+  using type = dquad;
+  static constexpr int kVec = 2, kVecShift = 1;
+};
+template <typename T>
+using quad_t = typename Quad<T>::type;
+
+template <typename T>
+__device__ __forceinline__ quad_t<T> zero_quad() {
+  return quad_t<T>{T(0), T(0), T(0), T(0)};
+}
 
 // Block b's tiles: n_tiles of tq quads, the j-th starting at quad
 // first + j * stride, cut at end (ops/dia.py::DiaPlan.tiles).  Tiles of one
@@ -79,7 +118,8 @@ struct Walk {
   long long first, stride, tq, n_tiles, end;
 };
 
-__device__ __forceinline__ Walk block_walk(const DiaArgs& a) {
+template <typename T>
+__device__ __forceinline__ Walk block_walk(const DiaArgs<T>& a) {
   const long long nq = (a.dim_r + 3) / 4;
   const long long g = gridDim.x, b = blockIdx.x;
   const long long rounds = (nq + g * a.tile_quads - 1) / (g * a.tile_quads);
@@ -114,9 +154,37 @@ __device__ __forceinline__ float4 load_val(const float* vk, long long i,
   return v;
 }
 
+template <bool VEC>
+__device__ __forceinline__ dquad load_val(const double* vk, long long i,
+                                          long long dim_r) {
+  if (VEC) {
+    const double2 a = __ldcs(reinterpret_cast<const double2*>(vk + i));
+    const double2 b = __ldcs(reinterpret_cast<const double2*>(vk + i + 2));
+    return dquad{a.x, a.y, b.x, b.y};
+  }
+  dquad v;
+  v.x = i < dim_r ? __ldcs(vk + i) : 0.0;
+  v.y = i + 1 < dim_r ? __ldcs(vk + i + 1) : 0.0;
+  v.z = i + 2 < dim_r ? __ldcs(vk + i + 2) : 0.0;
+  v.w = i + 3 < dim_r ? __ldcs(vk + i + 3) : 0.0;
+  return v;
+}
+
 __device__ __forceinline__ float ldg_or_zero(const float* x, long long n_x,
                                              long long g) {
   return (g >= 0 && g < n_x) ? __ldg(x + g) : 0.0f;
+}
+
+__device__ __forceinline__ double ldg_or_zero(const double* x, long long n_x,
+                                              long long g) {
+  return (g >= 0 && g < n_x) ? __ldg(x + g) : 0.0;
+}
+
+// x[a + sh .. a + sh + 3] from three 16-B pairs p0, p1, p2 at a, a + 2 and
+// a + 4; sh (0 or 1) is warp-uniform.
+__device__ __forceinline__ dquad shift2(double2 p0, double2 p1, double2 p2,
+                                        int sh) {
+  return sh ? dquad{p0.y, p1.x, p1.y, p2.x} : dquad{p0.x, p0.y, p1.x, p1.y};
 }
 
 // x[g .. g + 3] through L1/L2; g = i + d with i a multiple of 4.  In an
@@ -137,6 +205,31 @@ __device__ __forceinline__ float4 load_x(const float* x, long long n_x,
   return shift4(lo, hi, sh);
 }
 
+// x[g .. g + 3] in doubles: g = a + sh with a even, pairs at a, a + 2 and
+// (sh = 1) a + 4.  In an edge tile a thread whose pairs cross an end of x
+// reads the four values one by one, guarded.
+template <bool EDGE>
+__device__ __forceinline__ dquad load_x(const double* x, long long n_x,
+                                        long long g) {
+  const int sh = (int)(g & 1);
+  const long long a = g - sh;
+  if (EDGE && (a < 0 || a + 6 > n_x)) {
+    return dquad{ldg_or_zero(x, n_x, g), ldg_or_zero(x, n_x, g + 1),
+                 ldg_or_zero(x, n_x, g + 2), ldg_or_zero(x, n_x, g + 3)};
+  }
+  const double2* p = reinterpret_cast<const double2*>(x + a);
+  const double2 p0 = __ldg(p), p1 = __ldg(p + 1);
+  return shift2(p0, p1, sh ? __ldg(p + 2) : p1, sh);
+}
+
+// x[i + d .. i + d + 3] in doubles from a staged window: w is the window
+// at xo_k + (i - t0), x[i + (d & ~1)], 16-B aligned.
+__device__ __forceinline__ dquad read_staged(const double* w, int d) {
+  const int sh = d & 1;
+  const double2* p = reinterpret_cast<const double2*>(w);
+  return shift2(p[0], p[1], sh ? p[2] : p[1], sh);
+}
+
 __device__ __forceinline__ float4 add_products(float4 acc, float4 v,
                                                float4 xv) {
   acc.x = __fadd_rn(acc.x, __fmul_rn(v.x, xv.x));
@@ -146,34 +239,53 @@ __device__ __forceinline__ float4 add_products(float4 acc, float4 v,
   return acc;
 }
 
+__device__ __forceinline__ dquad add_products(dquad acc, dquad v, dquad xv) {
+  acc.x = __dadd_rn(acc.x, __dmul_rn(v.x, xv.x));
+  acc.y = __dadd_rn(acc.y, __dmul_rn(v.y, xv.y));
+  acc.z = __dadd_rn(acc.z, __dmul_rn(v.z, xv.z));
+  acc.w = __dadd_rn(acc.w, __dmul_rn(v.w, xv.w));
+  return acc;
+}
+
+// A whole quad of y with 16-B stores.
+__device__ __forceinline__ void store_quad(float* y, float4 v) {
+  *reinterpret_cast<float4*>(y) = v;
+}
+
+__device__ __forceinline__ void store_quad(double* y, dquad v) {
+  reinterpret_cast<double2*>(y)[0] = make_double2(v.x, v.y);
+  reinterpret_cast<double2*>(y)[1] = make_double2(v.z, v.w);
+}
+
 // One tile: quads [qa, qb) of the rows, x from `xs` (STAGED: the tile's
 // windows, holding x[4 * qa + wlo_r + j] at xs[base_r + j]) or from x.
-template <int STEP, int QUADS, bool STAGED, bool VEC, bool EDGE>
-__device__ __forceinline__ void tile_sums(const DiaArgs& a, const int* s_d,
-                                          const int* s_xo, const float* xs,
+template <typename T, int STEP, int QUADS, bool STAGED, bool VEC, bool EDGE>
+__device__ __forceinline__ void tile_sums(const DiaArgs<T>& a, const int* s_d,
+                                          const int* s_xo, const T* xs,
                                           long long qa, long long qb) {
+  using Q = quad_t<T>;
   long long row[QUADS];
   bool live[QUADS];
-  float4 acc[QUADS];
+  Q acc[QUADS];
 #pragma unroll
   for (int p = 0; p < QUADS; ++p) {
     const long long q = qa + threadIdx.x + (long long)p * blockDim.x;
     row[p] = 4 * q;
     live[p] = q < qb;
-    acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    acc[p] = zero_quad<T>();
   }
   const long long t0 = 4 * qa;
   for (int k0 = 0; k0 < a.n_diag; k0 += STEP) {
-    float4 v[STEP][QUADS];
+    Q v[STEP][QUADS];
 #pragma unroll
     for (int u = 0; u < STEP; ++u) {
       const int k = k0 + u;
-      const float* vk = a.val + (size_t)k * a.dim_r;
+      const T* vk = a.val + (size_t)k * a.dim_r;
 #pragma unroll
       for (int p = 0; p < QUADS; ++p)
         v[u][p] = (k < a.n_diag && live[p])
                       ? load_val<VEC>(vk, row[p], a.dim_r)
-                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                      : zero_quad<T>();
     }
 #pragma unroll
     for (int u = 0; u < STEP; ++u) {
@@ -183,13 +295,18 @@ __device__ __forceinline__ void tile_sums(const DiaArgs& a, const int* s_d,
 #pragma unroll
       for (int p = 0; p < QUADS; ++p) {
         if (!live[p]) continue;
-        float4 xv;
-        if (STAGED) {
+        Q xv;
+        if constexpr (STAGED && sizeof(T) == 4) {
+          // written out, not through read_staged: the float kernels keep
+          // the SASS they had before the double variant, instruction for
+          // instruction (a call here schedules the loads differently)
           const int sh = d & 3;
           const float* w = xs + s_xo[k] + (int)(row[p] - t0);
           const float4 lo = *reinterpret_cast<const float4*>(w);
           const float4 hi = sh ? *reinterpret_cast<const float4*>(w + 4) : lo;
           xv = shift4(lo, hi, sh);
+        } else if constexpr (STAGED) {
+          xv = read_staged(xs + s_xo[k] + (int)(row[p] - t0), d);
         } else {
           xv = load_x<EDGE>(a.x, a.n_x, row[p] + d);
         }
@@ -202,7 +319,7 @@ __device__ __forceinline__ void tile_sums(const DiaArgs& a, const int* s_d,
     if (!live[p]) continue;
     const long long i = row[p];
     if (VEC) {
-      *reinterpret_cast<float4*>(a.y + i) = acc[p];
+      store_quad(a.y + i, acc[p]);
     } else {
       a.y[i] = acc[p].x;
       if (i + 1 < a.dim_r) a.y[i + 1] = acc[p].y;
@@ -212,7 +329,7 @@ __device__ __forceinline__ void tile_sums(const DiaArgs& a, const int* s_d,
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -222,27 +339,30 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 // Fill one buffer with the windows of the tile that starts at row t0:
 // run r's window holds x[t0 + wlo_r + j] for j < width_r at buf[base_r + j],
 // zero outside [0, n_x).
-__device__ __forceinline__ void stage_windows(const DiaArgs& a,
-                                              const int* s_run, float* buf,
+template <typename T>
+__device__ __forceinline__ void stage_windows(const DiaArgs<T>& a,
+                                              const int* s_run, T* buf,
                                               long long t0) {
+  constexpr int kVec = Quad<T>::kVec;
   for (int r = 0; r < a.n_runs; ++r) {
     const int base = s_run[4 * r], wlo = s_run[4 * r + 1];
-    const int chunks = s_run[4 * r + 2] >> 2;
+    const int chunks = s_run[4 * r + 2] >> Quad<T>::kVecShift;
     for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
-      const long long g = t0 + wlo + 4 * c;  // a multiple of 4
-      long long n = g >= 0 ? (a.n_x - g) * 4 : 0;
+      const long long g = t0 + wlo + kVec * c;  // a multiple of kVec
+      long long n = g >= 0 ? (a.n_x - g) * (long long)sizeof(T) : 0;
       n = n < 0 ? 0 : (n > 16 ? 16 : n);
-      cp_async16(buf + base + 4 * c, n ? a.x + g : a.x, (int)n);
+      cp_async16(buf + base + kVec * c, n ? a.x + g : a.x, (int)n);
     }
   }
 }
 
-template <int STEP, int QUADS, bool STAGED, bool VEC>
-__global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs a) {
+template <typename T, int STEP, int QUADS, bool STAGED, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs<T> a) {
+  constexpr int kVec = Quad<T>::kVec;
   extern __shared__ __align__(16) float smem[];
   // staged buffers first (16-B aligned), then the table
-  float* bufs = smem;
-  int* s_d = reinterpret_cast<int*>(smem + (STAGED ? 2 * a.stage_floats : 0));
+  T* bufs = reinterpret_cast<T*>(smem);
+  int* s_d = reinterpret_cast<int*>(bufs + (STAGED ? 2 * a.stage_floats : 0));
   int* s_xo = s_d + a.n_diag;
   int* s_run = s_xo + a.n_diag;
   const int n_table = (STAGED ? 2 * a.n_diag + 4 * a.n_runs : a.n_diag);
@@ -264,7 +384,7 @@ __global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs a) {
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 1;\n" ::);
       __syncthreads();
-      tile_sums<STEP, QUADS, true, VEC, false>(
+      tile_sums<T, STEP, QUADS, true, VEC, false>(
           a, s_d, s_xo, bufs + (j & 1) * a.stage_floats, qa, qb);
       __syncthreads();
     }
@@ -273,37 +393,44 @@ __global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs a) {
     for (long long j = 0; j < w.n_tiles; ++j) {
       const long long qa = w.first + j * w.stride;
       const long long qb = qa + w.tq < w.end ? qa + w.tq : w.end;
-      // every pair of 16-B x loads of the tile inside [0, n_x)?
-      const bool inside = 4 * qa + (a.d_min & ~3) >= 0 &&
-                          4 * qb + (a.d_max & ~3) + 4 <= a.n_x;
+      // every 16-B x load of the tile inside [0, n_x)?
+      const bool inside = 4 * qa + (a.d_min & ~(kVec - 1)) >= 0 &&
+                          4 * qb + (a.d_max & ~(kVec - 1)) + kVec <= a.n_x;
       if (inside)
-        tile_sums<STEP, QUADS, false, VEC, false>(a, s_d, s_xo, nullptr, qa,
-                                                  qb);
+        tile_sums<T, STEP, QUADS, false, VEC, false>(a, s_d, s_xo, nullptr,
+                                                     qa, qb);
       else
-        tile_sums<STEP, QUADS, false, VEC, true>(a, s_d, s_xo, nullptr, qa,
-                                                 qb);
+        tile_sums<T, STEP, QUADS, false, VEC, true>(a, s_d, s_xo, nullptr,
+                                                    qa, qb);
     }
   }
 }
 
-using KernelFn = void (*)(DiaArgs);
+// A kernel variant, as the runtime API takes it (the variants' parameter
+// types differ with the value type).
+using KernelFn = const void*;
 
-template <int STEP, int QUADS>
+template <typename T, int STEP, int QUADS>
 KernelFn pick_xv(int staged, int vec) {
   if (staged)
-    return vec ? dia_kernel<STEP, QUADS, true, true>
-               : dia_kernel<STEP, QUADS, true, false>;
-  return vec ? dia_kernel<STEP, QUADS, false, true>
-             : dia_kernel<STEP, QUADS, false, false>;
+    return vec ? (KernelFn)dia_kernel<T, STEP, QUADS, true, true>
+               : (KernelFn)dia_kernel<T, STEP, QUADS, true, false>;
+  return vec ? (KernelFn)dia_kernel<T, STEP, QUADS, false, true>
+             : (KernelFn)dia_kernel<T, STEP, QUADS, false, false>;
 }
 
-// The kernel variant, or nullptr where none is built.
-KernelFn pick(int step, int quads, int staged, int vec) {
+// The kernel variant (the double one where `f64`), or nullptr where none
+// is built.  In double only the default geometry's (STEP, QUADS) is built.
+KernelFn pick(int step, int quads, int staged, int vec, int f64) {
+  if (f64) {
+    return step == 4 && quads == 1 ? pick_xv<double, 4, 1>(staged, vec)
+                                   : nullptr;
+  }
   switch (step * 10 + quads) {
-    case 21: return pick_xv<2, 1>(staged, vec);
-    case 41: return pick_xv<4, 1>(staged, vec);
-    case 81: return pick_xv<8, 1>(staged, vec);
-    case 42: return pick_xv<4, 2>(staged, vec);
+    case 21: return pick_xv<float, 2, 1>(staged, vec);
+    case 41: return pick_xv<float, 4, 1>(staged, vec);
+    case 81: return pick_xv<float, 8, 1>(staged, vec);
+    case 42: return pick_xv<float, 4, 2>(staged, vec);
     default: return nullptr;
   }
 }
@@ -314,6 +441,29 @@ int allow_smem(KernelFn fn, size_t smem) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <typename T>
+cudaError_t launch(KernelFn fn, const void* val, const int* table,
+                   int n_diag, int n_runs, int d_min, int d_max,
+                   long long dim_r, const void* x, long long n_x, void* y,
+                   int threads, int grid, int tile_quads, int stage_floats,
+                   size_t smem, cudaStream_t stream) {
+  DiaArgs<T> a;
+  a.val = static_cast<const T*>(val);
+  a.table = table;
+  a.x = static_cast<const T*>(x);
+  a.y = static_cast<T*>(y);
+  a.dim_r = dim_r;
+  a.n_x = n_x;
+  a.n_diag = n_diag;
+  a.n_runs = n_runs;
+  a.d_min = d_min;
+  a.d_max = d_max;
+  a.tile_quads = tile_quads;
+  a.stage_floats = stage_floats;
+  void* args[] = {&a};
+  return cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, smem, stream);
+}
+
 }  // namespace
 
 // Blocks of `threads` threads and `smem` bytes of dynamic shared memory
@@ -321,8 +471,9 @@ int allow_smem(KernelFn fn, size_t smem) {
 // negative CUDA error.  cudaErrorInvalidValue (-1) where no such variant is
 // built.
 extern "C" int ehyb_dia_resident_blocks(int step, int quads, int staged,
-                                        int vec, int threads, long long smem) {
-  const KernelFn fn = pick(step, quads, staged, vec);
+                                        int vec, int f64, int threads,
+                                        long long smem) {
+  const KernelFn fn = pick(step, quads, staged, vec, f64);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   int rc = allow_smem(fn, (size_t)smem);
   if (rc != 0) return -rc;
@@ -334,8 +485,9 @@ extern "C" int ehyb_dia_resident_blocks(int step, int quads, int staged,
 
 // Registers a thread of a variant takes (cudaFuncGetAttributes), or a
 // negative CUDA error.
-extern "C" int ehyb_dia_registers(int step, int quads, int staged, int vec) {
-  const KernelFn fn = pick(step, quads, staged, vec);
+extern "C" int ehyb_dia_registers(int step, int quads, int staged, int vec,
+                                  int f64) {
+  const KernelFn fn = pick(step, quads, staged, vec, f64);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const int rc = (int)cudaFuncGetAttributes(&attr, fn);
@@ -343,37 +495,25 @@ extern "C" int ehyb_dia_registers(int step, int quads, int staged, int vec) {
 }
 
 // Launches the DIA body on `stream` (a cudaStream_t) and returns
-// cudaGetLastError(); 0 means the launch was accepted.  `table` is the
-// plan's device array (ops/dia.py::DiaPlan.table); `grid`, `threads`,
-// `tile_quads`, `stage_floats` and `smem` are the plan's.
-extern "C" int ehyb_dia(const float* val, const int* table, int n_diag,
+// cudaGetLastError(); 0 means the launch was accepted.  `val`, `x` and `y`
+// are float (double where `f64`); `table` is the plan's device array
+// (ops/dia.py::DiaPlan.table); `grid`, `threads`, `tile_quads`,
+// `stage_floats` (values) and `smem` are the plan's.
+extern "C" int ehyb_dia(const void* val, const int* table, int n_diag,
                         int n_runs, int d_min, int d_max, long long dim_r,
-                        const float* x, long long n_x, float* y, int step,
-                        int quads, int staged, int vec, int threads, int grid,
-                        int tile_quads, int stage_floats, long long smem,
-                        void* stream) {
+                        const void* x, long long n_x, void* y, int step,
+                        int quads, int staged, int vec, int f64, int threads,
+                        int grid, int tile_quads, int stage_floats,
+                        long long smem, void* stream) {
   if (dim_r <= 0 || n_diag <= 0) return 0;
-  const KernelFn fn = pick(step, quads, staged, vec);
+  const KernelFn fn = pick(step, quads, staged, vec, f64);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const int rc = allow_smem(fn, (size_t)smem);
   if (rc != 0) return rc;
-  DiaArgs a;
-  a.val = val;
-  a.table = table;
-  a.x = x;
-  a.y = y;
-  a.dim_r = dim_r;
-  a.n_x = n_x;
-  a.n_diag = n_diag;
-  a.n_runs = n_runs;
-  a.d_min = d_min;
-  a.d_max = d_max;
-  a.tile_quads = tile_quads;
-  a.stage_floats = stage_floats;
-  void* args[] = {&a};
-  const cudaError_t launched = cudaLaunchKernel(
-      reinterpret_cast<const void*>(fn), dim3(grid), dim3(threads), args,
-      (size_t)smem, static_cast<cudaStream_t>(stream));
+  const cudaError_t launched = (f64 ? launch<double> : launch<float>)(
+      fn, val, table, n_diag, n_runs, d_min, d_max, dim_r, x, n_x, y,
+      threads, grid, tile_quads, stage_floats, (size_t)smem,
+      static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(launched != cudaSuccess ? launched : last);
 }

@@ -1,12 +1,19 @@
 // Streamed SELL body of the EHYB format, x resident in device memory, over
-// K1's compact plan.
+// K1's compact plan, in float32 or float64.
 //
 // Replaces ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py::_make_stream_resident_kernel
 // (the Pallas kernel K1), and serves the bodies the TPU gives to K2, K5 and
 // K6.  For every body row it computes the sum over the row's cells, in
 // step order, of value * x[col], plain or with Neumaier compensation
-// (KAHAN), each product rounded on its own (__fmul_rn) so the compiler
-// cannot contract it into the sum.
+// (KAHAN), each product rounded on its own (__fmul_rn, __dmul_rn) so the
+// compiler cannot contract it into the sum.
+//
+// The value type Val is float, or double for the precision mode
+// (ops/dword.py: f64 values, x, y and sums, where the TPU carries (hi, lo)
+// float pairs).  A double takes 8 B, as a TPU pair does, and the card adds
+// it natively, so no compensation is built for it: the f64 kernel is the
+// variant the mode runs (one row a thread, x through L1/L2, no list), with
+// the cells' values 8 B wide and their indices as they are.
 //
 // What the TPU needed and this leaves behind: the 128-lane width steps of
 // window-local or relaxed lo-slot columns, padded to each slice's width and
@@ -15,16 +22,18 @@
 // running sum across steps.  The host plan
 // (ops/stream_cells.py::build_stream_cells) decodes the body once and keeps
 // its real cells in row blocks of 32 rows with one width each; a cell is a
-// float32 value and a uint16 index slot * 128 + lane into the row block's
-// table of x rows (128 floats each), stored column-major (cell k of row r
-// at cell0 + 32 k + r).  A row block whose cells touch more than 512 x rows
-// is cut between its steps into pieces, chained by `next`.  A row's cells
+// value (float32, or float64 in the precision mode) and a uint16 index
+// slot * 128 + lane into the row block's table of x rows (128 values
+// each), stored column-major (cell k of row r at cell0 + 32 k + r).  A row
+// block whose cells touch more than 512 x rows is cut between its steps
+// into pieces, chained by `next`.  A row's cells
 // keep their step order, so the sums equal the padded body's bit for bit
 // for finite x.
 //
-// Bound on the H100: bytes.  It moves the plan's cells (6 B each), its
-// pieces and tables, x once and y once: ~8.7 MB at permuted_poisson_512,
-// ~2.6 us at 3.35 TB/s, where a kernel launch costs a few us.  Design:
+// Bound on the H100: bytes.  It moves the plan's cells (6 B each, 10 B in
+// float64), its pieces and tables, x once and y once: ~8.7 MB at
+// permuted_poisson_512 in float32, ~2.6 us at 3.35 TB/s, where a kernel
+// launch costs a few us.  Design:
 //
 // * A persistent grid.  The wrapper launches as many blocks as stay
 //   resident (at most blocks_per_sm on each SM), and each warp takes groups
@@ -82,12 +91,36 @@ __device__ __forceinline__ void neumaier_add(float& sum, float& comp,
   sum = t;
 }
 
-template <bool KAHAN>
-__device__ __forceinline__ void add(float& sum, float& comp, float p) {
+__device__ __forceinline__ void neumaier_add(double& sum, double& comp,
+                                             double v) {
+  const double t = __dadd_rn(sum, v);
+  if (fabs(sum) >= fabs(v)) {
+    comp += __dadd_rn(__dsub_rn(sum, t), v);
+  } else {
+    comp += __dadd_rn(__dsub_rn(v, t), sum);
+  }
+  sum = t;
+}
+
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+template <bool KAHAN, typename T>
+__device__ __forceinline__ void add(T& sum, T& comp, T p) {
   if (KAHAN) {
     neumaier_add(sum, comp, p);
   } else {
-    sum = __fadd_rn(sum, p);
+    sum = add_rn(sum, p);
   }
 }
 
@@ -103,12 +136,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Cells c .. c + V - 1 (V neighbouring rows of one column): values and
-// indices, with one streaming load each.
-template <int V>
-__device__ __forceinline__ void load_cells(const float* __restrict__ val,
+// indices, with one streaming load each (V > 1: float only).
+template <int V, typename T>
+__device__ __forceinline__ void load_cells(const T* __restrict__ val,
                                            const uint16_t* __restrict__ idx,
-                                           int c, float (&v)[V],
-                                           int (&j)[V]) {
+                                           int c, T (&v)[V], int (&j)[V]) {
   if constexpr (V == 4) {
     const float4 f = __ldcs(reinterpret_cast<const float4*>(val + c));
     const uint2 i = __ldcs(reinterpret_cast<const uint2*>(idx + c));
@@ -133,8 +165,8 @@ __device__ __forceinline__ void load_cells(const float* __restrict__ val,
   }
 }
 
-template <int V>
-__device__ __forceinline__ void store_rows(float* y, const float (&s)[V]) {
+template <int V, typename T>
+__device__ __forceinline__ void store_rows(T* y, const T (&s)[V]) {
   if constexpr (V == 4) {
     __stcs(reinterpret_cast<float4*>(y), make_float4(s[0], s[1], s[2], s[3]));
   } else if constexpr (V == 2) {
@@ -145,22 +177,26 @@ __device__ __forceinline__ void store_rows(float* y, const float (&s)[V]) {
 }
 
 // x at a cell's index: from the staged rows, or through the table and L1/L2.
-__device__ __forceinline__ float read_x(bool staged, const float* stage,
-                                        const int* __restrict__ tab,
-                                        const float* __restrict__ x, int j) {
+template <typename T>
+__device__ __forceinline__ T read_x(bool staged, const T* stage,
+                                    const int* __restrict__ tab,
+                                    const T* __restrict__ x, int j) {
   if (staged) return stage[j];
   return __ldg(x + (size_t)__ldg(tab + (j >> 7)) * kLanes + (j & (kLanes - 1)));
 }
 
 // piece[p] = (first cell, first table row, next piece or -1, row block);
 // piece[p + 1] ends both ranges.
-template <int V, bool STAGED, bool KAHAN, bool LIST>
+template <typename Val, int V, bool STAGED, bool KAHAN, bool LIST>
 __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
     const int4* __restrict__ piece, const int* __restrict__ rows,
-    const float* __restrict__ cell_val, const uint16_t* __restrict__ cell_idx,
-    const float* __restrict__ x, float* __restrict__ y, int n_rb,
+    const Val* __restrict__ cell_val, const uint16_t* __restrict__ cell_idx,
+    const Val* __restrict__ x, Val* __restrict__ y, int n_rb,
     const int* __restrict__ rb_list, int n_list) {
   constexpr int T = kRows / V;  // threads of a row block
+  // 16-B copies of an x row, and log2 of their count
+  constexpr int kCopies = kLanes * (int)sizeof(Val) / 16;
+  constexpr int kCopyShift = sizeof(Val) == 4 ? 5 : 6;
   extern __shared__ __align__(16) float xs[];
   const int lane = threadIdx.x & 31;
   const int g = lane / T;
@@ -170,9 +206,10 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
   const unsigned mask = kGroupLanes << (g * T);  // the group's lanes
   const int warps = blockDim.x >> 5;
   const int n_warps = gridDim.x * warps;
-  float* stage = STAGED ? xs + ((threadIdx.x >> 5) * V + g) *
-                                   (kStageRows * kLanes)
-                        : nullptr;
+  Val* stage = STAGED ? reinterpret_cast<Val*>(xs) +
+                            ((threadIdx.x >> 5) * V + g) *
+                                (kStageRows * kLanes)
+                      : nullptr;
   const int n_items = LIST ? n_list : n_rb;
   const int n_groups = (n_items + V - 1) / V;
   for (int j = blockIdx.x * warps + (threadIdx.x >> 5); j < n_groups;
@@ -180,11 +217,11 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
     const int item = j * V + g;
     if (item >= n_items) continue;  // the whole group skips
     const int rb = LIST ? __ldg(rb_list + item) : item;
-    float sum[V], comp[V];
+    Val sum[V], comp[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      sum[i] = 0.0f;
-      comp[i] = 0.0f;
+      sum[i] = Val(0);
+      comp[i] = Val(0);
     }
     int p = rb;
     do {
@@ -195,10 +232,10 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
       if (STAGED && b.y - a.y <= kStageRows) {
         staged = true;
         __syncwarp(mask);  // the group's previous piece is consumed
-        const int n = (b.y - a.y) * (kLanes / 4);
+        const int n = (b.y - a.y) * kCopies;
         for (int q = t; q < n; q += T) {
-          const int r = q >> 5;
-          const int o = (q & 31) * 4;
+          const int r = q >> kCopyShift;
+          const int o = (q & (kCopies - 1)) * (16 / (int)sizeof(Val));
           cp_async16(stage + r * kLanes + o,
                      x + (size_t)__ldg(tab + r) * kLanes + o);
         }
@@ -207,13 +244,13 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
       }
       int c = a.x + V * t;
       for (; c + (kUnroll - 1) * kRows < b.x; c += kUnroll * kRows) {
-        float v[kUnroll][V];
+        Val v[kUnroll][V];
         int ix[kUnroll][V];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           load_cells<V>(cell_val, cell_idx, c + u * kRows, v[u], ix[u]);
         }
-        float xv[kUnroll][V];
+        Val xv[kUnroll][V];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
@@ -225,18 +262,18 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
         for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
           for (int i = 0; i < V; ++i) {
-            add<KAHAN>(sum[i], comp[i], __fmul_rn(v[u][i], xv[u][i]));
+            add<KAHAN>(sum[i], comp[i], mul_rn(v[u][i], xv[u][i]));
           }
         }
       }
       for (; c < b.x; c += kRows) {
-        float v[V];
+        Val v[V];
         int ix[V];
         load_cells<V>(cell_val, cell_idx, c, v, ix);
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           add<KAHAN>(sum[i], comp[i],
-                     __fmul_rn(v[i], read_x(staged, stage, tab, x, ix[i])));
+                     mul_rn(v[i], read_x(staged, stage, tab, x, ix[i])));
         }
       }
       p = a.z;
@@ -249,18 +286,18 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
   }
 }
 
-using KernelFn = void (*)(const int4*, const int*, const float*,
-                          const uint16_t*, const float*, float*, int,
-                          const int*, int);
+// A kernel variant, as the runtime API takes it (the variants' parameter
+// types differ with the value type).
+using KernelFn = const void*;
 
 template <int V, bool LIST>
 KernelFn pick_v(int staged, int kahan) {
   if (staged) {
-    return kahan ? stream_body_kernel<V, true, true, LIST>
-                 : stream_body_kernel<V, true, false, LIST>;
+    return kahan ? (KernelFn)stream_body_kernel<float, V, true, true, LIST>
+                 : (KernelFn)stream_body_kernel<float, V, true, false, LIST>;
   }
-  return kahan ? stream_body_kernel<V, false, true, LIST>
-               : stream_body_kernel<V, false, false, LIST>;
+  return kahan ? (KernelFn)stream_body_kernel<float, V, false, true, LIST>
+               : (KernelFn)stream_body_kernel<float, V, false, false, LIST>;
 }
 
 template <bool LIST>
@@ -273,16 +310,24 @@ KernelFn pick_l(int rows_per_thread, int staged, int kahan) {
   }
 }
 
-// The kernel variant (the list variant where `list`), or nullptr where none
-// is built.
-KernelFn pick(int rows_per_thread, int staged, int kahan, bool list = false) {
+// The kernel variant (the list variant where `list`, the double one where
+// `f64`), or nullptr where none is built.  In double only the precision
+// mode's variant is built: one row a thread, x through L1/L2, no Kahan, no
+// list.
+KernelFn pick(int rows_per_thread, int staged, int kahan, int f64,
+              bool list = false) {
+  if (f64) {
+    return rows_per_thread == 1 && !staged && !kahan && !list
+               ? (KernelFn)stream_body_kernel<double, 1, false, false, false>
+               : nullptr;
+  }
   return list ? pick_l<true>(rows_per_thread, staged, kahan)
               : pick_l<false>(rows_per_thread, staged, kahan);
 }
 
-size_t smem_bytes(int rows_per_thread, int staged, int threads) {
+size_t smem_bytes(int rows_per_thread, int staged, int threads, int f64) {
   return staged ? (size_t)(threads / 32) * rows_per_thread * kStageRows *
-                      kLanes * sizeof(float)
+                      kLanes * (f64 ? sizeof(double) : sizeof(float))
                 : 0;
 }
 
@@ -303,18 +348,18 @@ int allow_smem(KernelFn fn, size_t smem) {
 
 // Bytes of dynamic shared memory a block of the variant takes.
 extern "C" long long ehyb_stream_smem_bytes(int rows_per_thread, int staged,
-                                            int threads) {
-  return (long long)smem_bytes(rows_per_thread, staged, threads);
+                                            int threads, int f64) {
+  return (long long)smem_bytes(rows_per_thread, staged, threads, f64);
 }
 
 // Blocks of `threads` threads of a variant that stay resident on one SM (0
 // where none can), or a negative CUDA error; -cudaErrorInvalidValue where
 // no such variant is built.
 extern "C" int ehyb_stream_resident_blocks(int rows_per_thread, int staged,
-                                           int kahan, int threads) {
-  const KernelFn fn = pick(rows_per_thread, staged, kahan);
+                                           int kahan, int f64, int threads) {
+  const KernelFn fn = pick(rows_per_thread, staged, kahan, f64);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(rows_per_thread, staged, threads);
+  const size_t smem = smem_bytes(rows_per_thread, staged, threads, f64);
   int rc = allow_smem(fn, smem);
   if (rc != 0) return -rc;
   int blocks = 0;
@@ -325,8 +370,8 @@ extern "C" int ehyb_stream_resident_blocks(int rows_per_thread, int staged,
 
 // Registers a thread of a variant takes, or a negative CUDA error.
 extern "C" int ehyb_stream_registers(int rows_per_thread, int staged,
-                                     int kahan) {
-  const KernelFn fn = pick(rows_per_thread, staged, kahan);
+                                     int kahan, int f64) {
+  const KernelFn fn = pick(rows_per_thread, staged, kahan, f64);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const int rc = clear(cudaFuncGetAttributes(&attr, fn));
@@ -337,26 +382,31 @@ extern "C" int ehyb_stream_registers(int rows_per_thread, int staged,
 // `threads` threads over the plan's n_rb row blocks, or over the n_list
 // row blocks of `rb_list` where it is not null, rows_per_thread row blocks
 // a warp at a time; returns cudaGetLastError(), 0 when the launch was
-// accepted.  `piece` is (n_pieces + 1, 4) int32, `cell_idx` uint16, every
-// buffer 16-byte aligned.
+// accepted.  `piece` is (n_pieces + 1, 4) int32, `cell_idx` uint16,
+// `cell_val`, `x` and `y` float (double where `f64`), every buffer 16-byte
+// aligned.
 extern "C" int ehyb_stream_body(const void* piece, const int* rows,
-                                const float* cell_val, const void* cell_idx,
-                                const float* x, float* y, int n_rb,
+                                const void* cell_val, const void* cell_idx,
+                                const void* x, void* y, int n_rb,
                                 const int* rb_list, int n_list,
                                 int rows_per_thread, int staged, int kahan,
-                                int threads, int grid, void* stream) {
+                                int f64, int threads, int grid,
+                                void* stream) {
   if (n_rb <= 0 || (rb_list != nullptr && n_list <= 0)) return 0;
-  const KernelFn fn =
-      pick(rows_per_thread, staged, kahan, /*list=*/rb_list != nullptr);
+  const KernelFn fn = pick(rows_per_thread, staged, kahan, f64,
+                           /*list=*/rb_list != nullptr);
   if (fn == nullptr || threads < 32 || threads > kMaxThreads ||
       threads % 32 || grid <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(rows_per_thread, staged, threads);
+  const size_t smem = smem_bytes(rows_per_thread, staged, threads, f64);
   const int rc = allow_smem(fn, smem);
   if (rc != 0) return rc;
-  fn<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(piece), rows, cell_val,
-      static_cast<const uint16_t*>(cell_idx), x, y, n_rb, rb_list, n_list);
-  return (int)cudaGetLastError();
+  void* args[] = {&piece, &rows, &cell_val, &cell_idx, &x,
+                  &y,     &n_rb, &rb_list,  &n_list};
+  const cudaError_t launched =
+      cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, smem,
+                       static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(launched != cudaSuccess ? launched : last);
 }

@@ -27,6 +27,7 @@ import torch
 
 from ..config import EhybConfig
 from ..core.coo import MatrixCOO
+from ..ops.dword import DWORD_MODELS
 from ..utils.graphs import CapturedGraph, warm_up
 
 #: Steps a graph of the chained loop holds, longest first: n steps replay
@@ -50,14 +51,17 @@ class SpmvModel(abc.ABC):
     """Base class for SpMV strategies."""
 
     name: str = "base"
+    #: Whether the model takes the precision mode (``dword_values``,
+    #: ``ops/dword.py``): the EHYB models, as in the JAX package.
+    takes_dword: bool = False
 
     def __init__(self, config: Optional[EhybConfig] = None, *,
                  device="cuda"):
         self.config = config or EhybConfig()
-        if self.config.dword_values:
+        if self.config.dword_values and not self.takes_dword:
             raise NotImplementedError(
-                "double-word precision is not ported yet (ROADMAP Queue 1 "
-                "item 5)")
+                f"{self.name} does not take the precision mode "
+                f"(dword_values); only {', '.join(DWORD_MODELS)} do")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{self.name}: device {self.device} requested "

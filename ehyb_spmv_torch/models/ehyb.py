@@ -22,7 +22,11 @@ Variants:
     plain versions.  Its delegation gate hands gather-wall matrices to the
     routed engine (``models/routed.py``) or, with a heavy row-degree tail,
     to the degree-split hybrid (``models/hybrid.py``), as the JAX flagship
-    does.
+    does; below 65,536 rows it decides by a measured A/B on the card.
+
+All three take the precision mode (``dword_values``, ``ops/dword.py``):
+the JAX package's host side in f64, with no layout pinned, and the body and
+DIA kernels in f64.
 
 The layout switches use the TPU's per-vreg cycle constants, kept here so that
 both packages land on the same ``EhybMatrix``; re-deriving them for the H100
@@ -45,6 +49,7 @@ from ..core.ehyb import EhybMatrix
 from ..core.planner import Plan, make_plan
 from ..core.reorder import Reordering, identity_reordering, two_level_reorder
 from ..ops import stream_plan
+from ..ops.dword import dword_config, make_dword_apply
 from ..ops.ehyb_stream import make_stream_apply
 from ..ops.stream_plan import SUBTILES, TILE_STEPS
 from ..ops.torch_ops import EhybApply
@@ -80,6 +85,7 @@ class EhybPlainSpmv(SpmvModel):
     """EHYB pipeline with the plain-torch apply (reference semantics)."""
 
     name = "ehyb_xla"
+    takes_dword = True
 
     def _rx_supported(self, e_rx: EhybMatrix) -> bool:
         """Whether this model can run the relaxed layout (the plain model
@@ -98,6 +104,9 @@ class EhybPlainSpmv(SpmvModel):
         return EhybApply(self.dev)
 
     def setup(self, m: MatrixCOO) -> "EhybPlainSpmv":
+        if self.config.dword_values:
+            # the precision mode plans in f64, as the JAX package does
+            self.config = dword_config(self.config)
         cfg = self.config
         self.m = m
         dim = m.dimension
@@ -225,7 +234,11 @@ class EhybPlainSpmv(SpmvModel):
 
     def _upload(self, cfg) -> None:
         self.dev = self.ehyb.to_torch(dtype=cfg.dtype, device=self.device)
-        self.module = self._make_module()
+        if cfg.dword_values:
+            self.module = make_dword_apply(self.ehyb, self.dev)
+            self.setup_seconds["k1_plan"] = self.module.plan_seconds
+        else:
+            self.module = self._make_module()
 
     # x/y move through the reordered space (vectorReorder / vectorRecover,
     # solver_test.c:376,383) — outside the timed region, like the reference.
@@ -285,6 +298,8 @@ class EhybSpmv(EhybPlainSpmv):
     multi-window SELL packing, int16 columns, sliding windows, slice widths
     in multiples of ``SUBTILES * TILE_STEPS``), runs the same layout
     switches, and applies through :func:`~..ops.ehyb_stream.make_stream_apply`.
+    In the precision mode it pins nothing (the JAX flagship runs no Pallas
+    kernel there) and applies through :func:`~..ops.dword.make_dword_apply`.
     """
 
     name = "ehyb"
@@ -292,9 +307,18 @@ class EhybSpmv(EhybPlainSpmv):
     #: Post-reorder (slice, window) group fill below which the TPU flagship
     #: hands the matrix to the routed engine.
     _ROUTED_FILL_GATE = 6.0
-    #: Below this dimension the TPU flagship decides by a measured A/B
-    #: instead (not ported yet: the body is kept there).
+    #: Below this dimension the gate decides by a measured A/B on the card
+    #: (:meth:`_maybe_delegate_small`) instead of the fill signal.
     _SMALL_GATE_DIM = 1 << 16
+    #: Estimated body cost (the ordering cost model, ``core/ordering.py``,
+    #: with the TPU's cycle constants) over the perfect-fill floor above
+    #: which a small matrix counts as scattered and the A/B runs; the JAX
+    #: gate's constant.
+    _SMALL_EST_K = 3.0
+    #: The small gate's record where it ran: its estimate and floor, and
+    #: after an A/B the candidate's kind and both GFLOP/s.  An engine the
+    #: gate returns carries it too.
+    small_gate: Optional[dict] = None
 
     def _rx_supported(self, e_rx: EhybMatrix) -> bool:
         """The relaxed layout runs only on a streamed body, as in the JAX
@@ -409,7 +433,7 @@ class EhybSpmv(EhybPlainSpmv):
         if not self._gate_preconditions(m):
             return None
         if m.dimension < self._SMALL_GATE_DIM:
-            return None  # the measured small-matrix A/B gate: not ported
+            return self._maybe_delegate_small(m)
         # mean fill of sampled post-reorder (128-row slice, 1024-col window)
         # groups — what a window-gather sub-tile can hope to serve; whole
         # slices are sampled (every 97th, all of its entries)
@@ -471,7 +495,136 @@ class EhybSpmv(EhybPlainSpmv):
             self._save_gate_decision(m, False)
             return None
 
+    def _can_measure(self) -> bool:
+        """Whether the small gate may run its A/B: a hardware measurement,
+        so only on a card (the JAX gate runs it only in Pallas mode
+        ``"1"``).  Tests patch it on the instance."""
+        return self.device.type == "cuda"
+
+    def _small_gate_cost(self, m: MatrixCOO):
+        """(est, floor): the ordering cost model's estimate of the body
+        under the decided ordering, and the perfect-fill floor of the same
+        entries, in the TPU's cycle units (the JAX gate's formula)."""
+        from ..core.ordering import (_CYC_DIA_VREG, _CYC_SELL_VREG,
+                                     estimate_cost, estimate_mw_steps)
+
+        cfg = self.config
+        o2n = self.reordering.old_to_new
+        r_new = o2n[m.row.astype(np.int64)]
+        c_new = o2n[m.col.astype(np.int64)]
+        if cfg.features.dia:
+            return (estimate_cost(r_new, c_new, m.dimension, cfg),
+                    m.nnz / 1024.0 * _CYC_DIA_VREG)
+        est = (estimate_mw_steps(r_new, c_new, m.dimension, cfg.slice_rows,
+                                 cfg.min_window_group_nnz,
+                                 sliding=bool(cfg.sliding_windows))
+               / 8.0 * _CYC_SELL_VREG)
+        return est, m.nnz / 1024.0 * _CYC_SELL_VREG
+
+    def _measured_gflops(self, model, m: MatrixCOO) -> float:
+        """GFLOP/s of ``model``'s chained loop (``iterate``, CUDA-graph
+        replays once its graphs are captured by a first call), timed with
+        CUDA events: 512 iterations, four times as many until a run takes
+        at least 50 ms, as the JAX gate escalates."""
+        from ..core.coo import deterministic_x
+        from ..utils.timing import timed_seconds
+
+        x_dev = model.prepare_x(deterministic_x(m.dimension))
+        model.iterate(x_dev, 1)
+        it = 512
+        while True:
+            sec = timed_seconds(lambda: model.iterate(x_dev, it),
+                                model.device)
+            if sec >= 0.05 or it >= (1 << 16):
+                return 2.0 * m.nnz * it / max(sec, 1e-12) / 1e9
+            it *= 4
+
+    def _maybe_delegate_small(self, m: MatrixCOO):
+        """The gate below ``_SMALL_GATE_DIM`` rows: a measured A/B in place
+        of the fill signal (port of the JAX ``_maybe_delegate_small``).
+
+        x is small enough there to stay in cache for every engine, so the
+        group fill says little; the ordering cost model's estimate against
+        the perfect-fill floor tells structured matrices (kept at once)
+        from scattered ones, which build the candidate (the degree-split
+        hybrid with a heavy tail, else the routed engine) and a body and
+        time both.  The candidate is taken only when it is more than 5%
+        faster; the verdict is cached by matrix fingerprint.  The estimate,
+        and the A/B's numbers where it ran, are kept in ``small_gate``.
+        """
+        cfg = self.config
+        if self._load_gate_decision(m) is not None:
+            # "routed"/"split" delegated in _pre_order_hook; False = a body
+            # win (or a veto): keep the body without measuring again
+            return None
+        est, floor = self._small_gate_cost(m)
+        self.small_gate = {"est": est, "floor": floor}
+        if est <= self._SMALL_EST_K * floor:
+            return None  # structured: the body is the engine
+        if not self._can_measure():
+            return None
+        # the A/B pays two builds and two short runs inside setup: past the
+        # budget (an estimate of ~4 us of host packing an entry) the body
+        # stays, and the verdict is cached so the estimate is paid once
+        budget_s = float(os.environ.get("EHYB_SMALL_GATE_BUDGET", "60"))
+        est_build_s = 2 * m.nnz * 4e-6 + 2.0
+        if est_build_s > budget_s:
+            log.info("small gate: estimated A/B cost %.1f s exceeds budget "
+                     "%.0f s (EHYB_SMALL_GATE_BUDGET); keeping the body",
+                     est_build_s, budget_s)
+            self._save_gate_decision(m, False)
+            return None
+        t_gate = time.perf_counter()
+        from ..core.route import _choose_params
+        from .hybrid import DegreeSplitSpmv, MIN_DENSE_FRAC, degree_split_stats
+        from .routed import RoutedSpmv
+
+        try:
+            _choose_params(m.dimension, min(m.dimension, 1 << 20),
+                           m.nnz // max(cdiv(m.dimension, 1 << 20), 1),
+                           None, None)
+            _, dense_frac = degree_split_stats(m)
+            if dense_frac >= MIN_DENSE_FRAC:
+                cand = DegreeSplitSpmv(cfg, device=self.device).setup(m)
+                kind = "split"
+            else:
+                cand = RoutedSpmv(cfg, device=self.device).setup(m)
+                kind = "routed"
+                nnz_spill = sum(b.stats.get("nnz_spill", 0)
+                                for b in cand.blocks)
+                spill_max = float(
+                    os.environ.get("EHYB_ROUTE_SPILL_MAX", "0.10"))
+                if nnz_spill > spill_max * max(m.nnz, 1):
+                    self._save_gate_decision(m, False)
+                    return None
+        except ValueError as exc:
+            log.info("small gate: candidate infeasible (%s); body", exc)
+            self._save_gate_decision(m, False)
+            return None
+        body = EhybSpmv(dataclasses.replace(cfg, routed_delegate="never"),
+                        device=self.device).setup(m)
+        g_cand = self._measured_gflops(cand, m)
+        g_body = self._measured_gflops(body, m)
+        gate_s = time.perf_counter() - t_gate
+        self.setup_seconds["small_gate"] = gate_s
+        self.small_gate.update(kind=kind, candidate_gflops=g_cand,
+                               body_gflops=g_body)
+        log.info("small-gate A/B (est %.1fx floor, %.1f s): %s %.2f vs body "
+                 "%.2f GFLOP/s", est / floor, gate_s, kind, g_cand, g_body)
+        # 5% hysteresis: a tie keeps the body (the simpler engine, and the
+        # one every mode takes)
+        if g_cand > 1.05 * g_body:
+            self._save_gate_decision(m, kind)
+            return cand
+        self._save_gate_decision(m, False)
+        return body  # already built: reuse it
+
     def setup(self, m: MatrixCOO) -> "EhybSpmv":
+        if self.config.dword_values:
+            # the precision mode pins no layout, as the JAX flagship runs
+            # no Pallas kernel in it: the plain model's artifact, applied
+            # through the f64 kernels
+            return super().setup(m)
         cfg = self.config
         layout = cfg.body_layout \
             if cfg.body_layout in ("sell_cs", "sell_rx") else "sell_mw"
@@ -501,8 +654,11 @@ class EhybSpmv(EhybPlainSpmv):
             return super().setup(m)
         except _DelegateToRouted as d:
             # the delegated engine's setup also counts the ordering the gate
-            # paid for before it decided
+            # paid for before it decided, and carries the small gate's
+            # numbers where it ran
             d.model.setup_seconds = {**self.setup_seconds,
                                      **d.model.setup_seconds,
                                      "total": time.perf_counter() - t0}
+            if self.small_gate is not None:
+                d.model.small_gate = self.small_gate
             return d.model

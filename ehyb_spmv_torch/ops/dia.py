@@ -13,7 +13,11 @@ card and can be captured in a CUDA graph.
 
 :func:`dia_body` launches the kernel for tensors on a CUDA device and takes
 the plain version :func:`dia_body_plain` (the shifted-slice torch op) only
-for tensors on the CPU.  A CUDA call launches the kernel or raises.
+for tensors on the CPU.  A CUDA call launches the kernel or raises.  Values
+and x are float32, or float64 for the precision mode (``ops/dword.py``),
+whose kernel is built for the default (STEP, QUADS) in both x modes; its
+plan counts what 16 B hold in doubles (:func:`make_plan`'s
+``value_bytes``).
 """
 from __future__ import annotations
 
@@ -36,7 +40,11 @@ RUN_GAP = 16
 #: The (STEP, QUADS) pairs ``csrc/dia.cu`` is built for: the default
 #: geometry's and its neighbours along each axis, for the sweep.
 BUILT_STEPS = ((2, 1), (4, 1), (8, 1), (4, 2))
+#: The (STEP, QUADS) pairs built in float64: the default geometry's.
+BUILT_STEPS_F64 = ((4, 1),)
 X_MODES = ("ldg", "staged")
+#: Value types the kernel is built for, by their size in bytes.
+DTYPES = {4: torch.float32, 8: torch.float64}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,10 +68,14 @@ class DiaGeometry:
     def tile_rows(self) -> int:
         return 4 * self.threads * self.quads
 
-    def check(self) -> None:
-        if (self.step, self.quads) not in BUILT_STEPS:
+    def check(self, value_bytes: int = 4) -> None:
+        if value_bytes not in DTYPES:
+            raise ValueError(f"no kernel built for {value_bytes}-byte values")
+        built = BUILT_STEPS if value_bytes == 4 else BUILT_STEPS_F64
+        if (self.step, self.quads) not in built:
             raise ValueError(f"no kernel built for step {self.step}, quads "
-                             f"{self.quads} (built: {BUILT_STEPS})")
+                             f"{self.quads} in {value_bytes}-byte values "
+                             f"(built: {built})")
         if self.x_mode not in X_MODES:
             raise ValueError(f"x_mode {self.x_mode!r} not in {X_MODES}")
         if not (32 <= self.threads <= 512 and self.threads % 32 == 0):
@@ -93,21 +105,30 @@ class DiaPlan:
     """The kernel's geometry for one DIA part (see ``csrc/dia.cu``).
 
     The rows are ``nq = ceil(dim_r / 4)`` quads of 4, cut into tiles of at
-    most ``tile_quads`` quads (:meth:`tiles`).  In the staged mode run r's window for the tile
-    that starts at row t0 holds x[t0 + wlo_r + j], j < width_r, at
-    ``base_r + j`` of a buffer of ``stage_floats``; diagonal k reads its
-    pairs of 16-B loads from ``xo_k + (row - t0)``."""
+    most ``tile_quads`` quads (:meth:`tiles`).  In the staged mode run r's
+    window for the tile that starts at row t0 holds x[t0 + wlo_r + j],
+    j < width_r, at ``base_r + j`` of a buffer of ``stage_floats`` values;
+    diagonal k reads its 16-B loads from ``xo_k + (row - t0)``.  Windows,
+    bases and reads are aligned to what one 16-B load holds
+    (:attr:`per_load`: 4 floats, or 2 doubles)."""
     geometry: DiaGeometry
     offsets: Tuple[int, ...]
     dim_r: int
     grid: int
     runs: Tuple[Tuple[int, int, int, int], ...]
-    #: Per run: (base, wlo, width) in floats (all multiples of 4).
+    #: Per run: (base, wlo, width) in values (multiples of ``per_load``).
     windows: Tuple[Tuple[int, int, int], ...]
     #: Per diagonal: where its reads start in the staged buffer.
     xo: Tuple[int, ...]
     stage_floats: int
     smem_bytes: int
+    #: Bytes of a value: 4 (float32) or 8 (float64).
+    value_bytes: int = 4
+
+    @property
+    def per_load(self) -> int:
+        """Values one 16-B load holds."""
+        return 16 // self.value_bytes
 
     @property
     def staged(self) -> bool:
@@ -146,23 +167,24 @@ class DiaPlan:
 
     @property
     def stats(self) -> dict:
-        k, n = len(self.offsets), self.dim_r
+        k, n, vb = len(self.offsets), self.dim_r, self.value_bytes
         n_tiles = sum(1 for b in range(self.grid) for _ in self.tiles(b))
         return dict(
             grid=self.grid, runs=len(self.runs),
             tile_rows=self.geometry.tile_rows, smem_bytes=self.smem_bytes,
             # x the staged windows read from L2, all tiles together
-            staged_bytes=4 * n_tiles * self.stage_floats,
+            staged_bytes=vb * n_tiles * self.stage_floats,
             # what the function needs: each value once, x and y once
-            layout_bytes=4 * (k * n + 2 * n))
+            layout_bytes=vb * (k * n + 2 * n))
 
 
 def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
-              blocks: int = 8 * 132) -> DiaPlan:
+              blocks: int = 8 * 132, value_bytes: int = 4) -> DiaPlan:
     """The kernel's geometry for ``len(offsets)`` diagonals of ``dim_r``
-    rows, on a grid of at most ``blocks`` blocks (the resident blocks of the
-    card; fewer where the rows are fewer than a tile per block)."""
-    geometry.check()
+    rows of ``value_bytes``-byte values, on a grid of at most ``blocks``
+    blocks (the resident blocks of the card; fewer where the rows are fewer
+    than a tile per block)."""
+    geometry.check(value_bytes)
     offsets = tuple(int(d) for d in offsets)
     if not offsets or list(offsets) != sorted(set(offsets)):
         raise ValueError("offsets must be distinct, sorted and not empty")
@@ -170,19 +192,23 @@ def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
         raise ValueError("diagonal offsets out of int32 range")
     runs = offset_runs(offsets)
     t = geometry.tile_rows
+    # the values a 16-B load holds, and the mask that aligns an index to it
+    a = 16 // value_bytes
+    align = ~(a - 1)
     windows, xo, base = [], [0] * len(offsets), 0
     for lo, hi, k0, k1 in runs:
-        wlo = lo & ~3
-        # the last quad of a tile reads 8 values from (t - 4) + (hi & ~3)
-        width = t + 4 + (hi & ~3) - wlo
+        wlo = lo & align
+        # the last quad of a tile reads 4 + a values from
+        # (t - 4) + (hi & align)
+        width = t + a + (hi & align) - wlo
         windows.append((base, wlo, width))
         for k in range(k0, k1):
-            xo[k] = base + (offsets[k] & ~3) - wlo
+            xo[k] = base + (offsets[k] & align) - wlo
         base += width
     staged = geometry.x_mode == "staged"
     stage_floats = base if staged else 0
     n_table = len(offsets) + (len(offsets) + 4 * len(runs) if staged else 0)
-    smem = 4 * (2 * stage_floats + n_table)
+    smem = value_bytes * 2 * stage_floats + 4 * n_table
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"DIA plan needs {smem} B of shared memory per "
                          f"block ({len(runs)} runs of tiles of {t} rows), "
@@ -191,13 +217,15 @@ def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
     grid = max(1, min(blocks, -(-nq // (geometry.threads * geometry.quads))))
     return DiaPlan(geometry=geometry, offsets=offsets, dim_r=int(dim_r),
                    grid=grid, runs=runs, windows=tuple(windows),
-                   xo=tuple(xo), stage_floats=stage_floats, smem_bytes=smem)
+                   xo=tuple(xo), stage_floats=stage_floats, smem_bytes=smem,
+                   value_bytes=value_bytes)
 
 
 _lock = threading.Lock()
 _built = None
 _lib = None
-#: (offsets, dim_r, vec, geometry, device) → (plan, its table on the card),
+#: (offsets, dim_r, vec, geometry, value bytes, device) → (plan, its table
+#: on the card),
 #: made once so that a call (and a CUDA graph capture of it) copies nothing
 #: to the card.
 _plans: dict = {}
@@ -221,19 +249,19 @@ def build_kernel() -> BuiltLibrary:
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
             lib.ehyb_dia_registers.restype = ctypes.c_int
-            lib.ehyb_dia_registers.argtypes = [ctypes.c_int] * 4
+            lib.ehyb_dia_registers.argtypes = [ctypes.c_int] * 5
             lib.ehyb_dia_resident_blocks.restype = ctypes.c_int
             lib.ehyb_dia_resident_blocks.argtypes = [
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_longlong]
+                ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
             _built, _lib = built, lib
         return _built
 
 
 def resident_blocks(geometry: DiaGeometry, smem_bytes: int, vec: bool,
-                    device) -> int:
+                    device, value_bytes: int = 4) -> int:
     """Blocks of this geometry that stay resident on one SM of ``device``
     (the kernel's occupancy at its registers and shared memory); raises
     where not one does, as the launch would be refused."""
@@ -241,35 +269,37 @@ def resident_blocks(geometry: DiaGeometry, smem_bytes: int, vec: bool,
     with torch.cuda.device(device):
         n = _lib.ehyb_dia_resident_blocks(
             geometry.step, geometry.quads, int(geometry.x_mode == "staged"),
-            int(vec), geometry.threads, smem_bytes)
+            int(vec), int(value_bytes == 8), geometry.threads, smem_bytes)
     if n <= 0:
         raise RuntimeError(f"DIA kernel {geometry} with {smem_bytes} B of "
                            f"shared memory cannot run (occupancy {n})")
     return n
 
 
-def registers(geometry: DiaGeometry, vec: bool) -> int:
+def registers(geometry: DiaGeometry, vec: bool, value_bytes: int = 4) -> int:
     """Registers a thread of the geometry's kernel variant takes."""
     build_kernel()
     return _lib.ehyb_dia_registers(geometry.step, geometry.quads,
                                    int(geometry.x_mode == "staged"),
-                                   int(vec))
+                                   int(vec), int(value_bytes == 8))
 
 
 def device_plan(offsets: tuple, dim_r: int, vec: bool, device,
-                geometry: DiaGeometry = None):
+                geometry: DiaGeometry = None, value_bytes: int = 4):
     """The plan for these diagonals on ``device`` and its table on the card
     (made once and kept)."""
     geometry = GEOMETRY if geometry is None else geometry
     device = torch.device(device)
-    key = (offsets, dim_r, vec, geometry, device)
+    key = (offsets, dim_r, vec, geometry, value_bytes, device)
     hit = _plans.get(key)
     if hit is None:
-        probe = make_plan(offsets, dim_r, geometry, 1)
+        probe = make_plan(offsets, dim_r, geometry, 1, value_bytes)
         per_sm = min(geometry.blocks_per_sm,
-                     resident_blocks(geometry, probe.smem_bytes, vec, device))
+                     resident_blocks(geometry, probe.smem_bytes, vec, device,
+                                     value_bytes))
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = make_plan(offsets, dim_r, geometry, per_sm * n_sm)
+        plan = make_plan(offsets, dim_r, geometry, per_sm * n_sm,
+                         value_bytes)
         hit = (plan, torch.tensor(plan.table(), dtype=torch.int32,
                                   device=device))
         _plans[key] = hit
@@ -278,16 +308,17 @@ def device_plan(offsets: tuple, dim_r: int, vec: bool, device,
 
 def _check(e: EhybDevice, x_pad: torch.Tensor) -> None:
     """Refuse anything the kernel does not take."""
-    if x_pad.dtype != torch.float32 or x_pad.dim() != 1 \
+    if x_pad.dtype not in DTYPES.values() or x_pad.dim() != 1 \
             or not x_pad.is_contiguous():
-        raise ValueError("x_pad must be a contiguous 1-D float32 tensor")
+        raise ValueError("x_pad must be a contiguous 1-D float32 or float64 "
+                         "tensor")
     if x_pad.data_ptr() % 16:
         raise ValueError("x_pad must start on a 16-byte boundary (the "
                          "kernel reads x with 16-byte loads)")
     v = e.dia_val
-    if v.dtype != torch.float32 or v.dim() != 2 or not v.is_contiguous():
-        raise ValueError("dia_val must be a contiguous (K, dim_r) float32 "
-                         "tensor")
+    if v.dtype != x_pad.dtype or v.dim() != 2 or not v.is_contiguous():
+        raise ValueError(f"dia_val must be a contiguous (K, dim_r) "
+                         f"{x_pad.dtype} tensor (x_pad's type)")
     if v.shape[0] != len(e.dia_offsets):
         raise ValueError(f"dia_val has {v.shape[0]} rows for "
                          f"{len(e.dia_offsets)} offsets")
@@ -302,18 +333,19 @@ def _launch(e: EhybDevice, x_pad: torch.Tensor,
     v = e.dia_val
     dim_r = v.shape[1]
     vec = dim_r % 4 == 0 and v.data_ptr() % 16 == 0
+    vb = v.element_size()
     plan, table = device_plan(e.dia_offsets, dim_r, vec, x_pad.device,
-                              geometry)
+                              geometry, vb)
     g = plan.geometry
-    y = torch.empty(dim_r, dtype=torch.float32, device=x_pad.device)
+    y = torch.empty(dim_r, dtype=v.dtype, device=x_pad.device)
     if not dim_r:
         return y
     rc = _lib.ehyb_dia(
         v.data_ptr(), table.data_ptr(), len(plan.offsets), len(plan.runs),
         plan.offsets[0], plan.offsets[-1], dim_r, x_pad.data_ptr(),
         x_pad.shape[0], y.data_ptr(), g.step, g.quads, int(plan.staged),
-        int(vec), g.threads, plan.grid, plan.tile_quads, plan.stage_floats,
-        plan.smem_bytes,
+        int(vec), int(vb == 8), g.threads, plan.grid, plan.tile_quads,
+        plan.stage_floats, plan.smem_bytes,
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ehyb_dia launch failed: CUDA error {rc}")
@@ -326,7 +358,7 @@ def dia_body(e: EhybDevice, x_pad: torch.Tensor) -> torch.Tensor:
     index outside x_pad reading as zero; length 0 without diagonals.
 
     CPU tensors take :func:`dia_body_plain`; CUDA tensors launch the kernel
-    or raise."""
+    (float64 values and x take the float64 kernel) or raise."""
     if x_pad.device.type == "cpu":
         return dia_body_plain(e, x_pad)
     if x_pad.device.type != "cuda":

@@ -13,7 +13,10 @@ fallbacks.  :func:`make_stream_apply` picks K1 or the window-cache kernel
 
 :func:`stream_body` launches the kernel for tensors on a CUDA device and
 takes the plain version :func:`stream_body_plain` only for tensors on the
-CPU.  A CUDA call launches the kernel or raises; nothing falls back.
+CPU.  A CUDA call launches the kernel or raises; nothing falls back.  The
+plan's values and x are float32, or float64 for the precision mode
+(``ops/dword.py``), whose kernel is built for the default geometry only:
+one row a thread, x through L1/L2, no Kahan, no row-block list.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ log = get_logger(__name__)
 X_MODES = ("ldg", "staged")
 #: The rows per thread (row blocks a warp takes at once) K1 is built for.
 BUILT_ROWS = (1, 2, 4)
+#: Value types K1 is built for.
+DTYPES = (torch.float32, torch.float64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +82,7 @@ GEOMETRY = StreamGeometry()
 _lock = threading.Lock()
 _built = None
 _lib = None
-#: (geometry, kahan, device) → blocks of it resident on one SM.
+#: (geometry, kahan, f64, device) → blocks of it resident on one SM.
 _resident: dict = {}
 
 
@@ -95,50 +100,54 @@ def build_kernel() -> BuiltLibrary:
             lib.ehyb_stream_body.restype = ctypes.c_int
             lib.ehyb_stream_body.argtypes = (
                 [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             lib.ehyb_stream_resident_blocks.restype = ctypes.c_int
-            lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 4
+            lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 5
             lib.ehyb_stream_registers.restype = ctypes.c_int
-            lib.ehyb_stream_registers.argtypes = [ctypes.c_int] * 3
+            lib.ehyb_stream_registers.argtypes = [ctypes.c_int] * 4
             lib.ehyb_stream_smem_bytes.restype = ctypes.c_longlong
-            lib.ehyb_stream_smem_bytes.argtypes = [ctypes.c_int] * 3
+            lib.ehyb_stream_smem_bytes.argtypes = [ctypes.c_int] * 4
             _built, _lib = built, lib
         return _built
 
 
-def resident_blocks(geometry: StreamGeometry, kahan: bool, device) -> int:
-    """Blocks of this geometry that stay resident on one SM of ``device``
-    (made once and kept); raises where not one does, as the launch would
-    be refused."""
-    key = (geometry, bool(kahan), torch.device(device))
+def resident_blocks(geometry: StreamGeometry, kahan: bool, device,
+                    f64: bool = False) -> int:
+    """Blocks of this geometry (in float64 where ``f64``) that stay resident
+    on one SM of ``device`` (made once and kept); raises where not one
+    does, as the launch would be refused."""
+    key = (geometry, bool(kahan), bool(f64), torch.device(device))
     n = _resident.get(key)
     if n is None:
-        smem = smem_bytes(geometry)
+        smem = smem_bytes(geometry, f64)
         if smem > SMEM_LIMIT_BYTES:
             raise RuntimeError(f"K1 {geometry} needs {smem} B of shared "
                                f"memory a block, above {SMEM_LIMIT_BYTES}")
-        with torch.cuda.device(key[2]):
+        with torch.cuda.device(key[3]):
             n = _lib.ehyb_stream_resident_blocks(
                 geometry.rows, int(geometry.x_mode == "staged"), int(kahan),
-                geometry.threads)
+                int(f64), geometry.threads)
         if n <= 0:
             raise RuntimeError(f"K1 {geometry} cannot run (occupancy {n})")
         _resident[key] = n
     return n
 
 
-def registers(geometry: StreamGeometry, kahan: bool = False) -> int:
+def registers(geometry: StreamGeometry, kahan: bool = False,
+              f64: bool = False) -> int:
     """Registers a thread of the geometry's kernel variant takes."""
     build_kernel()
     return _lib.ehyb_stream_registers(
-        geometry.rows, int(geometry.x_mode == "staged"), int(kahan))
+        geometry.rows, int(geometry.x_mode == "staged"), int(kahan),
+        int(f64))
 
 
-def smem_bytes(geometry: StreamGeometry) -> int:
+def smem_bytes(geometry: StreamGeometry, f64: bool = False) -> int:
     """Dynamic shared memory a block of the geometry takes."""
     build_kernel()
     return _lib.ehyb_stream_smem_bytes(
-        geometry.rows, int(geometry.x_mode == "staged"), geometry.threads)
+        geometry.rows, int(geometry.x_mode == "staged"), geometry.threads,
+        int(f64))
 
 
 def grid_of(p: StreamCellsDevice, geometry: StreamGeometry, kahan: bool,
@@ -146,8 +155,9 @@ def grid_of(p: StreamCellsDevice, geometry: StreamGeometry, kahan: bool,
     """The persistent grid: the resident blocks of the card, or fewer where
     the row-block groups (of the plan, or of ``n_rb`` listed row blocks) do
     not give every warp one."""
+    f64 = p.cell_val.dtype == torch.float64
     per_sm = min(geometry.blocks_per_sm,
-                 resident_blocks(geometry, kahan, device))
+                 resident_blocks(geometry, kahan, device, f64))
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     n_rb = p.n_rb if n_rb is None else n_rb
     groups = -(-n_rb // geometry.rows)
@@ -157,16 +167,17 @@ def grid_of(p: StreamCellsDevice, geometry: StreamGeometry, kahan: bool,
 def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
     """Refuse anything the kernel does not take."""
     dev = x_pad.device
-    if x_pad.dtype != torch.float32 or x_pad.dim() != 1 \
+    if x_pad.dtype not in DTYPES or x_pad.dim() != 1 \
             or not x_pad.is_contiguous():
-        raise ValueError("x_pad must be a contiguous 1-D float32 tensor")
-    n_x = p.stats["x_bytes"] // 4
+        raise ValueError("x_pad must be a contiguous 1-D float32 or float64 "
+                         "tensor")
+    n_x = p.stats["x_rows"]
     if x_pad.shape[0] < n_x:
         raise ValueError(f"x_pad has {x_pad.shape[0]} rows; the plan reads "
                          f"{n_x}")
-    if p.cell_val.dtype != torch.float32 or p.cell_idx.dtype != torch.int16:
-        raise ValueError("the plan's cells must be float32 values and "
-                         "16-bit indices")
+    if p.cell_val.dtype != x_pad.dtype or p.cell_idx.dtype != torch.int16:
+        raise ValueError(f"the plan's cells must be {x_pad.dtype} values "
+                         f"(x_pad's type) and 16-bit indices")
     for t in (x_pad, p.piece, p.rows, p.cell_val, p.cell_idx):
         if t.device != dev:
             raise ValueError(f"tensor on {t.device}, x_pad on {dev}")
@@ -190,11 +201,11 @@ def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
                              f"{x_pad.device}")
     if out is None:
         return (torch.empty if rb_list is None else torch.zeros)(
-            n, dtype=torch.float32, device=x_pad.device)
-    if out.dtype != torch.float32 or out.shape != (n,) \
+            n, dtype=x_pad.dtype, device=x_pad.device)
+    if out.dtype != x_pad.dtype or out.shape != (n,) \
             or not out.is_contiguous() or out.device != x_pad.device:
-        raise ValueError(f"out must be a contiguous ({n},) float32 tensor "
-                         f"on {x_pad.device}")
+        raise ValueError(f"out must be a contiguous ({n},) {x_pad.dtype} "
+                         f"tensor on {x_pad.device}")
     return out
 
 
@@ -205,6 +216,12 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
     g = GEOMETRY if geometry is None else geometry
     g.check()
     _check(p, x_pad)
+    f64 = x_pad.dtype == torch.float64
+    if f64 and (g.rows != 1 or g.x_mode != "ldg" or kahan
+                or rb_list is not None):
+        raise ValueError(f"no float64 K1 built for {g}, kahan={kahan}, "
+                         f"list={rb_list is not None}: one row a thread, x "
+                         "ldg, no Kahan, no list")
     y = _output(p, x_pad, rb_list, out)
     build_kernel()
     n = p.n_rb if rb_list is None else rb_list.shape[0]
@@ -214,8 +231,8 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
         p.piece.data_ptr(), p.rows.data_ptr(), p.cell_val.data_ptr(),
         p.cell_idx.data_ptr(), x_pad.data_ptr(), y.data_ptr(), p.n_rb,
         None if rb_list is None else rb_list.data_ptr(), n,
-        g.rows, int(g.x_mode == "staged"), int(bool(kahan)), g.threads,
-        grid_of(p, g, kahan, x_pad.device, n),
+        g.rows, int(g.x_mode == "staged"), int(bool(kahan)), int(f64),
+        g.threads, grid_of(p, g, kahan, x_pad.device, n),
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ehyb_stream_body launch failed: CUDA error {rc}")
@@ -235,7 +252,8 @@ def stream_body(p: StreamCellsDevice, x_pad: torch.Tensor,
     calls over disjoint lists), else into a new y of zeros.
 
     CPU tensors take :func:`stream_body_plain`; CUDA tensors launch the
-    kernel (``kahan`` selects the compensated variant) or raise."""
+    kernel (``kahan`` selects the compensated variant; float64 x takes the
+    float64 kernel) or raise."""
     if x_pad.device.type == "cpu":
         return stream_body_plain(p, x_pad, kahan, rb_list, out)
     if x_pad.device.type != "cuda":

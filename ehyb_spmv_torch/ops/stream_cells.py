@@ -12,9 +12,10 @@ real ones and re-encodes them for ``csrc/ehyb_stream.cu``:
   longest row; cell k of row r at ``cell0 + 32 k + r`` (column-major, so a
   warp's loads coalesce), a row's cells in step order, so the sums equal
   the padded body's bit for bit for finite x (the dropped cells are zeros);
-* each cell a float32 value and a 16-bit index ``slot * 128 + lane`` into
-  the block's table of x rows (128 floats each, sorted): the paper's
-  window-local int16 column;
+* each cell a value (the body's own type: float32, or float64 in the
+  precision mode) and a 16-bit index ``slot * 128 + lane`` into the block's
+  table of x rows (128 values each, sorted): the paper's window-local int16
+  column;
 * a row block whose cells touch more x rows than 16 bits address (512) is
   cut, between its steps, into pieces, each with a table of its own.
   Piece i < n_rb is row block i's first; the later pieces of a row block
@@ -248,8 +249,8 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None) -> StreamCellsPlan:
         raise ValueError("K1 plan too large for int32 maps")
     cell_bytes = n_cells * (cell_val.itemsize + 2)
     map_bytes = piece.size * 4 + rows.size * 4
-    x_bytes = x_rows * 4
-    y_bytes = n_slices * LANES * 4
+    x_bytes = x_rows * cell_val.itemsize
+    y_bytes = n_slices * LANES * cell_val.itemsize
     stats = dict(
         n_rb=n_rb, n_pieces=n_pieces, split_rbs=int(np.unique(x_rb).size),
         real_cells=n_real, compact_cells=n_cells,
@@ -260,8 +261,9 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None) -> StreamCellsPlan:
         cell_bytes=cell_bytes, map_bytes=map_bytes,
         # what the plan itself streams per call: cells, pieces and tables
         stream_bytes=cell_bytes + map_bytes,
-        body_bytes=n_steps * LANES * (e.ell_col.dtype.itemsize + 4),
-        x_bytes=x_bytes, y_bytes=y_bytes,
+        body_bytes=n_steps * LANES * (e.ell_col.dtype.itemsize
+                                      + cell_val.itemsize),
+        x_rows=x_rows, x_bytes=x_bytes, y_bytes=y_bytes,
         # what the kernel moves: the plan, x once and y once
         layout_bytes=cell_bytes + map_bytes + x_bytes + y_bytes)
     return StreamCellsPlan(

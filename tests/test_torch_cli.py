@@ -1,6 +1,7 @@
 """The port's CLI on the CPU: every flag of the JAX package's CLI but
 ``--platform`` (the port's ``--device``), the same argv → EhybConfig
-mapping, all seven models, and ``--dword`` refused with exit code 2."""
+mapping, all seven models, and ``--dword`` (the precision mode) held to
+the JAX mode's bound against the exact-f64 oracle."""
 import dataclasses
 import json
 import os
@@ -69,10 +70,12 @@ def test_every_model_runs_on_the_cpu(name, tmp_path, monkeypatch, capsys):
     assert res["valid"] and res["model"] == name and res["device"] == "cpu"
 
 
-def test_dword_exits_2(capsys):
-    assert cli.main(["-g", "poisson2d_64", "--device", "cpu", "--dword"]) \
-        == 2
-    assert "double-word" in capsys.readouterr().err
+def test_dword_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("EHYB_CORPUS_CACHE", str(tmp_path))
+    assert cli.main(["-g", "poisson2d_64", "-i", "3", "--device", "cpu",
+                     "--dword", "--json"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["valid"] and res["rel_error"] <= 1e-12, res["rel_error"]
 
 
 def test_list_corpus(capsys):

@@ -199,7 +199,15 @@ def test_staged_windows_cover_every_read(name, offsets, dim_r, n_x,
     """The blocks' tiles cover every row once; each run's window for a tile
     holds every x index its diagonals need there and every 16-B pair the
     kernel loads; the windows are 16-B aligned and apart in the buffer."""
-    plan = dia.make_plan(offsets, dim_r, geometry, blocks=4 * 132)
+    _check_windows(dia.make_plan(offsets, dim_r, geometry, blocks=4 * 132),
+                   offsets, dim_r, geometry)
+
+
+def _check_windows(plan, offsets, dim_r, geometry):
+    """The checks of :func:`test_staged_windows_cover_every_read` on one
+    plan, in its value size: a 16-B load holds ``plan.per_load`` values,
+    and a quad's shifted x takes 4 + per_load of them."""
+    a = plan.per_load
     assert plan.smem_bytes <= dia.SMEM_LIMIT_BYTES
     seen = np.zeros(dim_r, np.int64)
     per_block = [len(list(plan.tiles(b))) for b in range(plan.grid)]
@@ -215,42 +223,43 @@ def test_staged_windows_cover_every_read(name, offsets, dim_r, n_x,
                 for d in offsets[k0:k1]:
                     # the function's reads, and the kernel's 16-B pairs
                     assert start <= t0 + d and t1 - 1 + d < stop
-                    assert start <= t0 + (d & ~3)
-                    assert last_quad + (d & ~3) + 8 <= stop
+                    assert start <= t0 + (d & ~(a - 1))
+                    assert last_quad + (d & ~(a - 1)) + 4 + a <= stop
     assert (seen == 1).all()
     ends = []
     for (base, wlo, width), (lo, hi, k0, k1) in zip(plan.windows, plan.runs):
-        assert base % 4 == 0 and wlo % 4 == 0 and width % 4 == 0
+        assert base % a == 0 and wlo % a == 0 and width % a == 0
         ends.append((base, base + width))
         for k in range(k0, k1):
-            assert plan.xo[k] == base + (offsets[k] & ~3) - wlo
+            assert plan.xo[k] == base + (offsets[k] & ~(a - 1)) - wlo
     assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
     assert ends[-1][1] == plan.stage_floats
 
 
 def _replay(plan, val, x):
-    """y as ``csrc/dia.cu`` computes it from the plan, in f32, each term
-    added in order of k: staged windows zero-filled outside x, or x read
-    through a guard."""
+    """y as ``csrc/dia.cu`` computes it from the plan, in the values' type,
+    each term added in order of k: staged windows zero-filled outside x, or
+    x read through a guard."""
     n_x = x.shape[0]
-    y = np.zeros(plan.dim_r, np.float32)
+    y = np.zeros(plan.dim_r, val.dtype)
     for b in range(plan.grid):
         for t0, t1 in plan.tiles(b):
             rows = np.arange(t0, t1)
             if plan.staged:
-                buf = np.zeros(plan.stage_floats, np.float32)
+                buf = np.zeros(plan.stage_floats, val.dtype)
                 for r, (base, _, width) in enumerate(plan.windows):
                     g = np.arange(*plan.window(r, t0))
                     ok = (g >= 0) & (g < n_x)
                     buf[base:base + width][ok] = x[g[ok]]
             for k, d in enumerate(plan.offsets):
                 if plan.staged:
-                    xv = buf[plan.xo[k] + (d & 3) + rows - t0]
+                    xv = buf[plan.xo[k] + (d & (plan.per_load - 1))
+                             + rows - t0]
                 else:
                     g = rows + d
                     ok = (g >= 0) & (g < n_x)
                     xv = np.where(ok, x[np.clip(g, 0, n_x - 1)], 0)
-                y[t0:t1] = y[t0:t1] + val[k, t0:t1] * xv.astype(np.float32)
+                y[t0:t1] = y[t0:t1] + val[k, t0:t1] * xv.astype(val.dtype)
     return y
 
 
@@ -286,3 +295,64 @@ def test_plan_refuses_what_the_kernel_does_not_take():
         dia.make_plan(tuple(range(0, 200 * 100, 100)), 100_000, G0)
     # the grid shrinks to the tiles there are, never below one block
     assert dia.make_plan((0,), 100, G0).grid == 1
+
+
+#: The f64 kernel's geometries: the default (STEP, QUADS) in both x modes.
+F64_GEOMETRIES = [G0, dataclasses.replace(G0, threads=128, blocks_per_sm=2)]
+
+
+@pytest.mark.parametrize("geometry", F64_GEOMETRIES,
+                         ids=["threads256", "threads128"])
+@pytest.mark.parametrize("name,offsets,dim_r,n_x", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_f64_staged_windows_cover_every_read(name, offsets, dim_r, n_x,
+                                             geometry):
+    """The f64 plan: windows aligned to two doubles, and every read of the
+    kernel's 16-B loads inside them."""
+    plan = dia.make_plan(offsets, dim_r, geometry, blocks=4 * 132,
+                         value_bytes=8)
+    assert plan.per_load == 2 and plan.stats["layout_bytes"] == 8 * (
+        len(offsets) * dim_r + 2 * dim_r)
+    _check_windows(plan, offsets, dim_r, geometry)
+
+
+@pytest.mark.parametrize("x_mode", dia.X_MODES)
+@pytest.mark.parametrize("name,offsets,dim_r,n_x", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_f64_plan_replay_matches_plain(name, offsets, dim_r, n_x, x_mode):
+    """The f64 kernel's walk of its plan, replayed in numpy, against the
+    plain version in f64 (the same products in the same order) and the
+    exact sum."""
+    rng = np.random.default_rng(11)
+    val = rng.standard_normal((len(offsets), dim_r))
+    x = rng.standard_normal(n_x)
+    plan = dia.make_plan(offsets, dim_r,
+                         dataclasses.replace(G0, x_mode=x_mode),
+                         value_bytes=8)
+    got = _replay(plan, val, x)
+    e = types.SimpleNamespace(dia_offsets=offsets,
+                              dia_val=torch.from_numpy(val))
+    plain = dia.dia_body_plain(e, torch.from_numpy(x)).numpy()
+    assert plain.dtype == np.float64
+    assert rel(got, plain) <= 1e-14
+    assert rel(got, _exact(val, x, offsets)) <= 1e-14
+
+
+def test_f64_plan_refuses_unbuilt_steps():
+    with pytest.raises(ValueError, match="8-byte"):
+        dia.make_plan((0,), 100, dataclasses.replace(G0, step=2),
+                      value_bytes=8)
+    with pytest.raises(ValueError, match="2-byte"):
+        dia.make_plan((0,), 100, G0, value_bytes=2)
+
+
+def test_f64_kernel_refuses_what_is_not_built():
+    """Values and x of one type; in f64 only the default (STEP, QUADS):
+    refused before any build."""
+    e = types.SimpleNamespace(dia_offsets=(-1, 0, 3), dia_val=torch.zeros(
+        3, 64, dtype=torch.float64))
+    x = torch.zeros(64, dtype=torch.float64)
+    with pytest.raises(ValueError, match="8-byte"):
+        dia._launch(e, x, dataclasses.replace(dia.GEOMETRY, step=8))
+    with pytest.raises(ValueError, match="x_pad's type"):
+        dia._launch(e, x.float())

@@ -242,3 +242,41 @@ def test_geometry_rejects_unbuilt_variants():
                 dict(threads=1024), dict(blocks_per_sm=0)):
         with pytest.raises(ValueError):
             ehyb_stream.StreamGeometry(**bad).check()
+
+
+def test_f64_plan_keeps_f64_values():
+    """In the precision mode the plan keeps the body's f64 values (10 B a
+    cell) and reads an f64 x: its plain version equals the padded body's
+    bit for bit on the edge body (cut row blocks, a zero-width one, a
+    ragged slice)."""
+    e = edge_body()
+    rng = np.random.default_rng(3)
+    e.ell_val = np.where(e.ell_val != 0, rng.standard_normal(
+        e.ell_val.shape), 0.0)
+    plan = stream_cells.build_stream_cells(e)
+    assert plan.cell_val.dtype == np.float64 and plan.stats["split_rbs"] > 0
+    st = plan.stats
+    assert st["cell_bytes"] == 10 * st["compact_cells"]
+    assert st["x_bytes"] == 8 * st["x_rows"] == 8 * e.padded_x_rows
+    p = plan.to_torch()
+    x = torch.from_numpy(rng.standard_normal(e.padded_x_rows))
+    got = ehyb_stream.stream_body(p, x)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, ehyb_body(e.to_torch(), x))
+
+
+def test_f64_kernel_refuses_what_is_not_built():
+    """The f64 kernel is built for one row a thread, x through L1/L2, no
+    Kahan and no list; the wrapper refuses the rest, and an x whose type is
+    not the plan's, before any build."""
+    e = edge_body()
+    e.ell_val = e.ell_val.astype(np.float64)
+    p = stream_cells.build_stream_cells(e).to_torch()
+    x = torch.zeros(e.padded_x_rows, dtype=torch.float64)
+    for g, kahan in [(ehyb_stream.StreamGeometry(rows=2), False),
+                     (ehyb_stream.StreamGeometry(x_mode="staged"), False),
+                     (ehyb_stream.GEOMETRY, True)]:
+        with pytest.raises(ValueError, match="no float64 K1"):
+            ehyb_stream._launch(p, x, kahan, g)
+    with pytest.raises(ValueError, match="x_pad's type"):
+        ehyb_stream._launch(p, x.float())
