@@ -37,14 +37,14 @@ permuted_poisson_4096's body beside the window cache; both on
 runs K3), beside one cuSPARSE call (``torch.sparse_csr_tensor`` matvec) as
 a yardstick, with K1 and K9 also in their other x mode, in turns, and
 prints one JSON line of kernels with two bounds each:
-``bound_ms``, the bytes of the kernel's own inputs and output, and
-``same_work_bound_ms``, the same work in any layout (each entry's value and
-column, x and y once).  For the routed kernel the two are one: the partial
-y vectors of its plan are its own tiling choice, and their bytes stand
-beside it as ``layout_bound_ms``.  Beside each main path's GFLOP/s and
-each kernel's time it prints the card's SM clock,
-power draw, temperature and active throttle reasons, read right after the
-timed loop.
+``bound_ms``, the same work in any layout (each entry's value and column,
+x and y once: what the function must move), and ``layout_bound_ms``, the
+bytes of the kernel's own layout (its cells, maps, staged or re-read x
+rows, partial y vectors).  A kernel whose data stays in L2 between graph
+replays (``permuted_poisson_512``'s 15 MB in f64) can read faster than
+either, which count every byte at HBM's rate.  Beside each main path's
+GFLOP/s and each kernel's time it prints the card's SM clock, power draw,
+temperature and active throttle reasons, read right after the timed loop.
 
 Then the device loops: on each of the four rows the chained loop as
 CUDA-graph replays against the eager loop (the same y within rel 1e-6 at eps
@@ -87,12 +87,31 @@ picks; a warm setup reads the verdict without measuring, and
 ``stencil3d(24, 27)`` keeps the body without measuring.  The ``kernels``
 line gains ``ehyb_stream_body (f64)`` and ``dia (f64)``.
 
+Last, a float64 config (``--dtype float64``, not the precision mode;
+phase 19), whose variants phases 5, 16a and 17a check first, bit for bit
+against their plain versions run on the CPU: K1 f64 with Neumaier
+compensation and with row-block lists, and the window cache in f64, plain
+and Kahan, at 80, 112 (the plan's) and 160 slot rows, a tight budget and
+one group of 128 threads, with an f64 cancellation matrix (±1e17) whose
+row only the Kahan variants keep.  Phase 19 drives
+``permuted_poisson_512 --dtype float64 --compensated`` (K1 f64 Kahan),
+``permuted_poisson_1024`` forced past residency with the same flags (the
+window cache's Kahan variant, held bit for bit to its plain version on the
+CPU and timed there), ``permuted_poisson_4096 --dtype float64`` (the window
+cache in f64, plain and Kahan timed on its plan; a second host setup)
+through the CLI and ``ShardedEhybSpmv`` in f64 at one rank (graph loop)
+and two gloo ranks, each within F64_TOL of the oracle with its launches
+counted; it times the new variants beside both bounds, their plain
+versions and cuSPARSE in f64, and the ``kernels`` line gains four entries.
+The f64 plan's geometry was chosen by ``chip_wincache_sweep.py --f64``.
+
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -137,6 +156,10 @@ KERNEL_TOL = 1e-6
 #: end to end against the exact-f64 oracle): the JAX double-word mode's
 #: bound (tests/test_dword.py).
 F64_TOL = 1e-12
+#: A float64 kernel variant against its float64 plain version (the same
+#: products; the plain versions of the Kahan variants add them in the
+#: kernel's order with the same compensation).
+F64_KERNEL_TOL = 1e-14
 #: End to end vs the exact-f64 oracle: the suite's bound.
 ORACLE_TOL = 5e-6
 #: The graph loop vs the eager loop, f32 both: the ER and long-row scatters
@@ -173,6 +196,16 @@ DWORD_ARGS = MAIN_ARGS + ["--dword"]
 #: fem3d_68 in the precision mode: its layout's DIA part at HBM scale.
 DWORD_FEM_ARGS = ["-g", "fem3d_68_audikw_class", "--model", "ehyb", "-i",
                   "50", "--json", "--device", "cuda", "--dword"]
+#: A float64 config (not the precision mode) where the reference answers:
+#: the flagship past x residency at 8 B a value (the window cache in f64)
+#: and the headline row with compensation (K1 f64 Kahan).
+HBM_F64_ARGS = HBM_ARGS + ["--dtype", "float64"]
+KAHAN_F64_ARGS = MAIN_ARGS + ["--dtype", "float64", "--compensated"]
+#: The compensated window cache on a main path: permuted_poisson_1024
+#: forced past residency (as EHYB_X_RESIDENT_BYTES does) in f64.
+WC_KAHAN_F64_ARGS = ["-g", "permuted_poisson_1024", "-i", "200", "--json",
+                     "--device", "cuda", "--dtype", "float64",
+                     "--compensated"]
 #: Scattered matrices under the small gate's 65,536 rows (nnz >= 2^18).
 SMALL_GATE_MATRICES = ("random_16k", "powerlaw_16k")
 _PALLAS = "ehyb_spmv_gpu_tpu/ops/ehyb_pallas.py"
@@ -204,6 +237,21 @@ SK1 = {"name": "ehyb_stream_body (row-block list)", "route": "cuda",
        "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
        "replaces": "ehyb_spmv_gpu_tpu/parallel/spmv.py:511 (_stream_call, "
                    "pallas_call :538)"}
+K1F64K = {"name": "ehyb_stream_body (f64, Kahan)", "route": "cuda",
+          "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
+          "replaces": f"{_PALLAS}:148 (K1, kahan=True) in a float64 config"}
+SK1F64 = {"name": "ehyb_stream_body (f64, row-block list)", "route": "cuda",
+          "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
+          "replaces": "ehyb_spmv_gpu_tpu/parallel/spmv.py:511 (_stream_call, "
+                      "pallas_call :538) in a float64 config"}
+WCF64 = {"name": "ehyb_wincache_body (f64)", "route": "cuda",
+         "source": "ehyb_spmv_torch/csrc/ehyb_wincache.cu",
+         "replaces": f"{_PALLAS}:293 (K3), {_PALLAS}:489 (K4) in a float64 "
+                     "config"}
+WCF64K = {"name": "ehyb_wincache_body (f64, Kahan)", "route": "cuda",
+          "source": "ehyb_spmv_torch/csrc/ehyb_wincache.cu",
+          "replaces": f"{_PALLAS}:293 (K3), {_PALLAS}:489 (K4), kahan=True, "
+                      "in a float64 config"}
 #: The sharded path's matrix and config: 1024-row windows, the TPU's
 #: Pallas branch of the JAX ShardedEhybSpmv (the multi-window layouts).
 SHARDED_MATRIX = "permuted_poisson_1024"
@@ -330,6 +378,16 @@ def same_work_bound(nnz: int, idx_bytes: int, n_x: int, n_y: int,
                 bytes=n_bytes)
 
 
+def bounds(layout: dict, same: dict) -> dict:
+    """A kernel's bound fields in the ``kernels`` line: ``bound_ms`` and
+    ``bound_by`` are the same work in any layout (``same``, from
+    :func:`same_work_bound`), what the function itself must move; the bytes
+    of the kernel's own layout (``layout``, from :func:`bound`) stand
+    beside it as ``layout_bound_ms``."""
+    return dict(bound_ms=same["bound_ms"], bound_by=same["bound_by"],
+                layout_bound_ms=layout["bound_ms"])
+
+
 def csr_of(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
            n_rows: int, n_cols: int) -> torch.Tensor:
     """A sparse CSR tensor (int32 indices) of COO entries, on their device:
@@ -362,6 +420,15 @@ def cancellation_matrix() -> port.MatrixCOO:
         dim, dim, np.concatenate([np.zeros(n, np.int64), np.arange(1, dim)]),
         np.concatenate([np.arange(n), np.arange(1, dim)]),
         np.concatenate([vals, np.ones(dim - 1)]))
+
+
+def cancellation_matrix_f64() -> port.MatrixCOO:
+    """Row 0 sums 100 ones among ±1e17 blocks (an ulp of 1e17 is 16): exact
+    with Neumaier compensation in f64, lossy in naive f64 summation."""
+    m = cancellation_matrix()
+    val = m.val.copy()
+    val[np.abs(val) == 1e8] *= 1e9
+    return port.MatrixCOO(m.n_rows, m.n_cols, m.row, m.col, val)
 
 
 def stress_matrix(dim: int = 2048, seed: int = 3) -> MatrixCOO:
@@ -452,25 +519,31 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
                   cells=None) -> None:
     """K1 over the compact plan of body ``e`` (an EhybMatrix, f32 or f64
     values) at every geometry of :func:`k1_geometries` for its type:
-    against its plain version on the card within KERNEL_TOL (F64_TOL in
-    f64), bit for bit against the plain version on the CPU (which adds in
-    the kernel's order) where Kahan is off, and against the padded body's
-    plain version.  ``cells``, the plan on the card, defaults to a fresh
-    build of ``e``'s."""
+    against its plain version and the padded body's within KERNEL_TOL
+    (F64_TOL in f64), and bit for bit against the plain version on the CPU
+    (which adds in the kernel's order) where Kahan is off or the type is
+    f64 (whose plain version compensates in the kernel's order).  In f64
+    both plain versions run on the CPU: on the card they add with atomics
+    in no fixed order, and a naive f64 sum of the cancellation matrix
+    depends on the order.  ``cells``, the plan on the card, defaults to a
+    fresh build of ``e``'s."""
     f64 = e.ell_val.dtype == np.float64
     tol = F64_TOL if f64 else KERNEL_TOL
+    exact = f64 or not kahan
     plan = build_stream_cells(e)
     p = plan.to_torch(dev) if cells is None else cells
     x_dev = torch.as_tensor(
         x, dtype=torch.float64 if f64 else torch.float32, device=dev)
-    y_p = ehyb_stream.stream_body_plain(p, x_dev, kahan)
     y_cpu = ehyb_stream.stream_body_plain(plan.to_torch(), x_dev.cpu(),
                                           kahan)
-    y_pad = ehyb_body(e.to_torch(device=dev), x_dev, compensated=kahan)
+    on = "cpu" if f64 else dev
+    y_p = y_cpu.to(on) if f64 else ehyb_stream.stream_body_plain(p, x_dev,
+                                                                 kahan)
+    y_pad = ehyb_body(e.to_torch(device=on), x_dev.to(on),
+                      compensated=kahan)
     worst, same = 0.0, True
     for g in k1_geometries(f64):
-        y_k = ehyb_stream._launch(p, x_dev, kahan, g)
-        torch.cuda.synchronize()
+        y_k = ehyb_stream._launch(p, x_dev, kahan, g).to(on)
         err = max(rel(y_k, y_p), rel(y_k, y_pad))
         if not bool(torch.isfinite(y_k).all()) or err > tol:
             check(False, f"K1 {name} at {g}: vs plain rel {rel(y_k, y_p):.3e}"
@@ -478,15 +551,15 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
         worst = max(worst, err)
         same = same and torch.equal(y_k.cpu(), y_cpu)
     st = plan.stats
-    check(kahan or same,
+    check(not exact or same,
           f"K1 {name} ({st['n_rb']} row blocks, {st['n_pieces']} pieces, "
           f"{st['split_rbs']} cut for the 16-bit range, max width "
           f"{st['max_width']}; {st['compact_cells']} of {st['padded_cells']} "
-          f"cells{', f64' if f64 else ''}): {len(k1_geometries(f64))} "
-          f"geometries, vs plain and the padded body rel <= {worst:.3e} <= "
-          f"{tol}"
-          + ("" if kahan else "; bit for bit with the plain version on the "
-             "CPU"))
+          f"cells{', f64' if f64 else ''}{', Kahan' if kahan else ''}): "
+          f"{len(k1_geometries(f64))} geometries, vs plain and the padded "
+          f"body rel <= {worst:.3e} <= {tol}"
+          + ("; bit for bit with the plain version on the CPU" if exact
+             else ""))
 
 
 def reset_launches() -> None:
@@ -722,26 +795,75 @@ def check_wincache_plan(name: str, e, p, k1, x_dev, kahan: bool) -> None:
     """The window-cache kernel on one plan against its plain version and
     against K1 on the same body (``k1``, its plan on the card); prints the
     largest difference from K1 (0 where the summation order is kept, as it
-    is for finite x)."""
+    is for finite x).  In f64 both must hold bit for bit: K1 and the plain
+    version on the CPU add in the kernel's order (with the same
+    compensation where ``kahan``)."""
+    f64 = x_dev.dtype == torch.float64
     y_w = ehyb_wincache.wincache_body(e, p, x_dev, kahan)
     y_p = ehyb_wincache.wincache_body_plain(e, p, x_dev, kahan)
     y_1 = ehyb_stream.stream_body(k1, x_dev, kahan)
     torch.cuda.synchronize()
     err_p, err_1 = rel(y_w, y_p), rel(y_w, y_1)
     st = p.stats
+    what = (f"{name} ({st['n_blocks']} blocks, {st['chunked_slices']} "
+            f"chunked slices, {st['compact_cells']} of {st['padded_cells']} "
+            f"cells, {p.slot_rows} slot rows, {p.groups * 128} threads, "
+            f"{x_dev.dtype}"
+            f"{', Kahan' if kahan else ''}): window cache vs plain rel "
+            f"{err_p:.3e}, vs K1 rel {err_1:.3e}, max abs from K1 "
+            f"{float((y_w - y_1).abs().max()):.3e}")
+    if f64:
+        y_cpu = ehyb_wincache.wincache_body_plain(
+            copy.deepcopy(e).cpu(), copy.deepcopy(p).cpu(), x_dev.cpu(),
+            kahan)
+        check(torch.equal(y_w.cpu(), y_cpu) and torch.equal(y_w, y_1),
+              what + "; bit for bit with K1 and the plain version on the CPU")
+        return
     check(bool(torch.isfinite(y_w).all()) and err_p <= KERNEL_TOL
-          and err_1 <= KERNEL_TOL,
-          f"{name} ({st['n_blocks']} blocks, {st['chunked_slices']} chunked "
-          f"slices, {st['compact_cells']} of {st['padded_cells']} cells): "
-          f"window cache vs plain rel {err_p:.3e}, vs K1 rel {err_1:.3e}, "
-          f"max abs from K1 {float((y_w - y_1).abs().max()):.3e}")
+          and err_1 <= KERNEL_TOL, what)
+
+
+def f64_cases():
+    """:func:`kernel_cases` in a float64 config, and the f64 cancellation
+    matrix plain and with compensation."""
+    cfg = port.EhybConfig(body_layout="sell_rx", relax_body="never")
+    out = [(f"{name} f64", m, dataclasses.replace(c, dtype="float64"), nwin,
+            kahan) for name, m, c, nwin, kahan in kernel_cases()]
+    for kahan in (False, True):
+        out.append((f"cancel 1e17 f64{' kahan' if kahan else ''}",
+                    cancellation_matrix_f64(),
+                    dataclasses.replace(cfg, dtype="float64",
+                                        compensated_sum=kahan), 2, kahan))
+    return out
+
+
+def check_cancel_row(name: str, m, y: np.ndarray, kahan: bool) -> None:
+    """The product ``y`` of ``m`` against the oracle (x all ones on a
+    cancellation matrix, else ``deterministic_x``).  On a cancellation
+    matrix the compensated product gives row 0's exact value, 100; on the
+    f64 one (±1e17) the plain product, whose naive sum loses it, does not,
+    and the oracle (an f64 sum too) holds only the other rows."""
+    big = float(np.abs(m.val).max())
+    x = np.ones(m.dimension) if big >= 1e8 else deterministic_x(m.dimension)
+    if big >= 1e8:
+        check(y[0] == 100.0 if kahan else big < 1e17 or y[0] != 100.0,
+              f"{name}: row 0 = {y[0]!r}"
+              + (" (exact)" if kahan else ", the naive f64 sum loses it"
+                 if big >= 1e17 else ""))
+    rows = slice(1, None) if big >= 1e17 else slice(None)
+    tol = F64_TOL if y.dtype == np.float64 else ORACLE_TOL
+    err = rel_np(y[rows], oracle_spmv(m, x)[rows])
+    check(err <= tol, f"{name}: model vs oracle rel {err:.3e} <= {tol}"
+                      + (" (rows 1 on)" if big >= 1e17 else ""))
 
 
 def check_wincache_small(dev) -> None:
     """The window-cache kernel against its plain version and against K1
     at nwin 1/2/4 and Kahan, forced past the residency limit in-process,
     with a slot budget so tight that slices overflow a stage, and with 1
-    and 4 groups."""
+    and 4 groups; then in a float64 config (plain and Kahan, the f64
+    cancellation matrix) at the slot budgets the f64 sweep times, a tight
+    one and one group."""
     for name, m, cfg, nwin, kahan in kernel_cases():
         with patched(X_RESIDENT_BYTES=1024):
             model = port.EhybSpmv(cfg, device=dev).setup(m)
@@ -779,6 +901,36 @@ def check_wincache_small(dev) -> None:
                                              "overflow 64 slot rows")
         check_wincache_plan(f"scattered 32k quad, {groups} groups", model.dev,
                             p.to_torch(dev), k1, x_dev, False)
+    for name, m, cfg, nwin, kahan in f64_cases():
+        with patched(X_RESIDENT_BYTES=1024):
+            model = port.EhybSpmv(cfg, device=dev).setup(m)
+        e, plan = model.dev, model.module.wincache
+        check(e.nwin == nwin and plan is not None
+              and plan.cell_val.dtype == torch.float64
+              and plan.slot_rows == ehyb_wincache.SLOT_ROWS_F64
+              and model.module.branch.startswith("streamed hbm"),
+              f"{name}: branch {model.module.branch}, nwin={e.nwin}, the "
+              f"window cache's plan in {plan.cell_val.dtype} at "
+              f"{plan.slot_rows} slot rows")
+        k1 = build_stream_cells(model.ehyb).to_torch(dev)
+        x = np.ones(m.dimension) if m.val.max() >= 1e8 \
+            else deterministic_x(m.dimension)
+        x_dev = model.prepare_x(x)
+        check_wincache_plan(name, e, plan, k1, x_dev, kahan)
+        # the other slot budgets chip_wincache_sweep.py --f64 times, a
+        # tight one (slices overflow a stage) and one group of 128 threads
+        for slot_rows, groups in ((80, None), (160, None), (32, None),
+                                  (None, 1)):
+            other = ehyb_wincache.build_wincache_plan(
+                model.ehyb, slot_rows=slot_rows, groups=groups)
+            if slot_rows != 32 or other.stats["chunked_slices"]:
+                check_wincache_plan(name, e, other.to_torch(dev), k1, x_dev,
+                                    kahan)
+        reset_launches()
+        y = model.matvec(x)
+        check(ehyb_wincache.wincache_body.launches == 1,
+              f"{name}: the window cache launched once in a product")
+        check_cancel_row(name, m, y, kahan)
 
 
 def check_k5_k6(dev) -> None:
@@ -813,9 +965,10 @@ def check_k5_k6(dev) -> None:
         time_k1(model, {"dim": m.dimension}, dev, n_eager=50)
 
 
-def drive(args):
+def drive(args, tol: float = ORACLE_TOL):
     """One main path through the CLI with the launch counts set to 0 just
-    before it; returns (result, model, launches, wall seconds)."""
+    before it, held to ``tol`` against the oracle; returns (result, model,
+    launches)."""
     reset_launches()
     t0 = time.perf_counter()
     code, result, model = cli.run(cli.build_parser().parse_args(args))
@@ -829,9 +982,9 @@ def drive(args):
     print(f"  wall {wall:.1f} s; setup seconds per phase: "
           + ", ".join(f"{k} {v:.2f}" for k, v in
                       result["setup_seconds"].items()))
-    check(result["rel_error"] <= ORACLE_TOL,
+    check(result["rel_error"] <= tol,
           f"rel error vs exact-f64 oracle {result['rel_error']:.3e} "
-          f"<= {ORACLE_TOL}")
+          f"<= {tol}")
     print(f"  launches during the run: {launches}")
     # read right after the timed loop, beside its GFLOP/s
     result["card"] = card_state()
@@ -887,6 +1040,9 @@ def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
     err = rel(y_k, y_p)
     check(err <= tol, f"K1 vs plain rel {err:.3e} <= {tol} (max abs "
                       f"{max_abs:.3e}, {p.n_rb} row blocks, {x_dev.dtype})")
+    if f64 and kahan:
+        check(torch.equal(y_k, y_p), "K1 f64 Kahan bit for bit with its "
+                                     "plain version (Neumaier, no atomics)")
     e = padded_body(model, dev)
     err = rel(y_k, ehyb_body(e, x_dev, compensated=kahan))
     check(err <= tol, f"K1 vs the padded body's plain version rel "
@@ -940,43 +1096,76 @@ def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
           f"K1 {ms_per_call(kernel, n_eager):.4f} ms, full apply "
           f"{ms_per_call(lambda: model.apply(x_dev), n_eager):.4f} ms")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **b, same_work_bound_ms=same["bound_ms"])
+                library_ms=lib_ms, **bounds(b, same))
 
 
-def time_wincache(model, result, dev, k1: dict, cells) -> dict:
+def body_library_ms(model, x_dev: torch.Tensor, dev, n: int = 20) -> float:
+    """cuSPARSE (``torch.mv`` on a CSR of x's type) over the body's own
+    entries, from the padded body uploaded for it, device ms per call."""
+    e = padded_body(model, dev)
+    a = body_csr(e, model.dev.slice_win_start.shape[0] * 128,
+                 x_dev.shape[0], dev)
+    del e
+    return device_ms_per_call(lambda: torch.mv(a, x_dev), n)
+
+
+def time_wincache(model, result, dev, k1: dict = None, cells=None,
+                  kahan: bool = None, library_ms: float = None) -> dict:
     """The window-cache body at a path's shapes against its plain version,
-    beside K1 on the same body and cuSPARSE over the same entries (``k1``,
-    from :func:`time_k1` with ``cells``, K1's plan of that body), with the
-    cells it reads against the padded body's and both bounds: the bytes
-    its layout moves, and the same work in any layout."""
-    d, p = model.dev, model.module.wincache
-    kahan = model.module.kahan
+    beside cuSPARSE over the same entries and, where ``k1`` is given (from
+    :func:`time_k1` with ``cells``, K1's plan of that body), K1 on the same
+    body, with the cells it reads against the padded body's and both
+    bounds: the bytes its layout moves, and the same work in any layout.
+    ``kahan`` (default the model's) selects the variant timed; cuSPARSE
+    is timed here unless ``k1`` or ``library_ms`` gives its time."""
+    d = model.dev
+    p = model.module.wincache
+    kahan = model.module.kahan if kahan is None else kahan
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
+    f64 = x_dev.dtype == torch.float64
+    tol = F64_KERNEL_TOL if f64 else KERNEL_TOL
     y_k = ehyb_wincache.wincache_body(d, p, x_dev, kahan)
     y_p = ehyb_wincache.wincache_body_plain(d, p, x_dev, kahan)
-    y_1 = ehyb_stream.stream_body(cells, x_dev, kahan)
     torch.cuda.synchronize()
     max_abs = float((y_k - y_p).abs().max())
     err = rel(y_k, y_p)
-    check(err <= KERNEL_TOL, f"window cache vs plain rel {err:.3e} <= "
-                             f"{KERNEL_TOL} (max abs {max_abs:.3e})")
-    err = rel(y_k, y_1)
-    check(err <= KERNEL_TOL, f"window cache vs K1 rel {err:.3e}, max abs "
-                             f"{float((y_k - y_1).abs().max()):.3e}")
-    del y_p, y_1
+    check(err <= tol, f"window cache ({p.slot_rows} slot rows, "
+                      f"{x_dev.dtype}{', Kahan' if kahan else ''}) vs plain "
+                      f"rel {err:.3e} <= {tol} (max abs {max_abs:.3e})")
+    if f64 and kahan:
+        check(torch.equal(y_k, y_p), "window cache f64 Kahan bit for bit "
+                                     "with its plain version (Neumaier, no "
+                                     "atomics)")
+    if cells is not None:
+        y_1 = ehyb_stream.stream_body(cells, x_dev, kahan)
+        torch.cuda.synchronize()
+        err = rel(y_k, y_1)
+        check(err <= tol, f"window cache vs K1 rel {err:.3e}, max abs "
+                          f"{float((y_k - y_1).abs().max()):.3e}")
+        del y_1
+    del y_p
     ms, plain_ms, turns = in_turns(
         lambda: ehyb_wincache.wincache_body(d, p, x_dev, kahan),
         lambda: ehyb_wincache.wincache_body_plain(d, p, x_dev, kahan), 20, 2)
+    if library_ms is None:
+        library_ms = k1["library_ms"] if k1 is not None \
+            else body_library_ms(model, x_dev, dev)
     st = p.stats
     check(st["compact_cells"] <= 1.1 * d.body_nnz,
           f"compact cells {st['compact_cells']} of {st['padded_cells']} "
           f"padded ({st['real_cells']} real; body nnz {d.body_nnz}): "
           f"{st['compact_cells'] / d.body_nnz:.5f} x the body's entries")
-    lay = bound(st["layout_bytes"], 2 * d.body_nnz, dev)
-    same = same_work_bound(d.body_nnz, 2, x_dev.numel(), y_k.numel(), dev)
-    print(f"  window cache device ms per call (plain, kernel, kernel, "
-          f"plain): {turns}; K1 on the same body {k1['ms']:.4f} ms; "
-          f"cuSPARSE over the body {k1['library_ms']:.4f} ms; {card_state()}")
+    lay = bound(st["layout_bytes"], 2 * d.body_nnz, dev, f64)
+    same = same_work_bound(d.body_nnz, 2, x_dev.numel(), y_k.numel(), dev,
+                           x_dev.element_size())
+    blocks = ehyb_wincache.resident_blocks(p, kahan, dev)
+    regs = ehyb_wincache.registers(p, kahan)
+    print(f"  window cache ({p.slot_rows} slot rows, {p.groups * 128} "
+          f"threads, {blocks} blocks/SM resident, {regs} registers; "
+          f"{x_dev.dtype}{', Kahan' if kahan else ''}) device ms per call "
+          f"(plain, kernel, kernel, plain): {turns}; "
+          + (f"K1 on the same body {k1['ms']:.4f} ms; " if k1 else "")
+          + f"cuSPARSE over the body {library_ms:.4f} ms; {card_state()}")
     print(f"  bounds: layout {lay['bound_ms']:.4f} ms ({st['layout_bytes']} "
           f"B: cells {st['cell_bytes']}, staged rows {st['staged_bytes']}, y "
           f"{st['y_bytes']}; {lay['bound_ms'] / ms:.3f} of it reached); same "
@@ -987,8 +1176,7 @@ def time_wincache(model, result, dev, k1: dict, cells) -> dict:
           f"{st['staged_bytes'] / st['x_bytes']:.3f} x the padded x; the "
           f"padded body would move {st['body_bytes']} B of cells")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=k1["library_ms"], **lay,
-                same_work_bound_ms=same["bound_ms"])
+                library_ms=library_ms, **bounds(lay, same))
 
 
 def dia_csr(e, n_x: int, dev) -> torch.Tensor:
@@ -1069,7 +1257,7 @@ def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50) -> dict:
     print(f"  x-mode A/B ({other.x_mode}, {g0.x_mode}, {g0.x_mode}, "
           f"{other.x_mode}): {ab}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **b, same_work_bound_ms=same["bound_ms"])
+                library_ms=lib_ms, **bounds(b, same))
 
 
 def time_routed(model, result, m: MatrixCOO, dev) -> dict:
@@ -1157,12 +1345,8 @@ def time_routed(model, result, m: MatrixCOO, dev) -> dict:
           f"time: apply / cuSPARSE = {apply_ms / whole_ms:.3f}; the apply's "
           f"device GFLOP/s {2e-6 * m.nnz / apply_ms:.2f}, cuSPARSE's "
           f"{2e-6 * m.nnz / whole_ms:.2f}")
-    # the partials are the plan's own tiling choice, not bytes the function
-    # needs: the bound is the same work's, the plan's bytes stand beside it
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=same["bound_ms"],
-                bound_by=same["bound_by"], layout_bound_ms=lay["bound_ms"],
-                same_work_bound_ms=same["bound_ms"])
+                library_ms=lib_ms, **bounds(lay, same))
 
 
 def check_loop(res: dict, model, dev) -> dict:
@@ -1338,48 +1522,54 @@ def rb_rows(rbs: torch.Tensor) -> torch.Tensor:
 def check_k1_list(name: str, plan, rbs: np.ndarray, x: np.ndarray,
                   kahan: bool, dev) -> None:
     """K1 over the row-block list ``rbs`` of ``plan`` (a host
-    StreamCellsPlan) at every geometry of :func:`k1_geometries`, into a y
-    of sentinels: the listed rows against the plain version on the card
-    (within KERNEL_TOL) and on the CPU (bit for bit where Kahan is off),
-    every other row untouched."""
+    StreamCellsPlan, f32 or f64 values) at every geometry of
+    :func:`k1_geometries` for its type, into a y of sentinels: the listed
+    rows against the plain version on the card (within KERNEL_TOL, F64_TOL
+    in f64) and on the CPU (bit for bit where Kahan is off or the type is
+    f64), every other row untouched."""
     p, p_cpu = plan.to_torch(dev), plan.to_torch()
-    x_dev = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    f64 = plan.cell_val.dtype == np.float64
+    tol = F64_TOL if f64 else KERNEL_TOL
+    exact = f64 or not kahan
+    x_dev = torch.as_tensor(x, dtype=p.cell_val.dtype, device=dev)
     lst = torch.as_tensor(np.ascontiguousarray(rbs, dtype=np.int32),
                           device=dev)
     fill = -7.0
-    y_p = torch.full((p.n_rb * 32,), fill, device=dev)
+    y_p = torch.full((p.n_rb * 32,), fill, dtype=x_dev.dtype, device=dev)
     ehyb_stream.stream_body_plain(p, x_dev, kahan, rb_list=lst, out=y_p)
-    y_cpu = torch.full((p.n_rb * 32,), fill)
+    y_cpu = torch.full((p.n_rb * 32,), fill, dtype=x_dev.dtype)
     ehyb_stream.stream_body_plain(p_cpu, x_dev.cpu(), kahan,
                                   rb_list=lst.cpu(), out=y_cpu)
     rows = rb_rows(lst)
     other = torch.ones(p.n_rb * 32, dtype=torch.bool, device=dev)
     other[rows] = False
     worst, same = 0.0, True
-    for g in k1_geometries():
-        y = torch.full((p.n_rb * 32,), fill, device=dev)
+    for g in k1_geometries(f64):
+        y = torch.full((p.n_rb * 32,), fill, dtype=x_dev.dtype, device=dev)
         ehyb_stream._launch(p, x_dev, kahan, g, rb_list=lst, out=y)
         torch.cuda.synchronize()
         err = rel(y[rows], y_p[rows]) if rows.numel() else 0.0
-        if not bool(torch.isfinite(y).all()) or err > KERNEL_TOL \
+        if not bool(torch.isfinite(y).all()) or err > tol \
                 or not bool((y[other] == fill).all()):
             check(False, f"K1 list {name} at {g}: rel {err:.3e}, rows "
                          "outside the list written")
         worst = max(worst, err)
         same = same and torch.equal(y.cpu(), y_cpu)
-    check(kahan or same,
+    check(not exact or same,
           f"K1 list {name} ({len(rbs)} of {p.n_rb} row blocks, "
           f"{plan.stats['split_rbs']} of the plan's cut for the 16-bit "
-          f"range): {len(k1_geometries())} geometries, listed rows vs plain "
-          f"rel <= {worst:.3e}, the others untouched"
-          + ("" if kahan else "; bit for bit with the plain version on the "
-             "CPU"))
+          f"range{', f64' if f64 else ''}{', Kahan' if kahan else ''}): "
+          f"{len(k1_geometries(f64))} geometries, listed rows vs plain rel "
+          f"<= {worst:.3e}, the others untouched"
+          + ("; bit for bit with the plain version on the CPU" if exact
+             else ""))
 
 
 def check_k1_lists(dev) -> None:
     """16a: K1 with a row-block list against its plain version: a sharded
     scrambled stencil's interior, boundary, both and empty lists at two
-    ranks; the row blocks cut for the 16-bit range; Kahan."""
+    ranks; the row blocks cut for the 16-bit range; Kahan; each of them
+    also in f64 (the plans' values in f64, x random in f64)."""
     m = generate.permuted(generate.poisson2d(96), seed=3)
     sh = plan_sharded(m, port.EhybConfig(**SHARDED_CFG), 2).sharded
     rng = np.random.default_rng(16)
@@ -1393,10 +1583,12 @@ def check_k1_lists(dev) -> None:
         lists = {"interior": sc.interior, "boundary": sc.boundary,
                  "both": np.concatenate([sc.interior, sc.boundary]),
                  "empty": np.zeros(0, np.int32)}
-        for kind, rbs in lists.items():
-            check_k1_list(f"shard {d} {kind}", sc.plan, rbs, x, False, dev)
-        check_k1_list(f"shard {d} boundary kahan", sc.plan, sc.boundary, x,
-                      True, dev)
+        for plan, tag in ((sc.plan, ""), (plan_f64(sc.plan), " f64")):
+            for kind, rbs in lists.items():
+                check_k1_list(f"shard {d} {kind}{tag}", plan, rbs, x, False,
+                              dev)
+            check_k1_list(f"shard {d} boundary kahan{tag}", plan,
+                          sc.boundary, x, True, dev)
     e = edge_body()
     plan = build_stream_cells(e)
     cut = np.unique(plan.piece[plan.n_rb:-1, PIECE_RB])
@@ -1404,8 +1596,16 @@ def check_k1_lists(dev) -> None:
     check(cut.size > 0, f"edge body: {cut.size} row blocks cut, listed")
     x = rng.standard_normal(e.padded_x_rows)
     for kahan in (False, True):
-        check_k1_list(f"edge body{' kahan' if kahan else ''}", plan,
-                      rng.permutation(rbs).astype(np.int32), x, kahan, dev)
+        for p, tag in ((plan, ""), (plan_f64(plan), " f64")):
+            check_k1_list(f"edge body{' kahan' if kahan else ''}{tag}", p,
+                          rng.permutation(rbs).astype(np.int32), x, kahan,
+                          dev)
+
+
+def plan_f64(plan):
+    """A K1 host plan with its values in f64 (for the f64 list variants)."""
+    return dataclasses.replace(plan, cell_val=plan.cell_val.astype(
+        np.float64))
 
 
 def list_work(p, rbs: np.ndarray, n_x: int, dev) -> dict:
@@ -1413,7 +1613,8 @@ def list_work(p, rbs: np.ndarray, n_x: int, dev) -> dict:
     move: its cells, pieces and table rows, the list, the x rows of its
     tables and its y rows; the real entries (nonzero cells) with their
     decoded columns; and those entries as a CSR of the plan's rows
-    (cuSPARSE's operand)."""
+    (cuSPARSE's operand).  Values, x and y count the plan's value size."""
+    vb = p.cell_val.element_size()
     plan = types.SimpleNamespace(
         piece=p.piece.cpu().numpy(), rows=p.rows.cpu().numpy(),
         cell_val=p.cell_val.cpu().numpy(), cell_idx=p.cell_idx.cpu().numpy(),
@@ -1432,9 +1633,9 @@ def list_work(p, rbs: np.ndarray, n_x: int, dev) -> dict:
     col = plan.rows[first[:, PIECE_ROW] + (idx >> 7)].astype(np.int64) \
         * 128 + (idx & 127)
     row = first[:, PIECE_RB] * 32 + (cell - first[:, PIECE_CELL]) % 32
-    layout = (int(cell_sel.sum()) * 6 + int(sel.sum()) * 16
+    layout = (int(cell_sel.sum()) * (vb + 2) + int(sel.sum()) * 16
               + int(row_sel.sum()) * 4 + rbs.size * 4
-              + x_rows.size * 512 + rbs.size * 128)
+              + x_rows.size * 128 * vb + rbs.size * 32 * vb)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     a = csr_of(t(row), t(col), t(plan.cell_val[cell]), plan.n_rb * 32, n_x)
     return dict(layout_bytes=layout, nnz=int(cell.size),
@@ -1448,8 +1649,10 @@ def time_k1_list(p, rbs: np.ndarray, x_dev: torch.Tensor, kahan: bool, dev,
     same-work bounds."""
     lst = torch.as_tensor(np.ascontiguousarray(rbs, dtype=np.int32),
                           device=dev)
-    y = torch.zeros(p.n_rb * 32, device=dev)
-    y_p = torch.zeros(p.n_rb * 32, device=dev)
+    f64 = x_dev.dtype == torch.float64
+    tol = F64_TOL if f64 else KERNEL_TOL
+    y = torch.zeros(p.n_rb * 32, dtype=x_dev.dtype, device=dev)
+    y_p = torch.zeros(p.n_rb * 32, dtype=x_dev.dtype, device=dev)
     ehyb_stream.stream_body(p, x_dev, kahan, rb_list=lst, out=y)
     ehyb_stream.stream_body_plain(p, x_dev, kahan, rb_list=lst, out=y_p)
     w = list_work(p, rbs, x_dev.numel(), dev)
@@ -1458,7 +1661,7 @@ def time_k1_list(p, rbs: np.ndarray, x_dev: torch.Tensor, kahan: bool, dev,
     rows = rb_rows(lst)
     max_abs = float((y - y_p).abs().max())
     err = rel(y[rows], y_p[rows])
-    check(err <= KERNEL_TOL and rel(y_l[rows], y_p[rows]) <= KERNEL_TOL,
+    check(err <= tol and rel(y_l[rows], y_p[rows]) <= tol,
           f"K1 over {len(rbs)} listed row blocks vs plain rel {err:.3e} "
           f"(max abs {max_abs:.3e}); cuSPARSE over their {w['nnz']} entries "
           f"rel {rel(y_l[rows], y_p[rows]):.3e}")
@@ -1467,14 +1670,15 @@ def time_k1_list(p, rbs: np.ndarray, x_dev: torch.Tensor, kahan: bool, dev,
         lambda: ehyb_stream.stream_body_plain(p, x_dev, kahan, rb_list=lst,
                                               out=y_p), n, n_plain)
     lib_ms = device_ms_per_call(lambda: torch.mv(w["csr"], x_dev), n)
-    b = bound(w["layout_bytes"], 2 * w["nnz"], dev)
-    same = same_work_bound(w["nnz"], 2, w["n_cols"], rows.numel(), dev)
+    b = bound(w["layout_bytes"], 2 * w["nnz"], dev, f64)
+    same = same_work_bound(w["nnz"], 2, w["n_cols"], rows.numel(), dev,
+                           x_dev.element_size())
     print(f"    device ms (plain, kernel, kernel, plain): {turns}; cuSPARSE "
           f"{lib_ms:.4f} ms; layout bound {b['bound_ms']:.4f} ms "
           f"({w['layout_bytes']} B, {b['bound_ms'] / ms:.3f} reached); "
           f"same-work bound {same['bound_ms']:.4f} ms ({same['bytes']} B)")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **b, same_work_bound_ms=same["bound_ms"],
+                library_ms=lib_ms, **bounds(b, same),
                 row_blocks=int(len(rbs)), nnz=w["nnz"])
 
 
@@ -1503,12 +1707,13 @@ def time_graph_loops(models: dict, x: dict, nnz: int, dev, card: str,
 
 
 def sharded_rank(rank: int, world: int, m, host, extra: bool) -> dict:
-    """One rank of the sharded path on the card (16c/16d): the sharded
-    EHYB model on ``host`` (its y against nothing here: rank 0 returns the
-    gathered y), its row-block counts, K1's launches in one apply, the
-    eager chained loop against one apply, and the host-clock microseconds
-    per eager apply; with ``extra``, the sharded routed engine and the
-    sharded degree split on small matrices, against the oracle."""
+    """One rank of the sharded path on the card (16c/16d, 19d): the sharded
+    EHYB model on ``host`` (in its config's dtype; its y against nothing
+    here: rank 0 returns the gathered y), its row-block counts, K1's
+    launches in one apply, the eager chained loop against one apply, and
+    the host-clock microseconds per eager apply; with ``extra``, the
+    sharded routed engine and the sharded degree split on small matrices,
+    against the oracle."""
     dev = rank_device("cuda", rank)
     cfg = port.EhybConfig(**SHARDED_CFG)
     model = ShardedEhybSpmv(cfg, device=dev).setup(m, host)
@@ -1664,7 +1869,7 @@ def check_sharded(m, model_flat, m_gather, dev, card: str) -> dict:
                                  plain_ms=t["plain_ms"],
                                  library_ms=t["library_ms"],
                                  bound_ms=t["bound_ms"],
-                                 same_work_bound_ms=t["same_work_bound_ms"],
+                                 layout_bound_ms=t["layout_bound_ms"],
                                  row_blocks=t["row_blocks"]))
     del hosts
 
@@ -1686,33 +1891,37 @@ def check_sharded(m, model_flat, m_gather, dev, card: str) -> dict:
 
 def check_f64_small(dev) -> None:
     """K1 and K9 in f64 against their f64 plain versions on small matrices
-    that reach every f64 variant: K1 on the layouts of
-    :func:`kernel_cases` with f64 values (the flagship at
-    ``dtype="float64"``: nwin 1/2/4), on the edge body (cut row blocks, a
-    zero-width one, a ragged slice) and on the precision mode's stress
-    matrix end to end (rel <= F64_TOL against the oracle); K9 through
-    :func:`check_dia_small` in f64 (odd and negative offsets, both x
-    modes, the guarded edges, fem3d_16 in the precision mode)."""
-    for name, m, cfg, nwin, kahan in kernel_cases():
-        if kahan:
-            continue  # no compensated f64 kernel: f64 sums need none
-        model = port.EhybSpmv(dataclasses.replace(cfg, dtype="float64"),
-                              device=dev).setup(m)
+    that reach every f64 variant: K1 on the layouts of :func:`f64_cases`
+    (the flagship at ``dtype="float64"``: nwin 1/2/4, plain and Kahan, the
+    f64 cancellation matrix, where only Kahan keeps row 0), on the edge
+    body (cut row blocks, a zero-width one, a ragged slice; plain and
+    Kahan) and on the precision mode's stress matrix end to end (rel <=
+    F64_TOL against the oracle); K9 through :func:`check_dia_small` in f64
+    (odd and negative offsets, both x modes, the guarded edges, fem3d_16
+    in the precision mode)."""
+    for name, m, cfg, nwin, kahan in f64_cases():
+        model = port.EhybSpmv(cfg, device=dev).setup(m)
         check(model.dev.nwin == nwin and model.module.cells is not None
+              and model.module.kahan == kahan
               and model.module.cells.cell_val.dtype == torch.float64,
-              f"{name} f64: layout nwin={model.dev.nwin}, K1's plan in f64")
-        x = deterministic_x(m.dimension)
-        check_k1_case(f"{name} f64", model.ehyb,
-                      model.prepare_x(x).cpu().numpy(), False, dev,
-                      model.module.cells)
-        err = rel_np(model.matvec(x), oracle_spmv(m, x))
-        check(err <= F64_TOL, f"{name} f64: model vs oracle rel {err:.3e}")
+              f"{name}: layout nwin={model.dev.nwin}, K1's plan in f64")
+        x = np.ones(m.dimension) if m.val.max() >= 1e8 \
+            else deterministic_x(m.dimension)
+        check_k1_case(name, model.ehyb, model.prepare_x(x).cpu().numpy(),
+                      kahan, dev, model.module.cells)
+        reset_launches()
+        y = model.matvec(x)
+        check(ehyb_stream.stream_body.launches == 1,
+              f"{name}: K1 launched once in a product")
+        check_cancel_row(name, m, y, kahan)
     e = edge_body()
     rng = np.random.default_rng(3)
     e.ell_val = np.where(e.ell_val != 0, rng.standard_normal(
         e.ell_val.shape), 0.0)
-    check_k1_case("edge body f64", e, rng.standard_normal(e.padded_x_rows),
-                  False, dev)
+    x = rng.standard_normal(e.padded_x_rows)
+    for kahan in (False, True):
+        check_k1_case(f"edge body f64{' kahan' if kahan else ''}", e, x,
+                      kahan, dev)
     m = stress_matrix()
     model = port.EhybSpmv(port.EhybConfig(dword_values=True),
                           device=dev).setup(m)
@@ -1789,6 +1998,166 @@ def check_small_gate(dev, card: str) -> dict:
           f"stencil3d(24, 27): est {g['est'] / g['floor']:.3f}x the floor, "
           "the body kept without measuring")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: a float64 config where the reference answers.
+# ---------------------------------------------------------------------------
+
+def graph_loop_gflops(model, x: torch.Tensor, nnz: int, dev,
+                      n: int = 500) -> float:
+    """One model's graph loop (captured first), timed twice: GFLOP/s over
+    both readings."""
+    model.iterate(x, n)
+    torch.cuda.synchronize(dev)
+    captures = CapturedGraph.captures
+    secs = [timed_seconds(lambda: model.iterate(x, n), dev) / n
+            for _ in range(2)]
+    check(CapturedGraph.captures == captures,
+          "no graph captured inside the timed loop")
+    print(f"  graph loop: us/iter " + ", ".join(f"{1e6 * t:.2f}"
+                                                for t in secs))
+    return 2e-9 * nnz * len(secs) / sum(secs)
+
+
+def check_sharded_f64(dev, card: str) -> tuple:
+    """19d: ShardedEhybSpmv in a float64 config on SHARDED_MATRIX: one
+    rank through the graph loop (K1's f64 list variant over the boundary
+    list), two gloo ranks on the one card (interior and boundary lists),
+    each against the oracle within F64_TOL; the f64 list kernel timed; and
+    the f64 cancellation matrix at one rank, where only the compensated
+    list variant keeps row 0.  Returns (launches, timing fields)."""
+    m = generate.load_corpus(SHARDED_MATRIX)
+    cfg = port.EhybConfig(**SHARDED_CFG, dtype="float64")
+    x = deterministic_x(m.dimension)
+    want = oracle_spmv(m, x)
+    host1 = plan_sharded(m, cfg, 1)
+    model = ShardedEhybSpmv(cfg, device=dev).setup(m, host1)
+    cells = model.module.cells
+    check(model.loop == "graph"
+          and cells.plan.cell_val.dtype == torch.float64,
+          f"world 1 in f64: loop {model.loop}, the shard's plan in "
+          f"{cells.plan.cell_val.dtype}, {cells.stats['n_boundary']} "
+          "boundary row blocks")
+    xd = model.prepare_x(x)
+    reset_launches()
+    y = model.recover_y(model.apply(xd))
+    model.iterate(xd, 500)
+    torch.cuda.synchronize(dev)
+    launches = ehyb_stream.stream_body.launches
+    err = rel_np(y, want)
+    check(launches > 0 and err <= F64_TOL,
+          f"{SK1F64['name']} launched {launches} times in one apply and the "
+          f"500-step graph loop; world 1 f64 vs oracle rel {err:.3e} <= "
+          f"{F64_TOL}")
+    gf = graph_loop_gflops(model, xd, m.nnz, dev)
+    print(f"  ehyb_sharded D=1 f64 on {SHARDED_MATRIX}: {gf:.2f} GFLOP/s; "
+          f"{card}; {card_state()}")
+    print("  the f64 sharded K1 at D=1 over all its row blocks (the "
+          "boundary list):")
+    sk1 = time_k1_list(cells.plan, cells.boundary.cpu().numpy(),
+                       model.module.ex.x_buf, False, dev)
+    del model
+    host2 = plan_sharded(m, cfg, 2)
+    res = launch.spawn(sharded_rank, 2, "gloo", args=(m, host2, False),
+                       timeout=RANK_TIMEOUT_S)
+    for r in res:
+        check(r["interior"] > 0 and r["boundary"] > 0 and r["launches"] == 2
+              and r["err_loop"] <= F64_TOL,
+              f"D=2 f64 rank {r['rank']}: {r['interior']} interior, "
+              f"{r['boundary']} boundary row blocks, {r['launches']} K1 "
+              f"launches an apply, eager loop vs apply rel "
+              f"{r['err_loop']:.3e}, {r['us_per_apply']:.1f} us per eager "
+              "apply")
+    err = rel_np(res[0]["y"], want)
+    check(err <= F64_TOL, f"D=2 f64 vs oracle rel {err:.3e} <= {F64_TOL}")
+    mc = cancellation_matrix_f64()
+    for kahan in (False, True):
+        c = dataclasses.replace(cfg, compensated_sum=kahan)
+        sm = ShardedEhybSpmv(c, device=dev).setup(mc)
+        reset_launches()
+        yc = sm.matvec(np.ones(mc.dimension))
+        check(ehyb_stream.stream_body.launches > 0,
+              f"the f64 cancellation matrix at world 1: K1's list variant "
+              f"launched {ehyb_stream.stream_body.launches} times")
+        check_cancel_row(f"sharded cancel 1e17 f64{' kahan' if kahan else ''}",
+                         mc, yc, kahan)
+    return launches, dict(sk1, gflops_d1=gf)
+
+
+def check_f64_paths(dev, card: str) -> dict:
+    """19: a float64 config (``--dtype float64``, not the precision mode)
+    where the reference answers, through the CLI at full size: pp512 with
+    compensation (K1 f64 Kahan + K9 f64), pp1024 forced past residency with
+    compensation (the window cache's f64 Kahan variant on a main path, bit
+    for bit with its plain version on the CPU and timed there), pp4096 (the
+    window cache in f64 + K9 f64; the window cache timed on its plan, plain
+    and Kahan), each within F64_TOL of the oracle; then the sharded engine
+    in f64.  Returns the ``kernels`` line's new entries."""
+    t0 = time.perf_counter()
+    print(f"  19a: python -m ehyb_spmv_torch {' '.join(KAHAN_F64_ARGS)}")
+    res, model, la = drive(KAHAN_F64_ARGS, F64_TOL)
+    check(la["K1"] > 0 and la["K9"] > 0 and la["WC"] == 0
+          and model.module.kahan
+          and model.module.cells.cell_val.dtype == torch.float64,
+          f"{K1F64K['name']} launched {la['K1']} times, K9 f64 {la['K9']} "
+          f"times; {res['gflops']:.2f} GFLOP/s; {card}")
+    print(f"  K1 f64 Kahan on {res['matrix']}'s body ({card}):")
+    k1k = time_k1(model, res, dev, n_eager=50)
+    del model
+    t1 = time.perf_counter()
+    print(f"  19b: python -m ehyb_spmv_torch {' '.join(WC_KAHAN_F64_ARGS)} "
+          "(X_RESIDENT_BYTES=1024 in-process)")
+    with patched(X_RESIDENT_BYTES=1024):
+        res, model, lw = drive(WC_KAHAN_F64_ARGS, F64_TOL)
+    p = model.module.wincache
+    check(p is not None and lw["WC"] > 0 and lw["K1"] == 0
+          and model.module.kahan and p.cell_val.dtype == torch.float64,
+          f"{WCF64K['name']} launched {lw['WC']} times, K1 {lw['K1']} "
+          f"times (TPU branch {model.module.branch}); {res['gflops']:.2f} "
+          f"GFLOP/s; {card}")
+    k1 = build_stream_cells(model.ehyb).to_torch(dev)
+    check_wincache_plan(res["matrix"], model.dev, p, k1,
+                        model.prepare_x(deterministic_x(res["dim"])), True)
+    del k1
+    print(f"  the window cache's Kahan variant in f64 on {res['matrix']}'s "
+          f"body, its main path ({card}):")
+    wck = time_wincache(model, res, dev)
+    del model, p
+    t2 = time.perf_counter()
+    print(f"  19c: python -m ehyb_spmv_torch {' '.join(HBM_F64_ARGS)}")
+    res, model, lh = drive(HBM_F64_ARGS, F64_TOL)
+    p = model.module.wincache
+    check(res["dim"] == 16777216 and res["nnz"] == 83869696
+          and p is not None and p.cell_val.dtype == torch.float64
+          and p.slot_rows == ehyb_wincache.SLOT_ROWS_F64
+          and lh["WC"] > 0 and lh["K9"] > 0 and lh["K1"] == 0,
+          f"full size in f64: {WCF64['name']} launched {lh['WC']} times, K9 "
+          f"f64 {lh['K9']} times, K1 {lh['K1']} times; plan at "
+          f"{p.slot_rows} slot rows; TPU branch {model.module.branch}; "
+          f"setup {res['setup_seconds']['total']:.1f} s; "
+          f"{res['gflops']:.2f} GFLOP/s; {card}")
+    print(f"  the window cache in f64 on {res['matrix']}'s body ({card}):")
+    wc = time_wincache(model, res, dev)
+    print(f"  its Kahan variant on the same plan ({card}):")
+    wck4 = time_wincache(model, res, dev, kahan=True,
+                         library_ms=wc["library_ms"])
+    print(f"  window cache f64 on {res['matrix']} ({p.slot_rows} slot rows, "
+          f"{p.groups * 128} threads): plain {wc['ms']:.4f} ms, Kahan "
+          f"{wck4['ms']:.4f} ms; {card}")
+    print(f"  K9 f64 on {res['matrix']}'s diagonal ({card}):")
+    time_dia(model, res, dev, n=20)
+    del model, p
+    t3 = time.perf_counter()
+    print(f"  19d: ehyb_sharded in f64 on {SHARDED_MATRIX}")
+    ls, sk1 = check_sharded_f64(dev, card)
+    t4 = time.perf_counter()
+    print(f"  phase 19 wall: 19a {t1 - t0:.1f} s, 19b {t2 - t1:.1f} s, 19c "
+          f"{t3 - t2:.1f} s, 19d {t4 - t3:.1f} s")
+    return {"k1k": dict(K1F64K, launches=la["K1"], **k1k),
+            "wc": dict(WCF64, launches=lh["WC"], **wc),
+            "wck": dict(WCF64K, launches=lw["WC"], **wck),
+            "sk1": dict(SK1F64, launches=ls, **sk1)}
 
 
 def main() -> int:
@@ -2077,9 +2446,16 @@ def main() -> int:
     phase("18: the small gate on the card: "
           + ", ".join(SMALL_GATE_MATRICES) + " and stencil3d(24, 27)")
     gates = check_small_gate(dev, card)
+    t19 = time.perf_counter()
+    del rows, model1, model2, model3, model4, model7, plan
+    phase("19: a float64 config where the reference answers: "
+          "permuted_poisson_512 --compensated (K1 f64 Kahan), "
+          "permuted_poisson_4096 (the window cache in f64) and "
+          f"ehyb_sharded on {SHARDED_MATRIX}, at full size")
+    f64k = check_f64_paths(dev, card)
     t_end = time.perf_counter()
-    print(f"  phase 17 {t18 - t17:.1f} s, phase 18 {t_end - t18:.1f} s; "
-          f"script wall {t_end - t_start:.1f} s")
+    print(f"  phase 17 {t18 - t17:.1f} s, phase 18 {t19 - t18:.1f} s, phase "
+          f"19 {t_end - t19:.1f} s; script wall {t_end - t_start:.1f} s")
 
     print(json.dumps({"small_gate": gates}))
     print(json.dumps({"kernels": [
@@ -2089,7 +2465,8 @@ def main() -> int:
         dict(WC, launches=launch4["WC"], **wc),
         dict(SK1, **sk1),
         dict(K1F64, launches=launch7["K1"], **k1f64),
-        dict(K9F64, launches=launch8["K9"], **k9f64)]}))
+        dict(K9F64, launches=launch8["K9"], **k9f64),
+        f64k["k1k"], f64k["sk1"], f64k["wc"], f64k["wck"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,12 @@
 //
 // The value type Val is float, or double for the precision mode
 // (ops/dword.py: f64 values, x, y and sums, where the TPU carries (hi, lo)
-// float pairs).  A double takes 8 B, as a TPU pair does, and the card adds
-// it natively, so no compensation is built for it: the f64 kernel is the
-// variant the mode runs (one row a thread, x through L1/L2, no list), with
-// the cells' values 8 B wide and their indices as they are.
+// float pairs) and for a float64 config (--dtype float64, with or without
+// --compensated, on the flagship and on the sharded path).  A double takes
+// 8 B, as a TPU pair does, and the card adds it natively.  The double
+// kernel is built at one row a thread with x through L1/L2, plain or
+// Neumaier (__dadd_rn, __dsub_rn, fabs), with or without a row-block
+// list; the cells' values are 8 B wide and their indices as they are.
 //
 // What the TPU needed and this leaves behind: the 128-lane width steps of
 // window-local or relaxed lo-slot columns, padded to each slice's width and
@@ -310,16 +312,21 @@ KernelFn pick_l(int rows_per_thread, int staged, int kahan) {
   }
 }
 
+template <bool LIST>
+KernelFn pick_f64(int kahan) {
+  return kahan ? (KernelFn)stream_body_kernel<double, 1, false, true, LIST>
+               : (KernelFn)stream_body_kernel<double, 1, false, false, LIST>;
+}
+
 // The kernel variant (the list variant where `list`, the double one where
-// `f64`), or nullptr where none is built.  In double only the precision
-// mode's variant is built: one row a thread, x through L1/L2, no Kahan, no
-// list.
+// `f64`), or nullptr where none is built.  In double the variants are built
+// at one row a thread with x through L1/L2: plain or Kahan, with or without
+// a list.
 KernelFn pick(int rows_per_thread, int staged, int kahan, int f64,
               bool list = false) {
   if (f64) {
-    return rows_per_thread == 1 && !staged && !kahan && !list
-               ? (KernelFn)stream_body_kernel<double, 1, false, false, false>
-               : nullptr;
+    if (rows_per_thread != 1 || staged) return nullptr;
+    return list ? pick_f64<true>(kahan) : pick_f64<false>(kahan);
   }
   return list ? pick_l<true>(rows_per_thread, staged, kahan)
               : pick_l<false>(rows_per_thread, staged, kahan);
@@ -352,12 +359,13 @@ extern "C" long long ehyb_stream_smem_bytes(int rows_per_thread, int staged,
   return (long long)smem_bytes(rows_per_thread, staged, threads, f64);
 }
 
-// Blocks of `threads` threads of a variant that stay resident on one SM (0
-// where none can), or a negative CUDA error; -cudaErrorInvalidValue where
-// no such variant is built.
+// Blocks of `threads` threads of a variant (the list variant where `list`)
+// that stay resident on one SM (0 where none can), or a negative CUDA
+// error; -cudaErrorInvalidValue where no such variant is built.
 extern "C" int ehyb_stream_resident_blocks(int rows_per_thread, int staged,
-                                           int kahan, int f64, int threads) {
-  const KernelFn fn = pick(rows_per_thread, staged, kahan, f64);
+                                           int kahan, int f64, int threads,
+                                           int list) {
+  const KernelFn fn = pick(rows_per_thread, staged, kahan, f64, list != 0);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(rows_per_thread, staged, threads, f64);
   int rc = allow_smem(fn, smem);

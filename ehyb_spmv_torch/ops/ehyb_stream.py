@@ -14,9 +14,10 @@ fallbacks.  :func:`make_stream_apply` picks K1 or the window-cache kernel
 :func:`stream_body` launches the kernel for tensors on a CUDA device and
 takes the plain version :func:`stream_body_plain` only for tensors on the
 CPU.  A CUDA call launches the kernel or raises; nothing falls back.  The
-plan's values and x are float32, or float64 for the precision mode
-(``ops/dword.py``), whose kernel is built for the default geometry only:
-one row a thread, x through L1/L2, no Kahan, no row-block list.
+plan's values and x are float32, or float64 (the precision mode,
+``ops/dword.py``, and a ``dtype="float64"`` config), whose kernel is built
+at one row a thread with x through L1/L2, plain or Kahan, with or without
+a row-block list.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ from .dia import SMEM_LIMIT_BYTES, dia_body
 from .ehyb_wincache import WinCacheDevice, build_wincache_plan, wincache_body
 from .stream_cells import (BLOCK_ROWS, PIECE_CELL, PIECE_RB, PIECE_ROW,
                            StreamCellsDevice, build_stream_cells)
-from .torch_ops import combine_ehyb, ehyb_er, ehyb_long
+from .torch_ops import (chain_offsets, combine_ehyb, ehyb_er, ehyb_long,
+                        neumaier_rows)
 
 log = get_logger(__name__)
 
@@ -82,7 +84,7 @@ GEOMETRY = StreamGeometry()
 _lock = threading.Lock()
 _built = None
 _lib = None
-#: (geometry, kahan, f64, device) → blocks of it resident on one SM.
+#: (geometry, kahan, f64, list, device) → blocks of it resident on one SM.
 _resident: dict = {}
 
 
@@ -102,7 +104,7 @@ def build_kernel() -> BuiltLibrary:
                 [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             lib.ehyb_stream_resident_blocks.restype = ctypes.c_int
-            lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 5
+            lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 6
             lib.ehyb_stream_registers.restype = ctypes.c_int
             lib.ehyb_stream_registers.argtypes = [ctypes.c_int] * 4
             lib.ehyb_stream_smem_bytes.restype = ctypes.c_longlong
@@ -112,21 +114,22 @@ def build_kernel() -> BuiltLibrary:
 
 
 def resident_blocks(geometry: StreamGeometry, kahan: bool, device,
-                    f64: bool = False) -> int:
-    """Blocks of this geometry (in float64 where ``f64``) that stay resident
-    on one SM of ``device`` (made once and kept); raises where not one
-    does, as the launch would be refused."""
-    key = (geometry, bool(kahan), bool(f64), torch.device(device))
+                    f64: bool = False, lst: bool = False) -> int:
+    """Blocks of this geometry (in float64 where ``f64``, its row-block list
+    variant where ``lst``) that stay resident on one SM of ``device`` (made
+    once and kept); raises where not one does, as the launch would be
+    refused."""
+    key = (geometry, bool(kahan), bool(f64), bool(lst), torch.device(device))
     n = _resident.get(key)
     if n is None:
         smem = smem_bytes(geometry, f64)
         if smem > SMEM_LIMIT_BYTES:
             raise RuntimeError(f"K1 {geometry} needs {smem} B of shared "
                                f"memory a block, above {SMEM_LIMIT_BYTES}")
-        with torch.cuda.device(key[3]):
+        with torch.cuda.device(key[4]):
             n = _lib.ehyb_stream_resident_blocks(
                 geometry.rows, int(geometry.x_mode == "staged"), int(kahan),
-                int(f64), geometry.threads)
+                int(f64), geometry.threads, int(lst))
         if n <= 0:
             raise RuntimeError(f"K1 {geometry} cannot run (occupancy {n})")
         _resident[key] = n
@@ -151,13 +154,13 @@ def smem_bytes(geometry: StreamGeometry, f64: bool = False) -> int:
 
 
 def grid_of(p: StreamCellsDevice, geometry: StreamGeometry, kahan: bool,
-            device, n_rb: int = None) -> int:
-    """The persistent grid: the resident blocks of the card, or fewer where
-    the row-block groups (of the plan, or of ``n_rb`` listed row blocks) do
-    not give every warp one."""
+            device, n_rb: int = None, lst: bool = False) -> int:
+    """The persistent grid: the resident blocks of the card (of the list
+    variant where ``lst``), or fewer where the row-block groups (of the
+    plan, or of ``n_rb`` listed row blocks) do not give every warp one."""
     f64 = p.cell_val.dtype == torch.float64
     per_sm = min(geometry.blocks_per_sm,
-                 resident_blocks(geometry, kahan, device, f64))
+                 resident_blocks(geometry, kahan, device, f64, lst))
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     n_rb = p.n_rb if n_rb is None else n_rb
     groups = -(-n_rb // geometry.rows)
@@ -209,19 +212,26 @@ def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
     return out
 
 
+def check_built(g: StreamGeometry, dtype: torch.dtype) -> None:
+    """Refuse a geometry K1 is not built for in ``dtype``: float32 at every
+    checked geometry; float64 at one row a thread with x through L1/L2
+    (plain or Kahan, with or without a row-block list)."""
+    g.check()
+    if dtype == torch.float64 and (g.rows != 1 or g.x_mode != "ldg"):
+        what = [f"rows={g.rows}"] if g.rows != 1 else []
+        what += [f"x_mode={g.x_mode!r}"] if g.x_mode != "ldg" else []
+        raise ValueError(f"no float64 K1 built for {g} ({', '.join(what)}):"
+                         " float64 is built at one row a thread, x ldg")
+
+
 def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
             geometry: StreamGeometry = None, rb_list: torch.Tensor = None,
             out: torch.Tensor = None) -> torch.Tensor:
     """One launch at ``geometry`` (the default where None), counted."""
     g = GEOMETRY if geometry is None else geometry
-    g.check()
     _check(p, x_pad)
+    check_built(g, x_pad.dtype)
     f64 = x_pad.dtype == torch.float64
-    if f64 and (g.rows != 1 or g.x_mode != "ldg" or kahan
-                or rb_list is not None):
-        raise ValueError(f"no float64 K1 built for {g}, kahan={kahan}, "
-                         f"list={rb_list is not None}: one row a thread, x "
-                         "ldg, no Kahan, no list")
     y = _output(p, x_pad, rb_list, out)
     build_kernel()
     n = p.n_rb if rb_list is None else rb_list.shape[0]
@@ -232,7 +242,8 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
         p.cell_idx.data_ptr(), x_pad.data_ptr(), y.data_ptr(), p.n_rb,
         None if rb_list is None else rb_list.data_ptr(), n,
         g.rows, int(g.x_mode == "staged"), int(bool(kahan)), int(f64),
-        g.threads, grid_of(p, g, kahan, x_pad.device, n),
+        g.threads, grid_of(p, g, kahan, x_pad.device, n,
+                           rb_list is not None),
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ehyb_stream_body launch failed: CUDA error {rc}")
@@ -272,11 +283,13 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
     """Plain-torch version of the kernel: read each cell's x through its
     piece's table and add the products per row in cell order (a row's step
     order; a row block's later pieces follow the main ones).  With
-    ``kahan`` it sums in float64 and rounds once, the answer the
-    compensated kernel reaches to about one ulp.  With ``rb_list`` it
-    writes the listed row blocks' rows of the full sums into ``out`` (or
-    into zeros), as the kernel does."""
+    ``kahan`` a float32 x sums in float64 and rounds once, the answer the
+    compensated kernel reaches to about one ulp; a float64 x adds each
+    row's products in the kernel's order with Neumaier compensation.  With
+    ``rb_list`` it writes the listed row blocks' rows of the full sums into
+    ``out`` (or into zeros), as the kernel does."""
     dev = x_pad.device
+    neumaier = kahan and x_pad.dtype == torch.float64
     acc = torch.float64 if kahan else x_pad.dtype
     y = torch.zeros(p.n_rb * BLOCK_ROWS, dtype=acc, device=dev)
     if p.n_cells:
@@ -288,11 +301,17 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
         idx = p.cell_idx.long() & 0xFFFF
         col = p.rows.long()[first[:, PIECE_ROW] + (idx >> 7)] * LANES \
             + (idx & (LANES - 1))
-        row = first[:, PIECE_RB] * BLOCK_ROWS \
-            + (torch.arange(p.n_cells, device=dev) - first[:, PIECE_CELL]) \
-            % BLOCK_ROWS
+        off = torch.arange(p.n_cells, device=dev) - first[:, PIECE_CELL]
+        row = first[:, PIECE_RB] * BLOCK_ROWS + off % BLOCK_ROWS
         contrib = p.cell_val.to(x_pad.dtype) * x_pad[col]
-        y.index_add_(0, row, contrib.to(acc))
+        if neumaier:
+            width = torch.diff(piece[:, PIECE_CELL]) // BLOCK_ROWS
+            place = chain_offsets(piece[:-1, PIECE_RB], width)[cell_piece] \
+                + off // BLOCK_ROWS
+            y = neumaier_rows(contrib, row, place, y.shape[0],
+                              p.stats["max_row_cells"])
+        else:
+            y.index_add_(0, row, contrib.to(acc))
     y = y.to(x_pad.dtype)
     if rb_list is None:
         return y if out is None else out.copy_(y)

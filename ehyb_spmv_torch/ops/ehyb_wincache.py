@@ -10,11 +10,12 @@ and why the GPU needs a plan and a cell layout of its own.
 
 :func:`build_wincache_plan` cuts the slices into stages whose windows fit
 the block's shared memory and re-encodes the body's real cells per stage:
-one width per 32-row block, each cell a float32 value and a 16-bit index
-into its stage's staged x rows.  :func:`wincache_body` launches the kernel
-for CUDA tensors and takes :func:`wincache_body_plain` only for CPU tensors.
-The plain version applies the same plan on tensors (gather each stage's
-rows, index them with the cells), so the CPU tests hold the plan itself.
+one width per 32-row block, each cell a value (the body's type: float32,
+or float64 for a float64 config) and a 16-bit index into its stage's
+staged x rows.  :func:`wincache_body` launches the kernel for CUDA tensors
+and takes :func:`wincache_body_plain` only for CPU tensors.  The plain
+version applies the same plan on tensors (gather each stage's rows, index
+them with the cells), so the CPU tests hold the plan itself.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from ..config import LANES
 from ..core.ehyb import EhybDevice, EhybMatrix
 from .build import BuiltLibrary, build_cuda_library
 from .stream_plan import WIN_ROWS
+from .torch_ops import chain_offsets, neumaier_rows
 
 #: x rows of 128 floats (512 B) one stage holds, the groups of 128 threads
 #: of a block, and the most slices one stage holds: 80 KB of rows, so two
@@ -39,12 +41,27 @@ from .stream_plan import WIN_ROWS
 SLOT_ROWS = 160
 GROUPS = 8
 MAX_RUN_SLICES = 128
+#: The float64 plan's stage and block: a row of 128 doubles takes 1 KB, so
+#: 112 rows (112 KB) are the most that keep two blocks an SM, and 512
+#: threads give the double kernel 64 registers there.
+#: Measured on permuted_poisson_4096 by ``chip_wincache_sweep.py --f64``:
+#: 80 rows stage x 4.4 times over (chunked slices), 160 or more leave one
+#: block an SM.
+SLOT_ROWS_F64 = 112
+GROUPS_F64 = 4
+#: The most groups of 128 threads a block takes: the float kernel is built
+#: for blocks of up to 1024 threads, the double one for up to 512 (at 1024
+#: two blocks an SM leave it 32 registers, and it spills).
+MAX_GROUPS = 8
+MAX_GROUPS_F64 = 4
 #: Rows of a cell block: one warp, one width.
 BLOCK_ROWS = 32
 #: Largest stage a 16-bit cell index addresses (slot * 128 + lane).
 MAX_SLOT_ROWS = (1 << 16) // LANES
 #: Body steps the plan decodes at once (bounds its numpy temporaries).
 _CHUNK_STEPS = 1 << 15
+#: Value types the kernel is built for.
+DTYPES = (torch.float32, torch.float64)
 
 _lock = threading.Lock()
 _built = None
@@ -270,24 +287,34 @@ def _compact(e: EhybMatrix, slot: np.ndarray, seg_beg: np.ndarray,
     return rb_cell, cell_val, cell_idx.view(np.int16), n_real
 
 
-def build_wincache_plan(e: EhybMatrix, slot_rows: int = SLOT_ROWS,
-                        groups: int = GROUPS,
+def build_wincache_plan(e: EhybMatrix, slot_rows: int = None,
+                        groups: int = None,
                         max_run_slices: int = MAX_RUN_SLICES) -> WinCachePlan:
     """Cut the body into stages of whole slices whose windows fit
-    ``slot_rows`` staged x rows, one block each, and re-encode each stage's
-    real cells against its staged rows.
+    ``slot_rows`` staged x rows, one block of ``groups`` * 128 threads each
+    (where None: :data:`SLOT_ROWS` and :data:`GROUPS` for a float32 body,
+    :data:`SLOT_ROWS_F64` and :data:`GROUPS_F64` for a float64 one), and
+    re-encode each stage's real cells against its staged rows.
 
     Greedy over the slices in order: a slice joins the current stage while
     the union of the stage's window rows stays within ``slot_rows`` and the
     stage holds fewer than ``max_run_slices`` slices.  A slice whose own
     union passes ``slot_rows`` is walked in stages of steps (a stage closes
     where the next step's windows would overflow), all in one block."""
+    f64 = e.ell_val.dtype == np.float64
+    if slot_rows is None:
+        slot_rows = SLOT_ROWS_F64 if f64 else SLOT_ROWS
+    if groups is None:
+        groups = GROUPS_F64 if f64 else GROUPS
     if not 4 * WIN_ROWS <= slot_rows <= MAX_SLOT_ROWS:
         raise ValueError(f"slot_rows must hold one step's 4 windows "
                          f"({4 * WIN_ROWS} rows) and fit a 16-bit index "
                          f"(at most {MAX_SLOT_ROWS} rows)")
-    if not 1 <= groups <= 8:
-        raise ValueError("groups must be 1 to 8 (at most 1024 threads)")
+    most = MAX_GROUPS_F64 if f64 else MAX_GROUPS
+    if not 1 <= groups <= most:
+        raise ValueError(f"groups must be 1 to {most} for a "
+                         f"{e.ell_val.dtype} body (at most {most * LANES} "
+                         "threads a block)")
     offs = e.slice_offset.astype(np.int64)
     n_slices = offs.shape[0] - 1
     n_steps = int(offs[-1]) if n_slices else 0
@@ -324,20 +351,31 @@ def build_wincache_plan(e: EhybMatrix, slot_rows: int = SLOT_ROWS,
         raise ValueError("window-cache plan too large for int32 maps")
 
     n_cells = int(rb_cell[-1])
-    y_bytes = n_slices * LANES * 4
+    vb = cell_val.itemsize
+    y_bytes = n_slices * LANES * vb
+    # each row block's first y row (in row blocks): a split slice's rows
+    # take their cells over several stages
+    rb_stage = np.repeat(np.arange(per_stage.size), 4 * per_stage)
+    rb_first = np.arange(rb_stage.size) - stage_rb[rb_stage] \
+        + 4 * stage_slice[rb_stage, 0]
     stats = dict(
         n_blocks=len(block_stage) - 1, n_stages=len(stage_rows),
         chunked_slices=sum(u > 1 for u in per_block),
         staged_rows=int(row_ptr[-1]),
-        staged_bytes=int(row_ptr[-1]) * LANES * 4,
+        staged_bytes=int(row_ptr[-1]) * LANES * vb,
         max_stage_rows=int(sizes.max()) if sizes.size else 0,
         real_cells=int(n_real), compact_cells=n_cells,
         padded_cells=n_steps * LANES,
         max_width=int(np.diff(rb_cell).max() // BLOCK_ROWS)
         if n_cells else 0,
-        cell_bytes=n_cells * (cell_val.itemsize + 2),
-        body_bytes=n_steps * LANES * (e.ell_col.dtype.itemsize + 4),
-        x_bytes=e.padded_x_rows * 4, y_bytes=y_bytes)
+        # the most cells a row takes over its stages (the places of the
+        # compensated plain version)
+        max_row_cells=int(np.bincount(rb_first, weights=np.diff(rb_cell)
+                                      // BLOCK_ROWS).max())
+        if n_cells else 0,
+        cell_bytes=n_cells * (vb + 2),
+        body_bytes=n_steps * LANES * (e.ell_col.dtype.itemsize + vb),
+        x_bytes=e.padded_x_rows * vb, y_bytes=y_bytes)
     # what the kernel moves: its cells, its staged rows (x and re-fetch)
     # and y once
     stats["layout_bytes"] = stats["cell_bytes"] + stats["staged_bytes"] \
@@ -363,27 +401,57 @@ def build_kernel() -> BuiltLibrary:
             lib.ehyb_wincache_body.restype = ctypes.c_int
             lib.ehyb_wincache_body.argtypes = (
                 [ctypes.c_void_p] * 10
-                + [ctypes.c_int] * 3
+                + [ctypes.c_int] * 4
                 + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p])
+            lib.ehyb_wincache_resident_blocks.restype = ctypes.c_int
+            lib.ehyb_wincache_resident_blocks.argtypes = [ctypes.c_int] * 4
+            lib.ehyb_wincache_registers.restype = ctypes.c_int
+            lib.ehyb_wincache_registers.argtypes = [ctypes.c_int] * 3
             _built, _lib = built, lib
         return _built
 
 
+def resident_blocks(p: "WinCacheDevice", kahan: bool, device) -> int:
+    """Blocks of the plan's kernel (its groups, slot rows and value type)
+    that stay resident on one SM of ``device``."""
+    build_kernel()
+    with torch.cuda.device(device):
+        return _lib.ehyb_wincache_resident_blocks(
+            p.slot_rows, p.groups, int(bool(kahan)),
+            int(p.cell_val.dtype == torch.float64))
+
+
+def registers(p: "WinCacheDevice", kahan: bool) -> int:
+    """Registers a thread of the plan's kernel variant (its groups and
+    value type) takes."""
+    build_kernel()
+    return _lib.ehyb_wincache_registers(
+        p.groups, int(bool(kahan)), int(p.cell_val.dtype == torch.float64))
+
+
 def _check(e: EhybDevice, p: WinCacheDevice, x_pad: torch.Tensor) -> None:
-    """Refuse anything the kernel does not take."""
+    """Refuse anything the kernel does not take: x and the plan's values
+    float32 or float64 (the same), 16-bit indices, a block the value
+    type's kernel is built for."""
     dev = x_pad.device
-    if x_pad.dtype != torch.float32 or x_pad.dim() != 1 \
+    if x_pad.dtype not in DTYPES or x_pad.dim() != 1 \
             or not x_pad.is_contiguous():
-        raise ValueError("x_pad must be a contiguous 1-D float32 tensor")
+        raise ValueError("x_pad must be a contiguous 1-D float32 or float64 "
+                         "tensor")
     if x_pad.shape[0] < e.padded_x_rows:
         raise ValueError(f"x_pad has {x_pad.shape[0]} rows; the windows "
                          f"need {e.padded_x_rows}")
     if x_pad.data_ptr() % 16:
         raise ValueError("x_pad must be 16-byte aligned (cp.async)")
-    if p.cell_val.dtype != torch.float32 or p.cell_idx.dtype != torch.int16:
-        raise ValueError("the plan's cells must be float32 values and "
-                         "16-bit indices")
+    if p.cell_val.dtype != x_pad.dtype or p.cell_idx.dtype != torch.int16:
+        raise ValueError(f"the plan's cells must be {x_pad.dtype} values "
+                         "(x_pad's type) and 16-bit indices")
+    most = MAX_GROUPS_F64 if x_pad.dtype == torch.float64 else MAX_GROUPS
+    if not 1 <= p.groups <= most:
+        raise ValueError(f"the {x_pad.dtype} kernel takes 1 to {most} "
+                         f"groups (at most {most * LANES} threads a block); "
+                         f"the plan has {p.groups}")
     if p.n_slices != e.slice_offset.shape[0] - 1:
         raise ValueError("the plan does not match this body")
     for t in [e.slice_offset, *(getattr(p, f) for f in p.ARRAY_FIELDS)]:
@@ -401,14 +469,15 @@ def wincache_body(e: EhybDevice, p: WinCacheDevice, x_pad: torch.Tensor,
     every x read served from the plan's staged windows.
 
     CPU tensors take :func:`wincache_body_plain`; CUDA tensors launch the
-    kernel (``kahan`` selects the compensated variant) or raise."""
+    kernel (``kahan`` selects the compensated variant; float64 x takes the
+    float64 kernel) or raise."""
     if x_pad.device.type == "cpu":
         return wincache_body_plain(e, p, x_pad, kahan)
     if x_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {x_pad.device}")
     _check(e, p, x_pad)
     build_kernel()
-    y = torch.empty(p.n_slices * LANES, dtype=torch.float32,
+    y = torch.empty(p.n_slices * LANES, dtype=x_pad.dtype,
                     device=x_pad.device)
     rc = _lib.ehyb_wincache_body(
         p.cell_val.data_ptr(), p.cell_idx.data_ptr(), p.rb_cell.data_ptr(),
@@ -416,7 +485,8 @@ def wincache_body(e: EhybDevice, p: WinCacheDevice, x_pad: torch.Tensor,
         p.block_stage.data_ptr(), p.stage_slice.data_ptr(),
         p.stage_step.data_ptr(), p.stage_row_ptr.data_ptr(),
         p.stage_rows.data_ptr(), p.slot_rows, p.groups, int(bool(kahan)),
-        x_pad.data_ptr(), y.data_ptr(), p.n_blocks,
+        int(x_pad.dtype == torch.float64), x_pad.data_ptr(), y.data_ptr(),
+        p.n_blocks,
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ehyb_wincache_body launch failed: CUDA error "
@@ -437,8 +507,10 @@ def wincache_body_plain(e: EhybDevice, p: WinCacheDevice,
     """Plain-torch version of the kernel: gather every stage's x rows into
     one staging tensor, read each cell's x there through its stage index,
     and add the products per row in cell order (a row's step order).  With
-    ``kahan`` it sums in float64 and rounds once, the answer the
-    compensated kernel reaches to about one ulp."""
+    ``kahan`` a float32 x sums in float64 and rounds once, the answer the
+    compensated kernel reaches to about one ulp; a float64 x adds each
+    row's products in the kernel's order (its stages in turn) with
+    Neumaier compensation."""
     dev = x_pad.device
     acc = torch.float64 if kahan else x_pad.dtype
     y = torch.zeros(p.n_slices * LANES, dtype=acc, device=dev)
@@ -456,9 +528,15 @@ def wincache_body_plain(e: EhybDevice, p: WinCacheDevice,
     cell_rb = torch.repeat_interleave(
         torch.arange(p.n_rb, device=dev), torch.diff(p.rb_cell.long()),
         output_size=p.n_cells)
-    lane = torch.arange(p.n_cells, device=dev) % BLOCK_ROWS
+    off = torch.arange(p.n_cells, device=dev) - p.rb_cell.long()[cell_rb]
     flat = p.stage_row_ptr.long()[rb_stage][cell_rb] * LANES \
         + (p.cell_idx.long() & 0xFFFF)
     contrib = p.cell_val.to(x_pad.dtype) * staged[flat]
-    y.index_add_(0, rb_first[cell_rb] * BLOCK_ROWS + lane, contrib.to(acc))
+    row = rb_first[cell_rb] * BLOCK_ROWS + off % BLOCK_ROWS
+    if kahan and x_pad.dtype == torch.float64:
+        width = torch.diff(p.rb_cell.long()) // BLOCK_ROWS
+        place = chain_offsets(rb_first, width)[cell_rb] + off // BLOCK_ROWS
+        return neumaier_rows(contrib, row, place, y.shape[0],
+                             p.stats["max_row_cells"])
+    y.index_add_(0, row, contrib.to(acc))
     return y.to(x_pad.dtype)

@@ -256,6 +256,11 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None) -> StreamCellsPlan:
         real_cells=n_real, compact_cells=n_cells,
         padded_cells=n_steps * LANES,
         max_width=int(width.max()) if width.size else 0,
+        # the most cells a row takes over its pieces (the places of the
+        # compensated plain version)
+        max_row_cells=int(np.bincount(piece[:n_pieces, PIECE_RB],
+                                      weights=width).max())
+        if n_pieces else 0,
         table_rows=int(rows.size),
         max_table_rows=int(t_size.max()) if t_size.size else 0,
         cell_bytes=cell_bytes, map_bytes=map_bytes,

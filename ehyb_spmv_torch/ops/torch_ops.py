@@ -46,6 +46,48 @@ def _sum_slices(contrib: torch.Tensor, offset: torch.Tensor, n_slices: int,
     return y2[:n_slices].reshape(-1)
 
 
+def neumaier_rows(term: torch.Tensor, row: torch.Tensor,
+                  place: torch.Tensor, n_rows: int,
+                  n_places: int) -> torch.Tensor:
+    """Per-row sums of the terms with Neumaier compensation, each row's
+    terms added in ``place`` order (0, 1, ...), as the compensated kernels
+    add them: the float64 plain version of their Kahan variants.  A
+    (row, place) holds at most one term; a missing one adds 0.
+    ``n_places``, a host int above every place, sets the passes, so the
+    sum reads no device scalar (a CUDA graph can capture it)."""
+    n, dev = term.shape[0], term.device
+    at = torch.full((n_places * n_rows,), n, dtype=torch.long, device=dev)
+    at.index_copy_(0, place.long() * n_rows + row.long(),
+                   torch.arange(n, device=dev))
+    vals = torch.cat([term, term.new_zeros(1)])
+    s = term.new_zeros(n_rows)
+    c = term.new_zeros(n_rows)
+    for k in range(n_places):
+        v = vals[at[k * n_rows:(k + 1) * n_rows]]
+        t = s + v
+        c += torch.where(s.abs() >= v.abs(), (s - t) + v, (v - t) + s)
+        s = t
+    return s + c
+
+
+def chain_offsets(group: torch.Tensor, width: torch.Tensor) -> torch.Tensor:
+    """For units in walk order (a row block's pieces, or its stages), each
+    unit's first place in its group's row: the widths of the same group's
+    earlier units, summed."""
+    order = torch.argsort(group, stable=True)
+    w = width[order]
+    before = torch.cumsum(w, 0) - w
+    g = group[order]
+    start = torch.ones_like(g, dtype=torch.bool)
+    start[1:] = g[1:] != g[:-1]
+    # ``before`` never decreases, so its running max over the group starts
+    # is the current group's first value
+    base = torch.cummax(torch.where(start, before, 0), 0).values
+    out = torch.empty_like(before)
+    out[order] = before - base
+    return out
+
+
 def ehyb_dia(e: EhybDevice, x_pad: torch.Tensor,
              x_base: int = 0) -> torch.Tensor:
     """DIA body: y[i] = Σ_k dia_val[k, i] · x[i + d_k], one shifted slice of
@@ -94,8 +136,11 @@ def ehyb_body(e: EhybDevice, x_pad: torch.Tensor,
               compensated: bool = False) -> torch.Tensor:
     """SELL body: y[s*128+lane] = Σ_k ell_val[k,lane]·x[decoded col].
 
-    ``compensated`` sums in float64 and rounds once: the exact-sum answer
-    that the compensated kernel approximates to about one ulp."""
+    ``compensated`` on a float32 x sums in float64 and rounds once: the
+    exact-sum answer that the compensated kernel approximates to about one
+    ulp.  On a float64 x it adds each row's products in step order with
+    Neumaier compensation (:func:`neumaier_rows`), as the float64 Kahan
+    kernels do; it reads the widest slice's width on the host."""
     n_steps, c = e.ell_val.shape
     n_slices = e.slice_win_start.shape[0]
     if n_steps == 0 or e.body_nnz == 0:
@@ -103,6 +148,17 @@ def ehyb_body(e: EhybDevice, x_pad: torch.Tensor,
     gidx = body_gather_index(e)
     contrib = e.ell_val.to(x_pad.dtype) \
         * x_pad.index_select(0, gidx.reshape(-1)).reshape(gidx.shape)
+    if compensated and x_pad.dtype == torch.float64:
+        step_slice = _segment_rows(e.slice_offset, n_steps)
+        bounds = torch.cat([e.slice_offset.long(), step_slice.new_tensor(
+            [n_steps])])
+        place = torch.arange(n_steps, device=x_pad.device) \
+            - bounds[step_slice]
+        row = step_slice[:, None] * c + torch.arange(c, device=x_pad.device)
+        y = neumaier_rows(contrib.reshape(-1), row.reshape(-1),
+                          place[:, None].expand(-1, c).reshape(-1),
+                          (n_slices + 1) * c, int(torch.diff(bounds).max()))
+        return y[:n_slices * c]
     acc = torch.float64 if compensated else x_pad.dtype
     return _sum_slices(contrib, e.slice_offset, n_slices, acc).to(x_pad.dtype)
 

@@ -266,17 +266,102 @@ def test_f64_plan_keeps_f64_values():
 
 
 def test_f64_kernel_refuses_what_is_not_built():
-    """The f64 kernel is built for one row a thread, x through L1/L2, no
-    Kahan and no list; the wrapper refuses the rest, and an x whose type is
-    not the plan's, before any build."""
+    """The f64 kernel is built for one row a thread, x through L1/L2 (plain
+    or Kahan, with or without a list); the wrapper refuses the other
+    geometries, saying which, and an x whose type is not the plan's,
+    before any build."""
     e = edge_body()
     e.ell_val = e.ell_val.astype(np.float64)
     p = stream_cells.build_stream_cells(e).to_torch()
     x = torch.zeros(e.padded_x_rows, dtype=torch.float64)
-    for g, kahan in [(ehyb_stream.StreamGeometry(rows=2), False),
-                     (ehyb_stream.StreamGeometry(x_mode="staged"), False),
-                     (ehyb_stream.GEOMETRY, True)]:
-        with pytest.raises(ValueError, match="no float64 K1"):
-            ehyb_stream._launch(p, x, kahan, g)
+    for g, what in [(ehyb_stream.StreamGeometry(rows=2), "rows=2"),
+                    (ehyb_stream.StreamGeometry(x_mode="staged"),
+                     "x_mode='staged'")]:
+        for kahan in (False, True):
+            with pytest.raises(ValueError, match=f"no float64 K1.*{what}"):
+                ehyb_stream._launch(p, x, kahan, g)
     with pytest.raises(ValueError, match="x_pad's type"):
         ehyb_stream._launch(p, x.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_wrapper_takes_every_variant_the_models_ask(dtype):
+    """Every (value type, Kahan, row-block list) a model can ask of K1 at
+    the shipped geometry passes the wrapper's checks, which run before any
+    build: the flagship (plain or compensated) and the sharded path's two
+    lists, in float32 and float64."""
+    e = edge_body()
+    e.ell_val = e.ell_val.astype(
+        np.float64 if dtype == torch.float64 else np.float32)
+    p = stream_cells.build_stream_cells(e).to_torch()
+    x = torch.zeros(e.padded_x_rows, dtype=dtype)
+    lst = torch.arange(3, dtype=torch.int32)
+    for kahan in (False, True):
+        for rb_list in (None, lst):
+            ehyb_stream._check(p, x)
+            ehyb_stream.check_built(ehyb_stream.GEOMETRY, x.dtype)
+            y = ehyb_stream._output(p, x, rb_list, None)
+            assert y.dtype == dtype and y.shape == (p.n_rb * 32,)
+            got = ehyb_stream.stream_body(p, x, kahan, rb_list=rb_list)
+            assert got.dtype == dtype
+
+
+def _f64_cancel_body():
+    """The f64 cancellation matrix's artifact (the flagship's relaxed
+    layout, f64 values) and its row 0's place in y."""
+    from chip_smoke import cancellation_matrix_f64
+
+    m = cancellation_matrix_f64()
+    cfg = config_for(PORT, True, "sell_rx", 2, dtype="float64",
+                     compensated_sum=True)
+    _, r, e = host_pipeline(PORT, m, cfg)
+    assert e.ell_val.dtype == np.float64
+    return e, int(r.old_to_new[0])
+
+
+def test_f64_neumaier_keeps_the_cancelled_row():
+    """On a row of ±1e17 blocks and 100 ones (x all ones) the f64 plain
+    version with compensation gives the body row's exact sum (math.fsum
+    over its entries), as the padded body's compensated plain version
+    does, where the uncompensated f64 sum loses it."""
+    import math
+
+    e, r0 = _f64_cancel_body()
+    p = stream_cells.build_stream_cells(e).to_torch()
+    x = torch.ones(e.padded_x_rows, dtype=torch.float64)
+    s, lane = divmod(r0, 128)
+    offs = e.slice_offset
+    exact = math.fsum(e.ell_val[offs[s]:offs[s + 1], lane].tolist())
+    assert exact == 99.0  # the diagonal 1 goes to the DIA part
+    kahan = ehyb_stream.stream_body(p, x, True)
+    assert float(kahan[r0]) == exact
+    assert torch.equal(kahan, ehyb_body(e.to_torch(), x, compensated=True))
+    naive = ehyb_stream.stream_body(p, x, False)
+    assert float(naive[r0]) != exact
+
+
+@pytest.mark.parametrize("kahan", [False, True], ids=["plain", "kahan"])
+def test_f64_list_plain_equals_the_full_walk(kahan):
+    """In f64, plain or compensated, a row-block list's plain version gives
+    the full walk's rows for the listed row blocks (the cut ones among
+    them) and leaves the others as they were."""
+    e = edge_body()
+    rng = np.random.default_rng(4)
+    e.ell_val = np.where(e.ell_val != 0, rng.standard_normal(
+        e.ell_val.shape), 0.0)
+    plan = stream_cells.build_stream_cells(e)
+    p = plan.to_torch()
+    x = torch.from_numpy(rng.standard_normal(e.padded_x_rows))
+    full = ehyb_stream.stream_body(p, x, kahan)
+    cut = np.unique(plan.piece[plan.n_rb:-1, stream_cells.PIECE_RB])
+    rbs = np.union1d(cut, [0, plan.n_rb - 1]).astype(np.int32)
+    lst = torch.from_numpy(rng.permutation(rbs))
+    y = torch.full((p.n_rb * 32,), -7.0, dtype=torch.float64)
+    ehyb_stream.stream_body(p, x, kahan, rb_list=lst, out=y)
+    rows = (torch.from_numpy(rbs).long()[:, None] * 32
+            + torch.arange(32)).reshape(-1)
+    assert torch.equal(y[rows], full[rows])
+    other = torch.ones_like(y, dtype=torch.bool)
+    other[rows] = False
+    assert bool((y[other] == -7.0).all())

@@ -22,6 +22,10 @@ EHYB_CASES = {
         generate.random_general(4000, 8, seed=7), 2, density=0.7, seed=8),
         {"long_row_threshold": 64}),
     "dim_2025": (lambda: generate.poisson2d(45), {}),
+    # a float64 config: K1's f64 list variants (interior and boundary)
+    "scrambled_f64": (lambda: generate.permuted(generate.poisson2d(48),
+                                                seed=11),
+                      {"dtype": "float64"}),
 }
 
 
