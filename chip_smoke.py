@@ -98,12 +98,30 @@ row only the Kahan variants keep.  Phase 19 drives
 ``permuted_poisson_1024`` forced past residency with the same flags (the
 window cache's Kahan variant, held bit for bit to its plain version on the
 CPU and timed there), ``permuted_poisson_4096 --dtype float64`` (the window
-cache in f64, plain and Kahan timed on its plan; a second host setup)
-through the CLI and ``ShardedEhybSpmv`` in f64 at one rank (graph loop)
-and two gloo ranks, each within F64_TOL of the oracle with its launches
-counted; it times the new variants beside both bounds, their plain
+cache in f64, plain and Kahan timed on its plan; its host artifact is
+built in the background by ``scripts_torch/prewarm.py --dtype float64``
+from phase 9 on, and the CLI loads it with ``--cache``) through the CLI
+and ``ShardedEhybSpmv`` in f64 at one rank (graph loop) and two gloo
+ranks, each within F64_TOL of the oracle with its launches counted; it
+times the new variants beside both bounds, their plain
 versions and cuSPARSE in f64, and the ``kernels`` line gains four entries.
 The f64 plan's geometry was chosen by ``chip_wincache_sweep.py --f64``.
+
+Last, the bench surface (phase 20, ``bench_torch.py`` and
+``scripts_torch/``).  ``scripts_torch/prewarm.py --models ehyb``, started
+in the background before phase 1, builds the artifacts and oracles of
+phase 20's rows on the host, into a temporary cache, while the card runs
+phases 1-19.  Then every child runs in its own process with
+``artifact_cache=True`` on that cache: ``bench_torch.headline()`` (the
+pp512 flagship with K1 and K9 launched and an ER tail, ``bcoo`` as the
+baseline, ``fem3d_32`` on K9 and ``random_1m`` through the gate to
+``RoutedSpmv``), the headline again in the precision mode (rel <= 1e-12,
+the baseline in f32), and ``scripts_torch/sweep.py --models ehyb`` over
+the five corpus rows no other phase drives (``poisson2d_512``,
+``stencil27_24``, ``fem3d_32``, ``random_4m`` in the routed engine's
+column-block mode, ``powerlaw_1m``), its table rebuilt from its log by
+``scripts_torch/sweep_table.py``.  Each row prints its engine, launches,
+rel error, setup and wall.  Phase 20 adds no kernel.
 
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
@@ -111,6 +129,7 @@ output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -125,8 +144,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+import bench_torch
 import ehyb_spmv_torch as port
 from ehyb_spmv_torch import cli
+from ehyb_spmv_torch.core import cache as port_cache
 from ehyb_spmv_torch.core.coo import (MatrixCOO, coalesce, deterministic_x,
                                       oracle_spmv)
 from ehyb_spmv_torch.core.route import RoutedEpilogue, build_routed
@@ -149,6 +170,8 @@ from ehyb_spmv_torch.ops.torch_ops import body_gather_index, ehyb_body
 from ehyb_spmv_torch.utils.graphs import CapturedGraph, launch_counters
 from ehyb_spmv_torch.utils.profiling import phase_breakdown
 from ehyb_spmv_torch.utils.timing import detect_hbm_bw, timed_seconds
+from scripts_torch import sweep as torch_sweep
+from scripts_torch import sweep_table
 
 #: Kernel vs plain version, f32 both: only the summation order differs.
 KERNEL_TOL = 1e-6
@@ -258,6 +281,22 @@ SHARDED_MATRIX = "permuted_poisson_1024"
 SHARDED_CFG = {"window_rows": 1024}
 #: Seconds a spawn of sharded ranks may take before they are killed.
 RANK_TIMEOUT_S = 300
+#: Phase 20: the corpus rows no earlier phase drives, through
+#: ``scripts_torch/sweep.py --models ehyb``.
+SWEEP_ROWS = ("poisson2d_512", "stencil27_24", "fem3d_32", "random_4m",
+              "powerlaw_1m")
+#: The rows phase 20 runs the flagship on: ``scripts_torch/prewarm.py``
+#: builds their artifacts and oracles on the host while the card runs
+#: phases 1-19, the costliest first.
+PREWARM_ROWS = ("random_4m", "powerlaw_1m", "fem3d_32", "poisson2d_512",
+                "stencil27_24", "random_1m", "permuted_poisson_512")
+#: Seconds phase 20 waits for the prewarm to end (and 19c for its
+#: prebuild).
+PREWARM_TIMEOUT_S = 600
+#: Phase 19c's host setup, pp4096 in a float64 config, built on the host
+#: while the card runs phases 10-19b.
+PREBUILD_F64_ARGS = ("--models", "ehyb", "--dtype", "float64",
+                     "permuted_poisson_4096")
 #: float32 peak outside the tensor cores (NVIDIA's data sheets), matched like
 #: the bandwidth table of utils/timing.py: the first key in the name wins.
 PEAK_F32 = {"h100 pcie": 51e12, "h100": 67e12}
@@ -697,6 +736,17 @@ class patched:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def cache_dir(path: str):
+    """The port's artifact cache at ``path`` (``core/cache.py``'s default,
+    read at call time) for the length of a ``with`` block."""
+    old, port_cache.DEFAULT_CACHE_DIR = port_cache.DEFAULT_CACHE_DIR, path
+    try:
+        yield
+    finally:
+        port_cache.DEFAULT_CACHE_DIR = old
 
 
 def dia_geometries(f64: bool = False):
@@ -2085,15 +2135,16 @@ def check_sharded_f64(dev, card: str) -> tuple:
     return launches, dict(sk1, gflops_d1=gf)
 
 
-def check_f64_paths(dev, card: str) -> dict:
+def check_f64_paths(dev, card: str, prebuild: "Prewarm") -> dict:
     """19: a float64 config (``--dtype float64``, not the precision mode)
     where the reference answers, through the CLI at full size: pp512 with
     compensation (K1 f64 Kahan + K9 f64), pp1024 forced past residency with
     compensation (the window cache's f64 Kahan variant on a main path, bit
     for bit with its plain version on the CPU and timed there), pp4096 (the
     window cache in f64 + K9 f64; the window cache timed on its plan, plain
-    and Kahan), each within F64_TOL of the oracle; then the sharded engine
-    in f64.  Returns the ``kernels`` line's new entries."""
+    and Kahan; its host artifact from ``prebuild``'s cache), each within
+    F64_TOL of the oracle; then the sharded engine in f64.  Returns the
+    ``kernels`` line's new entries."""
     t0 = time.perf_counter()
     print(f"  19a: python -m ehyb_spmv_torch {' '.join(KAHAN_F64_ARGS)}")
     res, model, la = drive(KAHAN_F64_ARGS, F64_TOL)
@@ -2125,8 +2176,18 @@ def check_f64_paths(dev, card: str) -> dict:
     wck = time_wincache(model, res, dev)
     del model, p
     t2 = time.perf_counter()
-    print(f"  19c: python -m ehyb_spmv_torch {' '.join(HBM_F64_ARGS)}")
-    res, model, lh = drive(HBM_F64_ARGS, F64_TOL)
+    rc, since, out = prebuild.wait(PREWARM_TIMEOUT_S)
+    print("  19c's host artifact, built on the host since phase 9 "
+          f"(scripts_torch/prewarm.py {' '.join(PREBUILD_F64_ARGS)}):")
+    print("".join(f"    {ln}\n" for ln in out.splitlines()), end="")
+    check(rc == 0, f"the prebuild exited {rc} after {since:.1f} s (19c "
+                   f"waited {time.perf_counter() - t2:.1f} s of it)")
+    print(f"  19c: python -m ehyb_spmv_torch {' '.join(HBM_F64_ARGS)} --cache "
+          f"(the cache at {prebuild.cache_dir})")
+    with cache_dir(prebuild.cache_dir):
+        res, model, lh = drive(HBM_F64_ARGS + ["--cache"], F64_TOL)
+    check("cache_load" in res["setup_seconds"],
+          "19c loaded the prebuilt artifact")
     p = model.module.wincache
     check(res["dim"] == 16777216 and res["nnz"] == 83869696
           and p is not None and p.cell_val.dtype == torch.float64
@@ -2135,7 +2196,8 @@ def check_f64_paths(dev, card: str) -> dict:
           f"full size in f64: {WCF64['name']} launched {lh['WC']} times, K9 "
           f"f64 {lh['K9']} times, K1 {lh['K1']} times; plan at "
           f"{p.slot_rows} slot rows; TPU branch {model.module.branch}; "
-          f"setup {res['setup_seconds']['total']:.1f} s; "
+          f"setup {sum(res['setup_seconds'].values()):.1f} s (its cache "
+          "load and plan); "
           f"{res['gflops']:.2f} GFLOP/s; {card}")
     print(f"  the window cache in f64 on {res['matrix']}'s body ({card}):")
     wc = time_wincache(model, res, dev)
@@ -2160,11 +2222,213 @@ def check_f64_paths(dev, card: str) -> dict:
             "sk1": dict(SK1F64, launches=ls, **sk1)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the bench surface (bench_torch.py and scripts_torch/).
+# ---------------------------------------------------------------------------
+
+class Prewarm:
+    """``scripts_torch/prewarm.py ARGS`` in a background process, into
+    ``cache_dir``: the host builds artifacts and oracles while the card
+    runs earlier phases.  Leaving the ``with`` block stops it if it still
+    runs."""
+
+    def __init__(self, cache_dir: str, tag: str, args):
+        self.cache_dir, self.args = cache_dir, list(args)
+        self.out = os.path.join(cache_dir, f"{tag}.out")
+        self.err = os.path.join(cache_dir, f"{tag}.err")
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.join(os.path.dirname(
+                    os.path.abspath(__file__)), "scripts_torch", "prewarm.py"),
+                 *self.args], stdout=out, stderr=err,
+                env={**os.environ, "EHYB_TORCH_CACHE_DIR": self.cache_dir})
+        return self
+
+    def wait(self, timeout: float) -> tuple:
+        """(exit code, seconds since the start, standard output); the exit
+        code is None where it still runs after ``timeout`` seconds."""
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        with open(self.out) as f:
+            return rc, time.perf_counter() - self.t0, f.read()
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def bench_row(role: str, r: dict) -> str:
+    """One child's line: engine, launches, rel error, setup and wall."""
+    if bench_torch.failed(r):
+        return f"{role} {r['model']}@{r['matrix']}: FAIL {r['error']}"
+    setup = r["setup_seconds"]
+    return (f"{role} {r['model']}@{r['matrix']}: {r['gflops']:.2f} GFLOP/s, "
+            f"engine {r['engine']}, launches {r['launches']}, rel "
+            f"{r['rel_error']:.3e}, setup "
+            f"{setup.get('total', sum(setup.values())):.1f} s "
+            f"({', '.join(f'{k} {v:.2f}' for k, v in setup.items())}), "
+            f"corpus {r['load_seconds']:.1f} s, oracle "
+            f"{r['oracle_seconds']:.1f} s "
+            f"({'hit' if r['oracle_hit'] else 'miss'}), "
+            f"child wall {r['wall_seconds']:.1f} s")
+
+
+def table_rows(text: str) -> list:
+    """The data rows of a sweep table (its header row dropped)."""
+    return [ln for ln in text.splitlines() if ln.startswith("| ")][1:]
+
+
+def check_body_row(r: dict) -> None:
+    """An EHYB body row launched the kernel of every phase it holds: K9
+    where it has DIA entries, K1 or the window cache where it has a body,
+    and neither where it has none."""
+    la = r["launches"]
+    body = la["K1"] + la["WC"]
+    check(r["engine"] == "EhybSpmv" and (la["K9"] > 0) == (r["nnz_dia"] > 0)
+          and (body > 0) == (r["nnz_ell"] > 0) and la["RX"] == 0,
+          f"{r['matrix']}: {r['engine']}, K9 {la['K9']} launches for "
+          f"{r['nnz_dia']} DIA entries, K1 {la['K1']} and the window cache "
+          f"{la['WC']} for {r['nnz_ell']} body entries")
+
+
+def check_routed_row(r: dict) -> None:
+    la = r["launches"]
+    check(r["engine"] == "RoutedSpmv" and la["RX"] > 0
+          and r["nnz_routed"] > 0
+          and r["nnz_routed"] + r["nnz_spill"] == r["nnz"],
+          f"{r['matrix']}: {r['engine']} over {r['routed_blocks']} column "
+          f"block(s), {RX['name']} launched {la['RX']} times, "
+          f"{r['nnz_routed']} entries routed + {r['nnz_spill']} spilled = "
+          f"{r['nnz']}")
+
+
+def check_bench_surface(prewarm: Prewarm, res1: dict) -> None:
+    """Phase 20: the default headline through ``bench_torch``, its
+    precision mode, and ``scripts_torch/sweep.py --models ehyb`` over the
+    rows no earlier phase drives; every child in its own process with
+    ``artifact_cache=True``, reading the cache the prewarm filled."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the children need the card's memory
+    rc, since, out = prewarm.wait(PREWARM_TIMEOUT_S)
+    print("  the prewarm (scripts_torch/prewarm.py on the host, started "
+          "before phase 1):")
+    print("".join(f"    {ln}\n" for ln in out.splitlines()), end="")
+    check(rc == 0, f"the prewarm exited {rc} after {since:.1f} s (phase 20 "
+                   f"waited {time.perf_counter() - t0:.1f} s of it)")
+    with patched(env={"EHYB_TORCH_CACHE_DIR": prewarm.cache_dir}):
+        print("  20a: the default headline (bench_torch.headline)")
+        t1 = time.perf_counter()
+        rows, tail = bench_torch.headline("cuda")
+        for role, r in rows.items():
+            print(f"  {bench_row(role, r)}")
+        print(f"  tail: {json.dumps(tail)}")
+        print(f"  {tail['metric']} {tail['value']:.2f} GFLOP/s through "
+              f"bench_torch; phase 6's CLI read {res1['gflops']:.2f} for the "
+              "same row (other processes: not gated on each other)")
+        fl, base = rows["flagship"], rows["baseline"]
+        check(not bench_torch.failed(fl) and "error" not in tail
+              and fl["engine"] == "EhybSpmv" and fl["launches"]["K1"] > 0
+              and fl["launches"]["K9"] > 0
+              and fl["launches"]["RX"] == fl["launches"]["WC"] == 0
+              and fl["ell_steps"] > 0 and fl["nnz_er"] > 0
+              and fl["rel_error"] <= ORACLE_TOL,
+              f"flagship ehyb@{fl['matrix']}: launches {fl.get('launches')}, "
+              f"ell_steps {fl.get('ell_steps')}, nnz_er {fl.get('nnz_er')}, "
+              f"rel {fl.get('rel_error')}")
+        check(tail["baseline_model"] == "bcoo"
+              and base.get("engine") == "BcooSpmv",
+              f"baseline {tail['baseline_model']} ({base.get('engine')}), "
+              f"vs_baseline {tail['vs_baseline']:.3f}")
+        sec = rows["secondary"]
+        check(not bench_torch.failed(sec), f"secondary {bench_row('', sec)}")
+        check_body_row(sec)
+        gw = rows["gather"]
+        check(not bench_torch.failed(gw), f"gather {bench_row('', gw)}")
+        check_routed_row(gw)
+        print(f"  20a wall {time.perf_counter() - t1:.1f} s")
+
+        print("  20b: EHYB_BENCH_DWORD=1, the headline alone")
+        t1 = time.perf_counter()
+        with patched(env={"EHYB_BENCH_DWORD": "1", "EHYB_BENCH_SECONDARY": "",
+                          "EHYB_BENCH_GATHER": ""}):
+            rows, tail = bench_torch.headline("cuda")
+        for role, r in rows.items():
+            print(f"  {bench_row(role, r)}")
+        print(f"  tail: {json.dumps(tail)}")
+        fl, base = rows["flagship"], rows["baseline"]
+        check(not bench_torch.failed(fl) and fl["dword"]
+              and fl["rel_error"] <= F64_TOL and fl["launches"]["K1"] > 0
+              and set(rows) == {"flagship", "baseline"},
+              f"precision-mode flagship: rel {fl.get('rel_error')} <= "
+              f"{F64_TOL}, K1 launched {fl.get('launches')}")
+        check(not bench_torch.failed(base) and base["dword"] is False,
+              f"the baseline {base['model']} ran in f32 (dword "
+              f"{base.get('dword')})")
+        print(f"  20b wall {time.perf_counter() - t1:.1f} s")
+
+        print("  20c: scripts_torch/sweep.py --models ehyb "
+              + " ".join(SWEEP_ROWS))
+        t1 = time.perf_counter()
+        table = os.path.join(prewarm.cache_dir, "BENCH_SWEEP_H100.md")
+        sweep_log = os.path.join(prewarm.cache_dir, "sweep.log")
+        with open(sweep_log, "w") as f, contextlib.redirect_stdout(f):
+            swept = torch_sweep.sweep(SWEEP_ROWS, ["ehyb"], table, "cuda")
+        print(f"  {card_state()}")
+        with open(table) as f:
+            written = table_rows(f.read())
+        rebuilt = table_rows(sweep_table.render(
+            sweep_table.parse(sweep_log), "scripts_torch/sweep_table.py"))
+        check(written == rebuilt and len(written) == len(SWEEP_ROWS),
+              f"the table's {len(written)} rows, rebuilt the same from the "
+              "sweep's log by scripts_torch/sweep_table.py")
+        swept = dict(swept)
+        for mat in SWEEP_ROWS:
+            r = swept[mat]["ehyb"]
+            print(f"  {bench_row('sweep', r)}")
+            check(not bench_torch.failed(r) and r["rel_error"] <= ORACLE_TOL,
+                  f"{mat}: rel {r.get('rel_error')} <= {ORACLE_TOL}")
+        for mat in ("poisson2d_512", "stencil27_24", "fem3d_32"):
+            check_body_row(swept[mat]["ehyb"])
+        r4 = swept["random_4m"]["ehyb"]
+        if r4["engine"] == "RoutedSpmv":
+            check_routed_row(r4)
+        else:
+            print(f"  FINDING: the gate kept the body on random_4m "
+                  f"({r4['engine']})")
+            check_body_row(r4)
+        rp = swept["powerlaw_1m"]["ehyb"]
+        print(f"  powerlaw_1m: the gate picked {rp['engine']}")
+        if rp["engine"] == "RoutedSpmv":
+            check_routed_row(rp)
+        elif rp["engine"] == "DegreeSplitSpmv":
+            check(rp["launches"]["RX"] > 0 and rp["launches"]["K1"] > 0,
+                  f"powerlaw_1m: the split launched {rp['launches']}")
+        else:
+            check_body_row(rp)
+        print(f"  20c wall {time.perf_counter() - t1:.1f} s")
+    print(f"  phase 20 wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory(prefix="ehyb_bench_") as cache, \
+            contextlib.ExitStack() as jobs:
+        # phase 20's rows, built on the host while the card runs 1-19
+        prewarm = jobs.enter_context(
+            Prewarm(cache, "prewarm", ["--models", "ehyb", *PREWARM_ROWS]))
+        return run_phases(prewarm, jobs)
+
+
+def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -2289,6 +2553,10 @@ def main() -> int:
     phase("9: main path 4, x past the TPU's residency limit "
           f"(python -m ehyb_spmv_torch {' '.join(HBM_ARGS)})")
     res4, model4, launch4 = drive(HBM_ARGS)
+    # phase 19c's host setup (pp4096 in a float64 config), built on the
+    # host from the corpus entry phase 9 cached while phases 10-19b run
+    prebuild = jobs.enter_context(Prewarm(
+        prewarm.cache_dir, "prebuild_f64", PREBUILD_F64_ARGS))
     plan = model4.module.wincache
     print(f"  layout: {res4['layout']}; TPU branch {model4.module.branch}; "
           f"setup {res4['setup_seconds']['total']:.1f} s")
@@ -2452,10 +2720,15 @@ def main() -> int:
           "permuted_poisson_512 --compensated (K1 f64 Kahan), "
           "permuted_poisson_4096 (the window cache in f64) and "
           f"ehyb_sharded on {SHARDED_MATRIX}, at full size")
-    f64k = check_f64_paths(dev, card)
+    f64k = check_f64_paths(dev, card, prebuild)
+    t20 = time.perf_counter()
+    phase("20: the bench surface: bench_torch's headline, its precision "
+          "mode, and scripts_torch/sweep.py on " + ", ".join(SWEEP_ROWS))
+    check_bench_surface(prewarm, res1)
     t_end = time.perf_counter()
     print(f"  phase 17 {t18 - t17:.1f} s, phase 18 {t19 - t18:.1f} s, phase "
-          f"19 {t_end - t19:.1f} s; script wall {t_end - t_start:.1f} s")
+          f"19 {t20 - t19:.1f} s, phase 20 {t_end - t20:.1f} s; script wall "
+          f"{t_end - t_start:.1f} s")
 
     print(json.dumps({"small_gate": gates}))
     print(json.dumps({"kernels": [

@@ -119,9 +119,15 @@ class RoutedApply(torch.nn.Module):
         self.plan = plan
 
     @classmethod
-    def of(cls, rm: RoutedMatrix, device="cpu") -> "RoutedApply":
+    def of(cls, rm: RoutedMatrix, device="cuda") -> "RoutedApply":
         """Build the plan of ``rm`` and upload it with the epilogue's maps
-        (the schedule's stage arrays stay on the host)."""
+        (the schedule's stage arrays stay on the host), on the card unless
+        the caller asks for the CPU; a CUDA request without a CUDA device
+        raises."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"RoutedApply: device {device} requested but "
+                               "CUDA is not available")
         return cls(RoutedEpilogue(rm).to(device),
                    build_route_plan(rm).to_torch(device))
 

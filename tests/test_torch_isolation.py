@@ -1,7 +1,8 @@
-"""The port stands alone: it and chip_smoke.py import neither JAX nor the JAX
-package, it compiles its own copies of the C++ sources, the smoke script
-refuses to run without a CUDA device, CUDA requests raise where there is
-none, and the CLI runs on the CPU when asked."""
+"""The port stands alone: it, chip_smoke.py, bench_torch.py and
+scripts_torch/ import neither JAX nor the JAX package, it compiles its own
+copies of the C++ sources, the smoke script refuses to run without a CUDA
+device, CUDA requests raise where there is none, and the CLI runs on the
+CPU when asked."""
 import os
 import shutil
 import subprocess
@@ -34,6 +35,10 @@ import chip_wincache_sweep
 import chip_routed_sweep
 import chip_dia_sweep
 import chip_k1_sweep
+import bench_torch
+import scripts_torch.sweep
+import scripts_torch.sweep_table
+import scripts_torch.prewarm
 for name in ("ops.stream_plan", "ops.dia", "ops.ehyb_wincache",
              "ops.route_xcache", "ops.stream_cells"):
     assert f"ehyb_spmv_torch.{name}" in sys.modules, name

@@ -164,7 +164,7 @@ def test_permuted_dst_apply_matches_oracle(built):
     identity_dst) lands on the oracle through the scatter epilogue."""
     m, _, rm_port = built["powerlaw_spill"]
     assert not port_route.RoutedDevice(rm_port).ident
-    y = port_ops.RoutedApply.of(rm_port)(torch.from_numpy(_x_pad(rm_port, m)))
+    y = port_ops.RoutedApply.of(rm_port, device="cpu")(torch.from_numpy(_x_pad(rm_port, m)))
     x = deterministic_x(m.dimension)
     assert rel(y.numpy()[:m.dimension], oracle_spmv(m, x)) <= ORACLE_TOL
 

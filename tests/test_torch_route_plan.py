@@ -126,7 +126,8 @@ def test_plan_apply_matches_jax_interpret(name, monkeypatch):
     x = _x_pad(rm, m)
     want = np.asarray(make_routed_apply(rm_ref, interpret=True)(
         rm_ref.to_jax(), jnp.asarray(x)))
-    got = port_ops.RoutedApply.of(rm)(torch.from_numpy(x)).numpy()
+    got = port_ops.RoutedApply.of(rm, device="cpu")(
+        torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
     assert rel(got, want) <= PLAN_TOL
 
@@ -134,12 +135,21 @@ def test_plan_apply_matches_jax_interpret(name, monkeypatch):
 @pytest.mark.parametrize("name", list(SCHEDULES))
 def test_routed_apply_meets_the_oracle(name, schedules):
     m, rm = schedules[name]
-    ap = port_ops.RoutedApply.of(rm)
+    ap = port_ops.RoutedApply.of(rm, device="cpu")
     launches = rx.route_xcache.launches
     y = ap(torch.from_numpy(_x_pad(rm, m))).numpy()[:m.dimension]
     assert rel(y, oracle_spmv(m, deterministic_x(m.dimension))) <= ORACLE_TOL
     # the CPU takes the plain version and counts no launch
     assert rx.route_xcache.launches == launches
+
+
+def test_routed_apply_defaults_to_the_card(schedules):
+    """``RoutedApply.of`` uploads to the card unless the caller asks for
+    the CPU, as every model does: without a CUDA device it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_ops.RoutedApply.of(schedules["random_16k"][1])
 
 
 def test_model_keeps_no_stage_arrays_on_the_device():
