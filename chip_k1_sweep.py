@@ -3,6 +3,8 @@ its A/B.
 
     python3 chip_k1_sweep.py            # the geometry sweep
     python3 chip_k1_sweep.py --ab TAG [SHAPE ...]  # K1 as shipped, its rows
+    python3 chip_k1_sweep.py --f64      # K1 f64: plan forms x geometries
+    python3 chip_k1_sweep.py --ab TAG --f64 [CASE ...]  # K1 f64 as shipped
 
 Sets up ``permuted_poisson_512`` (262,144 rows) and
 ``permuted_poisson_1024`` (1,048,576 rows) through the flagship, as the CLI
@@ -28,11 +30,29 @@ padded body where it does not, so it runs in an older checkout too: copy
 this file to the root of the other checkout and run it from the root of
 each, in turns (A, B, B, A), in one call.
 
+``--f64`` sweeps the float64 kernel on ``permuted_poisson_512`` in the
+precision mode (``--dword``), whose unordered body is scattered: the plan
+in each form (the table form, direct columns in body order, direct
+columns with rows grouped in parts of 32 to 2,048 rows; see
+``ops/stream_cells.py``) at every block size and blocks per SM, each held
+bit for bit to the plain version run on the CPU, then what the shipped
+plan's scattered accesses cost (the kernel over copies without the row
+map, with x read at each cell's own row, and both: timing only), then
+every geometry on the float64 config's compensated flagship plan (pp512
+``--dtype float64 --compensated``, the table form) with Kahan.  It prints
+each time beside the same-work and layout bounds and names the fastest.  ``--ab TAG --f64``
+times K1 f64 as the checkout ships it on the ``F64_CASES`` (or those
+named): pp512 and fem3d_68 in the precision mode, pp512's compensated
+float64 flagship and the sharded engine's boundary list at one rank on
+permuted_poisson_1024 in float64, then drives pp512 ``--dword`` through
+the CLI; it too runs in an older checkout.
+
 Imports only the port and ``chip_smoke.py``'s helpers.  Exits non-zero
 without a CUDA device or when a check fails.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import subprocess
@@ -47,6 +67,7 @@ from ehyb_spmv_torch import cli
 from ehyb_spmv_torch.core.coo import deterministic_x
 from ehyb_spmv_torch.io import generate
 from ehyb_spmv_torch.ops import ehyb_stream
+from ehyb_spmv_torch.ops.stream_cells import build_stream_cells
 
 SHAPES = ("permuted_poisson_512", "permuted_poisson_1024")
 THREADS = (128, 256, 512)
@@ -169,14 +190,215 @@ def run_ab(tag: str, dev, shapes=SHAPES) -> int:
     return 0
 
 
+def f64_model(name: str, dev, **cfg):
+    """A flagship on one corpus matrix in the precision mode (or the
+    config ``cfg`` gives), its artifact cached across runs, and its padded
+    x."""
+    t0 = time.perf_counter()
+    m = generate.load_corpus(name)
+    cfg = cfg or dict(dword_values=True)
+    model = port.EhybSpmv(port.EhybConfig(artifact_cache=True, **cfg),
+                          device=dev).setup(m)
+    print(f"{name} {cfg}: setup {time.perf_counter() - t0:.1f} s, TPU "
+          f"branch {model.module.branch}", flush=True)
+    return model, model.prepare_x(deterministic_x(m.dimension))
+
+
+def f64_bounds(p, nnz: int, x: torch.Tensor, dev) -> tuple:
+    """The same-work and layout bounds (ms) of K1 f64 over plan ``p``."""
+    same = cs.same_work_bound(nnz, 2, x.numel(), p.n_rb * 32, dev, 8)
+    layout = cs.bound(p.stats["layout_bytes"], 2 * nnz, dev, True)
+    return same["bound_ms"], layout["bound_ms"]
+
+
+def f64_geometries():
+    for t, b in itertools.product(THREADS, BLOCKS_PER_SM):
+        yield ehyb_stream.StreamGeometry(threads=t, blocks_per_sm=b)
+
+
+#: ``--f64``'s plan forms on pp512 in the precision mode: name →
+#: ``build_stream_cells`` options.
+F64_FORMS = {"table": {}, "direct": {"direct_below": 8.0}}
+F64_FORMS.update({f"direct, grouped {g}": {"direct_below": 8.0,
+                                           "group_rows": g}
+                  for g in (32, 128, 512, 2048)})
+
+
+def diagnose_f64(p, x: torch.Tensor, dev, n: int = 200) -> None:
+    """What the scattered accesses of a grouped direct plan ``p`` cost:
+    the kernel over copies of ``p`` without the row map (y in plan order),
+    with every cell reading x at its own plan row (x coalesced), and both.
+    Timing only: the altered plans' sums are wrong."""
+    rb = torch.repeat_interleave(torch.arange(p.n_pieces, device=dev),
+                                 torch.diff(p.piece.long()[:, 0]))
+    at_row = (rb * 32 + (torch.arange(p.n_cells, device=dev)
+                         - p.piece.long()[rb, 0]) % 32).int()
+
+    def altered(row_map: bool, coalesced: bool):
+        q = copy.deepcopy(p)
+        if not row_map:
+            q.row_map = q.row_map[:0]
+        if coalesced:
+            q.cell_col = at_row.clone()
+        return q
+
+    for row_map, coalesced in ((True, False), (False, False), (True, True),
+                               (False, True)):
+        q = altered(row_map, coalesced)
+        ms = [cs.device_ms_per_call(
+            lambda: ehyb_stream.stream_body(q, x), n) for _ in range(2)]
+        print(f"  timing only: row map {'on' if row_map else 'off'}, x "
+              f"{'at the plan row' if coalesced else 'as the plan reads it'}"
+              f": {', '.join(f'{t * 1e3:.3f}' for t in ms)} us", flush=True)
+
+
+def sweep_f64(dev, n: int = 100) -> int:
+    model, x = f64_model(SHAPES[0], dev)
+    e, nnz = model.ehyb, model.dev.body_nnz
+    shipped = model.module.cells
+    x_cpu = x.cpu()
+    want = ehyb_stream.stream_body_plain(build_stream_cells(e).to_torch(),
+                                         x_cpu)
+    ms_of = {}
+    for form, kw in F64_FORMS.items():
+        t0 = time.perf_counter()
+        plan = build_stream_cells(e, **kw)
+        secs = time.perf_counter() - t0
+        st = plan.stats
+        p = plan.to_torch(dev)
+        same, layout = f64_bounds(p, nnz, x, dev)
+        print(f"== {form}: built in {secs:.2f} s; {st['direct_pieces']} of "
+              f"{st['n_pieces']} pieces direct, rows "
+              f"{'grouped' if st['grouped'] else 'in body order'} "
+              f"(sectors a row block, body order and grouped: "
+              f"{st['sectors_per_rb']}), {st['table_rows']} table rows, "
+              f"{st['layout_bytes']} B moved; same-work bound "
+              f"{same * 1e3:.3f} us, layout bound {layout * 1e3:.3f} us",
+              flush=True)
+        for g in f64_geometries():
+            y = ehyb_stream._launch(p, x, False, g)
+            cs.check(torch.equal(y.cpu(), want),
+                     f"{form} {g}: bit for bit with the CPU plain version")
+            ms = cs.device_ms_per_call(
+                lambda: ehyb_stream._launch(p, x, False, g), n)
+            ms_of[(form, g)] = ms
+            print(f"  threads {g.threads} blocks/SM {g.blocks_per_sm}: "
+                  f"{ms * 1e3:.3f} us (grid "
+                  f"{ehyb_stream.grid_of(p, g, False, dev)}); "
+                  f"{same / ms:.3f} of the same-work bound", flush=True)
+        yk = ehyb_stream._launch(p, x, True)
+        cs.check(torch.equal(yk.cpu(), ehyb_stream.stream_body_plain(
+            plan.to_torch(), x_cpu, True)), f"{form} Kahan: bit for bit")
+        del p
+    best = sorted(ms_of, key=ms_of.get)
+    for k in best[:5]:
+        print(f"  fastest: {k[0]} at {k[1]}: {ms_of[k] * 1e3:.3f} us")
+    g0 = ehyb_stream.GEOMETRY
+    st = shipped.stats
+    y = ehyb_stream.stream_body(shipped, x)
+    cs.check(torch.equal(y.cpu(), want), "the shipped plan: bit for bit")
+    print(f"  shipped (k1_plan, {st['direct_pieces']} direct pieces, "
+          f"grouped {st['grouped']}) at {g0}: "
+          f"{cs.device_ms_per_call(lambda: ehyb_stream.stream_body(shipped, x), n) * 1e3:.3f}"
+          f" us; card: {CARD} = {smi(CARD)}", flush=True)
+    if st["grouped"]:
+        diagnose_f64(shipped, x, dev)
+    del model, x, shipped
+    model, x = f64_model(SHAPES[0], dev, dtype="float64",
+                           compensated_sum=True)
+    p = model.module.cells
+    st = p.stats
+    same, layout = f64_bounds(p, model.dev.body_nnz, x, dev)
+    want = ehyb_stream.stream_body_plain(copy.deepcopy(p).cpu(), x.cpu(),
+                                         True)
+    print(f"== the compensated float64 flagship's plan ({st['n_pieces']} "
+          f"pieces, {st['direct_pieces']} direct, {st['table_rows']} table "
+          f"rows): same-work bound {same * 1e3:.3f} us, layout bound "
+          f"{layout * 1e3:.3f} us", flush=True)
+    for g in f64_geometries():
+        y = ehyb_stream._launch(p, x, True, g)
+        cs.check(torch.equal(y.cpu(), want), f"Kahan {g}: bit for bit")
+        ms = cs.device_ms_per_call(
+            lambda: ehyb_stream._launch(p, x, True, g), n)
+        print(f"  Kahan threads {g.threads} blocks/SM {g.blocks_per_sm}: "
+              f"{ms * 1e3:.3f} us", flush=True)
+    print(f"card: {CARD} = {smi(CARD)}")
+    return 0
+
+
+#: ``--ab --f64``'s rows: name → (corpus matrix, config).
+F64_CASES = {
+    "pp512_dword": ("permuted_poisson_512", dict(dword_values=True)),
+    "fem3d_68_dword": ("fem3d_68_audikw_class", dict(dword_values=True)),
+    "pp512_f64_kahan": ("permuted_poisson_512",
+                        dict(dtype="float64", compensated_sum=True)),
+    "pp1024_f64_list": ("permuted_poisson_1024",
+                        dict(dtype="float64", window_rows=1024)),
+}
+
+
+def run_ab_f64(tag: str, dev, cases) -> int:
+    from ehyb_spmv_torch.parallel.spmv import ShardedEhybSpmv, plan_sharded
+
+    def out(**row):
+        print(json.dumps({"tree": tag, **row, "card": smi(CARD)}),
+              flush=True)
+
+    for name in cases:
+        matrix, cfg = F64_CASES[name]
+        lst = y = None
+        if name.endswith("_list"):
+            m = generate.load_corpus(matrix)
+            c = port.EhybConfig(**cfg)
+            model = ShardedEhybSpmv(c, device=dev).setup(
+                m, plan_sharded(m, c, 1))
+            cells = model.module.cells
+            p, x, kahan = cells.plan, model.module.ex.x_buf, False
+            x.copy_(torch.randn(x.shape, dtype=x.dtype, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(
+                                    0)))
+            lst = cells.boundary
+            y = torch.zeros(p.n_rb * 32, dtype=x.dtype, device=dev)
+        else:
+            model, x = f64_model(matrix, dev, **cfg)
+            p, kahan = model.module.cells, model.module.kahan
+        kernel = lambda: ehyb_stream.stream_body(  # noqa: E731
+            p, x, kahan, rb_list=lst, out=y)
+        got = kernel().clone()
+        plain = ehyb_stream.stream_body_plain(p, x, kahan, rb_list=lst,
+                                              out=None if y is None
+                                              else torch.zeros_like(y))
+        err = cs.rel(got, plain)
+        cs.check(err <= cs.F64_TOL, f"K1 f64 at {name}: vs plain rel "
+                                    f"{err:.3e}")
+        st = p.stats
+        out(kernel=f"K1 f64 at {name}", rel_vs_plain=err,
+            direct_pieces=st.get("direct_pieces", 0),
+            grouped=st.get("grouped", False), n_pieces=st["n_pieces"],
+            ms=[cs.device_ms_per_call(kernel, 100) for _ in range(3)])
+        del model, p, x, got, plain
+    code, res, _ = cli.run(cli.build_parser().parse_args(
+        ["-g", SHAPES[0], "-i", "500", "--device", "cuda", "--dword"]))
+    if code != 0:
+        return code
+    out(matrix=res["matrix"], dword=True, gflops=res["gflops"],
+        us_per_iter=1e6 * res["seconds"] / res["iters"],
+        rel_error=res["rel_error"], roofline_frac=res.get("roofline_frac"))
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
+    f64 = "--f64" in args
+    args = [a for a in args if a != "--f64"]
     ab = args[:2] if args[:1] == ["--ab"] else None
-    shapes = tuple(args[2:]) or SHAPES
+    names = SHAPES if not f64 else tuple(F64_CASES)
+    shapes = tuple(args[2:]) or names
     if (ab is None and args) or (ab is not None and (
-            len(ab) != 2 or not set(shapes) <= set(SHAPES))):
-        print(f"usage: chip_k1_sweep.py [--ab TAG [SHAPE ...]], SHAPE one "
-              f"of {', '.join(SHAPES)}", file=sys.stderr)
+            len(ab) != 2 or not set(shapes) <= set(names))):
+        print(f"usage: chip_k1_sweep.py [--f64] [--ab TAG [SHAPE ...]], "
+              f"SHAPE one of {', '.join(SHAPES)}; with --f64, one of "
+              f"{', '.join(F64_CASES)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("error: needs a CUDA device; none is available",
@@ -184,6 +406,8 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     print(smi("name,power.limit"), flush=True)
+    if f64:
+        return run_ab_f64(ab[1], dev, shapes) if ab else sweep_f64(dev)
     return run_ab(ab[1], dev, shapes) if ab else run_sweep(dev)
 
 if __name__ == "__main__":

@@ -74,18 +74,22 @@ beside the other four.
 Then the precision mode (``--dword``: f64 values, x, y and sums; phase 17):
 K1 and K9 in f64 against their f64 plain versions (rel <= 1e-12) on the
 f64 layouts of the K1 cases, the edge body, the stress matrix of
-``tests/test_dword.py`` and K9's cases with odd and negative offsets;
-``permuted_poisson_512 --dword`` at full size through the CLI (rel <= 1e-12
-against the oracle, K1 f64 launched, the window cache not) beside the f32
-row; ``fem3d_68_audikw_class --dword`` (K9 f64 on its DIA part); then K1
-f64 and K9 f64 timed (also K9 f64 at fem3d_68's 99 diagonals) beside both
-bounds at 8-byte values, their plain versions and cuSPARSE in f64.  Last
+``tests/test_dword.py`` and K9's cases with odd and negative offsets, and
+K1 f64 over each plan form (the table form, direct columns, grouped rows;
+``ops/stream_cells.py``) on scattered, mixed and cancellation bodies, bit
+for bit; ``permuted_poisson_512 --dword`` at full size through the CLI
+(rel <= 1e-12 against the oracle, K1 f64 launched, the window cache not)
+beside the f32 row; ``fem3d_68_audikw_class --dword`` (K9 f64 on its DIA
+part, K1 f64 on the rest); then K1 f64 timed at both shapes (at pp512 also
+over the table form in body order, in turns with the shipped plan) and K9
+f64 (also at fem3d_68's 99 diagonals) beside both bounds at 8-byte values,
+their plain versions and cuSPARSE in f64.  Last
 the small gate (phase 18): ``ehyb`` on ``random_16k`` and
 ``powerlaw_16k``, each with a fresh cache, times the candidate engine
 against the body through the graph loop and keeps the one the 5% rule
 picks; a warm setup reads the verdict without measuring, and
 ``stencil3d(24, 27)`` keeps the body without measuring.  The ``kernels``
-line gains ``ehyb_stream_body (f64)`` and ``dia (f64)``.
+line gains ``ehyb_stream_body (f64)`` at both shapes and ``dia (f64)``.
 
 Last, a float64 config (``--dtype float64``, not the precision mode;
 phase 19), whose variants phases 5, 16a and 17a check first, bit for bit
@@ -157,8 +161,9 @@ from ehyb_spmv_torch.models.solver import CgSolver, PowerIteration
 from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
 from ehyb_spmv_torch.ops import route_xcache, stream_plan
 from ehyb_spmv_torch.ops.build import BUILD_DIR
-from ehyb_spmv_torch.ops.stream_cells import (PIECE_CELL, PIECE_RB,
-                                              PIECE_ROW, build_stream_cells)
+from ehyb_spmv_torch.ops.stream_cells import (DIRECT_BELOW, PIECE_CELL,
+                                              PIECE_RB, PIECE_ROW,
+                                              build_stream_cells, k1_plan)
 from ehyb_spmv_torch.parallel import launch
 from ehyb_spmv_torch.parallel.comm import rank_device
 from ehyb_spmv_torch.parallel.hybrid import ShardedDegreeSplitSpmv
@@ -251,6 +256,8 @@ K1F64 = {"name": "ehyb_stream_body (f64)", "route": "cuda",
          "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
          "replaces": f"{_PALLAS}:148 (K1) in f64, the body of the precision "
                      "mode (ehyb_spmv_gpu_tpu/ops/dword.py, XLA on the TPU)"}
+#: K1 f64 at the precision mode's second shape: fem3d_68's body.
+K1F64_FEM = dict(K1F64, name="ehyb_stream_body (f64, fem3d_68 --dword)")
 K9F64 = {"name": "dia (f64)", "route": "cuda",
          "source": "ehyb_spmv_torch/csrc/dia.cu",
          "replaces": "ehyb_spmv_gpu_tpu/ops/dia_pallas.py:68 (K9) in f64, "
@@ -565,11 +572,12 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
     both plain versions run on the CPU: on the card they add with atomics
     in no fixed order, and a naive f64 sum of the cancellation matrix
     depends on the order.  ``cells``, the plan on the card, defaults to a
-    fresh build of ``e``'s."""
+    fresh build of ``e``'s (``k1_plan``: in f64, direct pieces and grouped
+    rows where the body is scattered)."""
     f64 = e.ell_val.dtype == np.float64
     tol = F64_TOL if f64 else KERNEL_TOL
     exact = f64 or not kahan
-    plan = build_stream_cells(e)
+    plan = k1_plan(e)
     p = plan.to_torch(dev) if cells is None else cells
     x_dev = torch.as_tensor(
         x, dtype=torch.float64 if f64 else torch.float32, device=dev)
@@ -1147,6 +1155,32 @@ def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
           f"{ms_per_call(lambda: model.apply(x_dev), n_eager):.4f} ms")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, **bounds(b, same))
+
+
+def time_k1_forms(model, result, dev, n: int = 100) -> dict:
+    """17d: K1 f64 over the precision mode's body in the plan forms of
+    :func:`k1_forms`: the table form in the body's row order (the plan
+    before direct columns and grouped rows) against the shipped plan in
+    turns, then direct columns in body order; each read bit for bit
+    against the others."""
+    x = model.prepare_x(deterministic_x(result["dim"]))
+    forms = {k: v.to_torch(dev) for k, v in k1_forms(model.ehyb).items()}
+    call = lambda p: lambda: ehyb_stream.stream_body(p, x)  # noqa: E731
+    y = {k: call(p)() for k, p in forms.items()}
+    check(all(torch.equal(v, y["table"]) for v in y.values()),
+          "K1 f64 at pp512 --dword: every plan form's sums bit for bit "
+          "the same")
+    ms, table_ms, turns = in_turns(call(forms["shipped"]),
+                                   call(forms["table"]), n, n)
+    direct_ms = device_ms_per_call(call(forms["direct"]), n)
+    st = forms["shipped"].stats
+    print(f"  K1 f64 plan forms (table, shipped, shipped, table): {turns} "
+          f"ms; direct in body order {direct_ms:.5f} ms; shipped: "
+          f"{st['direct_pieces']} of {st['n_pieces']} pieces direct, rows "
+          f"{'grouped' if st['grouped'] else 'in body order'} (sectors a "
+          f"row block, body order and grouped: {st['sectors_per_rb']}); "
+          f"the table form / shipped = {table_ms / ms:.3f}; {card_state()}")
+    return dict(table_form_ms=table_ms, direct_form_ms=direct_ms)
 
 
 def body_library_ms(model, x_dev: torch.Tensor, dev, n: int = 20) -> float:
@@ -1987,7 +2021,88 @@ def check_f64_small(dev) -> None:
     check(err <= F64_TOL and ehyb_stream.stream_body.launches == 1,
           f"stress: precision mode vs oracle rel {err:.3e} <= {F64_TOL}, K1 "
           f"launched {ehyb_stream.stream_body.launches} time")
+    check_k1_f64_forms(dev)
     check_dia_small(dev, torch.float64)
+
+
+def k1_forms(e) -> dict:
+    """The f64 kernel's plan forms of body ``e``: the table form and
+    direct columns (where a piece holds fewer than DIRECT_BELOW cells a
+    table row, and in every piece), both in the body's row order, and the
+    shipped plan (``k1_plan``: direct pieces and grouped rows where ``e``
+    is scattered)."""
+    return {"table": build_stream_cells(e),
+            "direct": build_stream_cells(e, direct_below=DIRECT_BELOW),
+            "all direct": build_stream_cells(e, direct_below=np.inf),
+            "shipped": k1_plan(e)}
+
+
+def check_k1_f64_forms(dev) -> None:
+    """17a: the f64 kernel over each plan form of :func:`k1_forms`, plain
+    and Kahan, at every f64 geometry, bit for bit with the table form's
+    plain version run on the CPU (every form adds a row's products in the
+    same order): a scrambled Poisson body in the precision mode (scattered:
+    the shipped plan groups its rows), the stress matrix's (scattered), the
+    edge body in f64 (cut and empty row blocks; its direct form mixes
+    pieces with and without a table) and the f64 cancellation matrix's
+    compensated flagship body (±1e17, x all ones); the all-direct forms
+    also with row-block lists; a grouped plan refuses a list."""
+    rng = np.random.default_rng(17)
+    dword = port.EhybConfig(dword_values=True)
+    edge = edge_body()
+    edge.ell_val = np.where(edge.ell_val != 0, rng.standard_normal(
+        edge.ell_val.shape), 0.0)
+    cancel = port.EhybSpmv(f64_cases()[-1][2], device="cpu").setup(
+        cancellation_matrix_f64()).ehyb
+    cases = [
+        ("scrambled poisson (precision mode)", port.EhybSpmv(
+            dword, device="cpu").setup(generate.permuted(
+                generate.poisson2d(96), seed=3)).ehyb, None),
+        ("stress (precision mode)", port.EhybSpmv(
+            dword, device="cpu").setup(stress_matrix()).ehyb, None),
+        ("edge body f64", edge, None),
+        ("cancel 1e17 f64", cancel, np.ones(cancel.padded_x_rows))]
+    grouped = mixed = 0
+    for name, e, x in cases:
+        x = rng.standard_normal(e.padded_x_rows) if x is None else x
+        x_dev = torch.as_tensor(x, dtype=torch.float64, device=dev)
+        forms = k1_forms(e)
+        want = {k: ehyb_stream.stream_body_plain(
+            forms["table"].to_torch(), x_dev.cpu(), k) for k in (False, True)}
+        for form, plan in forms.items():
+            st = plan.stats
+            grouped += st["grouped"]
+            mixed += 0 < st["direct_pieces"] < st["n_pieces"] - int(
+                (np.diff(plan.piece[:, PIECE_CELL]) == 0).sum())
+            p = plan.to_torch(dev)
+            same = True
+            for kahan in (False, True):
+                same = same and torch.equal(ehyb_stream.stream_body_plain(
+                    plan.to_torch(), x_dev.cpu(), kahan), want[kahan])
+                for g in k1_geometries(True):
+                    y = ehyb_stream._launch(p, x_dev, kahan, g)
+                    same = same and torch.equal(y.cpu(), want[kahan])
+            check(same, f"K1 f64 {name}, {form} form ({st['direct_pieces']} "
+                        f"of {st['n_pieces']} pieces direct, rows "
+                        f"{'grouped' if st['grouped'] else 'in body order'}"
+                        f"): plain and Kahan at {len(k1_geometries(True))} "
+                        "geometries, bit for bit with the table form's "
+                        "plain version on the CPU")
+            if st["grouped"]:
+                try:
+                    ehyb_stream.stream_body(p, x_dev, rb_list=torch.zeros(
+                        1, dtype=torch.int32, device=dev))
+                    check(False, f"{name}: a grouped plan took a list")
+                except ValueError:
+                    pass
+        direct = forms["all direct"]
+        rbs = rng.permutation(direct.n_rb)[: max(direct.n_rb // 3, 1)]
+        for kahan in (False, True):
+            check_k1_list(f"{name} direct{' kahan' if kahan else ''}",
+                          direct, rbs.astype(np.int32), x, kahan, dev)
+    check(grouped > 0 and mixed > 0,
+          f"the forms reached grouped rows ({grouped} plans) and pieces "
+          f"with and without a table in one plan ({mixed} plans)")
 
 
 def check_small_gate(dev, card: str) -> dict:
@@ -2701,6 +2816,10 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
           "f32 (phase 8)")
     print(f"  17d: K1 in f64 on pp512's precision-mode body ({card}):")
     k1f64 = time_k1(model7, res7, dev, n_eager=50)
+    k1f64.update(time_k1_forms(model7, res7, dev))
+    print(f"  K1 in f64 on fem3d_68's precision-mode body (17c's model; "
+          f"{card}):")
+    k1f64_fem = time_k1(model8, res8, dev, n=20, n_plain=3, n_eager=10)
     print(f"  K9 in f64 on fem3d_68's precision-mode DIA part ({card}):")
     k9f64 = time_dia(model8, res8, dev, n=20)
     print("  K9 in f64 at fem3d_68's 99 diagonals (phase 8's DIA part, its "
@@ -2738,6 +2857,7 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
         dict(WC, launches=launch4["WC"], **wc),
         dict(SK1, **sk1),
         dict(K1F64, launches=launch7["K1"], **k1f64),
+        dict(K1F64_FEM, launches=launch8["K1"], **k1f64_fem),
         dict(K9F64, launches=launch8["K9"], **k9f64),
         f64k["k1k"], f64k["sk1"], f64k["wc"], f64k["wck"]]}))
     print(card)

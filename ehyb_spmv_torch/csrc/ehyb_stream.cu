@@ -12,10 +12,12 @@
 // (ops/dword.py: f64 values, x, y and sums, where the TPU carries (hi, lo)
 // float pairs) and for a float64 config (--dtype float64, with or without
 // --compensated, on the flagship and on the sharded path).  A double takes
-// 8 B, as a TPU pair does, and the card adds it natively.  The double
-// kernel is built at one row a thread with x through L1/L2, plain or
+// 8 B, as a TPU pair does, and the card adds it natively.  In double both
+// kernels are built at one row a thread with x through L1/L2, plain or
 // Neumaier (__dadd_rn, __dsub_rn, fabs), with or without a row-block
-// list; the cells' values are 8 B wide and their indices as they are.
+// list: this one over a plan in the table form and the body's row order,
+// and stream_body_f64_kernel (below), a design of its own, over the
+// plan's forms for a scattered body (direct columns, grouped rows).
 //
 // What the TPU needed and this leaves behind: the 128-lane width steps of
 // window-local or relaxed lo-slot columns, padded to each slice's width and
@@ -288,6 +290,125 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
   }
 }
 
+// The double kernel.  Each x value is 8 B of a 32-B sector, so where a
+// body's columns are scattered (the precision mode's unordered body: about
+// one x row of 128 values a cell) every cell's x read costs a sector of
+// L2 traffic, and the table form adds a dependent, scattered table read
+// before it.  The plan answers both (ops/stream_cells.py):
+//
+// * a piece with no table (direct form) holds each cell's x column as an
+//   int32 (cell_col, column-major like the values): per cell a coalesced
+//   8-B value and 4-B column, then x, two dependent loads where the table
+//   form takes three;
+// * where the body is scattered the plan groups rows that read the same x
+//   into row blocks (a partition of the body's pattern into parts of
+//   2,048 rows, RCM inside), so repeated x reads hit L1 and fewer sectors
+//   come from L2, and writes each row's sum through row_map (plan row ->
+//   body row; nullptr where the plan keeps the body's order).
+//
+// A piece whose table is empty is direct; the others read x through their
+// table as the float kernel does at one row a thread.  A warp takes one
+// row block (warp w: row blocks w, w + warps, ...); a row's sum keeps its
+// step order, so the sums equal the plain version's bit for bit.
+//
+// Measured at permuted_poisson_512 --dword (chip_k1_sweep.py --f64, H100
+// 80GB HBM3 at 700 W): the table form 11.05 us, direct columns in body
+// order 10.71, grouped 8.85, where the same work's bound at HBM's rate is
+// 5.00.  What is left is sectors: in the grouped plan the row map's
+// scattered 8-B y writes cost ~3.2 us and x's scattered reads ~2.3 us over
+// a 4.0 us floor (timing-only variants of the plan).  Warps in flight do
+// not move it: at 256 or 512 threads and 2 to 16 blocks an SM the grouped
+// plan reads 8.85-9.11 us.  More rows a thread and deeper unrolls are not
+// built: a row there holds 4 cells, which one unroll covers, and the
+// 8,192 row blocks give every warp of one wave one.
+struct DirectCols {
+  const int* __restrict__ col;
+  __device__ __forceinline__ int load(int c) const { return __ldcs(col + c); }
+  __device__ __forceinline__ double x_at(const double* __restrict__ x,
+                                         int j) const {
+    return __ldg(x + j);
+  }
+};
+
+struct TableCols {
+  const uint16_t* __restrict__ idx;
+  const int* __restrict__ tab;
+  __device__ __forceinline__ int load(int c) const {
+    return (int)__ldcs(idx + c);
+  }
+  __device__ __forceinline__ double x_at(const double* __restrict__ x,
+                                         int j) const {
+    return read_x(false, (const double*)nullptr, tab, x, j);
+  }
+};
+
+// A thread's cells c, c + 32, ... < end of one piece, added to its row's
+// sum: kUnroll columns' values and indices loaded before any x, and every
+// x before any sum.
+template <bool KAHAN, typename Cols>
+__device__ __forceinline__ void sum_piece(const double* __restrict__ val,
+                                          Cols cols,
+                                          const double* __restrict__ x,
+                                          int c, int end, double& sum,
+                                          double& comp) {
+  for (; c + (kUnroll - 1) * kRows < end; c += kUnroll * kRows) {
+    double v[kUnroll];
+    int j[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      v[u] = __ldcs(val + c + u * kRows);
+      j[u] = cols.load(c + u * kRows);
+    }
+    double xv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) xv[u] = cols.x_at(x, j[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      add<KAHAN>(sum, comp, mul_rn(v[u], xv[u]));
+    }
+  }
+  for (; c < end; c += kRows) {
+    add<KAHAN>(sum, comp,
+               mul_rn(__ldcs(val + c), cols.x_at(x, cols.load(c))));
+  }
+}
+
+template <bool KAHAN, bool LIST>
+__global__ void __launch_bounds__(kMaxThreads) stream_body_f64_kernel(
+    const int4* __restrict__ piece, const int* __restrict__ rows,
+    const double* __restrict__ cell_val,
+    const uint16_t* __restrict__ cell_idx, const int* __restrict__ cell_col,
+    const int* __restrict__ row_map, const double* __restrict__ x,
+    double* __restrict__ y, int n_rb, const int* __restrict__ rb_list,
+    int n_list) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int n_warps = gridDim.x * warps;
+  const int n_items = LIST ? n_list : n_rb;
+  for (int j = blockIdx.x * warps + (threadIdx.x >> 5); j < n_items;
+       j += n_warps) {
+    const int rb = LIST ? __ldg(rb_list + j) : j;
+    const int out = row_map != nullptr ? __ldg(row_map + rb * kRows + lane)
+                                       : rb * kRows + lane;
+    double sum = 0.0, comp = 0.0;
+    int p = rb;
+    do {
+      const int4 a = __ldg(piece + p);
+      const int4 b = __ldg(piece + p + 1);
+      if (a.y == b.y) {
+        sum_piece<KAHAN>(cell_val, DirectCols{cell_col}, x, a.x + lane, b.x,
+                         sum, comp);
+      } else {
+        sum_piece<KAHAN>(cell_val, TableCols{cell_idx, rows + a.y}, x,
+                         a.x + lane, b.x, sum, comp);
+      }
+      p = a.z;
+    } while (p >= 0);
+    if (KAHAN) sum = sum + comp;
+    __stcs(y + out, sum);
+  }
+}
+
 // A kernel variant, as the runtime API takes it (the variants' parameter
 // types differ with the value type).
 using KernelFn = const void*;
@@ -313,7 +434,11 @@ KernelFn pick_l(int rows_per_thread, int staged, int kahan) {
 }
 
 template <bool LIST>
-KernelFn pick_f64(int kahan) {
+KernelFn pick_f64(int kahan, int scattered) {
+  if (scattered) {
+    return kahan ? (KernelFn)stream_body_f64_kernel<true, LIST>
+                 : (KernelFn)stream_body_f64_kernel<false, LIST>;
+  }
   return kahan ? (KernelFn)stream_body_kernel<double, 1, false, true, LIST>
                : (KernelFn)stream_body_kernel<double, 1, false, false, LIST>;
 }
@@ -321,12 +446,14 @@ KernelFn pick_f64(int kahan) {
 // The kernel variant (the list variant where `list`, the double one where
 // `f64`), or nullptr where none is built.  In double the variants are built
 // at one row a thread with x through L1/L2: plain or Kahan, with or without
-// a list.
+// a list, over the table form in the body's row order, or (`scattered`)
+// over a plan with direct pieces or a row map.
 KernelFn pick(int rows_per_thread, int staged, int kahan, int f64,
-              bool list = false) {
+              bool list = false, int scattered = 0) {
   if (f64) {
     if (rows_per_thread != 1 || staged) return nullptr;
-    return list ? pick_f64<true>(kahan) : pick_f64<false>(kahan);
+    return list ? pick_f64<true>(kahan, scattered)
+                : pick_f64<false>(kahan, scattered);
   }
   return list ? pick_l<true>(rows_per_thread, staged, kahan)
               : pick_l<false>(rows_per_thread, staged, kahan);
@@ -359,13 +486,15 @@ extern "C" long long ehyb_stream_smem_bytes(int rows_per_thread, int staged,
   return (long long)smem_bytes(rows_per_thread, staged, threads, f64);
 }
 
-// Blocks of `threads` threads of a variant (the list variant where `list`)
-// that stay resident on one SM (0 where none can), or a negative CUDA
-// error; -cudaErrorInvalidValue where no such variant is built.
+// Blocks of `threads` threads of a variant (the list variant where `list`,
+// the scattered body's double kernel where `scattered`) that stay resident
+// on one SM (0 where none can), or a negative CUDA error;
+// -cudaErrorInvalidValue where no such variant is built.
 extern "C" int ehyb_stream_resident_blocks(int rows_per_thread, int staged,
                                            int kahan, int f64, int threads,
-                                           int list) {
-  const KernelFn fn = pick(rows_per_thread, staged, kahan, f64, list != 0);
+                                           int list, int scattered) {
+  const KernelFn fn =
+      pick(rows_per_thread, staged, kahan, f64, list != 0, scattered);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(rows_per_thread, staged, threads, f64);
   int rc = allow_smem(fn, smem);
@@ -378,8 +507,9 @@ extern "C" int ehyb_stream_resident_blocks(int rows_per_thread, int staged,
 
 // Registers a thread of a variant takes, or a negative CUDA error.
 extern "C" int ehyb_stream_registers(int rows_per_thread, int staged,
-                                     int kahan, int f64) {
-  const KernelFn fn = pick(rows_per_thread, staged, kahan, f64);
+                                     int kahan, int f64, int scattered) {
+  const KernelFn fn =
+      pick(rows_per_thread, staged, kahan, f64, false, scattered);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const int rc = clear(cudaFuncGetAttributes(&attr, fn));
@@ -392,17 +522,22 @@ extern "C" int ehyb_stream_registers(int rows_per_thread, int staged,
 // a warp at a time; returns cudaGetLastError(), 0 when the launch was
 // accepted.  `piece` is (n_pieces + 1, 4) int32, `cell_idx` uint16,
 // `cell_val`, `x` and `y` float (double where `f64`), every buffer 16-byte
-// aligned.
+// aligned.  Where either of `cell_col` (int32, the direct pieces' columns)
+// and `row_map` (int32 plan row -> body row) is not null the plan is a
+// scattered body's, which only the double kernel reads.
 extern "C" int ehyb_stream_body(const void* piece, const int* rows,
                                 const void* cell_val, const void* cell_idx,
+                                const int* cell_col, const int* row_map,
                                 const void* x, void* y, int n_rb,
                                 const int* rb_list, int n_list,
                                 int rows_per_thread, int staged, int kahan,
                                 int f64, int threads, int grid,
                                 void* stream) {
   if (n_rb <= 0 || (rb_list != nullptr && n_list <= 0)) return 0;
+  const int scattered = cell_col != nullptr || row_map != nullptr;
+  if (scattered && !f64) return (int)cudaErrorInvalidValue;
   const KernelFn fn = pick(rows_per_thread, staged, kahan, f64,
-                           /*list=*/rb_list != nullptr);
+                           /*list=*/rb_list != nullptr, scattered);
   if (fn == nullptr || threads < 32 || threads > kMaxThreads ||
       threads % 32 || grid <= 0) {
     return (int)cudaErrorInvalidValue;
@@ -412,8 +547,12 @@ extern "C" int ehyb_stream_body(const void* piece, const int* rows,
   if (rc != 0) return rc;
   void* args[] = {&piece, &rows, &cell_val, &cell_idx, &x,
                   &y,     &n_rb, &rb_list,  &n_list};
+  void* args_scattered[] = {&piece, &rows,    &cell_val, &cell_idx,
+                            &cell_col, &row_map, &x,  &y,
+                            &n_rb,     &rb_list, &n_list};
   const cudaError_t launched =
-      cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, smem,
+      cudaLaunchKernel(fn, dim3(grid), dim3(threads),
+                       scattered ? args_scattered : args, smem,
                        static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(launched != cudaSuccess ? launched : last);

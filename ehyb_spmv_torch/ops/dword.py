@@ -15,7 +15,9 @@ the mode is the plain EHYB apply in f64.
   layout in this mode, as the JAX flagship runs no Pallas kernel in it, so
   ``ehyb``, ``ehyb_xla`` and ``hyb`` build the JAX package's ``EhybMatrix``.
 * The apply (:func:`make_dword_apply`) runs the SELL body through K1 over
-  its compact plan in f64 (``csrc/ehyb_stream.cu``) and the DIA part
+  its compact plan in f64 (``csrc/ehyb_stream.cu``; the unordered body is
+  scattered, so the plan takes direct columns and groups its rows where
+  that pays, :func:`~.stream_cells.k1_plan`) and the DIA part
   through K9 in f64 (``csrc/dia.cu``); the ER tail, long rows (an f64
   ``index_add_`` over their stream, where the TPU packs lane chains) and
   combine stay torch ops, in f64.  The TPU branch is the XLA one
@@ -35,7 +37,7 @@ from ..config import EhybConfig
 from ..core.ehyb import EhybDevice, EhybMatrix
 from ..utils.log import get_logger
 from .ehyb_stream import EhybStreamApply
-from .stream_cells import build_stream_cells
+from .stream_cells import k1_plan
 
 log = get_logger(__name__)
 
@@ -61,13 +63,16 @@ def make_dword_apply(e: EhybMatrix, dev: EhybDevice):
     t0 = time.perf_counter()
     cells = None
     if dev.body_nnz:
-        plan = build_stream_cells(e)
+        plan = k1_plan(e)
         cells = plan.to_torch(dev.slice_offset.device)
         dev.ell_col = dev.ell_val = None
         st = plan.stats
         log.info("precision mode: K1 in f64 over %d row blocks (%d cut for "
-                 "the 16-bit range), %.1f MB of cells", st["n_rb"],
-                 st["split_rbs"], st["cell_bytes"] / 1e6)
+                 "the 16-bit range, %d of %d pieces direct, rows %s), %.1f "
+                 "MB of cells", st["n_rb"], st["split_rbs"],
+                 st["direct_pieces"], st["n_pieces"],
+                 "grouped" if st["grouped"] else "in body order",
+                 st["cell_bytes"] / 1e6)
     # the TPU's branch here: the JAX package's XLA dword formulation
     apply = EhybStreamApply(dev, cells=cells, branch="dword xla")
     apply.plan_seconds = time.perf_counter() - t0

@@ -15,9 +15,12 @@ fallbacks.  :func:`make_stream_apply` picks K1 or the window-cache kernel
 takes the plain version :func:`stream_body_plain` only for tensors on the
 CPU.  A CUDA call launches the kernel or raises; nothing falls back.  The
 plan's values and x are float32, or float64 (the precision mode,
-``ops/dword.py``, and a ``dtype="float64"`` config), whose kernel is built
-at one row a thread with x through L1/L2, plain or Kahan, with or without
-a row-block list.
+``ops/dword.py``, and a ``dtype="float64"`` config), whose kernels are
+built at one row a thread with x through L1/L2, plain or Kahan, with or
+without a row-block list: a plan in the table form and the body's row
+order takes the float kernel's code in float64, and a plan with direct
+pieces or a row map (:func:`~.stream_cells.k1_plan`: a scattered body's)
+a float64 kernel of its own.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from .build import BuiltLibrary, build_cuda_library
 from .dia import SMEM_LIMIT_BYTES, dia_body
 from .ehyb_wincache import WinCacheDevice, build_wincache_plan, wincache_body
 from .stream_cells import (BLOCK_ROWS, PIECE_CELL, PIECE_RB, PIECE_ROW,
-                           StreamCellsDevice, build_stream_cells)
+                           StreamCellsDevice, k1_plan)
 from .torch_ops import (chain_offsets, combine_ehyb, ehyb_er, ehyb_long,
                         neumaier_rows)
 
@@ -84,7 +87,8 @@ GEOMETRY = StreamGeometry()
 _lock = threading.Lock()
 _built = None
 _lib = None
-#: (geometry, kahan, f64, list, device) → blocks of it resident on one SM.
+#: (geometry, kahan, f64, list, scattered, device) → blocks of it resident
+#: on one SM.
 _resident: dict = {}
 
 
@@ -101,12 +105,12 @@ def build_kernel() -> BuiltLibrary:
             lib = ctypes.CDLL(built.path)
             lib.ehyb_stream_body.restype = ctypes.c_int
             lib.ehyb_stream_body.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+                [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             lib.ehyb_stream_resident_blocks.restype = ctypes.c_int
-            lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 6
+            lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 7
             lib.ehyb_stream_registers.restype = ctypes.c_int
-            lib.ehyb_stream_registers.argtypes = [ctypes.c_int] * 4
+            lib.ehyb_stream_registers.argtypes = [ctypes.c_int] * 5
             lib.ehyb_stream_smem_bytes.restype = ctypes.c_longlong
             lib.ehyb_stream_smem_bytes.argtypes = [ctypes.c_int] * 4
             _built, _lib = built, lib
@@ -114,22 +118,24 @@ def build_kernel() -> BuiltLibrary:
 
 
 def resident_blocks(geometry: StreamGeometry, kahan: bool, device,
-                    f64: bool = False, lst: bool = False) -> int:
+                    f64: bool = False, lst: bool = False,
+                    scattered: bool = False) -> int:
     """Blocks of this geometry (in float64 where ``f64``, its row-block list
-    variant where ``lst``) that stay resident on one SM of ``device`` (made
-    once and kept); raises where not one does, as the launch would be
-    refused."""
-    key = (geometry, bool(kahan), bool(f64), bool(lst), torch.device(device))
+    variant where ``lst``, the scattered body's float64 kernel where
+    ``scattered``) that stay resident on one SM of ``device`` (made once and
+    kept); raises where not one does, as the launch would be refused."""
+    key = (geometry, bool(kahan), bool(f64), bool(lst), bool(scattered),
+           torch.device(device))
     n = _resident.get(key)
     if n is None:
         smem = smem_bytes(geometry, f64)
         if smem > SMEM_LIMIT_BYTES:
             raise RuntimeError(f"K1 {geometry} needs {smem} B of shared "
                                f"memory a block, above {SMEM_LIMIT_BYTES}")
-        with torch.cuda.device(key[4]):
+        with torch.cuda.device(key[-1]):
             n = _lib.ehyb_stream_resident_blocks(
                 geometry.rows, int(geometry.x_mode == "staged"), int(kahan),
-                int(f64), geometry.threads, int(lst))
+                int(f64), geometry.threads, int(lst), int(scattered))
         if n <= 0:
             raise RuntimeError(f"K1 {geometry} cannot run (occupancy {n})")
         _resident[key] = n
@@ -137,12 +143,12 @@ def resident_blocks(geometry: StreamGeometry, kahan: bool, device,
 
 
 def registers(geometry: StreamGeometry, kahan: bool = False,
-              f64: bool = False) -> int:
+              f64: bool = False, scattered: bool = False) -> int:
     """Registers a thread of the geometry's kernel variant takes."""
     build_kernel()
     return _lib.ehyb_stream_registers(
         geometry.rows, int(geometry.x_mode == "staged"), int(kahan),
-        int(f64))
+        int(f64), int(scattered))
 
 
 def smem_bytes(geometry: StreamGeometry, f64: bool = False) -> int:
@@ -160,11 +166,18 @@ def grid_of(p: StreamCellsDevice, geometry: StreamGeometry, kahan: bool,
     plan, or of ``n_rb`` listed row blocks) do not give every warp one."""
     f64 = p.cell_val.dtype == torch.float64
     per_sm = min(geometry.blocks_per_sm,
-                 resident_blocks(geometry, kahan, device, f64, lst))
+                 resident_blocks(geometry, kahan, device, f64, lst,
+                                 scattered(p)))
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     n_rb = p.n_rb if n_rb is None else n_rb
     groups = -(-n_rb // geometry.rows)
     return max(1, min(per_sm * n_sm, -(-groups // (geometry.threads // 32))))
+
+
+def scattered(p: StreamCellsDevice) -> bool:
+    """Whether plan ``p`` has direct pieces or a row map: the forms of a
+    scattered body, which the float64 kernel of their own reads."""
+    return bool(p.cell_col.numel() or p.row_map.numel())
 
 
 def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
@@ -178,10 +191,17 @@ def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
     if x_pad.shape[0] < n_x:
         raise ValueError(f"x_pad has {x_pad.shape[0]} rows; the plan reads "
                          f"{n_x}")
-    if p.cell_val.dtype != x_pad.dtype or p.cell_idx.dtype != torch.int16:
+    if p.cell_val.dtype != x_pad.dtype or p.cell_idx.dtype != torch.int16 \
+            or p.cell_col.dtype != torch.int32 \
+            or p.row_map.dtype != torch.int32:
         raise ValueError(f"the plan's cells must be {x_pad.dtype} values "
-                         f"(x_pad's type) and 16-bit indices")
-    for t in (x_pad, p.piece, p.rows, p.cell_val, p.cell_idx):
+                         f"(x_pad's type), 16-bit indices and int32 columns "
+                         f"and row map")
+    if x_pad.dtype == torch.float32 and scattered(p):
+        raise ValueError("the float32 K1 reads the table form only: no "
+                         "direct pieces, no row map")
+    for t in (x_pad, p.piece, p.rows, p.cell_val, p.cell_idx, p.cell_col,
+              p.row_map):
         if t.device != dev:
             raise ValueError(f"tensor on {t.device}, x_pad on {dev}")
         if not t.is_contiguous():
@@ -196,6 +216,9 @@ def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
     list leaves rows unwritten."""
     n = p.n_rb * BLOCK_ROWS
     if rb_list is not None:
+        if p.row_map.numel():
+            raise ValueError("a row-block list takes a plan in the body's "
+                             "row order (no row map)")
         if rb_list.dtype != torch.int32 or rb_list.dim() != 1 \
                 or not rb_list.is_contiguous():
             raise ValueError("rb_list must be a contiguous 1-D int32 tensor")
@@ -237,9 +260,11 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
     n = p.n_rb if rb_list is None else rb_list.shape[0]
     if not n:
         return y
+    ptr = lambda t: t.data_ptr() if t.numel() else None  # noqa: E731
     rc = _lib.ehyb_stream_body(
         p.piece.data_ptr(), p.rows.data_ptr(), p.cell_val.data_ptr(),
-        p.cell_idx.data_ptr(), x_pad.data_ptr(), y.data_ptr(), p.n_rb,
+        ptr(p.cell_idx), ptr(p.cell_col), ptr(p.row_map), x_pad.data_ptr(),
+        y.data_ptr(), p.n_rb,
         None if rb_list is None else rb_list.data_ptr(), n,
         g.rows, int(g.x_mode == "staged"), int(bool(kahan)), int(f64),
         g.threads, grid_of(p, g, kahan, x_pad.device, n,
@@ -281,14 +306,17 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
                       kahan: bool = False, rb_list: torch.Tensor = None,
                       out: torch.Tensor = None) -> torch.Tensor:
     """Plain-torch version of the kernel: read each cell's x through its
-    piece's table and add the products per row in cell order (a row's step
-    order; a row block's later pieces follow the main ones).  With
+    piece's table (or at its column, in a piece with no table) and add the
+    products per row in cell order (a row's step order; a row block's
+    later pieces follow the main ones), into the row the row map names.  With
     ``kahan`` a float32 x sums in float64 and rounds once, the answer the
     compensated kernel reaches to about one ulp; a float64 x adds each
     row's products in the kernel's order with Neumaier compensation.  With
     ``rb_list`` it writes the listed row blocks' rows of the full sums into
     ``out`` (or into zeros), as the kernel does."""
     dev = x_pad.device
+    if rb_list is not None and p.row_map.numel():
+        _output(p, x_pad, rb_list, out)      # raises
     neumaier = kahan and x_pad.dtype == torch.float64
     acc = torch.float64 if kahan else x_pad.dtype
     y = torch.zeros(p.n_rb * BLOCK_ROWS, dtype=acc, device=dev)
@@ -298,11 +326,23 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
             torch.arange(p.n_pieces, device=dev),
             torch.diff(piece[:, PIECE_CELL]), output_size=p.n_cells)
         first = piece[cell_piece]
-        idx = p.cell_idx.long() & 0xFFFF
-        col = p.rows.long()[first[:, PIECE_ROW] + (idx >> 7)] * LANES \
-            + (idx & (LANES - 1))
+        col = None
+        if p.cell_idx.numel():
+            idx = p.cell_idx.long() & 0xFFFF
+            at = first[:, PIECE_ROW] + (idx >> 7)
+            if p.cell_col.numel():
+                # a direct piece's cells point at no table row
+                at = at.clamp_max(max(p.rows.numel() - 1, 0))
+            col = p.rows.long()[at] * LANES + (idx & (LANES - 1))
+        if p.cell_col.numel():
+            direct = p.cell_col.long()
+            col = direct if col is None else torch.where(
+                (torch.diff(piece[:, PIECE_ROW]) == 0)[cell_piece], direct,
+                col)
         off = torch.arange(p.n_cells, device=dev) - first[:, PIECE_CELL]
         row = first[:, PIECE_RB] * BLOCK_ROWS + off % BLOCK_ROWS
+        if p.row_map.numel():
+            row = p.row_map.long()[row]
         contrib = p.cell_val.to(x_pad.dtype) * x_pad[col]
         if neumaier:
             width = torch.diff(piece[:, PIECE_CELL]) // BLOCK_ROWS
@@ -394,7 +434,7 @@ def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,
                  st["body_bytes"] / 1e6, st["staged_bytes"] / 1e6,
                  st["x_bytes"] / 1e6)
     elif branch != "skipped":
-        plan = build_stream_cells(e)
+        plan = k1_plan(e)
         cells = plan.to_torch(device)
         st = plan.stats
         log.info("body [%s on the TPU]: K1, %d row blocks (%d cut for the "

@@ -4,11 +4,13 @@ against the JAX package's double-word mode and the exact-f64 oracle.
 The same inputs, made from a seed with numpy, go through the JAX models in
 their double-word mode (the XLA formulation of ``ops/dword.py``: (hi, lo)
 f32 pairs) and through the port's models in f64, whose wrappers take the
-kernels' plain versions on CPU tensors.  The four matrices are those of
+kernels' plain versions on CPU tensors.  Four matrices are those of
 ``tests/test_dword.py``: values that need every f64 bit (its
 ``_f64_stress_matrix``, as ``chip_smoke.stress_matrix`` makes it for the
 card too), a DIA-heavy Poisson matrix, dense long rows, and the chained
-loop on a scrambled one.
+loop on a scrambled one; the fifth is that scrambled matrix in the mode's
+own plan, whose body is scattered (K1's plan takes direct columns and
+groups its rows).  The body goes through each form of K1's plan.
 
 Bounds: the JAX mode's own, rel <= 1e-12 against the oracle (and so
 against the JAX result), and the per-element 1e-8 of its cancellation
@@ -27,6 +29,7 @@ from ehyb_spmv_gpu_tpu.io import generate
 
 import ehyb_spmv_torch as port
 from ehyb_spmv_torch.models.solver import CgSolver, PowerIteration
+from ehyb_spmv_torch.ops import stream_cells
 from ehyb_spmv_torch.ops.dword import DWORD_MODELS
 from ehyb_spmv_torch.parallel.hybrid import ShardedDegreeSplitSpmv
 from ehyb_spmv_torch.parallel.routed import ShardedRoutedSpmv
@@ -65,7 +68,15 @@ CASES = {
                                           long_row_threshold=256)),
     "chain": (lambda: generate.permuted(generate.poisson2d(64), seed=7),
               dict(window_rows=1024)),
+    "scattered": (lambda: generate.permuted(generate.poisson2d(64), seed=7),
+                  {}),
 }
+#: The cases with a SELL body (the Poisson matrix is all DIA).
+BODY_CASES = ["chain", "long_rows", "scattered", "stress"]
+#: K1's plan forms: name → build_stream_cells options (None: k1_plan, the
+#: shipped one).
+FORMS = {"table": {}, "all direct": {"direct_below": np.inf},
+         "shipped": None}
 
 
 def _config(pkg, case, **kw):
@@ -212,3 +223,34 @@ def test_dword_power_iteration(built):
     assert v.dtype == np.float64
     assert abs(lam - lam_ref) <= 1e-12 * abs(lam_ref)
     assert rel(v, v_ref) <= 1e-12
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("case", BODY_CASES)
+def test_dword_plan_forms_match_oracle_and_jax(case, form, built):
+    """The ``ehyb`` model with its body's plan in each form (the table
+    form; direct columns in every piece; the shipped ``k1_plan``, which
+    groups the scattered case's rows and gives long_rows pieces of both
+    kinds): the product within 1e-12 of the oracle and of the JAX
+    double-word result, and bit for bit the table form's."""
+    m, r, p, x, want = built(case, "ehyb")
+    kw = FORMS[form]
+    plan = stream_cells.k1_plan(p.ehyb) if kw is None \
+        else stream_cells.build_stream_cells(p.ehyb, **kw)
+    st = plan.stats
+    if form == "shipped":
+        assert st["grouped"] == (case == "scattered")
+        if case in ("scattered", "long_rows"):
+            assert st["direct_pieces"] > 0
+    shipped, table = p.module.cells, stream_cells.build_stream_cells(
+        p.ehyb).to_torch()
+    try:
+        p.module.cells = table
+        y_table = p.matvec(x)
+        p.module.cells = plan.to_torch()
+        got = p.matvec(x)
+    finally:
+        p.module.cells = shipped
+    assert np.array_equal(got, y_table)
+    assert rel(got, want) <= TOL, rel(got, want)
+    assert rel(got, r.matvec(x)) <= TOL

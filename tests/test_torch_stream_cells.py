@@ -1,10 +1,11 @@
 """K1's compact plan (``ops/stream_cells.py``) on the CPU: the plan applied
 by the kernel's plain version against the padded body's plain version
 (``ops/torch_ops.py::ehyb_body``) bit for bit, at nwin 1/2/4, int16 and
-int32 columns and Kahan; a numpy replay of the plan and of the kernel's
-walk; the cut of a row block past the 16-bit range; and the flagship's
-K1 path: the plan replaces the padded body on the device and in the
-roofline's bytes.
+int32 columns and Kahan, and in float64 the plan forms of a scattered body
+(direct columns, grouped rows under a row map, both kinds of piece in one
+plan); a numpy replay of the plan and of the kernel's walk; the cut of a
+row block past the 16-bit range; and the flagship's K1 path: the plan
+replaces the padded body on the device and in the roofline's bytes.
 
 Bit equality holds because a row's cells keep their step order and the
 dropped cells are zeros (finite x); the Kahan variant sums in float64 on
@@ -39,15 +40,42 @@ CASES = [
     ("kahan", "cancellation", "sell_rx", 2, {}, True, False),
     ("edges", "edges", None, 0, {}, False, False),
     ("edges_kahan", "edges", None, 0, {}, True, False),
+    # float64: the precision mode's scattered body (direct columns, rows
+    # grouped), the edge body (pieces with and without a table in one
+    # plan, plain and Kahan) and the flagship layout (the table form)
+    ("dword_grouped", "scrambled", "dword", 0, {}, False, True),
+    ("edges_f64_mixed", "edges_f64", None, 0, {}, False, False),
+    ("edges_f64_mixed_kahan", "edges_f64", None, 0, {}, True, False),
+    ("f64_flagship", "scrambled", "sell_rx", 2, {"dtype": "float64"}, False,
+     True),
 ]
 IDS = [c[0] for c in CASES]
+
+
+def _edge_f64():
+    e = edge_body()
+    rng = np.random.default_rng(3)
+    e.ell_val = np.where(e.ell_val != 0, rng.standard_normal(
+        e.ell_val.shape), 0.0)
+    return e
+
+
+def _dword(m, **extra):
+    """The precision mode's artifact of ``m`` (f64 values, no ordering)."""
+    return port.EhybSpmv(port.EhybConfig(
+        dword_values=True, artifact_cache=False, **extra),
+        device="cpu").setup(coo_for(PORT, m)).ehyb
 
 
 def _artifact(request, fixture, layout, wps, extra):
     if fixture == "edges":
         return edge_body()
+    if fixture == "edges_f64":
+        return _edge_f64()
     m = cancellation_matrix(PORT) if fixture == "cancellation" \
         else request.getfixturevalue(fixture)
+    if layout == "dword":
+        return _dword(m, **extra)
     cfg = config_for(PORT, layout is not None, layout or "sell_mw", wps,
                      **extra)
     return host_pipeline(PORT, m, cfg)[2]
@@ -55,24 +83,34 @@ def _artifact(request, fixture, layout, wps, extra):
 
 def _x(e, seed=0):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(
-        e.padded_x_rows).astype(np.float32))
+        e.padded_x_rows).astype(e.ell_val.dtype))
 
 
 def _replay(p):
-    """Every cell of the plan: its piece, y row, place k in its row within
-    the piece, x column and value."""
+    """Every cell of the plan: its piece, y row (through the row map where
+    the plan has one), place k in its row within the piece, x column (from
+    its piece's table, or its own in a piece with no table), value and row
+    in its row block."""
     piece = p.piece.astype(np.int64)
     cell_piece = np.repeat(np.arange(len(piece) - 1),
                            np.diff(piece[:, stream_cells.PIECE_CELL]))
     off = np.arange(piece[-1, 0]) - piece[cell_piece, 0]
     row = piece[cell_piece, stream_cells.PIECE_RB] * 32 + off % 32
-    idx = p.cell_idx.view(np.uint16).astype(np.int64)
-    slot = idx >> 7
+    if p.row_map.size:
+        row = p.row_map.astype(np.int64)[row]
     sizes = np.diff(piece[:, stream_cells.PIECE_ROW])
-    assert np.all(slot < sizes[cell_piece]), "a cell reads past its table"
-    col = p.rows[piece[cell_piece, 1] + slot].astype(np.int64) * 128 \
-        + (idx & 127)
-    return cell_piece, row, off // 32, col, p.cell_val
+    direct = sizes[cell_piece] == 0
+    col = np.zeros(off.size, np.int64)
+    if p.cell_idx.size:
+        idx = p.cell_idx.view(np.uint16).astype(np.int64)[~direct]
+        slot = idx >> 7
+        assert np.all(slot < sizes[cell_piece[~direct]]), \
+            "a cell reads past its table"
+        col[~direct] = p.rows[piece[cell_piece[~direct], 1] + slot] \
+            .astype(np.int64) * 128 + (idx & 127)
+    if p.cell_col.size:
+        col[direct] = p.cell_col[direct]
+    return cell_piece, row, off // 32, col, p.cell_val, off % 32
 
 
 def _walk(n_rb: int, rows_per_thread: int, warps: int):
@@ -115,7 +153,7 @@ def test_plan_plain_equals_padded_body(case, fixture, layout, wps, extra,
                       4: 4}[wps]
     if case == "hub_split":
         assert e.split_src.size > 0
-    p = stream_cells.build_stream_cells(e).to_torch()
+    p = stream_cells.k1_plan(e).to_torch()
     x = torch.ones(e.padded_x_rows) if fixture == "cancellation" else _x(e)
     want = ehyb_body(d, x, compensated=kahan)
     launches = ehyb_stream.stream_body.launches
@@ -138,7 +176,7 @@ def test_plan_replay(case, fixture, layout, wps, extra, kahan, poisson,
     every cell once.  A Poisson body's compact cells are within 1.1x its
     nnz."""
     e = _artifact(request, fixture, layout, wps, extra)
-    plan = stream_cells.build_stream_cells(e)
+    plan = stream_cells.k1_plan(e)
     piece, n_rb = plan.piece.astype(np.int64), plan.n_rb
     n_p = len(piece) - 1
     # chains: each piece once, of its own row block, later pieces in order
@@ -151,7 +189,7 @@ def test_plan_replay(case, fixture, layout, wps, extra, kahan, poisson,
         assert np.all(piece[c, stream_cells.PIECE_RB] == rb)
         level[c] = np.arange(len(c))
     # the cells against the body's real cells, both in (row, step) order
-    cell_piece, row, k, col, val = _replay(plan)
+    cell_piece, row, k, col, val, lane = _replay(plan)
     real = val != 0
     offs = e.slice_offset.astype(np.int64)
     n_steps = int(offs[-1])
@@ -167,9 +205,9 @@ def test_plan_replay(case, fixture, layout, wps, extra, kahan, poisson,
     np.testing.assert_array_equal(val[real][order], e.ell_val[st, ln][want])
     # a row's real cells fill its first places; the width is the longest
     count = np.zeros((n_p, 32), np.int64)
-    np.add.at(count, (cell_piece[real], row[real] % 32), 1)
+    np.add.at(count, (cell_piece[real], lane[real]), 1)
     kmax = np.full((n_p, 32), -1)
-    np.maximum.at(kmax, (cell_piece[real], row[real] % 32), k[real])
+    np.maximum.at(kmax, (cell_piece[real], lane[real]), k[real])
     np.testing.assert_array_equal(kmax, count - 1)
     np.testing.assert_array_equal(count.max(1), np.diff(piece[:, 0]) // 32)
     # tables: sorted, distinct, within 16 bits
@@ -186,6 +224,11 @@ def test_plan_replay(case, fixture, layout, wps, extra, kahan, poisson,
                 for q in chains[rb]:
                     seen[piece[q, 0]:piece[q + 1, 0]] += 1
             assert np.all(seen == 1)
+    # every body row is written once: the row map, where the plan has one,
+    # is a permutation of the body's rows
+    if plan.row_map.size:
+        np.testing.assert_array_equal(np.sort(plan.row_map),
+                                      np.arange(n_rb * 32))
     st_ = plan.stats
     assert st_["compact_cells"] == piece[-1, 0] <= st_["padded_cells"]
     assert st_["n_pieces"] == n_p and st_["table_rows"] == plan.rows.size
@@ -204,7 +247,7 @@ def test_plan_cuts_row_blocks_past_16_bits():
     st = plan.stats
     assert st["split_rbs"] == 4 and st["n_pieces"] == plan.n_rb + 4
     assert st["max_table_rows"] <= MAX
-    _, row, _, col, val = _replay(plan)
+    _, row, _, col, val, _ = _replay(plan)
     for rb in range(4):
         mine = (row // 32 == rb) & (val != 0)
         assert np.unique(col[mine] >> 7).size > MAX
@@ -365,3 +408,122 @@ def test_f64_list_plain_equals_the_full_walk(kahan):
     other = torch.ones_like(y, dtype=torch.bool)
     other[rows] = False
     assert bool((y[other] == -7.0).all())
+
+
+def _cells_by_row(plan):
+    """(body row, place in the row over its pieces, x column, value) of
+    every real cell, sorted by row and place."""
+    cell_piece, row, k, col, val, _ = _replay(plan)
+    piece = plan.piece.astype(np.int64)
+    width = np.diff(piece[:, 0]) // 32
+    # a piece's first place in its row: the widths of its earlier pieces
+    first = np.zeros(len(width), np.int64)
+    for chain in _chains(plan):
+        first[chain] = np.cumsum(width[chain]) - width[chain]
+    place = first[cell_piece] + k
+    real = val != 0
+    o = np.lexsort((place[real], row[real]))
+    return row[real][o], col[real][o], val[real][o]
+
+
+@pytest.mark.parametrize("group_rows", [32, 128, 512, 2048])
+def test_grouped_plan_writes_every_row_once(group_rows, scrambled):
+    """The precision mode's scrambled body grouped in parts of 32 to 2,048
+    rows: the row map is a permutation and the kernel's walk writes every
+    body row exactly once; each real cell keeps its row, value and global
+    column (``decode_columns`` of its step) in the same order as the table
+    form's; the plain version equals the table form's bit for bit, plain
+    and Kahan."""
+    e = _dword(scrambled)
+    table = stream_cells.build_stream_cells(e)
+    plan = stream_cells.build_stream_cells(
+        e, direct_below=stream_cells.DIRECT_BELOW, group_rows=group_rows)
+    st = plan.stats
+    assert st["grouped"] and st["direct_pieces"] > 0
+    assert st["sectors_per_rb"][1] < st["sectors_per_rb"][0]
+    n = plan.n_rb * 32
+    np.testing.assert_array_equal(np.sort(plan.row_map), np.arange(n))
+    for v in ehyb_stream.BUILT_ROWS:
+        written = np.zeros(n, np.int64)
+        for _, rb in _walk(plan.n_rb, v, 5):
+            written[plan.row_map[rb * 32:rb * 32 + 32]] += 1
+        assert np.all(written == 1)
+    # the table form's cells against the decoded body, then both forms
+    offs = e.slice_offset.astype(np.int64)
+    st_, ln = np.nonzero(e.ell_val[:offs[-1]] != 0)
+    step_slice = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
+    want_row = step_slice[st_] * 128 + ln
+    want_col = stream_cells.decode_columns(e, 0, int(offs[-1]))[st_, ln]
+    o = np.lexsort((st_, want_row))
+    rows_t, cols_t, vals_t = _cells_by_row(table)
+    np.testing.assert_array_equal(rows_t, want_row[o])
+    np.testing.assert_array_equal(cols_t, want_col[o])
+    for got, want in zip(_cells_by_row(plan), (rows_t, cols_t, vals_t)):
+        np.testing.assert_array_equal(got, want)
+    x = _x(e)
+    for kahan in (False, True):
+        assert torch.equal(
+            ehyb_stream.stream_body_plain(plan.to_torch(), x, kahan),
+            ehyb_stream.stream_body_plain(table.to_torch(), x, kahan))
+
+
+def test_mixed_plan_decodes_like_the_table_form():
+    """On the edge body in f64 the shipped plan holds pieces with and
+    without a table (cut row blocks, an empty one, a ragged slice): every
+    real cell decodes to the table form's column, row and value in the
+    same order, the direct pieces' columns stay inside x, and the index
+    arrays hold every cell."""
+    e = _edge_f64()
+    table = stream_cells.build_stream_cells(e)
+    plan = stream_cells.k1_plan(e)
+    st = plan.stats
+    width = np.diff(plan.piece[:, 0])
+    empty = int((width == 0).sum())
+    assert 0 < st["direct_pieces"] < st["n_pieces"] - empty
+    assert not st["grouped"] and plan.row_map.size == 0
+    assert plan.cell_idx.size == plan.cell_col.size == st["compact_cells"]
+    assert plan.cell_col.max() < e.padded_x_rows
+    cells = np.diff(plan.piece[:, 0])
+    assert st["direct_cells"] == cells[np.diff(plan.piece[:, 1]) == 0].sum()
+    for got, want in zip(_cells_by_row(plan), _cells_by_row(table)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_f64_flagship_plan_keeps_the_table_form(scrambled):
+    """The flagship layout in float64 reads many cells a table row: its
+    plan keeps the 16-bit table form in the body's row order (no direct
+    piece, no row map, no grouping weighed), byte for byte the plan the
+    table form builds; float32 plans never take the options."""
+    cfg = config_for(PORT, True, "sell_rx", 2, dtype="float64")
+    e = host_pipeline(PORT, coo_for(PORT, scrambled), cfg)[2]
+    assert e.ell_val.dtype == np.float64
+    plan, table = stream_cells.k1_plan(e), stream_cells.build_stream_cells(e)
+    st = plan.stats
+    assert st["real_cells"] >= stream_cells.DIRECT_BELOW * st["table_rows"]
+    assert st["direct_pieces"] == 0 and not st["grouped"]
+    assert st["sectors_per_rb"] is None
+    assert plan.row_map.size == 0 and plan.cell_col.size == 0
+    for f in ("piece", "rows", "cell_val", "cell_idx"):
+        np.testing.assert_array_equal(getattr(plan, f), getattr(table, f))
+    e32 = _artifact(None, "edges", None, 0, {})
+    p32 = stream_cells.k1_plan(e32)
+    assert p32.stats["direct_pieces"] == 0 and p32.cell_col.size == 0
+
+
+def test_wrapper_refuses_what_the_kernels_do_not_read(scrambled):
+    """A float32 plan with direct pieces or a row map, and a row-block
+    list over a grouped plan (lists name body row blocks), are refused
+    before any build."""
+    e32 = edge_body()
+    bad = stream_cells.build_stream_cells(e32, direct_below=8.0).to_torch()
+    x32 = torch.zeros(e32.padded_x_rows)
+    with pytest.raises(ValueError, match="table form only"):
+        ehyb_stream._check(bad, x32)
+    grouped = stream_cells.k1_plan(_dword(scrambled))
+    assert grouped.stats["grouped"]
+    p = grouped.to_torch()
+    x = torch.zeros(p.stats["x_rows"], dtype=torch.float64)
+    lst = torch.zeros(1, dtype=torch.int32)
+    for fn in (ehyb_stream.stream_body, ehyb_stream.stream_body_plain):
+        with pytest.raises(ValueError, match="row-block list"):
+            fn(p, x, rb_list=lst)
