@@ -5,6 +5,7 @@ its A/B.
     python3 chip_k1_sweep.py --ab TAG [SHAPE ...]  # K1 as shipped, its rows
     python3 chip_k1_sweep.py --f64      # K1 f64: plan forms x geometries
     python3 chip_k1_sweep.py --ab TAG --f64 [CASE ...]  # K1 f64 as shipped
+    python3 chip_k1_sweep.py --long     # the split form at heavy tails
 
 Sets up ``permuted_poisson_512`` (262,144 rows) and
 ``permuted_poisson_1024`` (1,048,576 rows) through the flagship, as the CLI
@@ -19,16 +20,37 @@ ends with its fastest geometries and the default's rank; the choice is
 the fastest at permuted_poisson_1024 that is within 3% of the fastest at
 permuted_poisson_512: ``ops/ehyb_stream.py::GEOMETRY``.
 
-``--ab TAG`` compares two checkouts on one card: for both shapes (or the
-``SHAPE`` names given after ``TAG``) it times the body kernel as the
+``--ab TAG`` compares two checkouts on one card: for the ``AB_SHAPES`` (or
+the ``SHAPE`` names given after ``TAG``) it times the body kernel as the
 checkout ships it (three CUDA-graph readings) and the whole apply, checks
 the kernel against its plain version, drives ``permuted_poisson_512``
-through the CLI, and prints one JSON line per measurement, tagged ``TAG``,
-with the card's state.  It takes K1's plan
+(and each heavy-tailed shape named) through the CLI, and prints one JSON
+line per measurement, tagged ``TAG``, with the card's state.  The
+heavy-tailed shapes are K1's bodies on their main paths: powerlaw_1m's
+dense sub-matrix (the rows ``DegreeSplitSpmv`` gives the flagship) and
+powerlaw_16k's whole body (the small gate keeps it), set up through
+``EhybSpmv`` with the gate off and the artifact cached
+(``EHYB_TORCH_CACHE_DIR``); their lines add both bounds, cuSPARSE over the
+body's entries and the plan's shape.  It takes K1's plan
 where the checkout's flagship has one (``model.module.cells``) and the
 padded body where it does not, so it runs in an older checkout too: copy
 this file to the root of the other checkout and run it from the root of
 each, in turns (A, B, B, A), in one call.
+
+``--long`` sweeps the split form (``ops/stream_cells.py``, ``split_steps``)
+at the two heavy-tailed shapes: it first reads the widest row block of
+the ``FLOOR_SHAPES``' flagship bodies (the split form must leave those
+plans as they are), then, for every ``SPLIT_SWEEP`` value, builds the
+plan (its build seconds, chunks and work items) and times the split
+variant (built with x through L1/L2) at every threads and blocks per SM,
+each held bit for bit to the plain version run on the CPU, beside the
+table form (the plan without the split form, which K1 walks one row
+block a warp), both bounds and cuSPARSE.  The choice,
+``stream_cells.SPLIT_STEPS`` and ``ehyb_stream.SPLIT_GEOMETRY``, is the
+one with ``split_steps`` no less than that widest row block whose times
+over the fastest such at the two shapes sum the least (powerlaw_16k's time is its longest chunk's walk, so it favours
+short chunks; powerlaw_1m's is the cells' stream, which favours fewer
+partials).
 
 ``--f64`` sweeps the float64 kernel on ``permuted_poisson_512`` in the
 precision mode (``--dword``), whose unordered body is scattered: the plan
@@ -59,17 +81,28 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 import ehyb_spmv_torch as port
 from ehyb_spmv_torch import cli
-from ehyb_spmv_torch.core.coo import deterministic_x
+from ehyb_spmv_torch.core.coo import MatrixCOO, deterministic_x
 from ehyb_spmv_torch.io import generate
 from ehyb_spmv_torch.ops import ehyb_stream
 from ehyb_spmv_torch.ops.stream_cells import build_stream_cells
 
 SHAPES = ("permuted_poisson_512", "permuted_poisson_1024")
+#: The heavy-tailed shapes: K1 on powerlaw_1m's dense sub-matrix and on
+#: powerlaw_16k's body.
+LONG_SHAPES = ("powerlaw_1m", "powerlaw_16k")
+AB_SHAPES = SHAPES + LONG_SHAPES
+#: ``--long``'s split_steps values.
+SPLIT_SWEEP = (48, 64, 96, 128)
+#: The flagship rows whose float bodies K1 reads in the table form: the
+#: split form must leave them as they are, so ``--long`` takes no
+#: split_steps below their widest row block.
+FLOOR_SHAPES = ("permuted_poisson_512", "random_16k")
 THREADS = (128, 256, 512)
 BLOCKS_PER_SM = (1, 2, 4, 8, 16)
 #: What the card runs at, beside every reading.  ``chip_smoke.py`` has its
@@ -160,33 +193,202 @@ def run_sweep(dev) -> int:
     return 0
 
 
-def run_ab(tag: str, dev, shapes=SHAPES) -> int:
+def heavy_body(name: str, dev):
+    """K1's body at a heavy-tailed shape as its main path sets it up (see
+    the module docstring), and its padded x."""
+    from ehyb_spmv_torch.models.hybrid import degree_split_stats
+
+    t0 = time.perf_counter()
+    m = generate.load_corpus(name)
+    if name == "powerlaw_1m":
+        dense, _ = degree_split_stats(m)
+        keep = dense[m.row]
+        m = MatrixCOO(m.n_rows, m.n_cols, m.row[keep], m.col[keep],
+                      m.val[keep])
+    model = port.EhybSpmv(port.EhybConfig(routed_delegate="never",
+                                          artifact_cache=True),
+                          device=dev).setup(m)
+    print(f"{name}: {m.nnz} body entries, setup "
+          f"{time.perf_counter() - t0:.1f} s ({model.setup_seconds})",
+          flush=True)
+    return model, model.prepare_x(deterministic_x(m.dimension))
+
+
+def calls_for(fn, budget_ms: float = 30.0) -> int:
+    """Calls a CUDA-graph reading of ``fn`` takes: about ``budget_ms`` of
+    device time, 3 to 100."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fn()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return max(3, min(100, int(budget_ms / max(start.elapsed_time(end),
+                                               1e-3))))
+
+
+def body_yardsticks(model, x: torch.Tensor, p, dev) -> dict:
+    """Both bounds of K1 over plan ``p`` of the model's body (ms) and
+    cuSPARSE over the body's entries (device ms a call)."""
+    nnz = model.dev.body_nnz
+    same = cs.same_work_bound(nnz, 2, x.numel(), p.n_rb * 32, dev)
+    layout = cs.bound(p.stats["layout_bytes"], 2 * nnz, dev)
+    return dict(bound_ms=same["bound_ms"], layout_bound_ms=layout["bound_ms"],
+                cusparse_ms=cs.body_library_ms(model, x, dev))
+
+
+def run_ab(tag: str, dev, shapes=AB_SHAPES) -> int:
     def out(**row):
         print(json.dumps({"tree": tag, **row, "card": smi(CARD)}),
               flush=True)
 
     for name in shapes:
-        model, x = flagship(name, dev)
+        heavy = name in LONG_SHAPES
+        model, x = heavy_body(name, dev) if heavy else flagship(name, dev)
         kahan = model.module.kahan
         body = getattr(model.module, "cells", None)
         body = model.dev if body is None else body
-        err = cs.rel(ehyb_stream.stream_body(body, x, kahan),
-                     ehyb_stream.stream_body_plain(body, x, kahan))
-        cs.check(err <= cs.KERNEL_TOL, f"K1 at {name}: vs plain rel "
-                                       f"{err:.3e}")
-        out(kernel=f"K1 at {name}", rel_vs_plain=err, ms=[
-            cs.device_ms_per_call(
-                lambda: ehyb_stream.stream_body(body, x, kahan), 100)
-            for _ in range(3)],
-            apply_ms=cs.device_ms_per_call(lambda: model.apply(x), 50))
+        y = ehyb_stream.stream_body(body, x, kahan)
+        if heavy:
+            # hub rows of ~1e5 entries: the plain version on the card adds
+            # with atomics in no fixed order; the CPU's adds in K1's
+            same = torch.equal(y.cpu(), ehyb_stream.stream_body_plain(
+                copy.deepcopy(body).cpu(), x.cpu(), kahan))
+            cs.check(same, f"K1 at {name}: bit for bit with the plain "
+                           "version on the CPU")
+            err = 0.0
+        else:
+            err = cs.rel(y, ehyb_stream.stream_body_plain(body, x, kahan))
+            cs.check(err <= cs.KERNEL_TOL, f"K1 at {name}: vs plain rel "
+                                           f"{err:.3e}")
+        kernel = lambda: ehyb_stream.stream_body(body, x, kahan)  # noqa
+        n = calls_for(kernel)
+        extra = {}
+        if heavy:
+            st = body.stats
+            extra = dict(body_yardsticks(model, x, body, dev),
+                         plan={k: st.get(k) for k in (
+                             "n_rb", "n_pieces", "split_rbs", "max_width",
+                             "chunked_rbs", "n_chunks", "n_items",
+                             "split_steps", "compact_cells", "real_cells")})
+        out(kernel=f"K1 at {name}", rel_vs_plain=err, calls=n, ms=[
+            cs.device_ms_per_call(kernel, n) for _ in range(3)],
+            apply_ms=cs.device_ms_per_call(lambda: model.apply(x),
+                                           max(3, n // 2)), **extra)
         del model, x, body
-    code, res, _ = cli.run(cli.build_parser().parse_args(
-        ["-g", SHAPES[0], "-i", "500", "--device", "cuda"]))
-    if code != 0:
-        return code
-    out(matrix=res["matrix"], gflops=res["gflops"],
-        us_per_iter=1e6 * res["seconds"] / res["iters"],
-        rel_error=res["rel_error"], roofline_frac=res.get("roofline_frac"))
+    # powerlaw_1m loads its cached artifacts (its gate verdict is the
+    # structural one); powerlaw_16k's small gate measures afresh
+    for name in (SHAPES[0],) + tuple(s for s in shapes if s in LONG_SHAPES):
+        code, res, _ = cli.run(cli.build_parser().parse_args(
+            ["-g", name, "-i", "500" if name == SHAPES[0] else "300",
+             "--device", "cuda"] + (["--cache"] if name == "powerlaw_1m"
+                                    else [])))
+        if code != 0:
+            return code
+        out(matrix=res["matrix"], engine=res.get("engine"),
+            small_gate=res.get("small_gate"), gflops=res["gflops"],
+            us_per_iter=1e6 * res["seconds"] / res["iters"],
+            rel_error=res["rel_error"], roofline_frac=res.get("roofline_frac"))
+    return 0
+
+
+def long_geometries():
+    for t, b in itertools.product(THREADS, (2, 4, 8, 16)):
+        yield ehyb_stream.StreamGeometry(threads=t, blocks_per_sm=b)
+
+
+def widest_row_block(name: str, dev) -> int:
+    """The widest row block (the sum of its pieces' widths) of K1's table
+    form over the flagship body of corpus matrix ``name``."""
+    from ehyb_spmv_torch.ops.stream_cells import PIECE_CELL, PIECE_RB
+
+    m = generate.load_corpus(name)
+    model = port.EhybSpmv(port.EhybConfig(routed_delegate="never"),
+                          device=dev).setup(m)
+    piece = build_stream_cells(model.ehyb).piece
+    width = np.bincount(piece[:-1, PIECE_RB],
+                        weights=np.diff(piece[:, PIECE_CELL]) // 32)
+    print(f"{name}: the flagship body's widest row block {int(width.max())} "
+          "steps", flush=True)
+    return int(width.max())
+
+
+def sweep_long(name: str, dev) -> dict:
+    """One heavy-tailed shape: the table form at the shipped geometry, then
+    every (split_steps, geometry, combine); returns (split_steps, geometry)
+    → ms."""
+    from ehyb_spmv_torch.ops.stream_cells import SPLIT_STEPS
+
+    model, x = heavy_body(name, dev)
+    e = model.ehyb
+    x_cpu = x.cpu()
+    table = build_stream_cells(e).to_torch(dev)
+    ys = body_yardsticks(model, x, table, dev)
+    kernel = lambda: ehyb_stream.stream_body(table, x)  # noqa: E731
+    t_ms = cs.device_ms_per_call(kernel, calls_for(kernel))
+    st = table.stats
+    print(f"== {name}: the table form ({st['n_rb']} row blocks, "
+          f"{st['n_pieces']} pieces, max width {st['max_width']}): "
+          f"{t_ms * 1e3:.2f} us at {ehyb_stream.GEOMETRY}; same-work bound "
+          f"{ys['bound_ms'] * 1e3:.2f} us, cuSPARSE "
+          f"{ys['cusparse_ms'] * 1e3:.2f} us", flush=True)
+    del table
+    ms_of = {}
+    for steps in SPLIT_SWEEP:
+        t0 = time.perf_counter()
+        plan = build_stream_cells(e, split_steps=steps)
+        secs = time.perf_counter() - t0
+        want = ehyb_stream.stream_body_plain(plan.to_torch(), x_cpu)
+        p = plan.to_torch(dev)
+        st = plan.stats
+        layout = cs.bound(st["layout_bytes"], 2 * model.dev.body_nnz, dev)
+        shipped = " (shipped)" if steps == SPLIT_STEPS else ""
+        print(f"== {name}, split_steps {steps}{shipped}: "
+              f"built in {secs:.2f} s; {st['chunked_rbs']} row blocks in "
+              f"{st['n_chunks']} chunks, {st['n_items']} work items, "
+              f"{st['n_pieces']} pieces, {st['compact_cells']} cells; "
+              f"layout bound {layout['bound_ms'] * 1e3:.2f} us", flush=True)
+        for g in long_geometries():
+            try:
+                grid = ehyb_stream.grid_of(p, g, False, dev)
+            except RuntimeError as exc:
+                print(f"  {g}: not run ({exc})")
+                continue
+            y = ehyb_stream._launch(p, x, False, g)
+            cs.check(torch.equal(y.cpu(), want),
+                     f"{name} {steps} {g}: bit for bit with the CPU plain "
+                     "version")
+            fn = lambda: ehyb_stream._launch(p, x, False, g)  # noqa: E731
+            ms = cs.device_ms_per_call(fn, calls_for(fn))
+            ms_of[(steps, g)] = ms
+            print(f"  threads {g.threads} blocks/SM {g.blocks_per_sm} x "
+                  f"{g.x_mode}: {ms * 1e3:.2f} us (grid {grid}, "
+                  f"{ehyb_stream.registers(g, split=True)} registers); "
+                  f"{ys['bound_ms'] / ms:.3f} of the same-work bound, "
+                  f"{t_ms / ms:.1f}x the table form", flush=True)
+        del p
+    for k in sorted(ms_of, key=ms_of.get)[:5]:
+        print(f"  fastest at {name}: split_steps {k[0]} at {k[1]}: "
+              f"{ms_of[k] * 1e3:.2f} us")
+    print(f"  card: {CARD} = {smi(CARD)}", flush=True)
+    del model, x
+    return ms_of
+
+
+def run_long(dev) -> int:
+    built = ehyb_stream.build_kernel()
+    print(f"built in {built.seconds:.1f} s")
+    for line in built.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas: {line.strip()}")
+    floor = max(widest_row_block(name, dev) for name in FLOOR_SHAPES)
+    big, small = (sweep_long(name, dev) for name in LONG_SHAPES)
+    ok = [k for k in big if k in small and k[0] >= floor]
+    b0, s0 = min(big[k] for k in ok), min(small[k] for k in ok)
+    pick = min(ok, key=lambda k: big[k] / b0 + small[k] / s0)
+    print(f"choice (split_steps at least {floor}): split_steps {pick[0]} at "
+          f"{pick[1]}: {LONG_SHAPES[0]} {big[pick] * 1e3:.2f} us, "
+          f"{LONG_SHAPES[1]} {small[pick] * 1e3:.2f} us")
     return 0
 
 
@@ -389,16 +591,17 @@ def run_ab_f64(tag: str, dev, cases) -> int:
 
 def main() -> int:
     args = sys.argv[1:]
-    f64 = "--f64" in args
-    args = [a for a in args if a != "--f64"]
+    f64, long = "--f64" in args, "--long" in args
+    args = [a for a in args if a not in ("--f64", "--long")]
     ab = args[:2] if args[:1] == ["--ab"] else None
-    names = SHAPES if not f64 else tuple(F64_CASES)
+    names = AB_SHAPES if not f64 else tuple(F64_CASES)
     shapes = tuple(args[2:]) or names
     if (ab is None and args) or (ab is not None and (
-            len(ab) != 2 or not set(shapes) <= set(names))):
-        print(f"usage: chip_k1_sweep.py [--f64] [--ab TAG [SHAPE ...]], "
-              f"SHAPE one of {', '.join(SHAPES)}; with --f64, one of "
-              f"{', '.join(F64_CASES)}", file=sys.stderr)
+            len(ab) != 2 or not set(shapes) <= set(names))) \
+            or (long and (f64 or ab is not None)):
+        print(f"usage: chip_k1_sweep.py [--long | --f64] [--ab TAG "
+              f"[SHAPE ...]], SHAPE one of {', '.join(AB_SHAPES)}; with "
+              f"--f64, one of {', '.join(F64_CASES)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("error: needs a CUDA device; none is available",
@@ -408,6 +611,8 @@ def main() -> int:
     print(smi("name,power.limit"), flush=True)
     if f64:
         return run_ab_f64(ab[1], dev, shapes) if ab else sweep_f64(dev)
+    if long:
+        return run_long(dev)
     return run_ab(ab[1], dev, shapes) if ab else run_sweep(dev)
 
 if __name__ == "__main__":

@@ -10,10 +10,14 @@ serves the TPU's K3/K4.  Checks each against its plain PyTorch version on
 small matrices that land on every layout it serves (K1 at every built
 variant on nwin 1/2/4, Kahan, int32 columns and a synthetic body with a
 ragged last slice, a zero-width row block and row blocks cut for the 16-bit
-range, bit for bit where Kahan is off; K9 at every built variant, in both
-of its x modes, on cases that reach its tile and x edges; and K1 where the
-JAX package would run K5 or K6, timed there), then drives four main paths
-end to end through the CLI and checks each against the exact-f64 oracle:
+range, bit for bit where Kahan is off; K1's split variant, over the plan
+form of heavy-tailed bodies whose long row blocks are cut into chunks, on
+a synthetic long body and powerlaw_small at a small split and the shipped
+one, bit for bit, its combine also under CUDA-graph replays; K9 at every
+built variant, in both of its x modes, on cases that reach its tile and x
+edges; and K1 where the JAX package would run K5 or K6, timed there), then
+drives four main paths end to end through the CLI and checks each against
+the exact-f64 oracle:
 
 * the flagship on ``permuted_poisson_512`` (262,144 rows, ~1.3M nnz), which
   runs K1 and K9;
@@ -88,8 +92,10 @@ the small gate (phase 18): ``ehyb`` on ``random_16k`` and
 ``powerlaw_16k``, each with a fresh cache, times the candidate engine
 against the body through the graph loop and keeps the one the 5% rule
 picks; a warm setup reads the verdict without measuring, and
-``stencil3d(24, 27)`` keeps the body without measuring.  The ``kernels``
-line gains ``ehyb_stream_body (f64)`` at both shapes and ``dia (f64)``.
+``stencil3d(24, 27)`` keeps the body without measuring; then K1 on
+powerlaw_16k's body, its split form against the same body's plan without
+it, in turns.  The ``kernels`` line gains ``ehyb_stream_body (f64)`` at
+both shapes and ``dia (f64)``.
 
 Last, a float64 config (``--dtype float64``, not the precision mode;
 phase 19), whose variants phases 5, 16a and 17a check first, bit for bit
@@ -125,7 +131,10 @@ the five corpus rows no other phase drives (``poisson2d_512``,
 ``stencil27_24``, ``fem3d_32``, ``random_4m`` in the routed engine's
 column-block mode, ``powerlaw_1m``), its table rebuilt from its log by
 ``scripts_torch/sweep_table.py``.  Each row prints its engine, launches,
-rel error, setup and wall.  Phase 20 adds no kernel.
+rel error, setup and wall.  Then K1 on powerlaw_1m's dense sub-matrix (the
+degree split's EHYB part, from the prewarmed cache), its split form
+against the plan without it, in turns.  The ``kernels`` line ends with K1
+on both heavy-tailed bodies.
 
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
@@ -157,13 +166,16 @@ from ehyb_spmv_torch.core.coo import (MatrixCOO, coalesce, deterministic_x,
 from ehyb_spmv_torch.core.route import RoutedEpilogue, build_routed
 from ehyb_spmv_torch.io import generate
 from ehyb_spmv_torch.models import routed as routed_model
+from ehyb_spmv_torch.models.hybrid import degree_split_stats
 from ehyb_spmv_torch.models.solver import CgSolver, PowerIteration
 from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
 from ehyb_spmv_torch.ops import route_xcache, stream_plan
 from ehyb_spmv_torch.ops.build import BUILD_DIR
+from ehyb_spmv_torch.ops import stream_cells
 from ehyb_spmv_torch.ops.stream_cells import (DIRECT_BELOW, PIECE_CELL,
                                               PIECE_RB, PIECE_ROW,
-                                              build_stream_cells, k1_plan)
+                                              build_stream_cells, k1_plan,
+                                              split)
 from ehyb_spmv_torch.parallel import launch
 from ehyb_spmv_torch.parallel.comm import rank_device
 from ehyb_spmv_torch.parallel.hybrid import ShardedDegreeSplitSpmv
@@ -256,6 +268,14 @@ K1F64 = {"name": "ehyb_stream_body (f64)", "route": "cuda",
          "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
          "replaces": f"{_PALLAS}:148 (K1) in f64, the body of the precision "
                      "mode (ehyb_spmv_gpu_tpu/ops/dword.py, XLA on the TPU)"}
+#: K1's split variant on the heavy-tailed bodies (plans in the split form):
+#: powerlaw_1m's dense sub-matrix (the degree split's EHYB part, phase 20)
+#: and powerlaw_16k's body (phase 18).
+K1_LONG_1M = dict(K1, name="ehyb_stream_body (long rows, powerlaw_1m split)")
+K1_LONG_16K = dict(K1, name="ehyb_stream_body (long rows, powerlaw_16k)")
+#: The heavy-tailed test body of phase 3 (``tests/conftest.py``'s
+#: powerlaw_small).
+POWERLAW_SMALL = dict(dim=3000, avg_nnz_per_row=16, seed=5, power_law=0.8)
 #: K1 f64 at the precision mode's second shape: fem3d_68's body.
 K1F64_FEM = dict(K1F64, name="ehyb_stream_body (f64, fem3d_68 --dword)")
 K9F64 = {"name": "dia (f64)", "route": "cuda",
@@ -549,6 +569,55 @@ def edge_body(seed: int = 7) -> port.EhybMatrix:
         stats={"nnz_ell": nnz, "waste_ell": n_steps * 128 - nnz})
 
 
+def long_body(steps: int, seed: int = 5) -> port.EhybMatrix:
+    """A synthetic ``sell_mw`` body (nwin 1) that reaches the edges of K1's
+    split form at ``split_steps = steps``: in slice 0 a row block exactly
+    ``steps`` wide (kept whole), one ``steps + 1`` wide (two chunks), one
+    with no cell and one of short rows, some empty; slice 1 is ragged (its
+    last 55 rows hold nothing); the last slice's last row block holds a hub
+    row ``5 steps + 3`` wide in its last row, beside rows of random lengths
+    up to it.  Every step reads a window of 1,024 columns at a random,
+    unaligned start (up to 9 x rows of 128), so past ~60 steps a row
+    block's table outgrows 16 bits and the hub block's chain is cut there
+    too; each of its chunks but the last ends inside the chain."""
+    rng = np.random.default_rng(seed)
+    win, n_win = 1024, 512
+    hub = 5 * steps + 3
+    widths = (steps + 1, steps, hub)
+    offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+    n_steps = int(offs[-1])
+    step_win = rng.integers(0, (n_win - 1) * win, n_steps).astype(np.int32)
+    ell_col = rng.integers(0, win, (n_steps, 128)).astype(np.int16)
+    length = np.zeros((3, 128), np.int64)
+    length[0, :32] = rng.integers(0, steps + 1, 32)
+    length[0, 0] = steps                        # the row block at the limit
+    length[0, 32:64] = rng.integers(0, steps + 1, 32)
+    length[0, 32] = steps + 1                   # just past it: two chunks
+    length[0, 96:] = rng.integers(0, steps // 2 + 1, 32)
+    length[0, 100:104] = 0                      # rows 64-95 and these: empty
+    length[1, :73] = rng.integers(0, steps + 1, 73)
+    length[1, 0] = steps
+    length[2, :96] = rng.integers(0, 3, 96)
+    length[2, 96:] = rng.integers(0, hub + 1, 32)
+    length[2, 127] = hub                        # the hub, the last row
+    ell_val = np.zeros((n_steps, 128), np.float32)
+    for s, w in enumerate(widths):
+        on = np.arange(w)[:, None] < length[s][None, :]
+        ell_val[offs[s]:offs[s + 1]] = np.where(
+            on, rng.standard_normal((w, 128)), 0.0)
+    nnz = int(np.count_nonzero(ell_val))
+    i32, f32 = np.int32, np.float32
+    return port.EhybMatrix(
+        dim=n_win * win, nnz_total=nnz, window_rows=win, n_parts=1,
+        ell_col=ell_col, ell_val=ell_val, slice_offset=offs,
+        slice_win_start=step_win[offs[:-1]], step_win=step_win,
+        er_col=np.zeros((0, 128), i32), er_val=np.zeros((0, 128), f32),
+        er_slice_offset=np.zeros(1, i32), er_rows=np.zeros(0, i32),
+        long_col=np.zeros(0, i32), long_val=np.zeros(0, f32),
+        long_seg=np.zeros(0, i32), long_rows=np.zeros(0, i32),
+        stats={"nnz_ell": nnz, "waste_ell": n_steps * 128 - nnz})
+
+
 def k1_geometries(f64: bool = False):
     """Every built K1 variant (rows per thread, x mode) at 128 threads, and
     the default geometry; in f64 those of them built in f64 (one row a
@@ -562,7 +631,7 @@ def k1_geometries(f64: bool = False):
 
 
 def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
-                  cells=None) -> None:
+                  cells=None, table: bool = False) -> None:
     """K1 over the compact plan of body ``e`` (an EhybMatrix, f32 or f64
     values) at every geometry of :func:`k1_geometries` for its type:
     against its plain version and the padded body's within KERNEL_TOL
@@ -573,11 +642,14 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
     in no fixed order, and a naive f64 sum of the cancellation matrix
     depends on the order.  ``cells``, the plan on the card, defaults to a
     fresh build of ``e``'s (``k1_plan``: in f64, direct pieces and grouped
-    rows where the body is scattered)."""
+    rows where the body is scattered; in float32 without Kahan, the split
+    form where a row block is wider than ``SPLIT_STEPS``, at the split
+    variant's geometries; with ``table``, the table form whatever the
+    widths)."""
     f64 = e.ell_val.dtype == np.float64
     tol = F64_TOL if f64 else KERNEL_TOL
     exact = f64 or not kahan
-    plan = k1_plan(e)
+    plan = build_stream_cells(e) if table else k1_plan(e, kahan=kahan)
     p = plan.to_torch(dev) if cells is None else cells
     x_dev = torch.as_tensor(
         x, dtype=torch.float64 if f64 else torch.float32, device=dev)
@@ -589,7 +661,8 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
     y_pad = ehyb_body(e.to_torch(device=on), x_dev.to(on),
                       compensated=kahan)
     worst, same = 0.0, True
-    for g in k1_geometries(f64):
+    geometries = split_geometries() if split(p) else k1_geometries(f64)
+    for g in geometries:
         y_k = ehyb_stream._launch(p, x_dev, kahan, g).to(on)
         err = max(rel(y_k, y_p), rel(y_k, y_pad))
         if not bool(torch.isfinite(y_k).all()) or err > tol:
@@ -600,13 +673,180 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
     st = plan.stats
     check(not exact or same,
           f"K1 {name} ({st['n_rb']} row blocks, {st['n_pieces']} pieces, "
-          f"{st['split_rbs']} cut for the 16-bit range, max width "
+          f"{st['split_rbs']} cut into pieces, max width "
           f"{st['max_width']}; {st['compact_cells']} of {st['padded_cells']} "
           f"cells{', f64' if f64 else ''}{', Kahan' if kahan else ''}): "
-          f"{len(k1_geometries(f64))} geometries, vs plain and the padded "
+          f"{len(geometries)} geometries, vs plain and the padded "
           f"body rel <= {worst:.3e} <= {tol}"
           + ("; bit for bit with the plain version on the CPU" if exact
              else ""))
+
+
+def split_geometries():
+    """The split variant's geometries (it is built at one row a thread, x
+    through L1/L2) at 128 threads, and the shipped one."""
+    return [ehyb_stream.StreamGeometry(threads=128),
+            ehyb_stream.SPLIT_GEOMETRY]
+
+
+def replay_split(p, x_cpu: list, dev, g) -> bool:
+    """K1's split variant at geometry ``g`` captured in one CUDA graph over
+    plan ``p`` and replayed once for each x of ``x_cpu``: whether every
+    replay's y equals the plain version on the CPU bit for bit (the
+    in-launch combine puts its counters back to 0, so each replay starts
+    clean)."""
+    p_cpu = copy.deepcopy(p).cpu()
+    x_buf = x_cpu[0].to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        ehyb_stream._launch(p, x_buf, False, g)
+        with torch.cuda.graph(graph, stream=side):
+            y_buf = ehyb_stream._launch(p, x_buf, False, g)
+    torch.cuda.synchronize()
+    same = True
+    for x in x_cpu:
+        x_buf.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and torch.equal(
+            y_buf.cpu(), ehyb_stream.stream_body_plain(p_cpu, x))
+    del graph
+    return same
+
+
+def check_k1_split(dev) -> None:
+    """Phase 3's split form: K1's split variant on the synthetic long body
+    (``long_body``) and on powerlaw_small's flagship body, each at a small
+    ``split_steps`` (4) and at the shipped ``SPLIT_STEPS``, at every built
+    split geometry, bit for bit against the plain version on the CPU and
+    within KERNEL_TOL of the padded body's; then each geometry replayed in
+    a CUDA graph over three x (the in-launch combine's counters are back at
+    0 after each); then the powerlaw_small flagship (the split form as
+    shipped) against the oracle, K1 launched."""
+    rng = np.random.default_rng(11)
+    shipped = stream_cells.SPLIT_STEPS
+    m = generate.random_general(**POWERLAW_SMALL)
+    model = port.EhybSpmv(port.EhybConfig(), device=dev).setup(m)
+    cells = model.module.cells
+    check(split(cells) and model.dev.ell_val is None,
+          f"powerlaw_small's flagship body in the split form: "
+          f"{cells.stats['chunked_rbs']} row blocks in "
+          f"{cells.stats['n_chunks']} chunks of at most "
+          f"{cells.stats['split_steps']} steps")
+    for steps in (4, shipped):
+        with patched_split(steps):
+            for name, e in ((f"long body {steps}", long_body(steps)),
+                            (f"powerlaw_small {steps}", model.ehyb)):
+                x = rng.standard_normal(e.padded_x_rows)
+                check_k1_case(name, e, x, False, dev,
+                              cells if e is model.ehyb and steps == shipped
+                              else None)
+                st = k1_plan(e).stats
+                check(st["chunked_rbs"] > 0
+                      and st["max_item_steps"] <= steps,
+                      f"{name}: {st['chunked_rbs']} row blocks in "
+                      f"{st['n_chunks']} chunks, {st['n_items']} work "
+                      f"items of at most {st['max_item_steps']} steps")
+        plan = build_stream_cells(long_body(steps), split_steps=steps)
+        p = plan.to_torch(dev)
+        xs = [torch.from_numpy(rng.standard_normal(
+            plan.stats["x_rows"]).astype(np.float32)) for _ in range(3)]
+        for g in split_geometries():
+            check(replay_split(p, xs, dev, g),
+                  f"long body {steps} at {g}: three CUDA-graph replays bit "
+                  "for bit with the plain version on the CPU")
+    reset_launches()
+    x = deterministic_x(m.dimension)
+    err = rel_np(model.matvec(x), oracle_spmv(m, x))
+    check(err <= ORACLE_TOL and ehyb_stream.stream_body.launches == 1,
+          f"powerlaw_small flagship vs oracle rel {err:.3e} <= {ORACLE_TOL}, "
+          f"K1 launched {ehyb_stream.stream_body.launches} times")
+
+
+@contextlib.contextmanager
+def patched_split(steps: int):
+    """``stream_cells.SPLIT_STEPS`` at ``steps`` for the length of a
+    ``with`` block."""
+    old, stream_cells.SPLIT_STEPS = stream_cells.SPLIT_STEPS, steps
+    try:
+        yield
+    finally:
+        stream_cells.SPLIT_STEPS = old
+
+
+def time_k1_split(name: str, model, dev, x_dev: torch.Tensor) -> dict:
+    """K1 on a heavy-tailed body (``model``'s, in the split form): the
+    shipped plan against the table form (the same body's plan without the
+    split form, each row block walked by one warp) in turns, held bit for
+    bit to the plain version on the CPU and, with the table form, to the
+    exact sums at the suite's bound; beside the plain version's time on
+    the card, cuSPARSE over the body's entries and both bounds."""
+    p = model.module.cells
+    st = p.stats
+    check(split(p), f"{name}: K1's plan in the split form "
+                    f"({st['chunked_rbs']} row blocks in {st['n_chunks']} "
+                    f"chunks, {st['n_items']} work items)")
+    t0 = time.perf_counter()
+    table = build_stream_cells(model.ehyb).to_torch(dev)
+    t_build = time.perf_counter() - t0
+    y_k = ehyb_stream.stream_body(p, x_dev)
+    y_cpu = ehyb_stream.stream_body_plain(copy.deepcopy(p).cpu(),
+                                          x_dev.cpu())
+    check(torch.equal(y_k.cpu(), y_cpu), f"{name}: the split variant bit "
+                                         "for bit with the plain version "
+                                         "on the CPU")
+    max_abs = float((y_k.cpu() - y_cpu).abs().max())
+    # the exact sums: the table form's plain version on the CPU in float64
+    # (the card's plain version adds hub rows of ~1e5 entries with atomics
+    # in no fixed order, so it is timed, not held to)
+    exact = ehyb_stream.stream_body_plain(
+        copy.deepcopy(table).cpu(), x_dev.cpu().double())
+    y_t = ehyb_stream.stream_body(table, x_dev)
+    err_k, err_t = rel(y_k.cpu(), exact), rel(y_t.cpu(), exact)
+    check(max(err_k, err_t) <= ORACLE_TOL,
+          f"{name}: the split form rel {err_k:.3e}, the table form rel "
+          f"{err_t:.3e} from the exact float64 sums <= {ORACLE_TOL}")
+    t_check = time.perf_counter() - t0 - t_build
+    kernel = lambda: ehyb_stream.stream_body(p, x_dev)  # noqa: E731
+    walk = lambda: ehyb_stream.stream_body(table, x_dev)  # noqa: E731
+
+    def calls(fn, budget_ms: float = 20.0) -> int:
+        t = ms_per_call(fn, 1)
+        return max(2, min(100, int(budget_ms / max(t, 1e-3))))
+
+    ms, table_ms, turns = in_turns(kernel, walk, calls(kernel), calls(walk))
+    plain_ms = device_ms_per_call(
+        lambda: ehyb_stream.stream_body_plain(p, x_dev), 3)
+    lib_ms = body_library_ms(model, x_dev, dev)
+    nnz = model.dev.body_nnz
+    b = bound(st["layout_bytes"], 2 * nnz, dev)
+    same = same_work_bound(nnz, 2, x_dev.numel(), y_k.numel(), dev)
+    t_time = time.perf_counter() - t0 - t_build - t_check
+    g = ehyb_stream.SPLIT_GEOMETRY
+    print(f"  K1 at {name}: split form ({st['split_steps']} steps, "
+          f"{st['chunked_rbs']} of {st['n_rb']} row blocks in "
+          f"{st['n_chunks']} chunks, {st['n_items']} work items, "
+          f"{st['n_pieces']} pieces; {g}; grid "
+          f"{ehyb_stream.grid_of(p, g, False, dev)}) against the table form "
+          f"({table.stats['n_pieces']} pieces, max width "
+          f"{table.stats['max_width']}), device ms per call (table, split, "
+          f"split, table): {turns}; host seconds: the table form's build "
+          f"{t_build:.1f}, the checks against the CPU {t_check:.1f}, the "
+          f"timing {t_time:.1f}")
+    print(f"  the table form / the split form = {table_ms / ms:.1f}; plain "
+          f"version {plain_ms:.4f} ms; cuSPARSE over its {nnz} body entries "
+          f"{lib_ms:.4f} ms (K1 / cuSPARSE = {ms / lib_ms:.3f}); same-work "
+          f"bound {same['bound_ms']:.4f} ms ({same['bound_ms'] / ms:.3f} "
+          f"reached), layout bound {b['bound_ms']:.4f} ms "
+          f"({st['layout_bytes']} B: cells {st['cell_bytes']}, maps "
+          f"{st['map_bytes']}, partials {st['partial_bytes']}); "
+          f"{card_state()}")
+    del table
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, table_form_ms=table_ms,
+                **bounds(b, same))
 
 
 def reset_launches() -> None:
@@ -2111,7 +2351,8 @@ def check_small_gate(dev, card: str) -> dict:
     engine returned (the one the 5% rule picks from those numbers) and its
     error against the oracle; a warm setup reads the verdict without
     measuring.  Then stencil3d(24, 27) keeps the body without measuring.
-    Returns each matrix's record; ``card`` (the card's name and power
+    Returns each matrix's record (with the K1 launches of one product
+    through the engine returned); ``card`` (the card's name and power
     limit) stands beside each timed row."""
     def measured(*_):
         raise RuntimeError("the gate measured where it should not")
@@ -2134,7 +2375,9 @@ def check_small_gate(dev, card: str) -> dict:
             verdict = gate._load_gate_decision(m)
             engine = type(model).__name__
             x = deterministic_x(m.dimension)
+            reset_launches()
             err = rel_np(model.matvec(x), oracle_spmv(m, x))
+            k1_launches = ehyb_stream.stream_body.launches
             print(f"  {name}: {g['kind']} {g['candidate_gflops']:.2f} vs "
                   f"body {g['body_gflops']:.2f} GFLOP/s (the graph loop; "
                   f"{card}) "
@@ -2153,7 +2396,11 @@ def check_small_gate(dev, card: str) -> dict:
             check(type(warm.setup(m)).__name__ == engine,
                   f"{name}: a warm setup reads the verdict and returns "
                   f"{engine} without measuring")
-        out[name] = dict(g, engine=engine, rel_error=err)
+        out[name] = dict(g, engine=engine, rel_error=err,
+                         k1_launches=k1_launches)
+    check(out["powerlaw_16k"]["k1_launches"] > 0,
+          f"powerlaw_16k's product through {out['powerlaw_16k']['engine']} "
+          f"launched K1 {out['powerlaw_16k']['k1_launches']} times")
     m = generate.stencil3d(24, 27)
     model = port.EhybSpmv(port.EhybConfig(), device=dev)
     model._measured_gflops = measured
@@ -2423,11 +2670,15 @@ def check_routed_row(r: dict) -> None:
           f"{r['nnz']}")
 
 
-def check_bench_surface(prewarm: Prewarm, res1: dict) -> None:
+def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> dict:
     """Phase 20: the default headline through ``bench_torch``, its
     precision mode, and ``scripts_torch/sweep.py --models ehyb`` over the
     rows no earlier phase drives; every child in its own process with
-    ``artifact_cache=True``, reading the cache the prewarm filled."""
+    ``artifact_cache=True``, reading the cache the prewarm filled.  Then
+    K1 on powerlaw_1m's dense body (the degree split's EHYB part, set up
+    in this process from that cache) timed by :func:`time_k1_split`;
+    returns its kernels entry, with the launches of the sweep's
+    powerlaw_1m run."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()  # the children need the card's memory
     rc, since, out = prewarm.wait(PREWARM_TIMEOUT_S)
@@ -2527,7 +2778,29 @@ def check_bench_surface(prewarm: Prewarm, res1: dict) -> None:
         else:
             check_body_row(rp)
         print(f"  20c wall {time.perf_counter() - t1:.1f} s")
+        check(rp["launches"]["K1"] > 0,
+              f"powerlaw_1m: K1 launched {rp['launches']['K1']} times")
+        print(f"  20d: K1 on powerlaw_1m's dense body, from the prewarmed "
+              f"cache ({card})")
+        t1 = time.perf_counter()
+        with cache_dir(prewarm.cache_dir):
+            m = generate.load_corpus("powerlaw_1m")
+            dense, _ = degree_split_stats(m)
+            keep = dense[m.row]
+            md = MatrixCOO(m.n_rows, m.n_cols, m.row[keep], m.col[keep],
+                           m.val[keep])
+            del m
+            model = port.EhybSpmv(port.EhybConfig(
+                routed_delegate="never", artifact_cache=True),
+                device="cuda").setup(md)
+        print(f"  setup {time.perf_counter() - t1:.1f} s "
+              f"({model.setup_seconds})")
+        k1 = time_k1_split("powerlaw_1m's dense body", model, model.device,
+                           model.prepare_x(deterministic_x(md.dimension)))
+        del model, md
+        print(f"  20d wall {time.perf_counter() - t1:.1f} s")
     print(f"  phase 20 wall {time.perf_counter() - t0:.1f} s")
+    return dict(k1, launches=rp["launches"]["K1"])
 
 
 def main() -> int:
@@ -2606,7 +2879,13 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
           f"slice 1's row blocks {width[4:8].tolist()}")
     for kahan in (False, True):
         check_k1_case(f"edge body{' kahan' if kahan else ''}", e,
-                      rng.standard_normal(e.padded_x_rows), kahan, dev)
+                      rng.standard_normal(e.padded_x_rows), kahan, dev,
+                      table=True)
+    if split(k1_plan(e)):    # its 80-step row blocks past SPLIT_STEPS
+        check_k1_case("edge body (split form)", e,
+                      rng.standard_normal(e.padded_x_rows), False, dev)
+    print("  K1's split form (heavy-tailed bodies: long row blocks in chunks)")
+    check_k1_split(dev)
 
     phase("4: the routed kernel vs its plain version and the plain K7/K8 "
           "pair on small matrices (slice, octet, column blocks, spill) and "
@@ -2636,6 +2915,10 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
           f"K1's plan on the card ({nbytes(*cells.buffers())} B, built in "
           f"{res1['setup_seconds']['k1_plan']:.2f} s), no padded body "
           f"({cells.stats['body_bytes']} B)")
+    check(not split(cells), f"K1's plan of {res1['matrix']} is the table "
+                            f"form: no row block over "
+                            f"{cells.stats['split_steps']} steps (widest "
+                            f"{cells.stats['max_width']})")
 
     phase("7: main path 2, the gather-wall row "
           f"(python -m ehyb_spmv_torch {' '.join(GATHER_ARGS)})")
@@ -2833,6 +3116,13 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     phase("18: the small gate on the card: "
           + ", ".join(SMALL_GATE_MATRICES) + " and stencil3d(24, 27)")
     gates = check_small_gate(dev, card)
+    print(f"  K1 on powerlaw_16k's body (the body the gate weighs; {card}):")
+    m16 = generate.load_corpus("powerlaw_16k")
+    model16 = port.EhybSpmv(port.EhybConfig(routed_delegate="never"),
+                            device=dev).setup(m16)
+    k1_16k = time_k1_split("powerlaw_16k", model16, dev, model16.prepare_x(
+        deterministic_x(m16.dimension)))
+    del model16, m16
     t19 = time.perf_counter()
     del rows, model1, model2, model3, model4, model7, plan
     phase("19: a float64 config where the reference answers: "
@@ -2843,7 +3133,7 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     t20 = time.perf_counter()
     phase("20: the bench surface: bench_torch's headline, its precision "
           "mode, and scripts_torch/sweep.py on " + ", ".join(SWEEP_ROWS))
-    check_bench_surface(prewarm, res1)
+    k1_1m = check_bench_surface(prewarm, res1, card)
     t_end = time.perf_counter()
     print(f"  phase 17 {t18 - t17:.1f} s, phase 18 {t19 - t18:.1f} s, phase "
           f"19 {t20 - t19:.1f} s, phase 20 {t_end - t20:.1f} s; script wall "
@@ -2859,7 +3149,10 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
         dict(K1F64, launches=launch7["K1"], **k1f64),
         dict(K1F64_FEM, launches=launch8["K1"], **k1f64_fem),
         dict(K9F64, launches=launch8["K9"], **k9f64),
-        f64k["k1k"], f64k["sk1"], f64k["wc"], f64k["wck"]]}))
+        f64k["k1k"], f64k["sk1"], f64k["wc"], f64k["wck"],
+        dict(K1_LONG_1M, **k1_1m),
+        dict(K1_LONG_16K, launches=gates["powerlaw_16k"]["k1_launches"],
+             **k1_16k)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,6 +72,9 @@
 //   (ehyb_spmv_gpu_tpu/parallel/spmv.py:511), which runs K1 over the
 //   interior or boundary tile group at a tile offset and combines the two
 //   by take and mask.
+// * A split variant for heavy-tailed bodies (float32, one row a thread,
+//   plain; stream_body_split_kernel below), over a plan whose long row
+//   blocks are cut into chunks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -409,6 +412,119 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_f64_kernel(
   }
 }
 
+// The split variant.  In a heavy-tailed body a row block's width is its
+// longest row's, so a block holding a hub row is thousands of steps wide
+// (112,744 at powerlaw_1m's dense sub-matrix) where its peers take tens:
+// walked by one warp, as above, it is the whole launch.  The plan's split
+// form (ops/stream_cells.py, split_steps) cuts every row block wider than
+// split_steps into chunks of at most that many steps, on piece boundaries,
+// and lists the work items longest first: a chunk (first piece, pieces,
+// partial slot, chunked row block) or a whole row block (slot -1).  A warp
+// takes items round-robin, sums its 32 rows over the item's pieces in
+// step order, and writes y (a whole row block) or its slot of 32 partials.
+// A chunked row block's partials are added into y in chunk order, a fixed
+// order, so the sums equal the plain version's bit for bit (no atomics on
+// y, unlike the reference's longRowKernel, kernel.cu:43-67): a chunk's
+// warp writes its partials, fences, and counts itself done on its row
+// block's counter; the last of them reads every partial through L2,
+// writes y and puts the counter back to 0, so the next launch (or graph
+// replay) starts from 0.
+//
+// Measured (chip_k1_sweep.py --long, H100 80GB HBM3 at 700 W): at
+// split_steps 48, 128 threads, 16 blocks an SM, powerlaw_1m's dense body
+// (11.18M entries, 23.7M compact cells) takes 185.4 us where the walk of
+// the table form takes 23,513 us, and powerlaw_16k's body 12.8 us against
+// 502.9; their same-work bounds are 22.5 and 0.74 us.  At 1m the cells
+// stream (a layout bound of 54.5 us) and more chunks cost (155.7 us at 96
+// steps); at 16k a chunk's walk is the time, so shorter chunks help there
+// (19.1 us at 96).  Earlier sweeps chose 16 columns a round over 4 and 8,
+// the combine in the launch over a second launch (183.6 us at 1m, 17.4 at
+// 16k, both at 96 steps), and x through L1/L2 over staging it.
+
+constexpr int kSplitUnroll = 16;  // cell columns a round of a chunk's walk
+
+// A thread's cells c, c + 32, ... < end of one piece, added to its row's
+// sum in order: kSplitUnroll columns' values and indices loaded before any
+// x, and every x before any sum.  The last round's columns past the piece
+// re-read its first (every load stays unconditional, so the compiler keeps
+// all of a round's loads in flight) and are not added; end - c is a
+// multiple of 32, so a warp takes every branch together.  A warp's walk of
+// a chunk is latency-bound (value, table row, x: three dependent loads a
+// round), so the columns a round set how many steps one round covers.
+__device__ __forceinline__ void sum_piece_split(
+    const float* __restrict__ val, const uint16_t* __restrict__ idx,
+    const int* __restrict__ tab, const float* __restrict__ x, int c, int end,
+    float& sum) {
+  constexpr int U = kSplitUnroll;
+  for (; c < end; c += U * kRows) {
+    float v[U];
+    int j[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int cu = c + u * kRows < end ? c + u * kRows : c;
+      v[u] = __ldcs(val + cu);
+      j[u] = (int)__ldcs(idx + cu);
+    }
+    float xv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      xv[u] = read_x(false, (const float*)nullptr, tab, x, j[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (c + u * kRows < end) sum = __fadd_rn(sum, __fmul_rn(v[u], xv[u]));
+    }
+  }
+}
+
+// item[j] = (first piece, pieces, partial slot or -1, chunked row block or
+// -1); chunked row block i owns the slots chunk_first[i] ..
+// chunk_first[i + 1] - 1.
+__global__ void __launch_bounds__(kMaxThreads) stream_body_split_kernel(
+    const int4* __restrict__ piece, const int* __restrict__ rows,
+    const float* __restrict__ cell_val, const uint16_t* __restrict__ cell_idx,
+    const int4* __restrict__ item, const int* __restrict__ chunk_first,
+    float* partial, int* counter, const float* __restrict__ x,
+    float* __restrict__ y, int n_items) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int n_warps = gridDim.x * warps;
+  for (int j = blockIdx.x * warps + (threadIdx.x >> 5); j < n_items;
+       j += n_warps) {
+    const int4 it = __ldg(item + j);
+    int p = it.x;
+    const int rb = __ldg(piece + p).w;
+    float sum = 0.0f;
+    for (int q = 0; q < it.y; ++q) {
+      const int4 a = __ldg(piece + p);
+      const int4 b = __ldg(piece + p + 1);
+      sum_piece_split(cell_val, cell_idx, rows + a.y, x, a.x + lane, b.x,
+                      sum);
+      p = a.z;
+    }
+    if (it.z < 0) {
+      __stcs(y + (size_t)rb * kRows + lane, sum);
+      continue;
+    }
+    __stcg(partial + (size_t)it.z * kRows + lane, sum);
+    __threadfence();  // the partials before the count
+    __syncwarp();
+    const int s0 = __ldg(chunk_first + it.w);
+    const int s1 = __ldg(chunk_first + it.w + 1);
+    int last = 0;
+    if (lane == 0) last = atomicAdd(counter + it.w, 1) == s1 - s0 - 1;
+    if (__shfl_sync(0xffffffffu, last, 0)) {
+      __threadfence();  // the count before the partials
+      float t = 0.0f;  // the row block's partials, in chunk order
+      for (int s = s0; s < s1; ++s) {
+        t = __fadd_rn(t, __ldcg(partial + (size_t)s * kRows + lane));
+      }
+      __stcs(y + (size_t)rb * kRows + lane, t);
+      if (lane == 0) counter[it.w] = 0;
+    }
+  }
+}
+
 // A kernel variant, as the runtime API takes it (the variants' parameter
 // types differ with the value type).
 using KernelFn = const void*;
@@ -444,12 +560,21 @@ KernelFn pick_f64(int kahan, int scattered) {
 }
 
 // The kernel variant (the list variant where `list`, the double one where
-// `f64`), or nullptr where none is built.  In double the variants are built
-// at one row a thread with x through L1/L2: plain or Kahan, with or without
-// a list, over the table form in the body's row order, or (`scattered`)
-// over a plan with direct pieces or a row map.
+// `f64`, the split variant where `split`), or nullptr where none is built.
+// In double the variants are built at one row a thread with x through
+// L1/L2: plain or Kahan, with or without a list, over the table form in the
+// body's row order, or (`scattered`) over a plan with direct pieces or a
+// row map.  The split variant is built in float at one row a thread, plain,
+// without a list, with x through L1/L2.
 KernelFn pick(int rows_per_thread, int staged, int kahan, int f64,
-              bool list = false, int scattered = 0) {
+              bool list = false, int scattered = 0, int split = 0) {
+  if (split) {
+    if (rows_per_thread != 1 || staged || kahan || f64 || list ||
+        scattered) {
+      return nullptr;
+    }
+    return (KernelFn)stream_body_split_kernel;
+  }
   if (f64) {
     if (rows_per_thread != 1 || staged) return nullptr;
     return list ? pick_f64<true>(kahan, scattered)
@@ -487,14 +612,16 @@ extern "C" long long ehyb_stream_smem_bytes(int rows_per_thread, int staged,
 }
 
 // Blocks of `threads` threads of a variant (the list variant where `list`,
-// the scattered body's double kernel where `scattered`) that stay resident
-// on one SM (0 where none can), or a negative CUDA error;
-// -cudaErrorInvalidValue where no such variant is built.
+// the scattered body's double kernel where `scattered`, the split variant
+// where `split`) that stay resident on one SM (0 where none can), or a
+// negative CUDA error; -cudaErrorInvalidValue where no such variant is
+// built.
 extern "C" int ehyb_stream_resident_blocks(int rows_per_thread, int staged,
                                            int kahan, int f64, int threads,
-                                           int list, int scattered) {
-  const KernelFn fn =
-      pick(rows_per_thread, staged, kahan, f64, list != 0, scattered);
+                                           int list, int scattered,
+                                           int split) {
+  const KernelFn fn = pick(rows_per_thread, staged, kahan, f64, list != 0,
+                           scattered, split);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(rows_per_thread, staged, threads, f64);
   int rc = allow_smem(fn, smem);
@@ -507,9 +634,10 @@ extern "C" int ehyb_stream_resident_blocks(int rows_per_thread, int staged,
 
 // Registers a thread of a variant takes, or a negative CUDA error.
 extern "C" int ehyb_stream_registers(int rows_per_thread, int staged,
-                                     int kahan, int f64, int scattered) {
-  const KernelFn fn =
-      pick(rows_per_thread, staged, kahan, f64, false, scattered);
+                                     int kahan, int f64, int scattered,
+                                     int split) {
+  const KernelFn fn = pick(rows_per_thread, staged, kahan, f64, false,
+                           scattered, split);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const int rc = clear(cudaFuncGetAttributes(&attr, fn));
@@ -553,6 +681,33 @@ extern "C" int ehyb_stream_body(const void* piece, const int* rows,
   const cudaError_t launched =
       cudaLaunchKernel(fn, dim3(grid), dim3(threads),
                        scattered ? args_scattered : args, smem,
+                       static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(launched != cudaSuccess ? launched : last);
+}
+
+// Launches the split variant on `stream` over a plan in the split form:
+// `grid` blocks of `threads` threads over its n_items work items, x through
+// L1/L2; returns cudaGetLastError(), 0 when the launch was
+// accepted.  `item` is (n_items, 4) int32, `chunk_first` (chunked row
+// blocks + 1) int32, `partial` float (32 a slot), `counter` int32 (one a
+// chunked row block, 0 between calls), the rest as ehyb_stream_body's in
+// float, every buffer 16-byte aligned.
+extern "C" int ehyb_stream_body_split(
+    const void* piece, const int* rows, const void* cell_val,
+    const void* cell_idx, const void* item, const int* chunk_first,
+    void* partial, int* counter, const void* x, void* y, int n_items,
+    int threads, int grid, void* stream) {
+  if (n_items <= 0) return 0;
+  const KernelFn fn = pick(1, 0, 0, 0, false, 0, 1);
+  if (fn == nullptr || threads < 32 || threads > kMaxThreads ||
+      threads % 32 || grid <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  void* args[] = {&piece, &rows,    &cell_val, &cell_idx, &item, &chunk_first,
+                  &partial, &counter, &x,      &y,        &n_items};
+  const cudaError_t launched =
+      cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, 0,
                        static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(launched != cudaSuccess ? launched : last);

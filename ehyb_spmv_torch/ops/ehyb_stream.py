@@ -20,7 +20,11 @@ built at one row a thread with x through L1/L2, plain or Kahan, with or
 without a row-block list: a plan in the table form and the body's row
 order takes the float kernel's code in float64, and a plan with direct
 pieces or a row map (:func:`~.stream_cells.k1_plan`: a scattered body's)
-a float64 kernel of its own.
+a float64 kernel of its own.  A float32 plan in the split form (a
+heavy-tailed body's: row blocks cut into chunks, ``stream_cells.split``)
+takes the float32 kernel's split variant, built at one row a thread,
+plain only and without a list: the wrapper refuses a split plan with
+Kahan, a row-block list or float64 values.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from .build import BuiltLibrary, build_cuda_library
 from .dia import SMEM_LIMIT_BYTES, dia_body
 from .ehyb_wincache import WinCacheDevice, build_wincache_plan, wincache_body
 from .stream_cells import (BLOCK_ROWS, PIECE_CELL, PIECE_RB, PIECE_ROW,
-                           StreamCellsDevice, k1_plan)
+                           StreamCellsDevice, k1_plan, split)
 from .torch_ops import (chain_offsets, combine_ehyb, ehyb_er, ehyb_long,
                         neumaier_rows)
 
@@ -83,12 +87,18 @@ class StreamGeometry:
 #: permuted_poisson_512 (four blocks of 512 threads fill an SM; one row a
 #: thread gives pp512's 8,192 row blocks the most warps).
 GEOMETRY = StreamGeometry()
+#: The geometry a plan in the split form takes (its variant is built at one
+#: row a thread, x through L1/L2).  ``chip_k1_sweep.py --long`` chose it
+#: with ``SPLIT_STEPS``: the least sum of the times over the fastest at
+#: powerlaw_1m's dense body and powerlaw_16k's body (185.4 and 12.8 us,
+#: against the fastest 155.7 and 12.7, on an H100 at 700 W).
+SPLIT_GEOMETRY = StreamGeometry(threads=128, blocks_per_sm=16)
 
 _lock = threading.Lock()
 _built = None
 _lib = None
-#: (geometry, kahan, f64, list, scattered, device) → blocks of it resident
-#: on one SM.
+#: (geometry, kahan, f64, list, scattered, split, device) → blocks of it
+#: resident on one SM.
 _resident: dict = {}
 
 
@@ -107,10 +117,14 @@ def build_kernel() -> BuiltLibrary:
             lib.ehyb_stream_body.argtypes = (
                 [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            lib.ehyb_stream_body_split.restype = ctypes.c_int
+            lib.ehyb_stream_body_split.argtypes = (
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
             lib.ehyb_stream_resident_blocks.restype = ctypes.c_int
-            lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 7
+            lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 8
             lib.ehyb_stream_registers.restype = ctypes.c_int
-            lib.ehyb_stream_registers.argtypes = [ctypes.c_int] * 5
+            lib.ehyb_stream_registers.argtypes = [ctypes.c_int] * 6
             lib.ehyb_stream_smem_bytes.restype = ctypes.c_longlong
             lib.ehyb_stream_smem_bytes.argtypes = [ctypes.c_int] * 4
             _built, _lib = built, lib
@@ -119,13 +133,14 @@ def build_kernel() -> BuiltLibrary:
 
 def resident_blocks(geometry: StreamGeometry, kahan: bool, device,
                     f64: bool = False, lst: bool = False,
-                    scattered: bool = False) -> int:
+                    scattered: bool = False, split: bool = False) -> int:
     """Blocks of this geometry (in float64 where ``f64``, its row-block list
     variant where ``lst``, the scattered body's float64 kernel where
-    ``scattered``) that stay resident on one SM of ``device`` (made once and
-    kept); raises where not one does, as the launch would be refused."""
+    ``scattered``, the split variant where ``split``) that stay resident on
+    one SM of ``device`` (made once and kept); raises where not one does,
+    as the launch would be refused."""
     key = (geometry, bool(kahan), bool(f64), bool(lst), bool(scattered),
-           torch.device(device))
+           bool(split), torch.device(device))
     n = _resident.get(key)
     if n is None:
         smem = smem_bytes(geometry, f64)
@@ -135,7 +150,8 @@ def resident_blocks(geometry: StreamGeometry, kahan: bool, device,
         with torch.cuda.device(key[-1]):
             n = _lib.ehyb_stream_resident_blocks(
                 geometry.rows, int(geometry.x_mode == "staged"), int(kahan),
-                int(f64), geometry.threads, int(lst), int(scattered))
+                int(f64), geometry.threads, int(lst), int(scattered),
+                int(split))
         if n <= 0:
             raise RuntimeError(f"K1 {geometry} cannot run (occupancy {n})")
         _resident[key] = n
@@ -143,12 +159,13 @@ def resident_blocks(geometry: StreamGeometry, kahan: bool, device,
 
 
 def registers(geometry: StreamGeometry, kahan: bool = False,
-              f64: bool = False, scattered: bool = False) -> int:
+              f64: bool = False, scattered: bool = False,
+              split: bool = False) -> int:
     """Registers a thread of the geometry's kernel variant takes."""
     build_kernel()
     return _lib.ehyb_stream_registers(
         geometry.rows, int(geometry.x_mode == "staged"), int(kahan),
-        int(f64), int(scattered))
+        int(f64), int(scattered), int(split))
 
 
 def smem_bytes(geometry: StreamGeometry, f64: bool = False) -> int:
@@ -163,13 +180,14 @@ def grid_of(p: StreamCellsDevice, geometry: StreamGeometry, kahan: bool,
             device, n_rb: int = None, lst: bool = False) -> int:
     """The persistent grid: the resident blocks of the card (of the list
     variant where ``lst``), or fewer where the row-block groups (of the
-    plan, or of ``n_rb`` listed row blocks) do not give every warp one."""
+    plan, or of ``n_rb`` listed row blocks; a split plan's work items) do
+    not give every warp one."""
     f64 = p.cell_val.dtype == torch.float64
     per_sm = min(geometry.blocks_per_sm,
                  resident_blocks(geometry, kahan, device, f64, lst,
-                                 scattered(p)))
+                                 scattered(p), split(p)))
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    n_rb = p.n_rb if n_rb is None else n_rb
+    n_rb = (p.n_items if split(p) else p.n_rb) if n_rb is None else n_rb
     groups = -(-n_rb // geometry.rows)
     return max(1, min(per_sm * n_sm, -(-groups // (geometry.threads // 32))))
 
@@ -201,7 +219,7 @@ def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
         raise ValueError("the float32 K1 reads the table form only: no "
                          "direct pieces, no row map")
     for t in (x_pad, p.piece, p.rows, p.cell_val, p.cell_idx, p.cell_col,
-              p.row_map):
+              p.row_map, p.item, p.chunk_first, p.partial, p.counter):
         if t.device != dev:
             raise ValueError(f"tensor on {t.device}, x_pad on {dev}")
         if not t.is_contiguous():
@@ -209,6 +227,21 @@ def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
         if t.data_ptr() % 16:
             raise ValueError("kernel inputs must be 16-byte aligned (16-B "
                              "cell loads, cp.async)")
+
+
+def _check_split(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool,
+                 rb_list) -> None:
+    """Refuse a plan in the split form where no variant reads it: with
+    Kahan, with a row-block list, or in float64."""
+    if not split(p):
+        return
+    what = [w for w, bad in (("Kahan", kahan), ("a row-block list",
+                                                rb_list is not None),
+                             ("float64", x_pad.dtype == torch.float64))
+            if bad]
+    if what:
+        raise ValueError(f"a plan in the split form is read by the plain "
+                         f"float32 K1 only, not with {' or '.join(what)}")
 
 
 def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
@@ -235,11 +268,18 @@ def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
     return out
 
 
-def check_built(g: StreamGeometry, dtype: torch.dtype) -> None:
+def check_built(g: StreamGeometry, dtype: torch.dtype,
+                split_form: bool = False) -> None:
     """Refuse a geometry K1 is not built for in ``dtype``: float32 at every
     checked geometry; float64 at one row a thread with x through L1/L2
-    (plain or Kahan, with or without a row-block list)."""
+    (plain or Kahan, with or without a row-block list); the split variant
+    (``split_form``) at one row a thread with x through L1/L2."""
     g.check()
+    if split_form and (g.rows != 1 or g.x_mode != "ldg"):
+        what = [f"rows={g.rows}"] if g.rows != 1 else []
+        what += [f"x_mode={g.x_mode!r}"] if g.x_mode != "ldg" else []
+        raise ValueError(f"no split K1 built for {g} ({', '.join(what)}): "
+                         "it is built at one row a thread, x through L1/L2")
     if dtype == torch.float64 and (g.rows != 1 or g.x_mode != "ldg"):
         what = [f"rows={g.rows}"] if g.rows != 1 else []
         what += [f"x_mode={g.x_mode!r}"] if g.x_mode != "ldg" else []
@@ -250,10 +290,14 @@ def check_built(g: StreamGeometry, dtype: torch.dtype) -> None:
 def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
             geometry: StreamGeometry = None, rb_list: torch.Tensor = None,
             out: torch.Tensor = None) -> torch.Tensor:
-    """One launch at ``geometry`` (the default where None), counted."""
-    g = GEOMETRY if geometry is None else geometry
+    """One launch at ``geometry`` (the default for the plan's form where
+    None), counted."""
+    chunked = split(p)
+    g = (SPLIT_GEOMETRY if chunked else GEOMETRY) if geometry is None \
+        else geometry
     _check(p, x_pad)
-    check_built(g, x_pad.dtype)
+    _check_split(p, x_pad, kahan, rb_list)
+    check_built(g, x_pad.dtype, chunked)
     f64 = x_pad.dtype == torch.float64
     y = _output(p, x_pad, rb_list, out)
     build_kernel()
@@ -261,6 +305,19 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
     if not n:
         return y
     ptr = lambda t: t.data_ptr() if t.numel() else None  # noqa: E731
+    if chunked:
+        rc = _lib.ehyb_stream_body_split(
+            p.piece.data_ptr(), p.rows.data_ptr(), p.cell_val.data_ptr(),
+            p.cell_idx.data_ptr(), p.item.data_ptr(),
+            p.chunk_first.data_ptr(), p.partial.data_ptr(),
+            p.counter.data_ptr(), x_pad.data_ptr(), y.data_ptr(), p.n_items,
+            g.threads, grid_of(p, g, kahan, x_pad.device),
+            torch.cuda.current_stream(x_pad.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ehyb_stream_body_split launch failed: CUDA "
+                               f"error {rc}")
+        stream_body.launches += 1
+        return y
     rc = _lib.ehyb_stream_body(
         p.piece.data_ptr(), p.rows.data_ptr(), p.cell_val.data_ptr(),
         ptr(p.cell_idx), ptr(p.cell_col), ptr(p.row_map), x_pad.data_ptr(),
@@ -289,7 +346,8 @@ def stream_body(p: StreamCellsDevice, x_pad: torch.Tensor,
 
     CPU tensors take :func:`stream_body_plain`; CUDA tensors launch the
     kernel (``kahan`` selects the compensated variant; float64 x takes the
-    float64 kernel) or raise."""
+    float64 kernel; a plan in the split form the split variant) or
+    raise."""
     if x_pad.device.type == "cpu":
         return stream_body_plain(p, x_pad, kahan, rb_list, out)
     if x_pad.device.type != "cuda":
@@ -313,10 +371,13 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
     compensated kernel reaches to about one ulp; a float64 x adds each
     row's products in the kernel's order with Neumaier compensation.  With
     ``rb_list`` it writes the listed row blocks' rows of the full sums into
-    ``out`` (or into zeros), as the kernel does."""
+    ``out`` (or into zeros), as the kernel does.  A plan in the split form
+    adds a chunk's products into its partial, then a chunked row block's
+    partials into y in chunk order, as the kernel does."""
     dev = x_pad.device
     if rb_list is not None and p.row_map.numel():
         _output(p, x_pad, rb_list, out)      # raises
+    _check_split(p, x_pad, kahan, rb_list)
     neumaier = kahan and x_pad.dtype == torch.float64
     acc = torch.float64 if kahan else x_pad.dtype
     y = torch.zeros(p.n_rb * BLOCK_ROWS, dtype=acc, device=dev)
@@ -350,6 +411,22 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
                 + off // BLOCK_ROWS
             y = neumaier_rows(contrib, row, place, y.shape[0],
                               p.stats["max_row_cells"])
+        elif split(p):
+            # a chunk's cells into its slot of 32 partials (past y's rows)
+            n = y.shape[0]
+            slot = p.piece_slot.long()[cell_piece]
+            at = torch.where(slot >= 0, n + slot * BLOCK_ROWS
+                             + off % BLOCK_ROWS, row)
+            ext = torch.zeros(n + p.n_chunks * BLOCK_ROWS, dtype=acc,
+                              device=dev)
+            ext.index_add_(0, at, contrib.to(acc))
+            # each chunked row block's partials into y, in chunk order
+            slot_rb = p.chunk_rb.long()[torch.repeat_interleave(
+                torch.arange(p.n_chunked, device=dev),
+                torch.diff(p.chunk_first.long()), output_size=p.n_chunks)]
+            y = ext[:n]
+            y.index_add_(0, (slot_rb[:, None] * BLOCK_ROWS + torch.arange(
+                BLOCK_ROWS, device=dev)).reshape(-1), ext[n:])
         else:
             y.index_add_(0, row, contrib.to(acc))
     y = y.to(x_pad.dtype)
@@ -434,13 +511,15 @@ def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,
                  st["body_bytes"] / 1e6, st["staged_bytes"] / 1e6,
                  st["x_bytes"] / 1e6)
     elif branch != "skipped":
-        plan = k1_plan(e)
+        plan = k1_plan(e, kahan=kahan)
         cells = plan.to_torch(device)
         st = plan.stats
-        log.info("body [%s on the TPU]: K1, %d row blocks (%d cut for the "
-                 "16-bit range), %.1f MB of cells in place of %.1f MB "
-                 "padded", branch, st["n_rb"], st["split_rbs"],
-                 st["cell_bytes"] / 1e6, st["body_bytes"] / 1e6)
+        log.info("body [%s on the TPU]: K1, %d row blocks (%d cut into "
+                 "pieces, %d in %d chunks of at most %d steps), %.1f MB "
+                 "of cells in place of %.1f MB padded", branch, st["n_rb"],
+                 st["split_rbs"], st["chunked_rbs"], st["n_chunks"],
+                 st["split_steps"], st["cell_bytes"] / 1e6,
+                 st["body_bytes"] / 1e6)
     else:
         log.info("body [%s on the TPU]: none (all DIA/ER/long)", branch)
     if cells is not None or wincache is not None:

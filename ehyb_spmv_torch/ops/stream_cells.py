@@ -39,6 +39,22 @@ values only (:func:`k1_plan`):
   row block moves (x read, y written).  A grouped row block's pieces are
   cut between places in its rows, as its rows come from several slices.
 
+A third option serves a heavy-tailed body, whose hub rows make some row
+blocks far wider than the rest; the float32 kernel reads it
+(:func:`k1_plan` takes it for float32 values without compensation):
+
+* **the split form** (``split_steps``): a row block wider than
+  ``split_steps`` steps (the sum of its pieces' widths) is cut into pieces
+  of at most ``split_steps`` steps each (each with its table), and its
+  chain into **chunks**: runs of consecutive pieces of at most
+  ``split_steps`` steps.  Each chunk is a work item of its own and sums its
+  32 rows into a partial (one slot of 32 values); the row block's partials
+  are then added in chunk order into y.  Every other row block is one work
+  item, summed into y as before.  The work items are ordered longest first
+  (``item``), so the kernel's persistent grid does not end on a tail.  A
+  body with no row block wider than ``split_steps`` gets the plan it gets
+  without the option, byte for byte.
+
 The arrays are the plan's only link to the padded body: the flagship frees
 the padded cells on the device once the plan is uploaded.
 """
@@ -70,12 +86,23 @@ DIRECT_BELOW = 8.0
 #: 2,048, the fastest at permuted_poisson_512 in the precision mode
 #: (``chip_k1_sweep.py --f64``: 8.85 us, against 9.22 at 512 rows).
 GROUP_ROWS = 2048
+#: A float32 plan's row blocks wider than this many steps take the split
+#: form (``split_steps``), in chunks of at most as many.  Not below the
+#: flagship float bodies' widest row block (4 steps at permuted_poisson_512,
+#: 46 at random_16k), so their plans stay as they are; of 48 to 128 the one
+#: whose times over the fastest at powerlaw_1m's dense body and
+#: powerlaw_16k's body sum the least (``chip_k1_sweep.py --long``: 185.4
+#: and 12.8 us against the fastest 155.7 and 12.7; a chunk's walk is what
+#: powerlaw_16k waits for, and more chunks cost powerlaw_1m).
+SPLIT_STEPS = 48
 #: 32-B sectors a row block writes to y in body order, and through a row
 #: map (one a row): the grouping's cost in the sector estimate.
 _Y_SECTORS = (BLOCK_ROWS * 8 // 32, BLOCK_ROWS)
 
 #: Columns of the ``piece`` array.
 PIECE_CELL, PIECE_ROW, PIECE_NEXT, PIECE_RB = range(4)
+#: Columns of the ``item`` array (the split form's work items).
+ITEM_PIECE, ITEM_PIECES, ITEM_SLOT, ITEM_CHUNKED = range(4)
 
 
 @dataclasses.dataclass
@@ -90,7 +117,15 @@ class StreamCellsPlan:
     cell's index is ``cell_idx`` (16 bits into its piece's table) or, in a
     piece with no table, ``cell_col`` (its x column); each array holds
     every cell where some piece reads it, else nothing.  ``row_map`` (plan
-    row → body row) is empty where the plan keeps the body's row order."""
+    row → body row) is empty where the plan keeps the body's row order.
+
+    The split form's arrays are empty where no row block was chunked.
+    ``item`` is (n_items, 4) int32, longest first: a work item's first
+    piece, its count of pieces (walked through ``next``), its partial slot
+    (-1: a whole row block, summed into y) and its chunked row block's
+    number (-1 likewise).  Chunked row block i has the slots
+    ``chunk_first[i]:chunk_first[i + 1]``, in chunk order, and is row block
+    ``chunk_rb[i]``; ``piece_slot`` is each piece's slot (-1: none)."""
 
     n_slices: int
     piece: np.ndarray
@@ -100,12 +135,18 @@ class StreamCellsPlan:
     stats: dict
     cell_col: np.ndarray = None
     row_map: np.ndarray = None
+    item: np.ndarray = None
+    chunk_first: np.ndarray = None
+    chunk_rb: np.ndarray = None
+    piece_slot: np.ndarray = None
 
     def __post_init__(self):
-        if self.cell_col is None:
-            self.cell_col = np.zeros(0, np.int32)
-        if self.row_map is None:
-            self.row_map = np.zeros(0, np.int32)
+        for name in ("cell_col", "row_map", "chunk_first", "chunk_rb",
+                     "piece_slot"):
+            if getattr(self, name) is None:
+                setattr(self, name, np.zeros(0, np.int32))
+        if self.item is None:
+            self.item = np.zeros((0, 4), np.int32)
 
     @property
     def n_rb(self) -> int:
@@ -118,7 +159,11 @@ class StreamCellsPlan:
 class StreamCellsDevice(torch.nn.Module):
     """Device mirror of :class:`StreamCellsPlan`: its arrays as buffers,
     its sizes as host ints (the plain version reads no device scalar, so it
-    can be captured in a CUDA graph)."""
+    can be captured in a CUDA graph).  A split plan also holds the kernel's
+    workspace: ``partial`` (32 values a slot) and ``counter`` (one a
+    chunked row block, 0 between calls: the last chunk of a row block to
+    finish adds its partials into y and puts it back), so two calls over
+    one plan must not run at once."""
 
     def __init__(self, p: StreamCellsPlan):
         super().__init__()
@@ -137,6 +182,21 @@ class StreamCellsDevice(torch.nn.Module):
             np.ascontiguousarray(p.cell_col, dtype=np.int32)))
         self.register_buffer("row_map", torch.from_numpy(
             np.ascontiguousarray(p.row_map, dtype=np.int32)))
+        self.n_items = len(p.item)
+        self.n_chunked = len(p.chunk_rb)
+        self.n_chunks = int(p.chunk_first[-1]) if self.n_chunked else 0
+        for name in ("item", "chunk_first", "chunk_rb", "piece_slot"):
+            self.register_buffer(name, torch.from_numpy(
+                np.ascontiguousarray(getattr(p, name), dtype=np.int32)))
+        self.register_buffer("partial", torch.zeros(
+            self.n_chunks * BLOCK_ROWS, dtype=self.cell_val.dtype))
+        self.register_buffer("counter", torch.zeros(self.n_chunked,
+                                                    dtype=torch.int32))
+
+
+def split(p) -> bool:
+    """Whether plan ``p`` (host or device) is in the split form."""
+    return len(p.item) > 0
 
 
 def decode_columns(e: EhybMatrix, a: int, b: int) -> np.ndarray:
@@ -158,21 +218,35 @@ def decode_columns(e: EhybMatrix, a: int, b: int) -> np.ndarray:
     return base + ((attr >> 7) & 7) * LANES + lo
 
 
-def _cut_pieces(step: np.ndarray, xrow: np.ndarray):
+def _cut_pieces(step: np.ndarray, xrow: np.ndarray, max_steps: int = 0):
     """Piece number of each cell of one row block (cells in step order):
     greedy over its steps, a piece closes where the next step's x rows
-    would take its table past ``MAX_TABLE_ROWS``."""
+    would take its table past ``MAX_TABLE_ROWS``, or where it holds
+    ``max_steps`` steps (0: no such limit).  Each piece is found in numpy
+    over a window of steps that doubles until the piece ends inside it."""
+    bounds = np.r_[0, np.flatnonzero(np.diff(step)) + 1, step.size]
+    n_steps = bounds.size - 1
     piece = np.zeros(step.size, np.int64)
-    cur: set = set()
-    n = 0
-    bounds = np.flatnonzero(np.diff(step)) + 1
-    for lo, hi in zip(np.r_[0, bounds], np.r_[bounds, step.size]):
-        new = set(xrow[lo:hi].tolist())
-        if cur and len(cur | new) > MAX_TABLE_ROWS:
-            n += 1
-            cur = set()
-        cur |= new
-        piece[lo:hi] = n
+    n = i0 = 0
+    while i0 < n_steps:
+        lim = min(n_steps, i0 + max_steps) if max_steps else n_steps
+        w = 64
+        while True:
+            i1 = min(lim, i0 + w)
+            _, first = np.unique(xrow[bounds[i0]:bounds[i1]],
+                                 return_index=True)
+            if first.size > MAX_TABLE_ROWS:
+                # the step holding the first x row past the table closes it
+                at = np.sort(first)[MAX_TABLE_ROWS] + bounds[i0]
+                end = int(np.searchsorted(bounds, at, side="right")) - 1
+                break
+            if i1 == lim:
+                end = lim
+                break
+            w *= 2
+        piece[bounds[i0]:bounds[end]] = n
+        n += 1
+        i0 = end
     return piece
 
 
@@ -194,8 +268,24 @@ def _decode(e: EhybMatrix, s0: int, s1: int, offs: np.ndarray):
     return row, k, a + st, col, val[st, ln]
 
 
+def _widths(rb, row, pc, n_rb: int) -> np.ndarray:
+    """Each row block's width: the sum over its pieces (cell i in piece
+    ``pc[i]`` of row block ``rb[i]``, row ``row[i]``) of their longest
+    rows' cells."""
+    if not rb.size:
+        return np.zeros(n_rb, np.int64)
+    n_pc = int(pc.max()) + 1
+    key, count = np.unique((rb * n_pc + pc) * BLOCK_ROWS + row,
+                           return_counts=True)
+    unit = key // BLOCK_ROWS
+    first = np.r_[0, np.flatnonzero(np.diff(unit)) + 1]
+    width = np.maximum.reduceat(count, first)
+    return np.bincount(unit[first] // n_pc, weights=width,
+                       minlength=n_rb).astype(np.int64)
+
+
 def _units(rb, lane, k, step, col, val, n_rb: int, n_xrows: int,
-           direct_below: float):
+           direct_below: float, split_steps: int = 0):
     """Compact cells of ``n_rb`` row blocks: the units (main pieces of the
     row blocks, then their later pieces in (row block, piece) order) with
     widths, table sizes, tables, values, indices, columns and kinds, each
@@ -203,39 +293,65 @@ def _units(rb, lane, k, step, col, val, n_rb: int, n_xrows: int,
     pairs; the columns are None where no unit is direct.  Cell i sits in
     row ``lane[i] % 32`` of row block ``rb[i]`` at place ``k[i]``; a row
     block's cells come in the order of ``step``, between whose values its
-    pieces are cut."""
+    pieces are cut, and a row block wider than ``split_steps`` (0: none)
+    into pieces of at most that many steps."""
     xrow = col >> 7
+    row = lane % BLOCK_ROWS
     # distinct x rows per row block; past 16 bits the block is cut
     ukey = np.unique(rb * n_xrows + xrow)
     n_distinct = np.bincount(ukey // n_xrows, minlength=n_rb)
+    over = np.flatnonzero(n_distinct > MAX_TABLE_ROWS)
+    long = np.zeros(0, np.int64)
+    if split_steps:
+        # a row block not cut is as wide as its longest row
+        longest = np.bincount(rb * BLOCK_ROWS + row,
+                              minlength=n_rb * BLOCK_ROWS)
+        long = np.flatnonzero(longest.reshape(n_rb, BLOCK_ROWS).max(axis=1)
+                              > split_steps)
+    pc = np.zeros(rb.size, np.int64)
     unit = rb.copy()
     extra_rb = []
-    over = np.flatnonzero(n_distinct > MAX_TABLE_ROWS)
-    if over.size:
+    if over.size or long.size:
         order = np.argsort(rb, kind="stable")
-        starts = np.searchsorted(rb[order], over, side="left")
-        ends = np.searchsorted(rb[order], over, side="right")
-        for j, r in enumerate(over):
-            cells = order[starts[j]:ends[j]]
-            pc = _cut_pieces(step[cells], xrow[cells])
-            # a row's rank restarts in each piece
-            row = lane[cells] % BLOCK_ROWS
-            first = np.zeros(cells.size, np.int64)
-            for p in range(1, int(pc.max()) + 1):
-                in_p = pc == p
-                before = np.bincount(row[pc < p], minlength=BLOCK_ROWS)
-                first[in_p] = before[row[in_p]]
-            k[cells] -= first
-            unit[cells] = np.where(pc == 0, r, n_rb + len(extra_rb) + pc - 1)
-            extra_rb += [r] * int(pc.max())
+        bounds = np.searchsorted(rb[order], np.arange(n_rb + 1))
+
+        def cut(rbs, max_steps: int) -> None:
+            for r in rbs:
+                cells = order[bounds[r]:bounds[r + 1]]
+                pc[cells] = _cut_pieces(step[cells], xrow[cells], max_steps)
+
+        cut(over, 0)
+        if split_steps and over.size:
+            # a cut row block is as wide as its pieces together
+            in_over = np.zeros(n_rb, bool)
+            in_over[over] = True
+            sel = in_over[rb]
+            width = _widths(rb[sel], row[sel], pc[sel], n_rb)
+            long = np.union1d(long, over[width[over] > split_steps])
+        cut(long, split_steps)
+        cut_rbs = np.union1d(over, long)
+        for r in cut_rbs:
+            cells = order[bounds[r]:bounds[r + 1]]
+            unit[cells] = np.where(pc[cells] == 0, r,
+                                   n_rb + len(extra_rb) + pc[cells] - 1)
+            extra_rb += [r] * int(pc[cells].max())
+        # a row's rank restarts in each piece: its rank among the row's
+        # cells of the piece (the cut row blocks' cells in step order)
+        cells = order[np.concatenate([np.arange(bounds[r], bounds[r + 1])
+                                      for r in cut_rbs])]
+        g = unit[cells] * BLOCK_ROWS + row[cells]
+        o = np.argsort(g, kind="stable")
+        first = np.r_[0, np.flatnonzero(np.diff(g[o])) + 1]
+        k[cells[o]] = np.arange(cells.size) - np.repeat(
+            first, np.diff(np.r_[first, cells.size]))
     n_units = n_rb + len(extra_rb)
     # one width per unit: its longest row
-    row_cells = np.bincount(unit * BLOCK_ROWS + lane % BLOCK_ROWS,
+    row_cells = np.bincount(unit * BLOCK_ROWS + row,
                             minlength=n_units * BLOCK_ROWS)
     width = row_cells.reshape(n_units, BLOCK_ROWS).max(axis=1)
     start = np.zeros(n_units + 1, np.int64)
     np.cumsum(width * BLOCK_ROWS, out=start[1:])
-    pos = start[unit] + k * BLOCK_ROWS + lane % BLOCK_ROWS
+    pos = start[unit] + k * BLOCK_ROWS + row
     # each unit's distinct x rows, sorted; a unit with fewer cells than
     # direct_below a row keeps no table and reads its columns directly
     key, inv = np.unique(unit * n_xrows + xrow, return_inverse=True)
@@ -338,14 +454,64 @@ def _split(u, n_rb: int, x_rb_base: int):
              idx[c_main:], cut[1], direct[n_rb:], x_rb + x_rb_base))
 
 
+def _work_items(piece: np.ndarray, n_rb: int, split_steps: int):
+    """The split form's arrays (see :class:`StreamCellsPlan`) of a plan
+    whose row blocks wider than ``split_steps`` were cut into pieces of at
+    most that many steps: each such row block's chain into chunks (greedy,
+    at most ``split_steps`` steps each), the work items longest first and
+    the longest one's steps; None where no row block is that wide."""
+    n_pieces = len(piece) - 1
+    width = np.diff(piece[:, PIECE_CELL]) // BLOCK_ROWS
+    p_rb = piece[:n_pieces, PIECE_RB]
+    rb_width = np.bincount(p_rb, weights=width, minlength=n_rb).astype(
+        np.int64)
+    chunked = np.flatnonzero(rb_width > split_steps)
+    if not chunked.size:
+        return None
+    # each row block's later pieces follow in order (see _assemble)
+    x_rb = p_rb[n_rb:]
+    assert np.all(np.diff(x_rb) >= 0)
+    lo = np.searchsorted(x_rb, np.arange(n_rb), side="left")
+    hi = np.searchsorted(x_rb, np.arange(n_rb), side="right")
+    is_chunked = np.zeros(n_rb, bool)
+    is_chunked[chunked] = True
+    piece_slot = np.full(n_pieces, -1, np.int64)
+    # (steps, first piece, pieces, slot, chunked row block) of each item
+    items, chunk_first = [], [0]
+    for r in range(n_rb):
+        chain = [r] + list(range(n_rb + lo[r], n_rb + hi[r]))
+        if rb_width[r] <= split_steps:
+            items.append((rb_width[r], r, len(chain), -1, -1))
+            continue
+        i, slot, start, held = len(chunk_first) - 1, chunk_first[-1], 0, 0
+        for j in range(len(chain) + 1):
+            if j == len(chain) or (held and held + width[chain[j]]
+                                   > split_steps):
+                items.append((held, chain[start], j - start, slot, i))
+                piece_slot[chain[start:j]] = slot
+                slot += 1
+                if j == len(chain):
+                    break
+                start, held = j, 0
+            held += width[chain[j]]
+        chunk_first.append(slot)
+    items = np.asarray(items, np.int64)
+    # longest first; ties in row-block order
+    items = items[np.argsort(-items[:, 0], kind="stable")]
+    return (items[:, 1:], np.asarray(chunk_first, np.int64), chunked,
+            piece_slot, int(items[0, 0]))
+
+
 def build_stream_cells(e: EhybMatrix, x_rows: int = None,
-                       direct_below: float = 0.0,
-                       group_rows: int = 0) -> StreamCellsPlan:
+                       direct_below: float = 0.0, group_rows: int = 0,
+                       split_steps: int = 0) -> StreamCellsPlan:
     """Decode the body of ``e`` once and re-encode its real cells as K1's
     compact plan.  ``x_rows`` is the length of the x the body reads
     (``e.padded_x_rows`` where None; a shard's ``x_ext`` is longer).
     ``direct_below`` and ``group_rows`` (0: off) are the scattered body's
-    options of the module docstring; the float kernel reads neither."""
+    options of the module docstring, ``split_steps`` (0: off) the heavy
+    tail's; the float kernel reads neither of the first two, the float64
+    kernels not the third."""
     offs = e.slice_offset.astype(np.int64)
     n_slices = offs.shape[0] - 1
     n_steps = int(offs[-1]) if n_slices else 0
@@ -353,20 +519,20 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
     n_xrows = -(-x_rows // LANES)
     n_rb = RB_PER_SLICE * n_slices
     val_dtype = e.ell_val.dtype
-    chunks = []
+    spans = []
     s0 = 0
     while s0 < n_slices:
         s1 = max(int(np.searchsorted(offs, offs[s0] + _CHUNK_STEPS,
                                      side="right")) - 1, s0 + 1)
         s1 = min(s1, n_slices)
-        chunks.append((s0, s1))
+        spans.append((s0, s1))
         s0 = s1
     parts, n_keys = [], 0
-    for a, b in chunks:
+    for a, b in spans:
         row, k, st, col, val = _decode(e, a, b, offs)
         rb0 = RB_PER_SLICE * a
         u = _units(row // BLOCK_ROWS - rb0, row, k, st, col, val,
-                   RB_PER_SLICE * (b - a), n_xrows, direct_below)
+                   RB_PER_SLICE * (b - a), n_xrows, direct_below, split_steps)
         parts.append(_split(u, RB_PER_SLICE * (b - a), rb0))
         n_keys += u[-1]
     row_map = sectors = None
@@ -376,7 +542,7 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
     # is scattered: weigh a grouping of its rows
     if group_rows and n_rb and n_real < direct_below * n_keys:
         row, k, _, col, val = (np.concatenate(a) for a in zip(
-            *[_decode(e, a, b, offs) for a, b in chunks]))
+            *[_decode(e, a, b, offs) for a, b in spans]))
         n_rows = n_rb * BLOCK_ROWS
         order = group_order(row, col, n_rows, group_rows)
         pos = np.empty(n_rows, np.int64)
@@ -396,6 +562,10 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
         _assemble(parts, n_rb, val_dtype)
     n_pieces = len(piece) - 1
     n_cells = int(piece[-1, PIECE_CELL])
+    split = _work_items(piece, n_rb, split_steps) if split_steps and \
+        row_map is None else None
+    item, chunk_first, chunk_rb, piece_slot, max_item = split or (None,) * 5
+    n_chunks = int(chunk_first[-1]) if split else 0
     if n_cells >= 2 ** 31 or rows.size >= 2 ** 31 or \
             (cell_col.size and cell_col.max() >= 2 ** 31):
         raise ValueError("K1 plan too large for int32 maps")
@@ -408,7 +578,10 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
     cell_bytes = n_cells * cell_val.itemsize + 2 * (n_cells - n_direct) \
         + 4 * n_direct
     map_bytes = piece.size * 4 + rows.size * 4 \
-        + (0 if row_map is None else 4 * row_map.size)
+        + (0 if row_map is None else 4 * row_map.size) \
+        + (0 if split is None else 4 * (item.size + chunk_first.size))
+    # the split form's partials: written once and read once
+    partial_bytes = 2 * n_chunks * BLOCK_ROWS * cell_val.itemsize
     x_bytes = x_rows * cell_val.itemsize
     y_bytes = n_slices * LANES * cell_val.itemsize
     stats = dict(
@@ -429,26 +602,44 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
         # the estimated 32-B sectors a row block moves, in body order and
         # grouped (where a grouping was weighed)
         sectors_per_rb=sectors,
+        # the split form: row blocks chunked, their chunks (partial slots),
+        # work items, the widest item's steps
+        split_steps=split_steps, chunked_rbs=0 if split is None
+        else int(chunk_rb.size), n_chunks=n_chunks,
+        n_items=0 if split is None else len(item),
+        max_item_steps=0 if split is None else max_item,
         cell_bytes=cell_bytes, map_bytes=map_bytes,
         # what the plan itself streams per call: cells, pieces and tables
         stream_bytes=cell_bytes + map_bytes,
         body_bytes=n_steps * LANES * (e.ell_col.dtype.itemsize
                                       + cell_val.itemsize),
         x_rows=x_rows, x_bytes=x_bytes, y_bytes=y_bytes,
-        # what the kernel moves: the plan, x once and y once
-        layout_bytes=cell_bytes + map_bytes + x_bytes + y_bytes)
+        partial_bytes=partial_bytes,
+        # what the kernel moves: the plan, x once, y once and the partials
+        layout_bytes=cell_bytes + map_bytes + x_bytes + y_bytes
+        + partial_bytes)
     return StreamCellsPlan(
         n_slices=n_slices, piece=piece.astype(np.int32),
         rows=rows.astype(np.int32), cell_val=cell_val,
         cell_idx=cell_idx.view(np.int16), stats=stats,
         cell_col=cell_col.astype(np.int32),
-        row_map=None if row_map is None else row_map.astype(np.int32))
+        row_map=None if row_map is None else row_map.astype(np.int32),
+        **({} if split is None else dict(
+            item=item.astype(np.int32),
+            chunk_first=chunk_first.astype(np.int32),
+            chunk_rb=chunk_rb.astype(np.int32),
+            piece_slot=piece_slot.astype(np.int32))))
 
 
-def k1_plan(e: EhybMatrix, x_rows: int = None) -> StreamCellsPlan:
+def k1_plan(e: EhybMatrix, x_rows: int = None,
+            kahan: bool = False) -> StreamCellsPlan:
     """K1's plan of a flagship or precision-mode body: float64 values take
     direct pieces and grouped rows where the body is scattered (the float64
-    kernel reads them), float32 values the table form alone."""
+    kernel reads them); float32 values the split form where a row block is
+    wider than ``SPLIT_STEPS`` (the float32 kernel's split variant reads
+    it), or the table form alone with ``kahan`` (no compensated variant
+    reads the split form)."""
     if e.ell_val.dtype == np.float64:
         return build_stream_cells(e, x_rows, DIRECT_BELOW, GROUP_ROWS)
-    return build_stream_cells(e, x_rows)
+    return build_stream_cells(e, x_rows,
+                              split_steps=0 if kahan else SPLIT_STEPS)

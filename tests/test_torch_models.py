@@ -9,7 +9,7 @@ import ehyb_spmv_gpu_tpu as ref
 from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
 
 import ehyb_spmv_torch as port
-from ehyb_spmv_torch.ops import ehyb_stream
+from ehyb_spmv_torch.ops import ehyb_stream, stream_cells
 from test_torch_parity import (assert_same_ehyb, cancellation_matrix, coo_for,
                               rel)
 
@@ -56,6 +56,26 @@ def test_plain_model_matches_oracle_and_jax(fixture, request):
     jmodel = ref.MODELS["ehyb_xla"](ref.EhybConfig(window_rows=1024)).setup(m)
     assert_same_ehyb(model.ehyb, jmodel.ehyb)
     assert rel(got, jmodel.matvec(x)) <= PARITY_TOL
+
+
+@pytest.mark.parametrize("steps", [4, 16])
+def test_degree_split_over_split_plans_matches_jax_and_oracle(
+        steps, powerlaw_small, monkeypatch):
+    """The degree split on powerlaw_small with K1's plan in the split form
+    (SPLIT_STEPS patched small, so its dense rows' row blocks are chunked)
+    against the JAX degree split and the exact-f64 oracle, rel <= 5e-6."""
+    monkeypatch.setattr(stream_cells, "SPLIT_STEPS", steps)
+    monkeypatch.setenv("EHYB_ROUTE_SB_MAX", "8")
+    m = powerlaw_small
+    x = deterministic_x(m.dimension)
+    model = port.DegreeSplitSpmv(port.EhybConfig(), device="cpu").setup(
+        coo_for("ehyb_spmv_torch", m))
+    cells = model.e.module.cells
+    assert stream_cells.split(cells) and cells.stats["chunked_rbs"] > 0
+    got = model.matvec(x)
+    assert rel(got, oracle_spmv(m, x)) <= ORACLE_TOL
+    jmodel = ref.MODELS["ehyb_split"](ref.EhybConfig()).setup(m)
+    assert rel(got, jmodel.matvec(x)) <= ORACLE_TOL
 
 
 def test_iterate_eps_chaining(scrambled):

@@ -4,7 +4,10 @@ by the kernel's plain version against the padded body's plain version
 int32 columns and Kahan, and in float64 the plan forms of a scattered body
 (direct columns, grouped rows under a row map, both kinds of piece in one
 plan); a numpy replay of the plan and of the kernel's walk; the cut of a
-row block past the 16-bit range; and the flagship's K1 path: the plan
+row block past the 16-bit range; the split form of a heavy-tailed body
+(chunks of at most ``SPLIT_STEPS`` steps, their partials added in chunk
+order: bit for bit against a numpy replay of that order, and against the
+JAX package's apply and the oracle); and the flagship's K1 path: the plan
 replaces the padded body on the device and in the roofline's bytes.
 
 Bit equality holds because a row's cells keep their step order and the
@@ -18,7 +21,7 @@ import torch
 from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
 
 import ehyb_spmv_torch as port
-from chip_smoke import edge_body
+from chip_smoke import edge_body, long_body
 from ehyb_spmv_torch.ops import ehyb_stream, stream_cells
 from ehyb_spmv_torch.ops.torch_ops import body_gather_index, ehyb_body
 from test_torch_parity import (PORT, cancellation_matrix, config_for,
@@ -48,6 +51,13 @@ CASES = [
     ("edges_f64_mixed_kahan", "edges_f64", None, 0, {}, True, False),
     ("f64_flagship", "scrambled", "sell_rx", 2, {"dtype": "float64"}, False,
      True),
+    # the split form, SPLIT_STEPS patched: the synthetic long body (a row
+    # block at the limit, one past it, empty rows, a hub in the last row
+    # block) and a heavy-tailed body in the flagship layout
+    ("split_long4", "long", None, 0, {"split_steps": 4}, False, False),
+    ("split_long128", "long", None, 0, {"split_steps": 128}, False, False),
+    ("split_powerlaw4", "powerlaw_small", "sell_rx", 4, {"split_steps": 4},
+     False, False),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -67,9 +77,21 @@ def _dword(m, **extra):
         device="cpu").setup(coo_for(PORT, m)).ehyb
 
 
+def _split_steps(extra: dict, monkeypatch) -> dict:
+    """``extra`` without its ``split_steps``, which is patched in as the
+    plan builder's ``SPLIT_STEPS``."""
+    extra = dict(extra)
+    steps = extra.pop("split_steps", None)
+    if steps is not None:
+        monkeypatch.setattr(stream_cells, "SPLIT_STEPS", steps)
+    return extra
+
+
 def _artifact(request, fixture, layout, wps, extra):
     if fixture == "edges":
         return edge_body()
+    if fixture == "long":
+        return long_body(stream_cells.SPLIT_STEPS)
     if fixture == "edges_f64":
         return _edge_f64()
     m = cancellation_matrix(PORT) if fixture == "cancellation" \
@@ -141,10 +163,13 @@ def _chains(p):
 @pytest.mark.parametrize("case,fixture,layout,wps,extra,kahan,poisson",
                          CASES, ids=IDS)
 def test_plan_plain_equals_padded_body(case, fixture, layout, wps, extra,
-                                       kahan, poisson, request):
+                                       kahan, poisson, request, monkeypatch):
     """The plan applied by the kernel's plain version gives the padded
-    body's plain answer bit for bit; on a CPU tensor the wrapper is the
-    plain version and counts no launch."""
+    body's plain answer bit for bit (a plan in the split form: its table
+    form does, and the split form within 1e-6 and bit for bit a numpy
+    replay of its chunk order); on a CPU tensor the wrapper is the plain
+    version and counts no launch."""
+    extra = _split_steps(extra, monkeypatch)
     e = _artifact(request, fixture, layout, wps, extra)
     if case == "int32":
         assert e.ell_col.dtype == np.int32
@@ -153,28 +178,43 @@ def test_plan_plain_equals_padded_body(case, fixture, layout, wps, extra,
                       4: 4}[wps]
     if case == "hub_split":
         assert e.split_src.size > 0
-    p = stream_cells.k1_plan(e).to_torch()
+    plan = stream_cells.k1_plan(e, kahan=kahan)
+    p = plan.to_torch()
     x = torch.ones(e.padded_x_rows) if fixture == "cancellation" else _x(e)
     want = ehyb_body(d, x, compensated=kahan)
     launches = ehyb_stream.stream_body.launches
     got = ehyb_stream.stream_body(p, x, kahan)
     assert ehyb_stream.stream_body.launches == launches
     assert torch.equal(got, ehyb_stream.stream_body_plain(p, x, kahan))
-    assert torch.equal(got, want)
+    if stream_cells.split(p):
+        # the split form adds a hub block's chunks as partials (its own
+        # order, held bit for bit in test_split_plan_sums_in_chunk_order);
+        # the table form keeps the padded body's; the edge body's 80-step
+        # row blocks are past the shipped SPLIT_STEPS
+        assert case in ("nwin4_powerlaw", "edges") or \
+            case.startswith("split_")
+        table = stream_cells.build_stream_cells(e).to_torch()
+        assert torch.equal(ehyb_stream.stream_body(table, x, kahan), want)
+        assert rel(got.numpy(), want.numpy()) <= 1e-6
+        np.testing.assert_array_equal(got.numpy(),
+                                      _chunk_order_replay(plan, x.numpy()))
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("case,fixture,layout,wps,extra,kahan,poisson",
                          CASES, ids=IDS)
 def test_plan_replay(case, fixture, layout, wps, extra, kahan, poisson,
-                     request):
+                     request, monkeypatch):
     """Replay the plan: the compact cells are the body's real cells, each
     once, in step order per row, each index inside its piece's table and
     decoding to ``body_gather_index``'s column; every width is its piece's
     longest row; the tables are sorted, distinct and within 16 bits;
     a row block's pieces chain in order; and the kernel's walk (every
     rows-per-thread, a few warp counts) takes every row block and so
-    every cell once.  A Poisson body's compact cells are within 1.1x its
-    nnz."""
+    every cell once (a plan in the split form: its work items every piece
+    once).  A Poisson body's compact cells are within 1.1x its nnz."""
+    extra = _split_steps(extra, monkeypatch)
     e = _artifact(request, fixture, layout, wps, extra)
     plan = stream_cells.k1_plan(e)
     piece, n_rb = plan.piece.astype(np.int64), plan.n_rb
@@ -214,6 +254,15 @@ def test_plan_replay(case, fixture, layout, wps, extra, kahan, poisson,
     for q in range(n_p):
         t = plan.rows[piece[q, 1]:piece[q + 1, 1]]
         assert t.size <= MAX and np.all(np.diff(t) > 0)
+    # the split variant's walk over the work items covers every piece once
+    if stream_cells.split(plan):
+        seen = np.zeros(n_p, np.int64)
+        for q0, n, _, _ in plan.item:
+            q = q0
+            for _ in range(n):
+                seen[q] += 1
+                q = piece[q, stream_cells.PIECE_NEXT]
+        assert np.all(seen == 1)
     # the kernel's walk covers every row block once, so every cell once
     for v in ehyb_stream.BUILT_ROWS:
         for warps in (1, 3, 64):
@@ -527,3 +576,367 @@ def test_wrapper_refuses_what_the_kernels_do_not_read(scrambled):
     for fn in (ehyb_stream.stream_body, ehyb_stream.stream_body_plain):
         with pytest.raises(ValueError, match="row-block list"):
             fn(p, x, rb_list=lst)
+
+
+# --- the split form (heavy-tailed bodies) ---------------------------------
+
+# (case, body, SPLIT_STEPS patched in)
+SPLIT_CASES = [("long4", "long", 4), ("long32", "long", 32),
+               ("long128", "long", 128), ("powerlaw4", "powerlaw_small", 4),
+               ("powerlaw16", "powerlaw_small", 16)]
+SPLIT_IDS = [c[0] for c in SPLIT_CASES]
+
+
+def _split_plan(request, body, steps, monkeypatch):
+    """The body's artifact and its k1_plan with SPLIT_STEPS = ``steps``."""
+    monkeypatch.setattr(stream_cells, "SPLIT_STEPS", steps)
+    e = _artifact(request, body, None if body == "long" else "sell_rx", 4, {})
+    return e, stream_cells.k1_plan(e)
+
+
+def _item_pieces(plan, it):
+    """The pieces work item ``it`` walks, in order."""
+    out, q = [], int(it[stream_cells.ITEM_PIECE])
+    for _ in range(int(it[stream_cells.ITEM_PIECES])):
+        out.append(q)
+        q = int(plan.piece[q, stream_cells.PIECE_NEXT])
+    return out
+
+
+def _chunk_order_replay(plan, x: np.ndarray) -> np.ndarray:
+    """The split variant's sums in numpy float32: each work item's rows over
+    its pieces' cells in order from 0, into y or its slot of partials; then
+    each chunked row block's partials in chunk order from 0, into y."""
+    piece = plan.piece.astype(np.int64)
+    y = np.zeros(plan.n_rb * 32, np.float32)
+    part = np.zeros(int(plan.chunk_first[-1]) * 32, np.float32)
+    for it in plan.item:
+        s = np.zeros(32, np.float32)
+        for q in _item_pieces(plan, it):
+            a, b = piece[q], piece[q + 1]
+            for c in range(a[0], b[0], 32):
+                idx = plan.cell_idx[c:c + 32].view(np.uint16).astype(np.int64)
+                col = plan.rows[a[1] + (idx >> 7)].astype(np.int64) * 128 \
+                    + (idx & 127)
+                s = s + plan.cell_val[c:c + 32] * x[col]
+        rb, slot = piece[it[0], stream_cells.PIECE_RB], it[2]
+        if slot < 0:
+            y[rb * 32:rb * 32 + 32] = s
+        else:
+            part[slot * 32:slot * 32 + 32] = s
+    for i, rb in enumerate(plan.chunk_rb):
+        t = np.zeros(32, np.float32)
+        for slot in range(plan.chunk_first[i], plan.chunk_first[i + 1]):
+            t = t + part[slot * 32:slot * 32 + 32]
+        y[rb * 32:rb * 32 + 32] = t
+    return y
+
+
+@pytest.mark.parametrize("case,body,steps", SPLIT_CASES, ids=SPLIT_IDS)
+def test_split_plan_work_items(case, body, steps, request, monkeypatch):
+    """The split form at SPLIT_STEPS = ``steps``: exactly the row blocks
+    wider than it are chunked, every work item walks at most ``steps``
+    steps, the items come longest first and walk every piece once, a
+    chunked row block's slots follow its chain, and k1_plan is the builder
+    with ``split_steps``.  The long body reaches a row block exactly at the
+    limit (kept whole), one just past it (two chunks), empty rows, a hub in
+    the last row block and chunks that end inside a piece chain; a
+    heavy-tailed body in the relaxed layout a chunk of several pieces."""
+    e, plan = _split_plan(request, body, steps, monkeypatch)
+    built = stream_cells.build_stream_cells(e, split_steps=steps)
+    for f in ("piece", "rows", "cell_val", "cell_idx", "item", "chunk_first",
+              "chunk_rb", "piece_slot"):
+        np.testing.assert_array_equal(getattr(plan, f), getattr(built, f))
+    assert stream_cells.split(plan)
+    piece = plan.piece.astype(np.int64)
+    width = np.diff(piece[:, 0]) // 32
+    rb_width = np.bincount(piece[:-1, stream_cells.PIECE_RB], weights=width,
+                           minlength=plan.n_rb)
+    np.testing.assert_array_equal(plan.chunk_rb,
+                                  np.flatnonzero(rb_width > steps))
+    steps_of = [int(width[_item_pieces(plan, it)].sum()) for it in plan.item]
+    assert max(steps_of) == plan.stats["max_item_steps"] <= steps
+    assert steps_of == sorted(steps_of, reverse=True)
+    seen = np.zeros(len(width), np.int64)
+    ends_inside = multi = 0
+    for it in plan.item:
+        qs = _item_pieces(plan, it)
+        seen[qs] += 1
+        np.testing.assert_array_equal(plan.piece_slot[qs], it[2])
+        assert (it[2] < 0) == (it[3] < 0)
+        if it[2] < 0:      # a whole row block: its main piece, all its chain
+            assert it[0] < plan.n_rb and piece[qs[-1], 2] == -1
+        else:
+            ends_inside += int(piece[qs[-1], 2] >= 0)
+            multi += int(len(qs) > 1)
+    assert np.all(seen == 1)
+    for i, rb in enumerate(plan.chunk_rb):
+        chain = [q for q in range(len(width))
+                 if piece[q, stream_cells.PIECE_RB] == rb]
+        slots = plan.piece_slot[chain]
+        np.testing.assert_array_equal(np.unique(slots), np.arange(
+            plan.chunk_first[i], plan.chunk_first[i + 1]))
+        assert np.all(np.diff(slots) >= 0)
+    st = plan.stats
+    assert st["chunked_rbs"] == plan.chunk_rb.size and st["n_chunks"] == \
+        plan.chunk_first[-1] and st["n_items"] == len(plan.item) == \
+        plan.n_rb + st["n_chunks"] - st["chunked_rbs"]
+    assert ends_inside >= 1
+    if body == "long":
+        assert rb_width[0] == steps and 0 not in plan.chunk_rb
+        assert 1 in plan.chunk_rb and plan.chunk_first[1] == 2
+        assert rb_width[2] == 0 and plan.n_rb - 1 in plan.chunk_rb
+        hub = plan.n_rb - 1
+        hub_pieces = np.flatnonzero(piece[:-1, stream_cells.PIECE_RB] == hub)
+        tables = np.diff(piece[:, 1])[hub_pieces]
+        if steps == 128:   # its chain is cut for the 16-bit range too
+            assert tables.max() > stream_cells.MAX_TABLE_ROWS - 16
+    else:
+        assert multi >= 1
+
+
+@pytest.mark.parametrize("case,body,steps", SPLIT_CASES, ids=SPLIT_IDS)
+def test_split_plan_sums_in_chunk_order(case, body, steps, request,
+                                        monkeypatch):
+    """The plain version of a split plan adds each chunk's products from 0
+    in cell order and a chunked row block's partials in chunk order: bit
+    for bit a numpy replay of that order, and within 1e-6 of the padded
+    body's plain version; the wrapper on a CPU tensor is the plain version
+    and counts no launch."""
+    e, plan = _split_plan(request, body, steps, monkeypatch)
+    p = plan.to_torch()
+    x = _x(e)
+    launches = ehyb_stream.stream_body.launches
+    got = ehyb_stream.stream_body(p, x)
+    assert ehyb_stream.stream_body.launches == launches
+    np.testing.assert_array_equal(got.numpy(),
+                                  _chunk_order_replay(plan, x.numpy()))
+    want = ehyb_body(e.to_torch(), x)
+    assert rel(got.numpy(), want.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("steps", [4, 16])
+def test_split_apply_matches_jax_and_oracle(steps, powerlaw_small,
+                                            monkeypatch):
+    """The flagship's apply over a split plan of the JAX host layer's
+    artifact (powerlaw_small in the relaxed layout) against the JAX
+    package's XLA apply of the same artifact and the exact-f64 oracle of
+    the reordered matrix, at rel 5e-6."""
+    from ehyb_spmv_gpu_tpu.ops import xla_ops
+    import jax.numpy as jnp
+
+    from test_torch_parity import REF, port_from_ref
+
+    monkeypatch.setattr(stream_cells, "SPLIT_STEPS", steps)
+    cfg = config_for(REF, True, "sell_rx", 4)
+    _, r, e_ref = host_pipeline(REF, powerlaw_small, cfg)
+    e_pt = port_from_ref(e_ref)
+    apply = ehyb_stream.make_stream_apply(e_pt, e_pt.to_torch())
+    assert stream_cells.split(apply.cells)
+    dim = powerlaw_small.dimension
+    x = np.zeros(e_ref.padded_x_rows, np.float32)
+    x[:dim] = np.random.default_rng(1).standard_normal(dim)
+    got = apply(torch.from_numpy(x)).numpy()
+    want = np.asarray(xla_ops.ehyb_apply_xla(e_ref.to_jax(), jnp.asarray(x)))
+    assert rel(got, want) <= ORACLE_TOL
+    m_perm = r.apply_to_matrix(coo_for(REF, powerlaw_small))
+    assert rel(got[:dim], oracle_spmv(m_perm, x[:dim].astype(np.float64))) \
+        <= ORACLE_TOL
+
+
+FLOAT_CASES = [c for c in CASES if c[0] in (
+    "nwin1", "nwin2", "nwin4", "hub_split", "int32", "kahan", "edges",
+    "edges_kahan")]
+
+
+def _widest_row_block(plan) -> int:
+    """The widest row block of ``plan``: the sum of its pieces' widths."""
+    piece = plan.piece.astype(np.int64)
+    return int(np.bincount(piece[:-1, stream_cells.PIECE_RB],
+                           weights=np.diff(piece[:, 0]) // 32).max())
+
+
+def _parent_units(rb, lane, k, step, col, val, n_rb, n_xrows, direct_below,
+                  split_steps=0):
+    """``stream_cells._units`` as it was before the split form: a row block
+    past the 16-bit range cut step by step (``_greedy_cut``), and a row's
+    rank restarted in each piece by a loop over the pieces."""
+    assert split_steps == 0
+    LANES, ROWS = stream_cells.LANES, stream_cells.BLOCK_ROWS
+    xrow = col >> 7
+    ukey = np.unique(rb * n_xrows + xrow)
+    n_distinct = np.bincount(ukey // n_xrows, minlength=n_rb)
+    unit = rb.copy()
+    extra_rb = []
+    over = np.flatnonzero(n_distinct > MAX)
+    if over.size:
+        order = np.argsort(rb, kind="stable")
+        starts = np.searchsorted(rb[order], over, side="left")
+        ends = np.searchsorted(rb[order], over, side="right")
+        for j, r in enumerate(over):
+            cells = order[starts[j]:ends[j]]
+            pc = _greedy_cut(step[cells], xrow[cells], 0)
+            row = lane[cells] % ROWS
+            first = np.zeros(cells.size, np.int64)
+            for p in range(1, int(pc.max()) + 1):
+                in_p = pc == p
+                before = np.bincount(row[pc < p], minlength=ROWS)
+                first[in_p] = before[row[in_p]]
+            k[cells] -= first
+            unit[cells] = np.where(pc == 0, r, n_rb + len(extra_rb) + pc - 1)
+            extra_rb += [r] * int(pc.max())
+    n_units = n_rb + len(extra_rb)
+    row_cells = np.bincount(unit * ROWS + lane % ROWS,
+                            minlength=n_units * ROWS)
+    width = row_cells.reshape(n_units, ROWS).max(axis=1)
+    start = np.zeros(n_units + 1, np.int64)
+    np.cumsum(width * ROWS, out=start[1:])
+    pos = start[unit] + k * ROWS + lane % ROWS
+    key, inv = np.unique(unit * n_xrows + xrow, return_inverse=True)
+    inv = inv.reshape(-1)
+    key_unit = key // n_xrows
+    t_size = np.bincount(key_unit, minlength=n_units)
+    direct = (width > 0) & (width * ROWS
+                            < direct_below * np.maximum(t_size, 1))
+    t_size[direct] = 0
+    in_table = ~direct[key_unit]
+    t_start = np.zeros(n_units + 1, np.int64)
+    np.cumsum(t_size, out=t_start[1:])
+    slot = (np.cumsum(in_table) - 1)[inv] - t_start[unit]
+    cell_val = np.zeros(int(start[-1]), val.dtype)
+    cell_val[pos] = val
+    cell_idx = np.zeros(int(start[-1]), np.uint16)
+    tab = ~direct[unit]
+    cell_idx[pos[tab]] = slot[tab] * LANES + (col[tab] & (LANES - 1))
+    cell_col = None
+    if direct.any():
+        cell_col = np.zeros(int(start[-1]), np.int64)
+        cell_col[pos[~tab]] = col[~tab]
+    return (width, t_size, key[in_table] % n_xrows, cell_val, cell_idx,
+            cell_col, direct, np.asarray(extra_rb, np.int64), int(key.size))
+
+
+@pytest.mark.parametrize("case,fixture,layout,wps,extra,kahan,poisson",
+                         FLOAT_CASES, ids=[c[0] for c in FLOAT_CASES])
+def test_float_plans_unchanged_by_the_split_form(case, fixture, layout, wps,
+                                                 extra, kahan, poisson,
+                                                 request, monkeypatch):
+    """The float fixtures with no row block wider than SPLIT_STEPS (the
+    compensated ones: no split form at all) get from k1_plan, as shipped,
+    the plan the builder made before the split form (``_parent_units``:
+    the step-by-step cut and the per-piece rank loop), byte for byte.  The
+    edge body's row blocks reach that cut and that rank restart; being 80
+    steps wide, past SPLIT_STEPS, they are split by k1_plan without Kahan,
+    so there the builder's table form (no split_steps) is held to it
+    (so is any fixture wider than SPLIT_STEPS that k1_plan splits)."""
+    e = _artifact(request, fixture, layout, wps, extra)
+    plan = stream_cells.k1_plan(e, kahan=kahan)
+    with monkeypatch.context() as mp:
+        mp.setattr(stream_cells, "_units", _parent_units)
+        parent = stream_cells.build_stream_cells(e)
+    wide = _widest_row_block(parent) > stream_cells.SPLIT_STEPS
+    assert wide or fixture != "edges"
+    assert stream_cells.split(plan) == (wide and not kahan)
+    if stream_cells.split(plan):
+        plan = stream_cells.build_stream_cells(e)
+    assert not stream_cells.split(plan) and plan.stats["chunked_rbs"] == 0
+    if fixture == "edges":
+        assert parent.stats["split_rbs"] > 0
+    for f in ("piece", "rows", "cell_val", "cell_idx", "cell_col", "row_map",
+              "item", "chunk_first", "chunk_rb", "piece_slot"):
+        a, b = getattr(plan, f), getattr(parent, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert a.tobytes() == b.tobytes(), f
+    assert {k: v for k, v in plan.stats.items() if k != "split_steps"} == \
+        {k: v for k, v in parent.stats.items() if k != "split_steps"}
+
+
+def test_wrapper_refuses_split_plans_it_cannot_read():
+    """A plan in the split form is read by the plain float32 K1 at one row
+    a thread with x through L1/L2 only: with Kahan, a row-block list or
+    float64 values, at another rows-per-thread and with x staged, the
+    wrapper raises (on the CPU too, before any
+    build); the compensated flagship's plan is never split."""
+    e = long_body(4)
+    p = stream_cells.build_stream_cells(e, split_steps=4).to_torch()
+    x = torch.zeros(e.padded_x_rows)
+    lst = torch.arange(2, dtype=torch.int32)
+    for fn in (ehyb_stream.stream_body, ehyb_stream.stream_body_plain,
+               ehyb_stream._launch):
+        with pytest.raises(ValueError, match="split form.*Kahan"):
+            fn(p, x, True)
+        with pytest.raises(ValueError, match="split form.*row-block list"):
+            fn(p, x, rb_list=lst)
+    e64 = long_body(4)
+    e64.ell_val = e64.ell_val.astype(np.float64)
+    p64 = stream_cells.build_stream_cells(e64, split_steps=4).to_torch()
+    x64 = torch.zeros(e64.padded_x_rows, dtype=torch.float64)
+    for fn in (ehyb_stream.stream_body, ehyb_stream._launch):
+        with pytest.raises(ValueError, match="split form.*float64"):
+            fn(p64, x64)
+    with pytest.raises(ValueError, match="no split K1.*rows=2"):
+        ehyb_stream._launch(p, x, geometry=ehyb_stream.StreamGeometry(rows=2))
+    with pytest.raises(ValueError, match="no split K1.*x_mode='staged'"):
+        ehyb_stream._launch(p, x, geometry=ehyb_stream.StreamGeometry(
+            x_mode="staged"))
+    assert not stream_cells.split(stream_cells.k1_plan(e, kahan=True))
+    assert stream_cells.split(stream_cells.k1_plan(long_body(
+        stream_cells.SPLIT_STEPS)))
+
+
+def test_split_form_takes_spans_with_no_cells(monkeypatch):
+    """The builder decodes the body a span of slices at a time; where a
+    span holds no cell (a run of empty slices, as a degree split's dense
+    sub-matrix has), the split form is built all the same, and the plan
+    does not depend on the spans."""
+    e = long_body(4)
+    n_empty = 6
+    e.slice_offset = np.concatenate([e.slice_offset, np.full(
+        n_empty, e.slice_offset[-1], np.int32)])
+    e.slice_win_start = np.concatenate([e.slice_win_start, np.zeros(
+        n_empty, np.int32)])
+    e.dim = (len(e.slice_offset) - 1) * 128 * 512
+    want = stream_cells.build_stream_cells(e, split_steps=4)
+    monkeypatch.setattr(stream_cells, "_CHUNK_STEPS", 8)
+    got = stream_cells.build_stream_cells(e, split_steps=4)
+    assert got.n_rb == want.n_rb == 4 * (3 + n_empty)
+    for f in ("piece", "rows", "cell_val", "cell_idx", "item", "chunk_first",
+              "chunk_rb", "piece_slot"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    x = _x(e)
+    np.testing.assert_array_equal(
+        ehyb_stream.stream_body(got.to_torch(), x).numpy(),
+        _chunk_order_replay(got, x.numpy()))
+
+
+def _greedy_cut(step, xrow, max_steps):
+    """The cut's definition, step by step: a piece closes before the step
+    whose x rows take its table past 16 bits, or once it holds
+    ``max_steps`` steps."""
+    piece = np.zeros(step.size, np.int64)
+    cur, n, held = set(), 0, 0
+    bounds = np.flatnonzero(np.diff(step)) + 1
+    for lo, hi in zip(np.r_[0, bounds], np.r_[bounds, step.size]):
+        new = set(xrow[lo:hi].tolist())
+        if cur and (len(cur | new) > MAX or held == max_steps):
+            n, cur, held = n + 1, set(), 0
+        cur |= new
+        held += 1
+        piece[lo:hi] = n
+    return piece
+
+
+@pytest.mark.parametrize("max_steps", [0, 1, 4, 96])
+def test_cut_pieces_is_the_greedy_cut(max_steps):
+    """``_cut_pieces`` (numpy over doubling windows of steps) cuts a row
+    block where the step-by-step greedy cut does, on row blocks of 1 to
+    32 cells a step over x ranges below and far past a table."""
+    rng = np.random.default_rng(max_steps)
+    for n_x in (40, 600, 5000, 100000):
+        n_st = int(rng.integers(200, 1500))
+        step = np.repeat(np.sort(rng.choice(8 * n_st, n_st, replace=False)),
+                         rng.integers(1, 33, n_st))
+        xrow = rng.integers(0, n_x, step.size)
+        np.testing.assert_array_equal(
+            stream_cells._cut_pieces(step, xrow, max_steps),
+            _greedy_cut(step, xrow, max_steps))
