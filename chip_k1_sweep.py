@@ -6,6 +6,7 @@ its A/B.
     python3 chip_k1_sweep.py --f64      # K1 f64: plan forms x geometries
     python3 chip_k1_sweep.py --ab TAG --f64 [CASE ...]  # K1 f64 as shipped
     python3 chip_k1_sweep.py --long     # the split form at heavy tails
+    python3 chip_k1_sweep.py --long --f64  # ... in float64 and compensated
 
 Sets up ``permuted_poisson_512`` (262,144 rows) and
 ``permuted_poisson_1024`` (1,048,576 rows) through the flagship, as the CLI
@@ -51,6 +52,27 @@ one with ``split_steps`` no less than that widest row block whose times
 over the fastest such at the two shapes sum the least (powerlaw_16k's time is its longest chunk's walk, so it favours
 short chunks; powerlaw_1m's is the cells' stream, which favours fewer
 partials).
+
+``--long --f64`` sweeps the split form of the float64 variants: it
+first reads the widest row block of the ``FLOOR_F64`` bodies' float64
+plans (the float64 bodies on the card's paths; the split form must leave
+their plans as they are) and times K1 f64 on fem3d_68 --dword's, then, at
+each ``LONG_F64`` shape (powerlaw_16k in the precision mode and in
+float64 plain and compensated; powerlaw_1m in the precision mode and in
+float64), times the plan without the split form once and, for every
+``split_steps`` of ``SPLIT_SWEEP_F64`` (``SPLIT_SWEEP_F64_BIG`` at
+powerlaw_1m --dtype float64, whose plan builds take the longest), builds
+the plan (its build seconds, chunks and work items) and times the split
+variant at every threads and blocks per SM, held bit for bit to the plain
+version run on the CPU, beside both bounds and cuSPARSE in float64.  The
+choice, ``stream_cells.SPLIT_STEPS_F64`` at a geometry (the float64
+variants share ``ehyb_stream.SPLIT_GEOMETRY``), is the one, no less than
+that widest row block, whose times over the fastest such at every shape
+sum the least.  Last, the float32 compensated variant, which reads the float32
+plan (``SPLIT_STEPS``) at ``SPLIT_GEOMETRY``: at both ``LONG_SHAPES`` it
+times that plan with and without compensation at every threads and
+blocks per SM (``KAHAN_F32``), held to the plain version run on the CPU
+(within 1e-6 with Kahan, bit for bit without); it chooses nothing.
 
 ``--f64`` sweeps the float64 kernel on ``permuted_poisson_512`` in the
 precision mode (``--dword``), whose unordered body is scattered: the plan
@@ -103,6 +125,31 @@ SPLIT_SWEEP = (48, 64, 96, 128)
 #: split form must leave them as they are, so ``--long`` takes no
 #: split_steps below their widest row block.
 FLOOR_SHAPES = ("permuted_poisson_512", "random_16k")
+#: ``--long --f64``'s split_steps values, and those of them timed at
+#: powerlaw_1m --dtype float64.
+SPLIT_SWEEP_F64 = (80, 96, 128)
+SPLIT_SWEEP_F64_BIG = (80, 96)
+#: The float64 bodies K1 reads on the card's paths: ``--long --f64`` takes
+#: no split_steps below their widest row block.
+FLOOR_F64 = {"permuted_poisson_512 --dword": ("permuted_poisson_512",
+                                              dict(dword_values=True)),
+             "permuted_poisson_512 --dtype float64": (
+                 "permuted_poisson_512", dict(dtype="float64")),
+             "random_16k --dtype float64": ("random_16k",
+                                            dict(dtype="float64")),
+             "fem3d_68_audikw_class --dword": ("fem3d_68_audikw_class",
+                                               dict(dword_values=True))}
+#: ``--long --f64``'s heavy-tailed shapes: name → (matrix, config).
+LONG_F64 = {"powerlaw_16k --dword": ("powerlaw_16k",
+                                     dict(dword_values=True)),
+            "powerlaw_16k --dtype float64": ("powerlaw_16k",
+                                             dict(dtype="float64")),
+            "powerlaw_16k --dtype float64 --compensated": (
+                "powerlaw_16k", dict(dtype="float64",
+                                     compensated_sum=True)),
+            "powerlaw_1m --dword": ("powerlaw_1m", dict(dword_values=True)),
+            "powerlaw_1m --dtype float64": ("powerlaw_1m",
+                                            dict(dtype="float64"))}
 THREADS = (128, 256, 512)
 BLOCKS_PER_SM = (1, 2, 4, 8, 16)
 #: What the card runs at, beside every reading.  ``chip_smoke.py`` has its
@@ -300,17 +347,13 @@ def long_geometries():
 def widest_row_block(name: str, dev) -> int:
     """The widest row block (the sum of its pieces' widths) of K1's table
     form over the flagship body of corpus matrix ``name``."""
-    from ehyb_spmv_torch.ops.stream_cells import PIECE_CELL, PIECE_RB
-
     m = generate.load_corpus(name)
     model = port.EhybSpmv(port.EhybConfig(routed_delegate="never"),
                           device=dev).setup(m)
-    piece = build_stream_cells(model.ehyb).piece
-    width = np.bincount(piece[:-1, PIECE_RB],
-                        weights=np.diff(piece[:, PIECE_CELL]) // 32)
-    print(f"{name}: the flagship body's widest row block {int(width.max())} "
-          "steps", flush=True)
-    return int(width.max())
+    widest = int(plan_widths(build_stream_cells(model.ehyb)).max())
+    print(f"{name}: the flagship body's widest row block {widest} steps",
+          flush=True)
+    return widest
 
 
 def sweep_long(name: str, dev) -> dict:
@@ -389,6 +432,191 @@ def run_long(dev) -> int:
     print(f"choice (split_steps at least {floor}): split_steps {pick[0]} at "
           f"{pick[1]}: {LONG_SHAPES[0]} {big[pick] * 1e3:.2f} us, "
           f"{LONG_SHAPES[1]} {small[pick] * 1e3:.2f} us")
+    return 0
+
+
+def plan_widths(p) -> np.ndarray:
+    """Each row block's width (the sum of its pieces') of K1's plan ``p``."""
+    from ehyb_spmv_torch.ops.stream_cells import PIECE_CELL, PIECE_RB
+
+    piece = p.piece.cpu().numpy() if torch.is_tensor(p.piece) else p.piece
+    return np.bincount(piece[:-1, PIECE_RB], minlength=p.n_rb,
+                       weights=np.diff(piece[:, PIECE_CELL]) // 32)
+
+
+def long_f64_floor(dev) -> int:
+    """The widest row block of the ``FLOOR_F64`` bodies' plans (each held
+    out of the split form as shipped), and K1 f64 timed on fem3d_68's."""
+    from ehyb_spmv_torch.ops.stream_cells import split
+
+    floor = 0
+    for name, (matrix, cfg) in FLOOR_F64.items():
+        model, x = f64_model(matrix, dev, **cfg)
+        p = model.module.cells
+        widest = int(plan_widths(p).max())
+        cs.check(not split(p), f"{name}: the shipped plan is not split "
+                               f"(widest row block {widest} steps)")
+        floor = max(floor, widest)
+        if matrix.startswith("fem3d"):
+            kernel = lambda: ehyb_stream.stream_body(p, x)  # noqa: E731
+            ms = [cs.device_ms_per_call(kernel, 20) for _ in range(3)]
+            print(f"  K1 f64 at {name} as shipped: {ms} ms", flush=True)
+        del model, x, p
+    return floor
+
+
+def split_options(model) -> dict:
+    """``build_stream_cells``'s options of ``k1_plan`` for the float64 body
+    of ``model`` but the split form's (a grouping weighed only where the
+    shipped plan kept one)."""
+    from ehyb_spmv_torch.ops import stream_cells as sc
+
+    grouped = model.module.cells.stats["grouped"]
+    return dict(direct_below=sc.DIRECT_BELOW,
+                group_rows=sc.GROUP_ROWS if grouped else 0)
+
+
+def sweep_long_f64(name: str, dev) -> dict:
+    """One ``LONG_F64`` shape: the plan without the split form once, then
+    every split_steps x geometry; returns (split_steps, geometry) → ms."""
+    matrix, cfg = LONG_F64[name]
+    model, x = f64_model(matrix, dev, **cfg)
+    e, kahan = model.ehyb, model.module.kahan
+    x_cpu = x.cpu()
+    opts = split_options(model)
+    t0 = time.perf_counter()
+    table = build_stream_cells(e, **opts).to_torch(dev)
+    secs = time.perf_counter() - t0
+    nnz = model.dev.body_nnz
+    same = cs.same_work_bound(nnz, 2, x.numel(), table.n_rb * 32, dev,
+                              8)["bound_ms"]
+    lib = cs.body_library_ms(model, x, dev)
+    kernel = lambda: ehyb_stream.stream_body(table, x, kahan)  # noqa: E731
+    t_ms = cs.device_ms_per_call(kernel, calls_for(kernel))
+    st = table.stats
+    print(f"== {name}: the plan without the split form (built in "
+          f"{secs:.1f} s; {st['n_rb']} row blocks, {st['n_pieces']} pieces, "
+          f"{st['direct_pieces']} direct, max width {st['max_width']}, "
+          f"widest row block {int(plan_widths(table).max())}): "
+          f"{t_ms * 1e3:.2f} us at {ehyb_stream.GEOMETRY}; same-work bound "
+          f"{same * 1e3:.2f} us, cuSPARSE ({x.dtype}) {lib * 1e3:.2f} us",
+          flush=True)
+    del table
+    big = name == "powerlaw_1m --dtype float64"
+    ms_of = {}
+    for steps in SPLIT_SWEEP_F64_BIG if big else SPLIT_SWEEP_F64:
+        t0 = time.perf_counter()
+        plan = build_stream_cells(e, **opts, split_steps=steps)
+        secs = time.perf_counter() - t0
+        want = ehyb_stream.stream_body_plain(plan.to_torch(), x_cpu, kahan)
+        p = plan.to_torch(dev)
+        st = plan.stats
+        layout = cs.bound(st["layout_bytes"], 2 * nnz, dev, True)
+        print(f"== {name}, split_steps {steps}: built in {secs:.1f} s; "
+              f"{st['chunked_rbs']} row blocks in {st['n_chunks']} chunks, "
+              f"{st['n_items']} work items, {st['n_pieces']} pieces "
+              f"({st['direct_pieces']} direct), widest item "
+              f"{st['max_item_steps']} steps; layout bound "
+              f"{layout['bound_ms'] * 1e3:.2f} us", flush=True)
+        checked = False
+        for g in long_geometries():
+            try:
+                grid = ehyb_stream.grid_of(p, g, kahan, dev)
+            except RuntimeError as exc:
+                print(f"  {g}: not run ({exc})")
+                continue
+            if not checked:
+                y = ehyb_stream._launch(p, x, kahan, g).cpu()
+                cs.check(torch.equal(y, want), f"{name} ({steps}) at {g}: "
+                         "bit for bit with the CPU plain version")
+                checked = True
+            fn = lambda: ehyb_stream._launch(p, x, kahan, g)  # noqa: E731
+            ms = cs.device_ms_per_call(fn, calls_for(fn))
+            ms_of[(steps, g)] = ms
+            print(f"  threads {g.threads} blocks/SM {g.blocks_per_sm}: "
+                  f"{ms * 1e3:.2f} us (grid {grid}, "
+                  f"{ehyb_stream.registers(g, kahan, True, split=True)} "
+                  f"registers); {same / ms:.3f} of the same-work bound, "
+                  f"{t_ms / ms:.1f}x the plan without the split form, "
+                  f"{lib / ms:.2f}x cuSPARSE", flush=True)
+        del p, want
+    for k in sorted(ms_of, key=ms_of.get)[:5]:
+        print(f"  fastest at {name}: split_steps {k[0]} at {k[1]}: "
+              f"{ms_of[k] * 1e3:.2f} us")
+    print(f"  card: {CARD} = {smi(CARD)}", flush=True)
+    del model, x
+    return ms_of
+
+
+def sweep_kahan_f32(name: str, dev) -> None:
+    """K1 over the float32 plan as shipped (``SPLIT_STEPS``) at a
+    ``LONG_SHAPES`` body, compensated and plain, at every geometry."""
+    from ehyb_spmv_torch.ops.stream_cells import SPLIT_STEPS
+
+    model, x = heavy_body(name, dev)
+    plan = build_stream_cells(model.ehyb, split_steps=SPLIT_STEPS)
+    ys = body_yardsticks(model, x, plan, dev)
+    p = plan.to_torch(dev)
+    x_cpu = x.cpu()
+    want = {k: ehyb_stream.stream_body_plain(plan.to_torch(), x_cpu, k)
+            for k in (False, True)}
+    print(f"== {name}, float32 split_steps {SPLIT_STEPS} (shipped), "
+          f"compensated and plain at {ehyb_stream.SPLIT_GEOMETRY} shipped: "
+          f"same-work bound {ys['bound_ms'] * 1e3:.2f} us, cuSPARSE "
+          f"{ys['cusparse_ms'] * 1e3:.2f} us", flush=True)
+    ms_of = {}
+    for g in long_geometries():
+        row = []
+        for kahan in (True, False):
+            try:
+                grid = ehyb_stream.grid_of(p, g, kahan, dev)
+            except RuntimeError as exc:
+                row.append(f"{'Kahan' if kahan else 'plain'} not run ({exc})")
+                continue
+            y = ehyb_stream._launch(p, x, kahan, g).cpu()
+            cs.check(cs.rel(y, want[kahan]) <= cs.KERNEL_TOL if kahan
+                     else torch.equal(y, want[kahan]),
+                     f"{name} f32{' Kahan' if kahan else ''} at {g}: against "
+                     "the CPU plain version")
+            fn = lambda: ehyb_stream._launch(p, x, kahan, g)  # noqa: E731
+            ms = cs.device_ms_per_call(fn, calls_for(fn))
+            ms_of[(kahan, g)] = ms
+            row.append(f"{'Kahan' if kahan else 'plain'} {ms * 1e3:.2f} us "
+                       f"(grid {grid}, "
+                       f"{ehyb_stream.registers(g, kahan, split=True)} "
+                       "registers)")
+        print(f"  threads {g.threads} blocks/SM {g.blocks_per_sm}: "
+              + "; ".join(row), flush=True)
+    for kahan in (True, False):
+        best = min((k for k in ms_of if k[0] == kahan), key=ms_of.get)
+        print(f"  fastest {'Kahan' if kahan else 'plain'} at {name}: "
+              f"{best[1]}: {ms_of[best] * 1e3:.2f} us; at "
+              f"{ehyb_stream.SPLIT_GEOMETRY}: "
+              f"{ms_of[(kahan, ehyb_stream.SPLIT_GEOMETRY)] * 1e3:.2f} us")
+    print(f"  card: {CARD} = {smi(CARD)}", flush=True)
+    del model, x, p
+
+
+def run_long_f64(dev) -> int:
+    built = ehyb_stream.build_kernel()
+    print(f"built in {built.seconds:.1f} s")
+    floor = long_f64_floor(dev)
+    print(f"the float64 bodies' widest row block: {floor} steps", flush=True)
+    runs = {name: sweep_long_f64(name, dev) for name in LONG_F64}
+    ok = [k for k in runs["powerlaw_1m --dtype float64"] if k[0] >= floor
+          and all(k in r for r in runs.values())]
+    best = {name: min(r[k] for k in ok) for name, r in runs.items()}
+    pick = min(ok, key=lambda k: sum(r[k] / best[n]
+                                     for n, r in runs.items()))
+    print(f"choice (split_steps at least {floor}): split_steps {pick[0]} at "
+          f"{pick[1]}: "
+          + ", ".join(f"{n} {r[pick] * 1e3:.2f} us" for n, r in runs.items()))
+    for n, r in runs.items():
+        for steps in sorted({k[0] for k in r}):
+            t = min(v for k, v in r.items() if k[0] == steps)
+            print(f"  {n}: split_steps {steps} best {t * 1e3:.2f} us")
+    for name in LONG_SHAPES:
+        sweep_kahan_f32(name, dev)
     return 0
 
 
@@ -598,8 +826,8 @@ def main() -> int:
     shapes = tuple(args[2:]) or names
     if (ab is None and args) or (ab is not None and (
             len(ab) != 2 or not set(shapes) <= set(names))) \
-            or (long and (f64 or ab is not None)):
-        print(f"usage: chip_k1_sweep.py [--long | --f64] [--ab TAG "
+            or (long and ab is not None):
+        print(f"usage: chip_k1_sweep.py [--long] [--f64] [--ab TAG "
               f"[SHAPE ...]], SHAPE one of {', '.join(AB_SHAPES)}; with "
               f"--f64, one of {', '.join(F64_CASES)}", file=sys.stderr)
         return 2
@@ -609,10 +837,10 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     print(smi("name,power.limit"), flush=True)
+    if long:
+        return run_long_f64(dev) if f64 else run_long(dev)
     if f64:
         return run_ab_f64(ab[1], dev, shapes) if ab else sweep_f64(dev)
-    if long:
-        return run_long(dev)
     return run_ab(ab[1], dev, shapes) if ab else run_sweep(dev)
 
 if __name__ == "__main__":

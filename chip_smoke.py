@@ -35,10 +35,10 @@ CUDA graphs of the apply (captured in its warm-up); a replay adds the
 launches its graph holds to the counts, so they read captured launches
 times replays.  Then it times every kernel and
 its plain version at its main path's shapes (K1 also on
-``permuted_poisson_1024`` on its own resident path, and on
-permuted_poisson_4096's body beside the window cache; both on
-``permuted_poisson_1024`` forced past the residency limit, where the TPU
-runs K3), beside one cuSPARSE call (``torch.sparse_csr_tensor`` matvec) as
+``permuted_poisson_1024`` on its own resident path; K1 and the window
+cache both on ``permuted_poisson_1024`` forced past the residency limit,
+where the TPU runs K3), beside one cuSPARSE call
+(``torch.sparse_csr_tensor`` matvec) as
 a yardstick, with K1 and K9 also in their other x mode, in turns, and
 prints one JSON line of kernels with two bounds each:
 ``bound_ms``, the same work in any layout (each entry's value and column,
@@ -132,9 +132,20 @@ the five corpus rows no other phase drives (``poisson2d_512``,
 column-block mode, ``powerlaw_1m``), its table rebuilt from its log by
 ``scripts_torch/sweep_table.py``.  Each row prints its engine, launches,
 rel error, setup and wall.  Then K1 on powerlaw_1m's dense sub-matrix (the
-degree split's EHYB part, from the prewarmed cache), its split form
-against the plan without it, in turns.  The ``kernels`` line ends with K1
-on both heavy-tailed bodies.
+degree split's EHYB part, from the prewarmed cache), plain and
+compensated.
+
+Last, K1's split variants in float64 and compensated (phase 21): against
+their plain versions on small bodies that reach chunked table and direct
+pieces, a grouped plan and a row block at the threshold (bit for bit in
+float64, within KERNEL_TOL in float32 with Kahan), with the cancellation
+rows only they keep; powerlaw_16k in ``--dword``, ``--dtype float64
+[--compensated]`` and ``--compensated`` (each against the oracle, K1 over
+its split plan against the table form in turns and cuSPARSE in its type);
+and ``powerlaw_1m --dword`` at full size through the CLI (its host
+artifact built in the background by ``scripts_torch/prewarm.py --dword``,
+as is fem3d_68 ``--dword``'s for phase 17c).  The ``kernels`` line ends
+with K1 on the heavy-tailed bodies.
 
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
@@ -146,6 +157,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -290,6 +302,24 @@ SK1 = {"name": "ehyb_stream_body (row-block list)", "route": "cuda",
 K1F64K = {"name": "ehyb_stream_body (f64, Kahan)", "route": "cuda",
           "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
           "replaces": f"{_PALLAS}:148 (K1, kahan=True) in a float64 config"}
+#: K1's split variants in float64 and compensated (phase 21): at
+#: powerlaw_16k in each config of ``HEAVY_CONFIGS`` and at powerlaw_1m in
+#: the precision mode.
+K1_SPLIT = {
+    "--dword": dict(K1F64, name="ehyb_stream_body (f64, long rows, "
+                                "powerlaw_16k --dword)"),
+    "--dtype float64": dict(K1F64, name="ehyb_stream_body (f64, long "
+                                        "rows, powerlaw_16k --dtype "
+                                        "float64)"),
+    "--dtype float64 --compensated": dict(
+        K1F64K, name="ehyb_stream_body (f64, Kahan, long rows, "
+                     "powerlaw_16k --dtype float64 --compensated)"),
+    "--compensated": dict(
+        K1, name="ehyb_stream_body (Kahan, long rows, powerlaw_16k "
+                 "--compensated)",
+        replaces=f"{_PALLAS}:148 (K1, kahan=True)")}
+K1_SPLIT_1M = dict(K1F64, name="ehyb_stream_body (f64, long rows, "
+                               "powerlaw_1m --dword)")
 SK1F64 = {"name": "ehyb_stream_body (f64, row-block list)", "route": "cuda",
           "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
           "replaces": "ehyb_spmv_gpu_tpu/parallel/spmv.py:511 (_stream_call, "
@@ -324,6 +354,26 @@ PREWARM_TIMEOUT_S = 600
 #: while the card runs phases 10-19b.
 PREBUILD_F64_ARGS = ("--models", "ehyb", "--dtype", "float64",
                      "permuted_poisson_4096")
+#: Phase 21b: powerlaw_16k in the configs whose K1 variants read the split
+#: form besides plain float32 (the CLI's flags → config fields).
+HEAVY_CONFIGS = {"--dword": dict(dword_values=True),
+                 "--dtype float64": dict(dtype="float64"),
+                 "--dtype float64 --compensated": dict(
+                     dtype="float64", compensated_sum=True),
+                 "--compensated": dict(compensated_sum=True)}
+#: Phase 21c: powerlaw_1m in the precision mode at full size.  17c's host
+#: artifact (fem3d_68 --dword) is built in the background from phase 9
+#: on, 21c's from 17c on.
+DWORD_1M_ARGS = ["-g", "powerlaw_1m", "--model", "ehyb", "-i", "50",
+                 "--json", "--device", "cuda", "--dword"]
+PREBUILD_FEM_ARGS = ("--models", "ehyb", "--dword", "fem3d_68_audikw_class")
+PREBUILD_DWORD_ARGS = ("--models", "ehyb", "--dword", "powerlaw_1m")
+#: fem3d_68 --dword's K1 plan as built before float64 plans took the
+#: split form (its widest row block, 78 steps, is under
+#: ``SPLIT_STEPS_F64``): the plan must not move.
+FEM_DWORD_PLAN = dict(n_rb=29480, n_pieces=29480, max_width=78,
+                      max_table_rows=137, compact_cells=65648544,
+                      cell_bytes=656485440, map_bytes=2495252)
 #: float32 peak outside the tensor cores (NVIDIA's data sheets), matched like
 #: the bandwidth table of utils/timing.py: the first key in the name wins.
 PEAK_F32 = {"h100 pcie": 51e12, "h100": 67e12}
@@ -642,14 +692,13 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
     in no fixed order, and a naive f64 sum of the cancellation matrix
     depends on the order.  ``cells``, the plan on the card, defaults to a
     fresh build of ``e``'s (``k1_plan``: in f64, direct pieces and grouped
-    rows where the body is scattered; in float32 without Kahan, the split
-    form where a row block is wider than ``SPLIT_STEPS``, at the split
-    variant's geometries; with ``table``, the table form whatever the
-    widths)."""
+    rows where the body is scattered; the split form where a row block is
+    wider than the threshold of its type, at the split variants'
+    geometries; with ``table``, the table form whatever the widths)."""
     f64 = e.ell_val.dtype == np.float64
     tol = F64_TOL if f64 else KERNEL_TOL
     exact = f64 or not kahan
-    plan = build_stream_cells(e) if table else k1_plan(e, kahan=kahan)
+    plan = build_stream_cells(e) if table else k1_plan(e)
     p = plan.to_torch(dev) if cells is None else cells
     x_dev = torch.as_tensor(
         x, dtype=torch.float64 if f64 else torch.float32, device=dev)
@@ -689,21 +738,21 @@ def split_geometries():
             ehyb_stream.SPLIT_GEOMETRY]
 
 
-def replay_split(p, x_cpu: list, dev, g) -> bool:
-    """K1's split variant at geometry ``g`` captured in one CUDA graph over
-    plan ``p`` and replayed once for each x of ``x_cpu``: whether every
-    replay's y equals the plain version on the CPU bit for bit (the
-    in-launch combine puts its counters back to 0, so each replay starts
-    clean)."""
+def replay_split(p, x_cpu: list, dev, g, kahan: bool = False) -> bool:
+    """K1's split variant (compensated where ``kahan``) at geometry ``g``
+    captured in one CUDA graph over plan ``p`` and replayed once for each x
+    of ``x_cpu``: whether every replay's y equals the plain version on the
+    CPU bit for bit (the in-launch combine puts its counters back to 0, so
+    each replay starts clean)."""
     p_cpu = copy.deepcopy(p).cpu()
     x_buf = x_cpu[0].to(dev)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
-        ehyb_stream._launch(p, x_buf, False, g)
+        ehyb_stream._launch(p, x_buf, kahan, g)
         with torch.cuda.graph(graph, stream=side):
-            y_buf = ehyb_stream._launch(p, x_buf, False, g)
+            y_buf = ehyb_stream._launch(p, x_buf, kahan, g)
     torch.cuda.synchronize()
     same = True
     for x in x_cpu:
@@ -711,7 +760,7 @@ def replay_split(p, x_cpu: list, dev, g) -> bool:
         graph.replay()
         torch.cuda.synchronize()
         same = same and torch.equal(
-            y_buf.cpu(), ehyb_stream.stream_body_plain(p_cpu, x))
+            y_buf.cpu(), ehyb_stream.stream_body_plain(p_cpu, x, kahan))
     del graph
     return same
 
@@ -765,88 +814,242 @@ def check_k1_split(dev) -> None:
           f"K1 launched {ehyb_stream.stream_body.launches} times")
 
 
+#: The split form's thresholds and chunk lengths (``ops/stream_cells.py``).
+SPLIT_NAMES = ("SPLIT_STEPS", "SPLIT_STEPS_F64")
+
+
 @contextlib.contextmanager
 def patched_split(steps: int):
-    """``stream_cells.SPLIT_STEPS`` at ``steps`` for the length of a
-    ``with`` block."""
-    old, stream_cells.SPLIT_STEPS = stream_cells.SPLIT_STEPS, steps
+    """Every split threshold and chunk length of ``stream_cells`` at
+    ``steps`` for the length of a ``with`` block."""
+    old = {k: getattr(stream_cells, k) for k in SPLIT_NAMES}
+    for k in SPLIT_NAMES:
+        setattr(stream_cells, k, steps)
     try:
         yield
     finally:
-        stream_cells.SPLIT_STEPS = old
+        for k, v in old.items():
+            setattr(stream_cells, k, v)
 
 
-def time_k1_split(name: str, model, dev, x_dev: torch.Tensor) -> dict:
-    """K1 on a heavy-tailed body (``model``'s, in the split form): the
-    shipped plan against the table form (the same body's plan without the
-    split form, each row block walked by one warp) in turns, held bit for
-    bit to the plain version on the CPU and, with the table form, to the
-    exact sums at the suite's bound; beside the plain version's time on
-    the card, cuSPARSE over the body's entries and both bounds."""
+def f64_body(e, seed: int):
+    """Body ``e`` with float64 values in place of its own (random where a
+    cell is real)."""
+    e = copy.copy(e)
+    rng = np.random.default_rng(seed)
+    e.ell_val = np.where(e.ell_val != 0, rng.standard_normal(
+        e.ell_val.shape), 0.0)
+    return e
+
+
+def split_variant_bodies():
+    """Phase 21a's bodies, (name, body, steps): each reaches a form of the
+    split variants at ``split_steps = steps`` (every threshold patched)."""
+    m = generate.random_general(**POWERLAW_SMALL)
+    f64 = port.EhybSpmv(port.EhybConfig(dtype="float64"),
+                        device="cpu").setup(m).ehyb
+    dword = port.EhybSpmv(port.EhybConfig(dword_values=True), device="cpu") \
+        .setup(generate.permuted(generate.poisson2d(96), seed=3)).ehyb
+    shipped = stream_cells.SPLIT_STEPS_F64
+    return [("powerlaw_small f64 (table pieces) 4", f64, 4),
+            ("long body f64 (direct pieces) 4", f64_body(long_body(4), 8), 4),
+            (f"long body f64 {shipped}", f64_body(long_body(shipped), 9),
+             shipped),
+            ("pp96 --dword (grouped rows) 2", dword, 2),
+            ("long body 4", long_body(4), 4),
+            (f"long body {stream_cells.SPLIT_STEPS}",
+             long_body(stream_cells.SPLIT_STEPS), stream_cells.SPLIT_STEPS),
+            ("powerlaw_small 4", port.EhybSpmv(port.EhybConfig(
+                routed_delegate="never"), device="cpu").setup(m).ehyb, 4)]
+
+
+def check_k1_split_variants(dev) -> None:
+    """Phase 21a: the split variants in float64 (plain and Neumaier) and
+    the compensated one in float32 against their plain versions through
+    :func:`check_k1_case`, bit for bit in float64 and within KERNEL_TOL in
+    float32 with Kahan, on bodies that reach a chunked table piece, a
+    chunked direct piece, a chunked grouped row block (y through the row
+    map) and a row block exactly at the threshold (kept whole); each
+    variant replayed in a CUDA graph over three x; then the cancellation
+    rows, which only the compensated split variants keep."""
+    rng = np.random.default_rng(21)
+    reached = set()
+    for name, e, steps in split_variant_bodies():
+        with patched_split(steps):
+            plan = k1_plan(e)
+            f64 = plan.cell_val.dtype == np.float64
+            piece = plan.piece.astype(np.int64)
+            chunked = np.flatnonzero(plan.piece_slot >= 0)
+            tables = np.diff(piece[:, 1])[chunked]
+            cells = np.diff(piece[:, 0])[chunked]
+            width = np.bincount(piece[:-1, PIECE_RB],
+                                weights=np.diff(piece[:, 0]) // 32,
+                                minlength=plan.n_rb)
+            at_limit = np.flatnonzero(width == steps)
+            forms = {"table": bool(np.any(tables > 0)),
+                     "direct": bool(np.any((tables == 0) & (cells > 0))),
+                     "grouped": bool(plan.row_map.size),
+                     "at the limit": bool(at_limit.size) and not np.any(
+                         np.isin(at_limit, plan.chunk_rb))}
+            reached |= {f"{'f64' if f64 else 'f32'} {k}"
+                        for k, v in forms.items() if v}
+            check(split(plan), f"{name}: {plan.stats['chunked_rbs']} row "
+                               f"blocks in {plan.stats['n_chunks']} chunks "
+                               f"of at most {steps} steps; reaches "
+                               f"{[k for k, v in forms.items() if v]}")
+            x = rng.standard_normal(e.padded_x_rows)
+            for kahan in (False, True) if f64 else (True,):
+                check_k1_case(f"{name}{' kahan' if kahan else ''}", e, x,
+                              kahan, dev)
+                if not f64:
+                    continue
+                # the float32 Kahan variant is the same template: its
+                # combine's counters are held here, in float64
+                p = plan.to_torch(dev)
+                xs = [torch.from_numpy(rng.standard_normal(e.padded_x_rows))
+                      for _ in range(3)]
+                check(replay_split(p, xs, dev, ehyb_stream.geometry_of(p),
+                                   kahan),
+                      f"{name}{' kahan' if kahan else ''}: three CUDA-graph "
+                      "replays bit for bit with the plain version on the CPU")
+    want = {"f64 table", "f64 direct", "f64 grouped", "f64 at the limit",
+            "f32 table", "f32 at the limit"}
+    check(want <= reached, f"the bodies reach {sorted(reached)}")
+    for f64, m in ((True, cancellation_matrix_f64()),
+                   (False, cancellation_matrix())):
+        cfg = port.EhybConfig(body_layout="sell_rx", relax_body="never",
+                              compensated_sum=True,
+                              dtype="float64" if f64 else "float32")
+        with patched_split(4):
+            model = port.EhybSpmv(cfg, device=dev).setup(m)
+        p = model.module.cells
+        r0 = int(model.reordering.old_to_new[0])
+        # the body row's exact sum (x all ones)
+        s, lane = divmod(r0, 128)
+        offs = model.ehyb.slice_offset
+        exact = math.fsum(model.ehyb.ell_val[offs[s]:offs[s + 1],
+                                             lane].tolist())
+        x = torch.ones(p.stats["x_rows"], device=dev,
+                       dtype=torch.float64 if f64 else torch.float32)
+        got = {k: float(ehyb_stream.stream_body(p, x, k)[r0])
+               for k in (False, True)}
+        check(split(p) and r0 // 32 in p.chunk_rb.tolist()
+              and got[True] == exact and got[False] != exact,
+              f"cancellation row in {'f64' if f64 else 'f32'}, its row "
+              f"block in chunks of 4 steps: the compensated split variant "
+              f"{got[True]!r} == {exact}, the plain one {got[False]!r}")
+    for kahan, f64 in ((True, False), (False, True), (True, True)):
+        g = ehyb_stream.SPLIT_GEOMETRY
+        blocks = ehyb_stream.resident_blocks(g, kahan, dev, f64, split=True)
+        print(f"  split variant {'f64' if f64 else 'f32'}"
+              f"{' Kahan' if kahan else ''}: "
+              f"{ehyb_stream.registers(g, kahan, f64, split=True)} "
+              f"registers, {blocks} blocks of {g.threads} threads resident "
+              "on an SM")
+
+
+def time_k1_split(name: str, model, dev, x_dev: torch.Tensor,
+                  table: bool = True, kahan: bool = None,
+                  library_ms: float = None) -> dict:
+    """K1 on a heavy-tailed body (``model``'s, in the split form; with
+    ``kahan``, None for the model's, its compensated variant): the shipped
+    plan, against the table form (the same body's plan without the split
+    form, each row block walked by one warp) in turns where ``table``,
+    held to the plain version on the CPU (bit for bit, or within
+    KERNEL_TOL in float32 with Kahan) and to the float64 sums (the plan's
+    plain version in float64) at the suite's bound; beside the
+    plain version's time on the card, cuSPARSE over the body's entries in
+    the body's type (``library_ms`` where given) and both bounds."""
     p = model.module.cells
     st = p.stats
-    check(split(p), f"{name}: K1's plan in the split form "
-                    f"({st['chunked_rbs']} row blocks in {st['n_chunks']} "
-                    f"chunks, {st['n_items']} work items)")
+    kahan = model.module.kahan if kahan is None else kahan
+    f64 = p.cell_val.dtype == torch.float64
+    tol = F64_TOL if f64 else ORACLE_TOL
+    what = f"{'f64 ' if f64 else ''}{'Kahan ' if kahan else ''}"
+    check(split(p) and st["n_items"] > 0,
+          f"{name}: K1's plan in the split form ({st['chunked_rbs']} row "
+          f"blocks in {st['n_chunks']} chunks of at most "
+          f"{st['split_steps']} steps, {st['n_items']} work items)")
     t0 = time.perf_counter()
-    table = build_stream_cells(model.ehyb).to_torch(dev)
+    walk = build_stream_cells(model.ehyb).to_torch(dev) if table else None
     t_build = time.perf_counter() - t0
-    y_k = ehyb_stream.stream_body(p, x_dev)
-    y_cpu = ehyb_stream.stream_body_plain(copy.deepcopy(p).cpu(),
-                                          x_dev.cpu())
-    check(torch.equal(y_k.cpu(), y_cpu), f"{name}: the split variant bit "
-                                         "for bit with the plain version "
-                                         "on the CPU")
+    y_k = ehyb_stream.stream_body(p, x_dev, kahan)
+    p_cpu, x_cpu = copy.deepcopy(p).cpu(), x_dev.cpu()
+    y_cpu = ehyb_stream.stream_body_plain(p_cpu, x_cpu, kahan)
+    if f64 or not kahan:
+        check(torch.equal(y_k.cpu(), y_cpu), f"{name}: the {what}split "
+              "variant bit for bit with the plain version on the CPU")
+    else:
+        err = rel(y_k.cpu(), y_cpu)
+        check(err <= KERNEL_TOL, f"{name}: the {what}split variant vs the "
+                                 f"plain version rel {err:.3e}")
     max_abs = float((y_k.cpu() - y_cpu).abs().max())
-    # the exact sums: the table form's plain version on the CPU in float64
-    # (the card's plain version adds hub rows of ~1e5 entries with atomics
-    # in no fixed order, so it is timed, not held to)
-    exact = ehyb_stream.stream_body_plain(
-        copy.deepcopy(table).cpu(), x_dev.cpu().double())
-    y_t = ehyb_stream.stream_body(table, x_dev)
-    err_k, err_t = rel(y_k.cpu(), exact), rel(y_t.cpu(), exact)
-    check(max(err_k, err_t) <= ORACLE_TOL,
-          f"{name}: the split form rel {err_k:.3e}, the table form rel "
-          f"{err_t:.3e} from the exact float64 sums <= {ORACLE_TOL}")
+    # the float64 sums: the plan's plain version on the CPU in float64 (the
+    # card's plain version adds hub rows of ~1e5 entries with atomics in
+    # no fixed order, so it is timed, not held to)
+    exact = y_cpu if f64 and not kahan else ehyb_stream.stream_body_plain(
+        p_cpu, x_cpu.double())
+    del p_cpu
+    err_k = rel(y_k.cpu(), exact)
+    err_t = rel(ehyb_stream.stream_body(walk, x_dev, kahan).cpu(),
+                exact) if table else 0.0
+    check(max(err_k, err_t) <= tol,
+          f"{name}: the split form rel {err_k:.3e}"
+          + (f", the table form rel {err_t:.3e}" if table else "")
+          + f" from the float64 sums <= {tol}")
     t_check = time.perf_counter() - t0 - t_build
-    kernel = lambda: ehyb_stream.stream_body(p, x_dev)  # noqa: E731
-    walk = lambda: ehyb_stream.stream_body(table, x_dev)  # noqa: E731
+    kernel = lambda: ehyb_stream.stream_body(p, x_dev, kahan)  # noqa: E731
 
     def calls(fn, budget_ms: float = 20.0) -> int:
         t = ms_per_call(fn, 1)
         return max(2, min(100, int(budget_ms / max(t, 1e-3))))
 
-    ms, table_ms, turns = in_turns(kernel, walk, calls(kernel), calls(walk))
+    if table:
+        walk_fn = lambda: ehyb_stream.stream_body(walk, x_dev,  # noqa: E731
+                                                  kahan)
+        ms, table_ms, turns = in_turns(kernel, walk_fn, calls(kernel),
+                                       calls(walk_fn))
+    else:
+        ms, table_ms = device_ms_per_call(kernel, calls(kernel)), None
+        turns = (ms,)
     plain_ms = device_ms_per_call(
-        lambda: ehyb_stream.stream_body_plain(p, x_dev), 3)
-    lib_ms = body_library_ms(model, x_dev, dev)
+        lambda: ehyb_stream.stream_body_plain(p, x_dev, kahan), 3)
+    lib_ms = body_library_ms(model, x_dev, dev) if library_ms is None \
+        else library_ms
     nnz = model.dev.body_nnz
-    b = bound(st["layout_bytes"], 2 * nnz, dev)
-    same = same_work_bound(nnz, 2, x_dev.numel(), y_k.numel(), dev)
+    b = bound(st["layout_bytes"], 2 * nnz, dev, f64)
+    same = same_work_bound(nnz, 2, x_dev.numel(), y_k.numel(), dev,
+                           8 if f64 else 4)
     t_time = time.perf_counter() - t0 - t_build - t_check
-    g = ehyb_stream.SPLIT_GEOMETRY
-    print(f"  K1 at {name}: split form ({st['split_steps']} steps, "
-          f"{st['chunked_rbs']} of {st['n_rb']} row blocks in "
-          f"{st['n_chunks']} chunks, {st['n_items']} work items, "
-          f"{st['n_pieces']} pieces; {g}; grid "
-          f"{ehyb_stream.grid_of(p, g, False, dev)}) against the table form "
-          f"({table.stats['n_pieces']} pieces, max width "
-          f"{table.stats['max_width']}), device ms per call (table, split, "
-          f"split, table): {turns}; host seconds: the table form's build "
-          f"{t_build:.1f}, the checks against the CPU {t_check:.1f}, the "
-          f"timing {t_time:.1f}")
-    print(f"  the table form / the split form = {table_ms / ms:.1f}; plain "
-          f"version {plain_ms:.4f} ms; cuSPARSE over its {nnz} body entries "
-          f"{lib_ms:.4f} ms (K1 / cuSPARSE = {ms / lib_ms:.3f}); same-work "
-          f"bound {same['bound_ms']:.4f} ms ({same['bound_ms'] / ms:.3f} "
-          f"reached), layout bound {b['bound_ms']:.4f} ms "
-          f"({st['layout_bytes']} B: cells {st['cell_bytes']}, maps "
-          f"{st['map_bytes']}, partials {st['partial_bytes']}); "
-          f"{card_state()}")
-    del table
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, table_form_ms=table_ms,
-                **bounds(b, same))
+    g = ehyb_stream.geometry_of(p)
+    print(f"  K1 {what}at {name}: split form ({st['split_steps']} steps a "
+          f"chunk, {st['chunked_rbs']} of "
+          f"{st['n_rb']} row blocks in {st['n_chunks']} chunks, "
+          f"{st['n_items']} work items, {st['n_pieces']} pieces, "
+          f"{st['direct_pieces']} direct, "
+          f"{'grouped' if st['grouped'] else 'body order'}; {g}; grid "
+          f"{ehyb_stream.grid_of(p, g, kahan, dev)})"
+          + (f" against the table form ({walk.stats['n_pieces']} pieces, "
+             f"max width {walk.stats['max_width']}), device ms per call "
+             f"(table, split, split, table): {turns}" if table else
+             f", device ms per call {ms}")
+          + f"; host seconds: the table form's build {t_build:.1f}, the "
+          f"checks against the CPU {t_check:.1f}, the timing {t_time:.1f}")
+    print("  " + ("" if not table else f"the table form / the split form "
+                  f"= {table_ms / ms:.1f}; ")
+          + f"plain version {plain_ms:.4f} ms; cuSPARSE over its {nnz} "
+          f"body entries ({x_dev.dtype}) {lib_ms:.4f} ms (K1 / cuSPARSE = "
+          f"{ms / lib_ms:.3f}); same-work bound {same['bound_ms']:.4f} ms "
+          f"({same['bound_ms'] / ms:.3f} reached), layout bound "
+          f"{b['bound_ms']:.4f} ms ({st['layout_bytes']} B: cells "
+          f"{st['cell_bytes']}, maps {st['map_bytes']}, partials "
+          f"{st['partial_bytes']}); {card_state()}")
+    del walk
+    out = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, **bounds(b, same))
+    if table:
+        out["table_form_ms"] = table_ms
+    return out
 
 
 def reset_launches() -> None:
@@ -2676,9 +2879,9 @@ def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> dict:
     rows no earlier phase drives; every child in its own process with
     ``artifact_cache=True``, reading the cache the prewarm filled.  Then
     K1 on powerlaw_1m's dense body (the degree split's EHYB part, set up
-    in this process from that cache) timed by :func:`time_k1_split`;
-    returns its kernels entry, with the launches of the sweep's
-    powerlaw_1m run."""
+    in this process from that cache) timed by :func:`time_k1_split`, plain
+    and compensated; returns its kernels entry, with the launches of the
+    sweep's powerlaw_1m run."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()  # the children need the card's memory
     rc, since, out = prewarm.wait(PREWARM_TIMEOUT_S)
@@ -2795,12 +2998,87 @@ def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> dict:
                 device="cuda").setup(md)
         print(f"  setup {time.perf_counter() - t1:.1f} s "
               f"({model.setup_seconds})")
+        x = model.prepare_x(deterministic_x(md.dimension))
+        # the table form's walk (23.45 ms, PERF.md) is not rebuilt here
         k1 = time_k1_split("powerlaw_1m's dense body", model, model.device,
-                           model.prepare_x(deterministic_x(md.dimension)))
-        del model, md
+                           x, table=False)
+        k1k = time_k1_split("powerlaw_1m's dense body", model, model.device,
+                            x, table=False, kahan=True,
+                            library_ms=k1["library_ms"])
+        k1.update(kahan_ms=k1k["ms"], kahan_plain_ms=k1k["plain_ms"],
+                  kahan_max_abs_err=k1k["max_abs_err"])
+        del model, md, x
         print(f"  20d wall {time.perf_counter() - t1:.1f} s")
     print(f"  phase 20 wall {time.perf_counter() - t0:.1f} s")
     return dict(k1, launches=rp["launches"]["K1"])
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: K1's split variants in float64 and compensated.
+# ---------------------------------------------------------------------------
+
+def check_heavy_16k(dev) -> list:
+    """21b: powerlaw_16k through ``EhybSpmv`` in each config of
+    ``HEAVY_CONFIGS``: against the oracle (F64_TOL in float64, ORACLE_TOL
+    in float32), K1 launched once a product over a plan in the split form,
+    then K1 timed by :func:`time_k1_split` (against the table form in
+    turns, cuSPARSE in the config's type); returns the kernels entries."""
+    m = generate.load_corpus("powerlaw_16k")
+    x = deterministic_x(m.dimension)
+    want = oracle_spmv(m, x)
+    out = []
+    for flags, kw in HEAVY_CONFIGS.items():
+        t0 = time.perf_counter()
+        model = port.EhybSpmv(port.EhybConfig(**kw), device=dev).setup(m)
+        f64 = model.module.cells.cell_val.dtype == torch.float64
+        reset_launches()
+        err = rel_np(model.matvec(x), want)
+        n = ehyb_stream.stream_body.launches
+        st = model.module.cells.stats
+        tol = F64_TOL if f64 else ORACLE_TOL
+        check(err <= tol and n == 1 and st["n_items"] > 0,
+              f"powerlaw_16k {flags}: rel {err:.3e} <= {tol}, K1 launched "
+              f"{n} time(s) over {st['n_items']} work items "
+              f"({st['chunked_rbs']} row blocks in {st['n_chunks']} chunks)")
+        k = time_k1_split(f"powerlaw_16k {flags}", model, dev,
+                          model.prepare_x(x))
+        out.append(dict(K1_SPLIT[flags], launches=n, rel_error=err, **k))
+        del model
+        print(f"  powerlaw_16k {flags} wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def check_dword_1m(dev, prebuild: "Prewarm") -> dict:
+    """21c: ``powerlaw_1m --dword`` at full size through the CLI, its host
+    artifact from ``prebuild``'s cache: within F64_TOL of the oracle, K1 f64
+    launched over a plan in the split form, the peak device memory of the
+    run; then K1 timed by :func:`time_k1_split` (no table form: its walk
+    is ``chip_k1_sweep.py --long --f64``'s); returns its kernels entry."""
+    rc, since, out = prebuild.wait(PREWARM_TIMEOUT_S)
+    print("".join(f"    {ln}\n" for ln in out.splitlines()), end="")
+    check(rc == 0, f"the prebuild exited {rc} after {since:.1f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"  python -m ehyb_spmv_torch {' '.join(DWORD_1M_ARGS)} --cache "
+          f"(the cache at {prebuild.cache_dir})")
+    with cache_dir(prebuild.cache_dir):
+        res, model, launches = drive(DWORD_1M_ARGS + ["--cache"], F64_TOL)
+    peak = torch.cuda.max_memory_allocated(dev)
+    p = model.module.cells
+    st = p.stats
+    check(res["engine"] == "EhybSpmv" and res["dim"] == 1 << 20
+          and "cache_load" in res["setup_seconds"] and launches["K1"] > 0
+          and split(p) and p.cell_val.dtype == torch.float64,
+          f"powerlaw_1m --dword at full size: dim {res['dim']}, nnz "
+          f"{res['nnz']}, K1 f64 launched {launches['K1']} times over "
+          f"{st['n_items']} work items ({st['chunked_rbs']} row blocks in "
+          f"{st['n_chunks']} chunks, {st['direct_pieces']} direct pieces, "
+          f"{'grouped' if st['grouped'] else 'body order'}), layout "
+          f"{res['layout']}, peak device memory {peak} B")
+    k = time_k1_split("powerlaw_1m --dword", model, dev, model.prepare_x(
+        deterministic_x(res["dim"])), table=False)
+    return dict(K1_SPLIT_1M, launches=launches["K1"], peak_bytes=peak,
+                gflops=res["gflops"], **k)
 
 
 def main() -> int:
@@ -2955,6 +3233,9 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     # host from the corpus entry phase 9 cached while phases 10-19b run
     prebuild = jobs.enter_context(Prewarm(
         prewarm.cache_dir, "prebuild_f64", PREBUILD_F64_ARGS))
+    # phase 17c's host setup (fem3d_68 in the precision mode)
+    prebuild_fem = jobs.enter_context(Prewarm(
+        prewarm.cache_dir, "prebuild_fem", PREBUILD_FEM_ARGS))
     plan = model4.module.wincache
     print(f"  layout: {res4['layout']}; TPU branch {model4.module.branch}; "
           f"setup {res4['setup_seconds']['total']:.1f} s")
@@ -2993,6 +3274,8 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     k9 = time_dia(model3, res3, dev)
     print("  K9 on permuted_poisson_4096's diagonal:")
     time_dia(model4, res4, dev, n=20)
+    print("  K9 on permuted_poisson_512's diagonal (main path 1):")
+    time_dia(model1, res1, dev, n=100)
     print("  K1 on permuted_poisson_4096's body, its plan built for it (the "
           "TPU's K2 regime; L2 instead of the window cache):")
     t0 = time.perf_counter()
@@ -3085,12 +3368,27 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     print(f"  {res7['matrix']}: {res7['gflops']:.2f} GFLOP/s in f64 beside "
           f"{res1['gflops']:.2f} in f32 (phase 6), both the CLI's graph "
           f"loop of {res7['iters']} iterations; {card}")
-    print(f"  17c: python -m ehyb_spmv_torch {' '.join(DWORD_FEM_ARGS)}")
-    res8, model8, launch8 = drive(DWORD_FEM_ARGS)
+    rc, since, out = prebuild_fem.wait(PREWARM_TIMEOUT_S)
+    print("".join(f"    {ln}\n" for ln in out.splitlines()), end="")
+    check(rc == 0, f"the prebuild exited {rc} after {since:.1f} s")
+    # phase 21c's host setup (powerlaw_1m in the precision mode)
+    prebuild_dword = jobs.enter_context(Prewarm(
+        prewarm.cache_dir, "prebuild_dword", PREBUILD_DWORD_ARGS))
+    print(f"  17c: python -m ehyb_spmv_torch {' '.join(DWORD_FEM_ARGS)} "
+          f"--cache (the cache at {prewarm.cache_dir})")
+    with cache_dir(prewarm.cache_dir):
+        res8, model8, launch8 = drive(DWORD_FEM_ARGS + ["--cache"])
     lay = res8["layout"]
     print(f"  layout: {lay}; {len(model8.dev.dia_offsets)} diagonals "
           f"(nnz_dia {lay['nnz_dia']} of {res8['nnz']}), TPU branch "
           f"{model8.module.branch}")
+    st = model8.module.cells.stats
+    got = {k: st[k] for k in FEM_DWORD_PLAN}
+    check(got == FEM_DWORD_PLAN and not split(model8.module.cells)
+          and st["max_width"] <= stream_cells.SPLIT_STEPS_F64,
+          f"fem3d_68 --dword's K1 plan as the parent built it, no row "
+          f"block past SPLIT_STEPS_F64 {stream_cells.SPLIT_STEPS_F64}: "
+          f"{got}")
     check(res8["dim"] == 943296 and res8["rel_error"] <= F64_TOL
           and launch8["K9"] > 0 and launch8["WC"] == 0,
           f"fem3d_68 in f64: rel {res8['rel_error']:.3e}, {K9F64['name']} "
@@ -3134,10 +3432,23 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     phase("20: the bench surface: bench_torch's headline, its precision "
           "mode, and scripts_torch/sweep.py on " + ", ".join(SWEEP_ROWS))
     k1_1m = check_bench_surface(prewarm, res1, card)
+    t21 = time.perf_counter()
+    phase("21: K1's split variants in float64 and compensated: small "
+          "bodies, powerlaw_16k in four configs, powerlaw_1m --dword")
+    print("  21a: the split variants vs their plain versions on small "
+          "bodies")
+    check_k1_split_variants(dev)
+    print(f"  21a wall {time.perf_counter() - t21:.1f} s")
+    print(f"  21b: powerlaw_16k with {', '.join(HEAVY_CONFIGS)} ({card})")
+    heavy = check_heavy_16k(dev)
+    t1 = time.perf_counter()
+    print(f"  21c: powerlaw_1m --dword at full size ({card})")
+    k1_1m_dword = check_dword_1m(dev, prebuild_dword)
+    print(f"  21c wall {time.perf_counter() - t1:.1f} s")
     t_end = time.perf_counter()
     print(f"  phase 17 {t18 - t17:.1f} s, phase 18 {t19 - t18:.1f} s, phase "
-          f"19 {t20 - t19:.1f} s, phase 20 {t_end - t20:.1f} s; script wall "
-          f"{t_end - t_start:.1f} s")
+          f"19 {t20 - t19:.1f} s, phase 20 {t21 - t20:.1f} s, phase 21 "
+          f"{t_end - t21:.1f} s; script wall {t_end - t_start:.1f} s")
 
     print(json.dumps({"small_gate": gates}))
     print(json.dumps({"kernels": [
@@ -3152,7 +3463,7 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
         f64k["k1k"], f64k["sk1"], f64k["wc"], f64k["wck"],
         dict(K1_LONG_1M, **k1_1m),
         dict(K1_LONG_16K, launches=gates["powerlaw_16k"]["k1_launches"],
-             **k1_16k)]}))
+             **k1_16k), *heavy, k1_1m_dword]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,9 +72,10 @@
 //   (ehyb_spmv_gpu_tpu/parallel/spmv.py:511), which runs K1 over the
 //   interior or boundary tile group at a tile offset and combines the two
 //   by take and mask.
-// * A split variant for heavy-tailed bodies (float32, one row a thread,
-//   plain; stream_body_split_kernel below), over a plan whose long row
-//   blocks are cut into chunks.
+// * Split variants for heavy-tailed bodies (one row a thread, in float and
+//   double, plain and Kahan; stream_body_split_kernel and
+//   stream_body_split_any_kernel below), over a plan whose long row blocks
+//   are cut into chunks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -324,24 +325,26 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_kernel(
 // plan reads 8.85-9.11 us.  More rows a thread and deeper unrolls are not
 // built: a row there holds 4 cells, which one unroll covers, and the
 // 8,192 row blocks give every warp of one wave one.
+template <typename Val>
 struct DirectCols {
   const int* __restrict__ col;
   __device__ __forceinline__ int load(int c) const { return __ldcs(col + c); }
-  __device__ __forceinline__ double x_at(const double* __restrict__ x,
-                                         int j) const {
+  __device__ __forceinline__ Val x_at(const Val* __restrict__ x,
+                                      int j) const {
     return __ldg(x + j);
   }
 };
 
+template <typename Val>
 struct TableCols {
   const uint16_t* __restrict__ idx;
   const int* __restrict__ tab;
   __device__ __forceinline__ int load(int c) const {
     return (int)__ldcs(idx + c);
   }
-  __device__ __forceinline__ double x_at(const double* __restrict__ x,
-                                         int j) const {
-    return read_x(false, (const double*)nullptr, tab, x, j);
+  __device__ __forceinline__ Val x_at(const Val* __restrict__ x,
+                                      int j) const {
+    return read_x(false, (const Val*)nullptr, tab, x, j);
   }
 };
 
@@ -399,10 +402,10 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_f64_kernel(
       const int4 a = __ldg(piece + p);
       const int4 b = __ldg(piece + p + 1);
       if (a.y == b.y) {
-        sum_piece<KAHAN>(cell_val, DirectCols{cell_col}, x, a.x + lane, b.x,
-                         sum, comp);
+        sum_piece<KAHAN>(cell_val, DirectCols<double>{cell_col}, x,
+                         a.x + lane, b.x, sum, comp);
       } else {
-        sum_piece<KAHAN>(cell_val, TableCols{cell_idx, rows + a.y}, x,
+        sum_piece<KAHAN>(cell_val, TableCols<double>{cell_idx, rows + a.y}, x,
                          a.x + lane, b.x, sum, comp);
       }
       p = a.z;
@@ -525,6 +528,185 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_split_kernel(
   }
 }
 
+// The split variant in double and the compensated split variants
+// (Neumaier, in float and double), over the same work items.  Beside the
+// float kernel above it reads every piece form of the double plans: a
+// chunk's pieces are table pieces (16-bit index into the piece's table) or
+// direct pieces (int32 column, one dependent load fewer a round), and in a
+// grouped plan a row block's 32 rows go to y through row_map, a whole row
+// block's by its item's warp and a chunked one's by its last chunk.
+//
+// With KAHAN each chunk carries a (sum, compensation) pair a row, walked
+// with the Neumaier step of the compensated kernels above, and writes both
+// into its two slots of partials (2 s: the sums, 2 s + 1: the
+// compensations); a whole row block writes sum + comp, as the other
+// kernels do.  The last chunk folds the row block's pairs in chunk order
+// with one fixed arithmetic, which the plain version
+// (ops/ehyb_stream.py::fold_pairs) repeats step for step:
+//
+//   (S, C) = (0, 0)
+//   for each chunk i in chunk order, with pair (s_i, c_i):
+//     t = S + s_i
+//     C = C + ((S - t) + s_i)   where |S| >= |s_i|, else C + ((s_i - t) + S)
+//     S = t
+//     C = C + c_i
+//   y = S + C
+//
+// every operation rounded to nearest on its own.  In double the sums equal
+// the plain version's bit for bit (it sums a chunk's places with the same
+// Neumaier step, then folds the pairs); in float the plain version sums in
+// double and rounds once, which the compensated variant reaches to about
+// an ulp.
+//
+// A double at 8 B doubles a round's registers: 16 columns take 32 for the
+// values and 32 for x beside 16 indices (64 registers a thread in double
+// and in float Kahan, 112 in double Kahan).  The wrapper reads the
+// registers and the resident blocks back (ehyb_stream_registers,
+// ehyb_stream_resident_blocks) and launches no more blocks than fit.  A
+// direct piece saves a round one dependent load (value and column, then
+// x), but the round stays 16 columns: one walk serves both piece forms.
+//
+// Measured (chip_k1_sweep.py --long --f64, H100 80GB HBM3 at 700 W), as
+// shipped (chunks of 80 steps in double, 48 in float; 128 threads, 16
+// blocks an SM asked, 8 resident): powerlaw_16k's body takes 11.12 us in
+// --dtype float64, 12.61 with --compensated, 15.08 in --dword and 13.70
+// in float compensated, where one warp a row block took 951, 1,025 and
+// 995 us in double; powerlaw_1m takes 111.9 us in --dword (15,090) and
+// 287.4 in --dtype float64 (42,633), against cuSPARSE in double at 94.3
+// and 224.0 us; its dense rows 339.8 us in float compensated, 225.6
+// plain, at the same 62-64 registers.
+// A round's products added in order: with Neumaier's step (KAHAN), or
+// plain from a products array, which keeps a double round's loads in
+// flight (added as they arrive, ptxas fed them one at a time: 30 registers
+// and 2-3x the time at powerlaw_16k).  In the last round of a piece
+// (!FULL) the columns at or past `end` are not added.
+template <bool KAHAN, bool FULL, int U, typename Val>
+__device__ __forceinline__ void add_round(const Val (&v)[U],
+                                          const Val (&xv)[U], int c, int end,
+                                          Val& sum, Val& comp) {
+  if (KAHAN) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (FULL || c + u * kRows < end) {
+        add<true>(sum, comp, mul_rn(v[u], xv[u]));
+      }
+    }
+  } else {
+    Val pr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) pr[u] = mul_rn(v[u], xv[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (FULL || c + u * kRows < end) sum = add_rn(sum, pr[u]);
+    }
+  }
+}
+
+// A thread's cells c, c + 32, ... < end of one piece, added to its row's
+// (sum, comp) in order: full rounds of kSplitUnroll columns (values and
+// indices, then x, then the sums), then the last round, whose columns past
+// the piece re-read its first and are not added.
+template <bool KAHAN, typename Val, typename Cols>
+__device__ __forceinline__ void sum_chunk_piece(const Val* __restrict__ val,
+                                                Cols cols,
+                                                const Val* __restrict__ x,
+                                                int c, int end, Val& sum,
+                                                Val& comp) {
+  constexpr int U = kSplitUnroll;
+  for (; c + (U - 1) * kRows < end; c += U * kRows) {
+    Val v[U];
+    int j[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      v[u] = __ldcs(val + c + u * kRows);
+      j[u] = cols.load(c + u * kRows);
+    }
+    Val xv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) xv[u] = cols.x_at(x, j[u]);
+    add_round<KAHAN, true>(v, xv, c, end, sum, comp);
+  }
+  for (; c < end; c += U * kRows) {
+    Val v[U];
+    int j[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int cu = c + u * kRows < end ? c + u * kRows : c;
+      v[u] = __ldcs(val + cu);
+      j[u] = cols.load(cu);
+    }
+    Val xv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) xv[u] = cols.x_at(x, j[u]);
+    add_round<KAHAN, false>(v, xv, c, end, sum, comp);
+  }
+}
+
+template <typename Val, bool KAHAN>
+__global__ void __launch_bounds__(kMaxThreads) stream_body_split_any_kernel(
+    const int4* __restrict__ piece, const int* __restrict__ rows,
+    const Val* __restrict__ cell_val, const uint16_t* __restrict__ cell_idx,
+    const int* __restrict__ cell_col, const int* __restrict__ row_map,
+    const int4* __restrict__ item, const int* __restrict__ chunk_first,
+    Val* partial, int* counter, const Val* __restrict__ x,
+    Val* __restrict__ y, int n_items) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int n_warps = gridDim.x * warps;
+  for (int j = blockIdx.x * warps + (threadIdx.x >> 5); j < n_items;
+       j += n_warps) {
+    const int4 it = __ldg(item + j);
+    int p = it.x;
+    const int rb = __ldg(piece + p).w;
+    Val sum = Val(0), comp = Val(0);
+    for (int q = 0; q < it.y; ++q) {
+      const int4 a = __ldg(piece + p);
+      const int4 b = __ldg(piece + p + 1);
+      if (a.y == b.y) {
+        sum_chunk_piece<KAHAN>(cell_val, DirectCols<Val>{cell_col}, x,
+                               a.x + lane, b.x, sum, comp);
+      } else {
+        sum_chunk_piece<KAHAN>(cell_val, TableCols<Val>{cell_idx, rows + a.y},
+                               x, a.x + lane, b.x, sum, comp);
+      }
+      p = a.z;
+    }
+    const int out = row_map != nullptr ? __ldg(row_map + rb * kRows + lane)
+                                       : rb * kRows + lane;
+    if (it.z < 0) {
+      __stcs(y + out, KAHAN ? add_rn(sum, comp) : sum);
+      continue;
+    }
+    if (KAHAN) {
+      __stcg(partial + (size_t)(2 * it.z) * kRows + lane, sum);
+      __stcg(partial + (size_t)(2 * it.z + 1) * kRows + lane, comp);
+    } else {
+      __stcg(partial + (size_t)it.z * kRows + lane, sum);
+    }
+    __threadfence();  // the partials before the count
+    __syncwarp();
+    const int s0 = __ldg(chunk_first + it.w);
+    const int s1 = __ldg(chunk_first + it.w + 1);
+    int last = 0;
+    if (lane == 0) last = atomicAdd(counter + it.w, 1) == s1 - s0 - 1;
+    if (__shfl_sync(0xffffffffu, last, 0)) {
+      __threadfence();  // the count before the partials
+      Val t = Val(0), tc = Val(0);  // the row block's partials, in order
+      for (int s = s0; s < s1; ++s) {
+        if (KAHAN) {
+          const Val* pair = partial + (size_t)(2 * s) * kRows + lane;
+          neumaier_add(t, tc, __ldcg(pair));
+          tc = add_rn(tc, __ldcg(pair + kRows));
+        } else {
+          t = add_rn(t, __ldcg(partial + (size_t)s * kRows + lane));
+        }
+      }
+      __stcs(y + out, KAHAN ? add_rn(t, tc) : t);
+      if (lane == 0) counter[it.w] = 0;
+    }
+  }
+}
+
 // A kernel variant, as the runtime API takes it (the variants' parameter
 // types differ with the value type).
 using KernelFn = const void*;
@@ -564,16 +746,22 @@ KernelFn pick_f64(int kahan, int scattered) {
 // In double the variants are built at one row a thread with x through
 // L1/L2: plain or Kahan, with or without a list, over the table form in the
 // body's row order, or (`scattered`) over a plan with direct pieces or a
-// row map.  The split variant is built in float at one row a thread, plain,
-// without a list, with x through L1/L2.
+// row map.  The split variants are built at one row a thread, without a
+// list, with x through L1/L2: in float plain (stream_body_split_kernel)
+// and Kahan over the table form, in double plain and Kahan over every
+// piece form (stream_body_split_any_kernel).
 KernelFn pick(int rows_per_thread, int staged, int kahan, int f64,
               bool list = false, int scattered = 0, int split = 0) {
   if (split) {
-    if (rows_per_thread != 1 || staged || kahan || f64 || list ||
-        scattered) {
+    if (rows_per_thread != 1 || staged || list || (scattered && !f64)) {
       return nullptr;
     }
-    return (KernelFn)stream_body_split_kernel;
+    if (f64) {
+      return kahan ? (KernelFn)stream_body_split_any_kernel<double, true>
+                   : (KernelFn)stream_body_split_any_kernel<double, false>;
+    }
+    return kahan ? (KernelFn)stream_body_split_any_kernel<float, true>
+                 : (KernelFn)stream_body_split_kernel;
   }
   if (f64) {
     if (rows_per_thread != 1 || staged) return nullptr;
@@ -686,28 +874,38 @@ extern "C" int ehyb_stream_body(const void* piece, const int* rows,
   return (int)(launched != cudaSuccess ? launched : last);
 }
 
-// Launches the split variant on `stream` over a plan in the split form:
+// Launches a split variant on `stream` over a plan in the split form:
 // `grid` blocks of `threads` threads over its n_items work items, x through
-// L1/L2; returns cudaGetLastError(), 0 when the launch was
-// accepted.  `item` is (n_items, 4) int32, `chunk_first` (chunked row
-// blocks + 1) int32, `partial` float (32 a slot), `counter` int32 (one a
-// chunked row block, 0 between calls), the rest as ehyb_stream_body's in
-// float, every buffer 16-byte aligned.
+// L1/L2, Neumaier-compensated where `kahan`; returns cudaGetLastError(), 0
+// when the launch was accepted.  `item` is (n_items, 4) int32,
+// `chunk_first` (chunked row blocks + 1) int32, `partial` float (double
+// where `f64`; two slots of 32 a chunk), `counter` int32 (one a chunked row
+// block, 0 between calls), `cell_col` and `row_map` as ehyb_stream_body's
+// (null where the plan has none; a float plan has neither), the rest as
+// ehyb_stream_body's, every buffer 16-byte aligned.
 extern "C" int ehyb_stream_body_split(
     const void* piece, const int* rows, const void* cell_val,
-    const void* cell_idx, const void* item, const int* chunk_first,
-    void* partial, int* counter, const void* x, void* y, int n_items,
-    int threads, int grid, void* stream) {
+    const void* cell_idx, const int* cell_col, const int* row_map,
+    const void* item, const int* chunk_first, void* partial, int* counter,
+    const void* x, void* y, int n_items, int kahan, int f64, int threads,
+    int grid, void* stream) {
   if (n_items <= 0) return 0;
-  const KernelFn fn = pick(1, 0, 0, 0, false, 0, 1);
+  const int scattered = cell_col != nullptr || row_map != nullptr;
+  const KernelFn fn = pick(1, 0, kahan, f64, false, scattered, 1);
   if (fn == nullptr || threads < 32 || threads > kMaxThreads ||
       threads % 32 || grid <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   void* args[] = {&piece, &rows,    &cell_val, &cell_idx, &item, &chunk_first,
                   &partial, &counter, &x,      &y,        &n_items};
+  void* args_any[] = {&piece,       &rows,    &cell_val, &cell_idx,
+                      &cell_col,    &row_map, &item,     &chunk_first,
+                      &partial,     &counter, &x,        &y,
+                      &n_items};
+  const bool plain_float = !f64 && !kahan;
   const cudaError_t launched =
-      cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, 0,
+      cudaLaunchKernel(fn, dim3(grid), dim3(threads),
+                       plain_float ? args : args_any, 0,
                        static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(launched != cudaSuccess ? launched : last);

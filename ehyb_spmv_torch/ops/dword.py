@@ -17,7 +17,8 @@ the mode is the plain EHYB apply in f64.
 * The apply (:func:`make_dword_apply`) runs the SELL body through K1 over
   its compact plan in f64 (``csrc/ehyb_stream.cu``; the unordered body is
   scattered, so the plan takes direct columns and groups its rows where
-  that pays, :func:`~.stream_cells.k1_plan`) and the DIA part
+  that pays, and a heavy-tailed body's long row blocks go in chunks,
+  :func:`~.stream_cells.k1_plan`) and the DIA part
   through K9 in f64 (``csrc/dia.cu``); the ER tail, long rows (an f64
   ``index_add_`` over their stream, where the TPU packs lane chains) and
   combine stay torch ops, in f64.  The TPU branch is the XLA one
@@ -68,11 +69,11 @@ def make_dword_apply(e: EhybMatrix, dev: EhybDevice):
         dev.ell_col = dev.ell_val = None
         st = plan.stats
         log.info("precision mode: K1 in f64 over %d row blocks (%d cut for "
-                 "the 16-bit range, %d of %d pieces direct, rows %s), %.1f "
-                 "MB of cells", st["n_rb"], st["split_rbs"],
-                 st["direct_pieces"], st["n_pieces"],
+                 "the 16-bit range, %d of %d pieces direct, rows %s, %d in "
+                 "%d chunks), %.1f MB of cells", st["n_rb"],
+                 st["split_rbs"], st["direct_pieces"], st["n_pieces"],
                  "grouped" if st["grouped"] else "in body order",
-                 st["cell_bytes"] / 1e6)
+                 st["chunked_rbs"], st["n_chunks"], st["cell_bytes"] / 1e6)
     # the TPU's branch here: the JAX package's XLA dword formulation
     apply = EhybStreamApply(dev, cells=cells, branch="dword xla")
     apply.plan_seconds = time.perf_counter() - t0

@@ -20,11 +20,11 @@ built at one row a thread with x through L1/L2, plain or Kahan, with or
 without a row-block list: a plan in the table form and the body's row
 order takes the float kernel's code in float64, and a plan with direct
 pieces or a row map (:func:`~.stream_cells.k1_plan`: a scattered body's)
-a float64 kernel of its own.  A float32 plan in the split form (a
-heavy-tailed body's: row blocks cut into chunks, ``stream_cells.split``)
-takes the float32 kernel's split variant, built at one row a thread,
-plain only and without a list: the wrapper refuses a split plan with
-Kahan, a row-block list or float64 values.
+a float64 kernel of its own.  A plan in the split form (a heavy-tailed
+body's: row blocks cut into chunks, ``stream_cells.split``) takes a split
+variant, built at one row a thread with x through L1/L2, in float32 and
+float64, plain or Kahan, over every piece form, without a list: the
+wrapper refuses a split plan with a row-block list.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ from .ehyb_wincache import WinCacheDevice, build_wincache_plan, wincache_body
 from .stream_cells import (BLOCK_ROWS, PIECE_CELL, PIECE_RB, PIECE_ROW,
                            StreamCellsDevice, k1_plan, split)
 from .torch_ops import (chain_offsets, combine_ehyb, ehyb_er, ehyb_long,
-                        neumaier_rows)
+                        neumaier_add, neumaier_pairs)
 
 log = get_logger(__name__)
 
@@ -87,11 +87,14 @@ class StreamGeometry:
 #: permuted_poisson_512 (four blocks of 512 threads fill an SM; one row a
 #: thread gives pp512's 8,192 row blocks the most warps).
 GEOMETRY = StreamGeometry()
-#: The geometry a plan in the split form takes (its variant is built at one
-#: row a thread, x through L1/L2).  ``chip_k1_sweep.py --long`` chose it
-#: with ``SPLIT_STEPS``: the least sum of the times over the fastest at
+#: The geometry a plan in the split form takes (its variants are built at
+#: one row a thread, x through L1/L2).  ``chip_k1_sweep.py --long`` chose
+#: it with ``SPLIT_STEPS``: the least sum of the times over the fastest at
 #: powerlaw_1m's dense body and powerlaw_16k's body (185.4 and 12.8 us,
-#: against the fastest 155.7 and 12.7, on an H100 at 700 W).
+#: against the fastest 155.7 and 12.7, on an H100 at 700 W);
+#: ``--long --f64`` chose it again with ``SPLIT_STEPS_F64`` for the float64
+#: variants, where the resident blocks, not the geometry asked for, cap
+#: the grid (eight blocks of 128 threads at 64 registers a thread).
 SPLIT_GEOMETRY = StreamGeometry(threads=128, blocks_per_sm=16)
 
 _lock = threading.Lock()
@@ -119,7 +122,7 @@ def build_kernel() -> BuiltLibrary:
                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             lib.ehyb_stream_body_split.restype = ctypes.c_int
             lib.ehyb_stream_body_split.argtypes = (
-                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                 + [ctypes.c_void_p])
             lib.ehyb_stream_resident_blocks.restype = ctypes.c_int
             lib.ehyb_stream_resident_blocks.argtypes = [ctypes.c_int] * 8
@@ -229,19 +232,12 @@ def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
                              "cell loads, cp.async)")
 
 
-def _check_split(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool,
-                 rb_list) -> None:
-    """Refuse a plan in the split form where no variant reads it: with
-    Kahan, with a row-block list, or in float64."""
-    if not split(p):
-        return
-    what = [w for w, bad in (("Kahan", kahan), ("a row-block list",
-                                                rb_list is not None),
-                             ("float64", x_pad.dtype == torch.float64))
-            if bad]
-    if what:
-        raise ValueError(f"a plan in the split form is read by the plain "
-                         f"float32 K1 only, not with {' or '.join(what)}")
+def _check_split(p: StreamCellsDevice, rb_list) -> None:
+    """Refuse a plan in the split form with a row-block list (no list
+    variant reads it)."""
+    if split(p) and rb_list is not None:
+        raise ValueError("a plan in the split form is read without a "
+                         "row-block list only")
 
 
 def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
@@ -266,6 +262,12 @@ def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
         raise ValueError(f"out must be a contiguous ({n},) {x_pad.dtype} "
                          f"tensor on {x_pad.device}")
     return out
+
+
+def geometry_of(p: StreamCellsDevice) -> StreamGeometry:
+    """The geometry a call over plan ``p`` takes: the split form's or the
+    table form's."""
+    return SPLIT_GEOMETRY if split(p) else GEOMETRY
 
 
 def check_built(g: StreamGeometry, dtype: torch.dtype,
@@ -293,10 +295,9 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
     """One launch at ``geometry`` (the default for the plan's form where
     None), counted."""
     chunked = split(p)
-    g = (SPLIT_GEOMETRY if chunked else GEOMETRY) if geometry is None \
-        else geometry
+    g = geometry_of(p) if geometry is None else geometry
     _check(p, x_pad)
-    _check_split(p, x_pad, kahan, rb_list)
+    _check_split(p, rb_list)
     check_built(g, x_pad.dtype, chunked)
     f64 = x_pad.dtype == torch.float64
     y = _output(p, x_pad, rb_list, out)
@@ -308,10 +309,11 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
     if chunked:
         rc = _lib.ehyb_stream_body_split(
             p.piece.data_ptr(), p.rows.data_ptr(), p.cell_val.data_ptr(),
-            p.cell_idx.data_ptr(), p.item.data_ptr(),
-            p.chunk_first.data_ptr(), p.partial.data_ptr(),
-            p.counter.data_ptr(), x_pad.data_ptr(), y.data_ptr(), p.n_items,
-            g.threads, grid_of(p, g, kahan, x_pad.device),
+            ptr(p.cell_idx), ptr(p.cell_col), ptr(p.row_map),
+            p.item.data_ptr(), p.chunk_first.data_ptr(),
+            p.partial.data_ptr(), p.counter.data_ptr(), x_pad.data_ptr(),
+            y.data_ptr(), p.n_items, int(bool(kahan)), int(f64), g.threads,
+            grid_of(p, g, kahan, x_pad.device),
             torch.cuda.current_stream(x_pad.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ehyb_stream_body_split launch failed: CUDA "
@@ -372,15 +374,19 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
     row's products in the kernel's order with Neumaier compensation.  With
     ``rb_list`` it writes the listed row blocks' rows of the full sums into
     ``out`` (or into zeros), as the kernel does.  A plan in the split form
-    adds a chunk's products into its partial, then a chunked row block's
-    partials into y in chunk order, as the kernel does."""
+    adds a chunk's products into its partial (a float64 x with ``kahan``:
+    its (sum, compensation) pair), then a chunked row block's partials
+    into y in chunk order (:func:`fold_pairs`), as the kernel does."""
     dev = x_pad.device
     if rb_list is not None and p.row_map.numel():
         _output(p, x_pad, rb_list, out)      # raises
-    _check_split(p, x_pad, kahan, rb_list)
+    _check_split(p, rb_list)
     neumaier = kahan and x_pad.dtype == torch.float64
     acc = torch.float64 if kahan else x_pad.dtype
-    y = torch.zeros(p.n_rb * BLOCK_ROWS, dtype=acc, device=dev)
+    n = p.n_rb * BLOCK_ROWS
+    y = torch.zeros(n, dtype=acc, device=dev)
+    # a float32 x with kahan sums whole rows in float64, chunked or not
+    chunked = split(p) and (neumaier or not kahan)
     if p.n_cells:
         piece = p.piece.long()
         cell_piece = torch.repeat_interleave(
@@ -401,35 +407,47 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
                 (torch.diff(piece[:, PIECE_ROW]) == 0)[cell_piece], direct,
                 col)
         off = torch.arange(p.n_cells, device=dev) - first[:, PIECE_CELL]
+        # the plan's row of each cell, or a chunk's row in its slot of 32
+        # partials past y's rows
         row = first[:, PIECE_RB] * BLOCK_ROWS + off % BLOCK_ROWS
-        if p.row_map.numel():
-            row = p.row_map.long()[row]
+        n_ext = n
+        if chunked:
+            slot = p.piece_slot.long()[cell_piece]
+            row = torch.where(slot >= 0, n + slot * BLOCK_ROWS
+                              + off % BLOCK_ROWS, row)
+            n_ext += p.n_chunks * BLOCK_ROWS
         contrib = p.cell_val.to(x_pad.dtype) * x_pad[col]
         if neumaier:
+            # places counted from a chunk's first piece, or a whole row
+            # block's
             width = torch.diff(piece[:, PIECE_CELL]) // BLOCK_ROWS
-            place = chain_offsets(piece[:-1, PIECE_RB], width)[cell_piece] \
+            group = piece[:-1, PIECE_RB]
+            if chunked:
+                ps = p.piece_slot.long()
+                group = torch.where(ps >= 0, p.n_rb + ps, group)
+            place = chain_offsets(group, width)[cell_piece] \
                 + off // BLOCK_ROWS
-            y = neumaier_rows(contrib, row, place, y.shape[0],
-                              p.stats["max_row_cells"])
-        elif split(p):
-            # a chunk's cells into its slot of 32 partials (past y's rows)
-            n = y.shape[0]
-            slot = p.piece_slot.long()[cell_piece]
-            at = torch.where(slot >= 0, n + slot * BLOCK_ROWS
-                             + off % BLOCK_ROWS, row)
-            ext = torch.zeros(n + p.n_chunks * BLOCK_ROWS, dtype=acc,
-                              device=dev)
-            ext.index_add_(0, at, contrib.to(acc))
-            # each chunked row block's partials into y, in chunk order
-            slot_rb = p.chunk_rb.long()[torch.repeat_interleave(
-                torch.arange(p.n_chunked, device=dev),
-                torch.diff(p.chunk_first.long()), output_size=p.n_chunks)]
-            y = ext[:n]
-            y.index_add_(0, (slot_rb[:, None] * BLOCK_ROWS + torch.arange(
-                BLOCK_ROWS, device=dev)).reshape(-1), ext[n:])
+            s, c = neumaier_pairs(
+                contrib, row, place, n_ext, p.stats["max_item_steps"]
+                if chunked else p.stats["max_row_cells"])
+            y = s[:n] + c[:n]
+            if chunked:
+                fold_pairs(p, y, s[n:], c[n:])
         else:
-            y.index_add_(0, row, contrib.to(acc))
+            ext = torch.zeros(n_ext, dtype=acc, device=dev)
+            ext.index_add_(0, row, contrib.to(acc))
+            y = ext[:n]
+            if chunked:
+                # each chunked row block's partials into y, in chunk order
+                slot_rb = p.chunk_rb.long()[torch.repeat_interleave(
+                    torch.arange(p.n_chunked, device=dev),
+                    torch.diff(p.chunk_first.long()),
+                    output_size=p.n_chunks)]
+                y.index_add_(0, (slot_rb[:, None] * BLOCK_ROWS + torch.arange(
+                    BLOCK_ROWS, device=dev)).reshape(-1), ext[n:])
     y = y.to(x_pad.dtype)
+    if p.row_map.numel():
+        y = torch.empty_like(y).index_copy_(0, p.row_map.long(), y)
     if rb_list is None:
         return y if out is None else out.copy_(y)
     out = _output(p, x_pad, rb_list, out)
@@ -437,6 +455,31 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
     out.view(-1, BLOCK_ROWS).index_copy_(
         0, rb, y.view(-1, BLOCK_ROWS).index_select(0, rb))
     return out
+
+
+def fold_pairs(p: StreamCellsDevice, y: torch.Tensor, s: torch.Tensor,
+               c: torch.Tensor) -> None:
+    """The compensated split variant's fold: each chunked row block's
+    chunk pairs (``s``, ``c``: a sum and a compensation a partial) in
+    chunk order, from (S, C) = (0, 0), S and C took ``v = s_i`` by one
+    Neumaier step (t = S + v; C += (S - t) + v where |S| >= |v|, else
+    (v - t) + S; S = t), then C += c_i; the row's y is S + C.  Writes
+    the chunked row blocks' rows of ``y`` (plan rows)."""
+    dev = y.device
+    first = p.chunk_first.long()
+    s, c = s.view(-1, BLOCK_ROWS), c.view(-1, BLOCK_ROWS)
+    big_s = s.new_zeros(p.n_chunked, BLOCK_ROWS)
+    big_c = s.new_zeros(p.n_chunked, BLOCK_ROWS)
+    for i in range(p.max_chunks):
+        at = first[:-1] + i
+        has = (at < first[1:])[:, None]
+        at = at.clamp_max(p.n_chunks - 1)
+        t, cn = neumaier_add(big_s, big_c, s[at])
+        big_s = torch.where(has, t, big_s)
+        big_c = torch.where(has, cn + c[at], big_c)
+    rows = (p.chunk_rb.long()[:, None] * BLOCK_ROWS
+            + torch.arange(BLOCK_ROWS, device=dev)).reshape(-1)
+    y[rows] = (big_s + big_c).reshape(-1)
 
 
 class EhybStreamApply(torch.nn.Module):
@@ -511,7 +554,7 @@ def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,
                  st["body_bytes"] / 1e6, st["staged_bytes"] / 1e6,
                  st["x_bytes"] / 1e6)
     elif branch != "skipped":
-        plan = k1_plan(e, kahan=kahan)
+        plan = k1_plan(e)
         cells = plan.to_torch(device)
         st = plan.stats
         log.info("body [%s on the TPU]: K1, %d row blocks (%d cut into "

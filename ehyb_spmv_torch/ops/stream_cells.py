@@ -40,20 +40,23 @@ values only (:func:`k1_plan`):
   cut between places in its rows, as its rows come from several slices.
 
 A third option serves a heavy-tailed body, whose hub rows make some row
-blocks far wider than the rest; the float32 kernel reads it
-(:func:`k1_plan` takes it for float32 values without compensation):
+blocks far wider than the rest; every K1 variant but the row-block lists
+reads it (:func:`k1_plan` takes it for float32 and float64 values, with or
+without compensation, over any of the forms above):
 
 * **the split form** (``split_steps``): a row block wider than
   ``split_steps`` steps (the sum of its pieces' widths) is cut into pieces
-  of at most ``split_steps`` steps each (each with its table), and its
-  chain into **chunks**: runs of consecutive pieces of at most
-  ``split_steps`` steps.  Each chunk is a work item of its own and sums its
-  32 rows into a partial (one slot of 32 values); the row block's partials
-  are then added in chunk order into y.  Every other row block is one work
-  item, summed into y as before.  The work items are ordered longest first
-  (``item``), so the kernel's persistent grid does not end on a tail.  A
-  body with no row block wider than ``split_steps`` gets the plan it gets
-  without the option, byte for byte.
+  of at most ``split_steps`` steps each (each with its table, or direct),
+  and its chain into **chunks**: runs of consecutive pieces of at most
+  ``split_steps`` steps.  Each chunk is a work item of its own and sums
+  its 32 rows into a partial (one slot of 32 values, or of 32 (sum,
+  compensation) pairs); the row block's partials are then added in chunk
+  order into y (through the row map, where there is one).  Every other
+  row block is one work item, summed into y as before.  The work items
+  are ordered longest first (``item``), so the kernel's persistent grid
+  does not end on a tail.  A body with no row block wider than
+  ``split_steps`` gets the plan it gets without the option, byte for
+  byte.
 
 The arrays are the plan's only link to the padded body: the flagship frees
 the padded cells on the device once the plan is uploaded.
@@ -87,14 +90,28 @@ DIRECT_BELOW = 8.0
 #: (``chip_k1_sweep.py --f64``: 8.85 us, against 9.22 at 512 rows).
 GROUP_ROWS = 2048
 #: A float32 plan's row blocks wider than this many steps take the split
-#: form (``split_steps``), in chunks of at most as many.  Not below the
-#: flagship float bodies' widest row block (4 steps at permuted_poisson_512,
-#: 46 at random_16k), so their plans stay as they are; of 48 to 128 the one
-#: whose times over the fastest at powerlaw_1m's dense body and
-#: powerlaw_16k's body sum the least (``chip_k1_sweep.py --long``: 185.4
-#: and 12.8 us against the fastest 155.7 and 12.7; a chunk's walk is what
-#: powerlaw_16k waits for, and more chunks cost powerlaw_1m).
+#: form (``split_steps``), in chunks of at most as many, with or without
+#: compensation (the compensated variant reads the same plan).  Not below
+#: the flagship float bodies' widest row block (4 steps at
+#: permuted_poisson_512, 46 at random_16k), so their plans stay as they
+#: are; of 48 to 128 the one whose times over the fastest at powerlaw_1m's
+#: dense body and powerlaw_16k's body sum the least (``chip_k1_sweep.py
+#: --long``: 185.4 and 12.8 us against the fastest 155.7 and 12.7; a
+#: chunk's walk is what powerlaw_16k waits for, and more chunks cost
+#: powerlaw_1m).
 SPLIT_STEPS = 48
+#: A float64 plan's row blocks wider than this many steps take the split
+#: form, in chunks of at most as many, with or without compensation.  Not
+#: below the float64 bodies' widest row block on the card's paths (78
+#: steps at fem3d_68_audikw_class --dword, 46 at random_16k --dtype
+#: float64, 4 at permuted_poisson_512 in either mode), so their plans stay
+#: as they are; of 80, 96 and 128 the one whose times over the fastest at
+#: powerlaw_16k (--dword, --dtype float64 with and without --compensated)
+#: and powerlaw_1m (--dword, --dtype float64) sum the least
+#: (``chip_k1_sweep.py --long --f64``; PERF.md has the readings).  A whole
+#: row block up to this width is walked by one warp, which is what
+#: powerlaw_16k waits for; longer chunks cost powerlaw_1m fewer partials.
+SPLIT_STEPS_F64 = 80
 #: 32-B sectors a row block writes to y in body order, and through a row
 #: map (one a row): the grouping's cost in the sector estimate.
 _Y_SECTORS = (BLOCK_ROWS * 8 // 32, BLOCK_ROWS)
@@ -160,10 +177,12 @@ class StreamCellsDevice(torch.nn.Module):
     """Device mirror of :class:`StreamCellsPlan`: its arrays as buffers,
     its sizes as host ints (the plain version reads no device scalar, so it
     can be captured in a CUDA graph).  A split plan also holds the kernel's
-    workspace: ``partial`` (32 values a slot) and ``counter`` (one a
-    chunked row block, 0 between calls: the last chunk of a row block to
-    finish adds its partials into y and puts it back), so two calls over
-    one plan must not run at once."""
+    workspace: ``partial`` (two slots of 32 values a chunk: the plain
+    variants fill the first half, the compensated ones a chunk's sums and
+    compensations in slots 2 s and 2 s + 1) and ``counter`` (one a chunked
+    row block, 0 between calls: the last chunk of a row block to finish
+    adds its partials into y and puts it back), so two calls over one plan
+    must not run at once."""
 
     def __init__(self, p: StreamCellsPlan):
         super().__init__()
@@ -185,11 +204,15 @@ class StreamCellsDevice(torch.nn.Module):
         self.n_items = len(p.item)
         self.n_chunked = len(p.chunk_rb)
         self.n_chunks = int(p.chunk_first[-1]) if self.n_chunked else 0
+        #: The most chunks a row block has (the compensated plain version's
+        #: passes over the partials).
+        self.max_chunks = int(np.diff(p.chunk_first).max()) \
+            if self.n_chunked else 0
         for name in ("item", "chunk_first", "chunk_rb", "piece_slot"):
             self.register_buffer(name, torch.from_numpy(
                 np.ascontiguousarray(getattr(p, name), dtype=np.int32)))
         self.register_buffer("partial", torch.zeros(
-            self.n_chunks * BLOCK_ROWS, dtype=self.cell_val.dtype))
+            2 * self.n_chunks * BLOCK_ROWS, dtype=self.cell_val.dtype))
         self.register_buffer("counter", torch.zeros(self.n_chunked,
                                                     dtype=torch.int32))
 
@@ -510,8 +533,7 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
     (``e.padded_x_rows`` where None; a shard's ``x_ext`` is longer).
     ``direct_below`` and ``group_rows`` (0: off) are the scattered body's
     options of the module docstring, ``split_steps`` (0: off) the heavy
-    tail's; the float kernel reads neither of the first two, the float64
-    kernels not the third."""
+    tail's; the float kernels read neither of the first two."""
     offs = e.slice_offset.astype(np.int64)
     n_slices = offs.shape[0] - 1
     n_steps = int(offs[-1]) if n_slices else 0
@@ -527,22 +549,34 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
         s1 = min(s1, n_slices)
         spans.append((s0, s1))
         s0 = s1
-    parts, n_keys = [], 0
+    # a body whose row blocks hold fewer cells than direct_below an x row
+    # is scattered: a grouping of its rows is weighed.  While the spans so
+    # far are scattered, their decoded cells (row, place, column, value)
+    # are kept for it, so such a body is decoded once; once they are not,
+    # the kept cells go, and a body scattered after all is decoded again
+    kept = [] if group_rows and n_rb else None
+    parts, n_keys, n_real = [], 0, 0
     for a, b in spans:
         row, k, st, col, val = _decode(e, a, b, offs)
+        if kept is not None:
+            kept.append((row, k.copy(), col, val))
         rb0 = RB_PER_SLICE * a
         u = _units(row // BLOCK_ROWS - rb0, row, k, st, col, val,
                    RB_PER_SLICE * (b - a), n_xrows, direct_below, split_steps)
         parts.append(_split(u, RB_PER_SLICE * (b - a), rb0))
         n_keys += u[-1]
+        n_real += int(np.count_nonzero(parts[-1][0][3])) + int(
+            np.count_nonzero(parts[-1][1][3]))
+        if kept is not None and n_real >= direct_below * n_keys:
+            kept = None
+        del row, k, st, col, val
     row_map = sectors = None
-    n_real = sum(int(np.count_nonzero(p[0][3])) + int(np.count_nonzero(
-        p[1][3])) for p in parts)
-    # a body whose row blocks hold fewer cells than direct_below an x row
-    # is scattered: weigh a grouping of its rows
     if group_rows and n_rb and n_real < direct_below * n_keys:
-        row, k, _, col, val = (np.concatenate(a) for a in zip(
-            *[_decode(e, a, b, offs) for a, b in spans]))
+        if kept is None:
+            kept = [(row, k, col, val) for row, k, _, col, val in
+                    (_decode(e, a, b, offs) for a, b in spans)]
+        row, k, col, val = (np.concatenate(a) for a in zip(*kept))
+        kept = None
         n_rows = n_rb * BLOCK_ROWS
         order = group_order(row, col, n_rows, group_rows)
         pos = np.empty(n_rows, np.int64)
@@ -556,14 +590,13 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
             o = np.argsort(k, kind="stable")
             parts = [_split(_units(
                 prow[o] // BLOCK_ROWS, prow[o], k[o], k[o], col[o], val[o],
-                n_rb, n_xrows, direct_below), n_rb, 0)]
+                n_rb, n_xrows, direct_below, split_steps), n_rb, 0)]
         del row, k, col, val, prow
     piece, width, t_size, rows, cell_val, cell_idx, cell_col, direct = \
         _assemble(parts, n_rb, val_dtype)
     n_pieces = len(piece) - 1
     n_cells = int(piece[-1, PIECE_CELL])
-    split = _work_items(piece, n_rb, split_steps) if split_steps and \
-        row_map is None else None
+    split = _work_items(piece, n_rb, split_steps) if split_steps else None
     item, chunk_first, chunk_rb, piece_slot, max_item = split or (None,) * 5
     n_chunks = int(chunk_first[-1]) if split else 0
     if n_cells >= 2 ** 31 or rows.size >= 2 ** 31 or \
@@ -631,15 +664,13 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
             piece_slot=piece_slot.astype(np.int32))))
 
 
-def k1_plan(e: EhybMatrix, x_rows: int = None,
-            kahan: bool = False) -> StreamCellsPlan:
-    """K1's plan of a flagship or precision-mode body: float64 values take
-    direct pieces and grouped rows where the body is scattered (the float64
-    kernel reads them); float32 values the split form where a row block is
-    wider than ``SPLIT_STEPS`` (the float32 kernel's split variant reads
-    it), or the table form alone with ``kahan`` (no compensated variant
-    reads the split form)."""
+def k1_plan(e: EhybMatrix, x_rows: int = None) -> StreamCellsPlan:
+    """K1's plan of a flagship or precision-mode body, plain or compensated
+    alike: float64 values take direct pieces and grouped rows where the
+    body is scattered, and the split form where a row block is wider than
+    ``SPLIT_STEPS_F64``; float32 values the split form where a row block is
+    wider than ``SPLIT_STEPS``."""
     if e.ell_val.dtype == np.float64:
-        return build_stream_cells(e, x_rows, DIRECT_BELOW, GROUP_ROWS)
-    return build_stream_cells(e, x_rows,
-                              split_steps=0 if kahan else SPLIT_STEPS)
+        return build_stream_cells(e, x_rows, DIRECT_BELOW, GROUP_ROWS,
+                                  SPLIT_STEPS_F64)
+    return build_stream_cells(e, x_rows, split_steps=SPLIT_STEPS)

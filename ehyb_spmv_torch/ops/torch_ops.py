@@ -46,15 +46,14 @@ def _sum_slices(contrib: torch.Tensor, offset: torch.Tensor, n_slices: int,
     return y2[:n_slices].reshape(-1)
 
 
-def neumaier_rows(term: torch.Tensor, row: torch.Tensor,
-                  place: torch.Tensor, n_rows: int,
-                  n_places: int) -> torch.Tensor:
-    """Per-row sums of the terms with Neumaier compensation, each row's
-    terms added in ``place`` order (0, 1, ...), as the compensated kernels
-    add them: the float64 plain version of their Kahan variants.  A
-    (row, place) holds at most one term; a missing one adds 0.
-    ``n_places``, a host int above every place, sets the passes, so the
-    sum reads no device scalar (a CUDA graph can capture it)."""
+def neumaier_pairs(term: torch.Tensor, row: torch.Tensor,
+                   place: torch.Tensor, n_rows: int, n_places: int):
+    """Per-row (sum, compensation) of the terms under Neumaier's
+    compensation, each row's terms added in ``place`` order (0, 1, ...), as
+    the compensated kernels add them.  A (row, place) holds at most one
+    term; a missing one adds 0.  ``n_places``, a host int above every
+    place, sets the passes, so the sum reads no device scalar (a CUDA graph
+    can capture it)."""
     n, dev = term.shape[0], term.device
     at = torch.full((n_places * n_rows,), n, dtype=torch.long, device=dev)
     at.index_copy_(0, place.long() * n_rows + row.long(),
@@ -64,9 +63,24 @@ def neumaier_rows(term: torch.Tensor, row: torch.Tensor,
     c = term.new_zeros(n_rows)
     for k in range(n_places):
         v = vals[at[k * n_rows:(k + 1) * n_rows]]
-        t = s + v
-        c += torch.where(s.abs() >= v.abs(), (s - t) + v, (v - t) + s)
-        s = t
+        s, c = neumaier_add(s, c, v)
+    return s, c
+
+
+def neumaier_add(s: torch.Tensor, c: torch.Tensor, v: torch.Tensor):
+    """One Neumaier step: ``v`` added to the sums ``s`` with compensation
+    ``c``; returns the new (s, c)."""
+    t = s + v
+    return t, c + torch.where(s.abs() >= v.abs(), (s - t) + v, (v - t) + s)
+
+
+def neumaier_rows(term: torch.Tensor, row: torch.Tensor,
+                  place: torch.Tensor, n_rows: int,
+                  n_places: int) -> torch.Tensor:
+    """Per-row sums of the terms with Neumaier compensation
+    (:func:`neumaier_pairs`, the compensation added last): the float64
+    plain version of the compensated kernels."""
+    s, c = neumaier_pairs(term, row, place, n_rows, n_places)
     return s + c
 
 

@@ -5,7 +5,7 @@ the port's cache namespace (``EHYB_TORCH_CACHE_DIR``, default
 measurement.
 
     python3 scripts_torch/prewarm.py [--models ehyb,...] [--dtype float64]
-                                     [matrix ...]
+                                     [--dword] [matrix ...]
 
 The port's counterpart of ``scripts/prewarm.py``.  The host layer (ordering,
 EHYB conversion, routed schedules, the gate's structural verdict) does not
@@ -55,6 +55,8 @@ def main(argv=None) -> int:
                    choices=["float32", "float64"],
                    help="the config's value type, as the CLI's --dtype "
                         "(default float32, the sweep's)")
+    p.add_argument("--dword", action="store_true",
+                   help="the precision mode, as the CLI's --dword")
     args = p.parse_args(argv)
     columns = args.models.split(",")
     # HIT is read from the cache loads' INFO lines
@@ -78,7 +80,8 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             try:
                 model = port.MODELS[name](
-                    port.EhybConfig(artifact_cache=True, dtype=args.dtype),
+                    port.EhybConfig(artifact_cache=True, dtype=args.dtype,
+                                    dword_values=args.dword),
                     device="cpu").setup(m)
                 hit = any(s in buf.getvalue() for s in _HIT_LINES)
                 status = f"{'HIT' if hit else 'MISS'} [{type(model).__name__}]"

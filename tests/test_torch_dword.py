@@ -225,14 +225,41 @@ def test_dword_power_iteration(built):
     assert rel(v, v_ref) <= 1e-12
 
 
+@pytest.mark.parametrize("steps", [None, 4], ids=["shipped", "steps4"])
+def test_dword_heavy_tail_split_matches_oracle_and_jax(steps, powerlaw_small,
+                                                       monkeypatch):
+    """A heavy-tailed matrix (powerlaw_small) in the precision mode: K1's
+    plan takes the split form (at the shipped SPLIT_STEPS_F64, and at 4
+    steps), and the product lies within 1e-12 of the oracle and of the JAX
+    double-word result."""
+    if steps is not None:
+        monkeypatch.setattr(stream_cells, "SPLIT_STEPS_F64", steps)
+    m = powerlaw_small
+    p = port.EhybSpmv(port.EhybConfig(dword_values=True,
+                                      artifact_cache=False),
+                      device="cpu").setup(coo_for(PORT, m))
+    st = p.module.cells.stats
+    assert stream_cells.split(p.module.cells) and st["chunked_rbs"] > 0
+    assert st["max_item_steps"] <= (steps or stream_cells.SPLIT_STEPS_F64)
+    x = deterministic_x(m.dimension)
+    got, want = p.matvec(x), oracle_spmv(m, x)
+    assert got.dtype == np.float64
+    assert rel(got, want) <= TOL, rel(got, want)
+    r = ref.EhybSpmv(ref.EhybConfig(dword_values=True, artifact_cache=False)
+                     ).setup(coo_for(REF, m))
+    assert rel(got, r.matvec(x)) <= TOL
+
+
 @pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("case", BODY_CASES)
 def test_dword_plan_forms_match_oracle_and_jax(case, form, built):
     """The ``ehyb`` model with its body's plan in each form (the table
     form; direct columns in every piece; the shipped ``k1_plan``, which
     groups the scattered case's rows and gives long_rows pieces of both
-    kinds): the product within 1e-12 of the oracle and of the JAX
-    double-word result, and bit for bit the table form's."""
+    kinds and, its dense rows past SPLIT_STEPS_F64, the split form): the
+    product within 1e-12 of the oracle and of the JAX double-word result,
+    and bit for bit the table form's where the plan is not split (a split
+    plan adds a chunked row block's chunks as partials: within 1e-12)."""
     m, r, p, x, want = built(case, "ehyb")
     kw = FORMS[form]
     plan = stream_cells.k1_plan(p.ehyb) if kw is None \
@@ -242,6 +269,7 @@ def test_dword_plan_forms_match_oracle_and_jax(case, form, built):
         assert st["grouped"] == (case == "scattered")
         if case in ("scattered", "long_rows"):
             assert st["direct_pieces"] > 0
+        assert stream_cells.split(plan) == (case == "long_rows")
     shipped, table = p.module.cells, stream_cells.build_stream_cells(
         p.ehyb).to_torch()
     try:
@@ -251,6 +279,9 @@ def test_dword_plan_forms_match_oracle_and_jax(case, form, built):
         got = p.matvec(x)
     finally:
         p.module.cells = shipped
-    assert np.array_equal(got, y_table)
+    if stream_cells.split(plan):
+        assert rel(got, y_table) <= TOL
+    else:
+        assert np.array_equal(got, y_table)
     assert rel(got, want) <= TOL, rel(got, want)
     assert rel(got, r.matvec(x)) <= TOL
