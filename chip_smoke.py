@@ -147,6 +147,17 @@ artifact built in the background by ``scripts_torch/prewarm.py --dword``,
 as is fem3d_68 ``--dword``'s for phase 17c).  The ``kernels`` line ends
 with K1 on the heavy-tailed bodies.
 
+Where K1 runs, its plan holds the EHYB tail (ER, long-row and hub-split
+entries as cells of their true rows, ``stream_cells.k1_folded_plan``) and
+K9 adds the diagonals into K1's y.  Phase 10 holds both against their
+plain versions on small artifacts with such rows (the whole apply bit for
+bit against the CPU) and K9's accumulate mode at pp512 (timed beside its
+write mode); phase 12 fails if a step of the flagship at pp512 launches
+any kernel but K1, K9 and the chain add; 21c reports powerlaw_1m
+``--dword`` with its tail inside K1.  The ``kernels`` line gains the apply
+at pp512 (its step, the kernels a step launches, ``bcoo``'s step) and K9's
+accumulate mode.
+
 Imports only the port (never JAX or the JAX package).  Exits non-zero when
 any phase fails or no CUDA device is present.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
@@ -186,7 +197,8 @@ from ehyb_spmv_torch.ops.build import BUILD_DIR
 from ehyb_spmv_torch.ops import stream_cells
 from ehyb_spmv_torch.ops.stream_cells import (DIRECT_BELOW, PIECE_CELL,
                                               PIECE_RB, PIECE_ROW,
-                                              build_stream_cells, k1_plan,
+                                              build_stream_cells,
+                                              k1_folded_plan, k1_options,
                                               split)
 from ehyb_spmv_torch.parallel import launch
 from ehyb_spmv_torch.parallel.comm import rank_device
@@ -195,7 +207,8 @@ from ehyb_spmv_torch.parallel.routed import ShardedRoutedSpmv
 from ehyb_spmv_torch.parallel.shard_cells import build_shard_cells
 from ehyb_spmv_torch.parallel.spmv import (ShardedEhybSpmv, plan_sharded,
                                            shard_matrix)
-from ehyb_spmv_torch.ops.torch_ops import body_gather_index, ehyb_body
+from ehyb_spmv_torch.ops.torch_ops import (body_gather_index, combine_ehyb,
+                                           ehyb_body, ehyb_er, ehyb_long)
 from ehyb_spmv_torch.utils.graphs import CapturedGraph, launch_counters
 from ehyb_spmv_torch.utils.profiling import phase_breakdown
 from ehyb_spmv_torch.utils.timing import detect_hbm_bw, timed_seconds
@@ -265,6 +278,24 @@ K1 = {"name": "ehyb_stream_body", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
       "replaces": f"{_PALLAS}:148 (K1); also serves {_PALLAS}:615 (K2), "
                   f"{_PALLAS}:84 (K5), {_PALLAS}:109 (K6)"}
+#: The flagship's apply at permuted_poisson_512 as a whole: K1 over the
+#: plan with the EHYB tail folded in, then K9 adding the diagonals into
+#: its y (where the TPU runs K1, K9 and the XLA ER, long-row and combine
+#: phases).
+_XLA = "ehyb_spmv_gpu_tpu/ops/xla_ops.py"
+APPLY = {"name": "ehyb apply (K1 with the tail, then K9 into its y)",
+         "route": "cuda",
+         "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu, "
+                   "ehyb_spmv_torch/csrc/dia.cu",
+         "replaces": f"{_PALLAS}:148 (K1), ehyb_spmv_gpu_tpu/ops/"
+                     f"dia_pallas.py:68 (K9), {_XLA}:142 (ER), {_XLA}:157 "
+                     f"(long rows), {_XLA}:170 (combine)"}
+#: A step of the chained loop before K1 took the tail (PERF.md, the graph
+#: loop on an H100 at 700 W): us per iteration, the lowest and highest.
+PARENT_STEP_US = {"permuted_poisson_512": (26.53, 26.84),
+                  "fem3d_68_audikw_class": (152.87, 155.09),
+                  "permuted_poisson_4096": (566.62, 581.52),
+                  "powerlaw_1m --dword": (1420.0, 1420.0)}
 _ROUTE = "ehyb_spmv_gpu_tpu/ops/route_pallas.py"
 RX = {"name": "route_xcache", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/route_xcache.cu",
@@ -368,12 +399,14 @@ DWORD_1M_ARGS = ["-g", "powerlaw_1m", "--model", "ehyb", "-i", "50",
                  "--json", "--device", "cuda", "--dword"]
 PREBUILD_FEM_ARGS = ("--models", "ehyb", "--dword", "fem3d_68_audikw_class")
 PREBUILD_DWORD_ARGS = ("--models", "ehyb", "--dword", "powerlaw_1m")
-#: fem3d_68 --dword's K1 plan as built before float64 plans took the
-#: split form (its widest row block, 78 steps, is under
-#: ``SPLIT_STEPS_F64``): the plan must not move.
-FEM_DWORD_PLAN = dict(n_rb=29480, n_pieces=29480, max_width=78,
-                      max_table_rows=137, compact_cells=65648544,
-                      cell_bytes=656485440, map_bytes=2495252)
+#: fem3d_68 --dword's K1 plan with its 1,865,876 ER entries folded in, as
+#: the fold first built it (its widest row block, 80 steps, is not past
+#: ``SPLIT_STEPS_F64``, so it takes no split form; the body alone, before
+#: the fold: 78 steps, 137 table rows, 65,648,544 cells): the plan must
+#: not move.
+FEM_DWORD_PLAN = dict(n_rb=29480, n_pieces=29480, max_width=80,
+                      max_table_rows=191, compact_cells=68224608,
+                      cell_bytes=682246080, map_bytes=2823964)
 #: float32 peak outside the tensor cores (NVIDIA's data sheets), matched like
 #: the bandwidth table of utils/timing.py: the first key in the name wins.
 PEAK_F32 = {"h100 pcie": 51e12, "h100": 67e12}
@@ -680,6 +713,16 @@ def k1_geometries(f64: bool = False):
     return out
 
 
+def padded_k1(e, x: torch.Tensor, kahan: bool, fold: bool) -> torch.Tensor:
+    """What K1 computes over artifact ``e`` (on x's device), from the padded
+    body's plain version: the body's sums, and with ``fold`` the EHYB tail
+    added as the combine adds it (the body's rows)."""
+    y = ehyb_body(e, x, compensated=kahan)
+    if not fold:
+        return y
+    return combine_ehyb(e, y, ehyb_er(e, x), ehyb_long(e, x))[:y.shape[0]]
+
+
 def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
                   cells=None, table: bool = False) -> None:
     """K1 over the compact plan of body ``e`` (an EhybMatrix, f32 or f64
@@ -691,14 +734,18 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
     both plain versions run on the CPU: on the card they add with atomics
     in no fixed order, and a naive f64 sum of the cancellation matrix
     depends on the order.  ``cells``, the plan on the card, defaults to a
-    fresh build of ``e``'s (``k1_plan``: in f64, direct pieces and grouped
+    fresh build of ``e``'s (``k1_options``: in f64, direct pieces and grouped
     rows where the body is scattered; the split form where a row block is
     wider than the threshold of its type, at the split variants'
-    geometries; with ``table``, the table form whatever the widths)."""
+    geometries; with ``table``, the table form whatever the widths).  A
+    flagship's plan (``cells`` folded: ``k1_folded_plan``) holds the EHYB
+    tail, and is held to the padded body's sums with the tail added."""
     f64 = e.ell_val.dtype == np.float64
     tol = F64_TOL if f64 else KERNEL_TOL
     exact = f64 or not kahan
-    plan = build_stream_cells(e) if table else k1_plan(e)
+    fold = cells is not None and cells.stats["folded"]
+    plan = build_stream_cells(e, fold=fold,
+                              **({} if table else k1_options(e)))
     p = plan.to_torch(dev) if cells is None else cells
     x_dev = torch.as_tensor(
         x, dtype=torch.float64 if f64 else torch.float32, device=dev)
@@ -707,8 +754,7 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
     on = "cpu" if f64 else dev
     y_p = y_cpu.to(on) if f64 else ehyb_stream.stream_body_plain(p, x_dev,
                                                                  kahan)
-    y_pad = ehyb_body(e.to_torch(device=on), x_dev.to(on),
-                      compensated=kahan)
+    y_pad = padded_k1(e.to_torch(device=on), x_dev.to(on), kahan, fold)
     worst, same = 0.0, True
     geometries = split_geometries() if split(p) else k1_geometries(f64)
     for g in geometries:
@@ -724,7 +770,8 @@ def check_k1_case(name: str, e, x: np.ndarray, kahan: bool, dev,
           f"K1 {name} ({st['n_rb']} row blocks, {st['n_pieces']} pieces, "
           f"{st['split_rbs']} cut into pieces, max width "
           f"{st['max_width']}; {st['compact_cells']} of {st['padded_cells']} "
-          f"cells{', f64' if f64 else ''}{', Kahan' if kahan else ''}): "
+          f"cells, {st['tail_cells']} of them the tail's"
+          f"{', f64' if f64 else ''}{', Kahan' if kahan else ''}): "
           f"{len(geometries)} geometries, vs plain and the padded "
           f"body rel <= {worst:.3e} <= {tol}"
           + ("; bit for bit with the plain version on the CPU" if exact
@@ -792,7 +839,7 @@ def check_k1_split(dev) -> None:
                 check_k1_case(name, e, x, False, dev,
                               cells if e is model.ehyb and steps == shipped
                               else None)
-                st = k1_plan(e).stats
+                st = build_stream_cells(e, **k1_options(e)).stats
                 check(st["chunked_rbs"] > 0
                       and st["max_item_steps"] <= steps,
                       f"{name}: {st['chunked_rbs']} row blocks in "
@@ -876,7 +923,7 @@ def check_k1_split_variants(dev) -> None:
     reached = set()
     for name, e, steps in split_variant_bodies():
         with patched_split(steps):
-            plan = k1_plan(e)
+            plan = build_stream_cells(e, **k1_options(e))
             f64 = plan.cell_val.dtype == np.float64
             piece = plan.piece.astype(np.int64)
             chunked = np.flatnonzero(plan.piece_slot >= 0)
@@ -971,7 +1018,8 @@ def time_k1_split(name: str, model, dev, x_dev: torch.Tensor,
           f"blocks in {st['n_chunks']} chunks of at most "
           f"{st['split_steps']} steps, {st['n_items']} work items)")
     t0 = time.perf_counter()
-    walk = build_stream_cells(model.ehyb).to_torch(dev) if table else None
+    walk = build_stream_cells(model.ehyb, fold=st["folded"]).to_torch(
+        dev) if table else None
     t_build = time.perf_counter() - t0
     y_k = ehyb_stream.stream_body(p, x_dev, kahan)
     p_cpu, x_cpu = copy.deepcopy(p).cpu(), x_dev.cpu()
@@ -1016,7 +1064,7 @@ def time_k1_split(name: str, model, dev, x_dev: torch.Tensor,
         lambda: ehyb_stream.stream_body_plain(p, x_dev, kahan), 3)
     lib_ms = body_library_ms(model, x_dev, dev) if library_ms is None \
         else library_ms
-    nnz = model.dev.body_nnz
+    nnz = st["real_cells"]
     b = bound(st["layout_bytes"], 2 * nnz, dev, f64)
     same = same_work_bound(nnz, 2, x_dev.numel(), y_k.numel(), dev,
                            8 if f64 else 4)
@@ -1038,7 +1086,8 @@ def time_k1_split(name: str, model, dev, x_dev: torch.Tensor,
     print("  " + ("" if not table else f"the table form / the split form "
                   f"= {table_ms / ms:.1f}; ")
           + f"plain version {plain_ms:.4f} ms; cuSPARSE over its {nnz} "
-          f"body entries ({x_dev.dtype}) {lib_ms:.4f} ms (K1 / cuSPARSE = "
+          f"entries ({st['tail_cells']} of them the tail's; {x_dev.dtype}) "
+          f"{lib_ms:.4f} ms (K1 / cuSPARSE = "
           f"{ms / lib_ms:.3f}); same-work bound {same['bound_ms']:.4f} ms "
           f"({same['bound_ms'] / ms:.3f} reached), layout bound "
           f"{b['bound_ms']:.4f} ms ({st['layout_bytes']} B: cells "
@@ -1243,6 +1292,79 @@ def check_dia_case(name: str, e, x: torch.Tensor) -> None:
                 f"{e.dia_val.shape[1]} rows, x {x.shape[0]}, {x.dtype}): "
                 f"{n_run} geometries, vs plain rel <= "
                 f"{worst:.3e} (at {worst_at}) <= {tol}")
+
+
+def fold_cases():
+    """(name, host artifact, kahan) of small artifacts whose tail reaches
+    every part of K1's fold: a scrambled Poisson with three dense rows in
+    the windowed layout (1,024-row windows: ER entries, long rows whose
+    row blocks the tail makes wide enough for the split form, and one
+    diagonal for K9), in f32, f64, f64 with Kahan and the precision mode;
+    and powerlaw_small in the flagship's layout with hub-row splitting
+    (overflow rows folded into their true rows)."""
+    dense = generate.with_dense_rows(
+        generate.permuted(generate.poisson2d(48), seed=11), 3, 0.5)
+    windowed = dict(window_rows=1024, body_layout="sell")
+    plain = lambda m, **kw: port.EhybPlainSpmv(  # noqa: E731
+        port.EhybConfig(**kw), device="cpu").setup(m).ehyb
+    hub = port.EhybSpmv(port.EhybConfig(row_split_threshold=4,
+                                        routed_delegate="never"),
+                        device="cpu").setup(
+        generate.random_general(**POWERLAW_SMALL)).ehyb
+    return [("dense rows", plain(dense, **windowed), False),
+            ("dense rows f64", plain(dense, dtype="float64", **windowed),
+             False),
+            ("dense rows f64 Kahan", plain(dense, dtype="float64",
+                                           **windowed), True),
+            ("dense rows --dword", plain(dense, dword_values=True,
+                                         window_rows=1024), False),
+            ("hub-split rows", hub, False)]
+
+
+def check_fold_small(dev) -> None:
+    """Phase 10's small artifacts with a tail (:func:`fold_cases`): K1
+    over the folded plan at every geometry against its plain version (bit
+    for bit on the CPU, f32 Kahan within KERNEL_TOL) and the padded body
+    with the tail added (:func:`check_k1_case`); then the flagship's apply
+    on the card (K1, then K9 adding into its y) against the same apply's
+    plain versions on the CPU, bit for bit, launching K1 and K9 once
+    each."""
+    reached = set()
+    for name, e, kahan in fold_cases():
+        st = e.stats
+        plan = k1_folded_plan(e)
+        pst = plan.stats
+        reached |= {k for k, v in (("ER", st["nnz_er"]),
+                                   ("long", st["nnz_long"]),
+                                   ("hub-split", e.split_src.size),
+                                   ("split form", split(plan)),
+                                   ("direct", pst["direct_pieces"]),
+                                   ("DIA", st["nnz_dia"])) if v}
+        f64 = e.ell_val.dtype == np.float64
+        x = np.random.default_rng(9).standard_normal(e.padded_x_rows)
+        check_k1_case(name, e, x, kahan, dev, plan.to_torch(dev))
+        x_dev = torch.as_tensor(x, dtype=torch.float64 if f64 else
+                                torch.float32, device=dev)
+        on_card = ehyb_stream.EhybStreamApply(
+            e.to_torch(device=dev), kahan, cells=plan.to_torch(dev))
+        on_cpu = ehyb_stream.EhybStreamApply(e.to_torch(), kahan,
+                                             cells=plan.to_torch())
+        reset_launches()
+        y = on_card(x_dev)
+        n = (ehyb_stream.stream_body.launches, dia.dia_body.launches)
+        y_cpu = on_cpu(x_dev.cpu())
+        exact = f64 or not kahan
+        err = rel(y.cpu(), y_cpu)
+        check(n == (1, int(bool(e.dia_offsets.size)))
+              and (torch.equal(y.cpu(), y_cpu) if exact
+                   else err <= KERNEL_TOL),
+              f"{name}: the apply on the card (K1 {n[0]}, K9 {n[1]} "
+              f"launches; {pst['tail_cells']} tail cells: {st['nnz_er']} "
+              f"ER, {st['nnz_long']} long, {e.split_src.size} overflow "
+              f"rows) vs its plain versions on the CPU: "
+              + ("bit for bit" if exact else f"rel {err:.3e}"))
+    check(reached == {"ER", "long", "hub-split", "split form", "direct",
+                      "DIA"}, f"the fold's cases reached {sorted(reached)}")
 
 
 def check_dia_small(dev, dtype=torch.float32) -> None:
@@ -1493,9 +1615,12 @@ def drive(args, tol: float = ORACLE_TOL):
     return result, model, launches
 
 
-def body_csr(e, n_rows: int, n_cols: int, dev) -> torch.Tensor:
+def body_csr(e, n_rows: int, n_cols: int, dev,
+             fold: bool = False) -> torch.Tensor:
     """The SELL body's own entries as CSR (row = slice * 128 + lane, the
-    decoded column; reordered space): cuSPARSE's operand."""
+    decoded column; reordered space): cuSPARSE's operand.  With ``fold``
+    the entries of a folded K1 plan: the body's (the hub-split overflow
+    rows' under their true rows), the ER tail's and the long rows'."""
     steps = e.ell_val.shape[0]
     step_slice = torch.searchsorted(
         e.slice_offset[1:], torch.arange(steps, dtype=torch.int32,
@@ -1503,8 +1628,25 @@ def body_csr(e, n_rows: int, n_cols: int, dev) -> torch.Tensor:
     rows = step_slice.long()[:, None] * 128 \
         + torch.arange(128, device=dev)[None, :]
     keep = e.ell_val != 0
-    return csr_of(rows[keep], body_gather_index(e).long()[keep],
-                  e.ell_val[keep], n_rows, n_cols)
+    rows, cols, vals = (rows[keep], body_gather_index(e).long()[keep],
+                        e.ell_val[keep])
+    if fold:
+        rmap = torch.arange(n_rows, device=dev)
+        rmap[e.split_src.long()] = e.split_dst.long()
+        n_er = e.er_val.shape[1]
+        er_step = torch.searchsorted(
+            e.er_slice_offset[1:], torch.arange(
+                e.er_val.shape[0], dtype=torch.int32, device=dev),
+            right=True)
+        er_row = e.er_rows.long()[er_step.long()[:, None] * n_er
+                                  + torch.arange(n_er, device=dev)]
+        er_keep = (e.er_val != 0) & (er_row < e.dim)
+        rows = torch.cat([rmap[rows], er_row[er_keep],
+                          e.long_rows.long()[e.long_seg.long()]])
+        cols = torch.cat([cols, e.er_col.long()[er_keep],
+                          e.long_col.long()])
+        vals = torch.cat([vals, e.er_val[er_keep], e.long_val])
+    return csr_of(rows, cols, vals, n_rows, n_cols)
 
 
 def other_x_mode(g0):
@@ -1532,7 +1674,9 @@ def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
     kahan = model.module.kahan
     f64 = p.cell_val.dtype == torch.float64
     tol = F64_TOL if f64 else KERNEL_TOL
-    body_nnz = model.dev.body_nnz
+    fold = p.stats["folded"]
+    # the entries K1 sums: the body's, and the tail's in a folded plan
+    body_nnz = p.stats["real_cells"]
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
     y_k = ehyb_stream.stream_body(p, x_dev, kahan)
     y_p = ehyb_stream.stream_body_plain(p, x_dev, kahan)
@@ -1545,16 +1689,18 @@ def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
         check(torch.equal(y_k, y_p), "K1 f64 Kahan bit for bit with its "
                                      "plain version (Neumaier, no atomics)")
     e = padded_body(model, dev)
-    err = rel(y_k, ehyb_body(e, x_dev, compensated=kahan))
-    check(err <= tol, f"K1 vs the padded body's plain version rel "
+    err = rel(y_k, padded_k1(e, x_dev, kahan, fold))
+    check(err <= tol, f"K1 vs the padded body's plain version"
+                      f"{' with the tail added' if fold else ''} rel "
                       f"{err:.3e}")
-    a = body_csr(e, y_k.shape[0], x_dev.shape[0], dev)
+    a = body_csr(e, y_k.shape[0], x_dev.shape[0], dev, fold)
     del e
     y_l = torch.mv(a, x_dev)
     torch.cuda.synchronize()
     err = rel(y_l, y_p)
-    check(err <= tol, f"cuSPARSE over K1's {a.values().numel()} body "
-                      f"entries ({a.dtype}) vs plain rel {err:.3e}")
+    check(err <= tol, f"cuSPARSE over K1's {a.values().numel()} "
+                      f"{'body and tail' if fold else 'body'} entries "
+                      f"({a.dtype}) vs plain rel {err:.3e}")
     g0 = ehyb_stream.GEOMETRY
     # the f64 kernel is built in the default geometry's x mode only
     other = None if f64 else other_x_mode(g0)
@@ -1577,11 +1723,12 @@ def time_k1(model, result, dev, cells=None, n: int = 100, n_plain: int = 20,
     grid = ehyb_stream.grid_of(p, g0, kahan, dev)
     print(f"  K1 ({g0.threads} threads, {g0.rows} rows a thread, "
           f"{g0.blocks_per_sm} blocks/SM asked, x {g0.x_mode}; grid {grid}; "
-          f"{st['n_rb']} row blocks, {st['n_pieces']} pieces, "
+          f"{st['real_cells']} entries, {st['tail_cells']} of them the "
+          f"tail's; {st['n_rb']} row blocks, {st['n_pieces']} pieces, "
           f"{st['split_rbs']} cut, max width {st['max_width']}, max table "
           f"{st['max_table_rows']} rows) device ms per call (plain, kernel, "
           f"kernel, plain): {turns}")
-    print(f"  cuSPARSE over its body {lib_ms:.4f} ms (K1 / cuSPARSE = "
+    print(f"  cuSPARSE over its entries {lib_ms:.4f} ms (K1 / cuSPARSE = "
           f"{ms / lib_ms:.3f}); layout bound {b['bound_ms']:.4f} ms "
           f"({st['layout_bytes']} B: cells {st['cell_bytes']}, maps "
           f"{st['map_bytes']}, x {st['x_bytes']}, y {st['y_bytes']}; "
@@ -1607,7 +1754,8 @@ def time_k1_forms(model, result, dev, n: int = 100) -> dict:
     turns, then direct columns in body order; each read bit for bit
     against the others."""
     x = model.prepare_x(deterministic_x(result["dim"]))
-    forms = {k: v.to_torch(dev) for k, v in k1_forms(model.ehyb).items()}
+    forms = {k: v.to_torch(dev) for k, v in k1_forms(
+        model.ehyb, fold=True).items()}
     call = lambda p: lambda: ehyb_stream.stream_body(p, x)  # noqa: E731
     y = {k: call(p)() for k, p in forms.items()}
     check(all(torch.equal(v, y["table"]) for v in y.values()),
@@ -1627,11 +1775,14 @@ def time_k1_forms(model, result, dev, n: int = 100) -> dict:
 
 
 def body_library_ms(model, x_dev: torch.Tensor, dev, n: int = 20) -> float:
-    """cuSPARSE (``torch.mv`` on a CSR of x's type) over the body's own
-    entries, from the padded body uploaded for it, device ms per call."""
+    """cuSPARSE (``torch.mv`` on a CSR of x's type) over the entries K1's
+    plan sums (the body's, and the tail's in a folded plan), from the
+    padded body uploaded for it, device ms per call."""
     e = padded_body(model, dev)
+    cells = model.module.cells
     a = body_csr(e, model.dev.slice_win_start.shape[0] * 128,
-                 x_dev.shape[0], dev)
+                 x_dev.shape[0], dev,
+                 cells is not None and cells.stats["folded"])
     del e
     return device_ms_per_call(lambda: torch.mv(a, x_dev), n)
 
@@ -1721,17 +1872,45 @@ def dia_csr(e, n_x: int, dev) -> torch.Tensor:
                   n_x)
 
 
-def time_dia(model, result, dev, n: int = 50) -> dict:
+def time_dia(model, result, dev, n: int = 50, acc: bool = False) -> dict:
     """K9 at a flagship path's shapes (:func:`time_dia_part` on the model's
-    DIA part and its x)."""
-    return time_dia_part(model.dev, model.prepare_x(
-        deterministic_x(result["dim"])), dev, n)
+    DIA part and its x; with ``acc`` also the accumulate mode, into the y
+    the model's K1 writes)."""
+    x = model.prepare_x(deterministic_x(result["dim"]))
+    return time_dia_part(model.dev, x, dev, n, model.module.body(x)
+                         if acc else None)
 
 
-def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50) -> dict:
+def time_dia_acc(e, x_dev: torch.Tensor, y0: torch.Tensor, n: int) -> dict:
+    """K9's accumulate mode (adding into ``y0``, a copy a call) against its
+    plain version on the CPU, bit for bit, and timed in turns with the
+    write mode (write, add, add, write)."""
+    out = y0.clone()
+    dia.dia_body(e, x_dev, out=out)
+    e_cpu = types.SimpleNamespace(dia_offsets=e.dia_offsets,
+                                  dia_val=e.dia_val.cpu())
+    want = dia.dia_body_plain(e_cpu, x_dev.cpu(), out=y0.cpu())
+    check(torch.equal(out.cpu(), want),
+          f"K9's accumulate mode ({y0.shape[0]} rows of y, "
+          f"{e.dia_val.shape[1]} of diagonals) bit for bit with its plain "
+          "version on the CPU")
+    buf = y0.clone()
+    acc_ms, write_ms, turns = in_turns(
+        lambda: dia.dia_body(e, x_dev, out=buf),
+        lambda: dia.dia_body(e, x_dev), n, n)
+    print(f"  K9 accumulate mode vs the write mode, device ms per call "
+          f"(write, add, add, write): {turns}; add / write = "
+          f"{acc_ms / write_ms:.3f}; {card_state()}")
+    return dict(acc_ms=acc_ms, write_ms=write_ms)
+
+
+def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50,
+                  acc_into: torch.Tensor = None) -> dict:
     """K9 on the DIA part ``e`` (f32 or f64, as x): kernel, plain version
     and cuSPARSE over the same DIA entries, both bounds, and the A/B of the
-    two x modes (the default geometry with the other mode, in turns)."""
+    two x modes (the default geometry with the other mode, in turns); with
+    ``acc_into`` (a y to add into) also the accumulate mode
+    (:func:`time_dia_acc`)."""
     f64 = x_dev.dtype == torch.float64
     tol, vb = (F64_TOL, 8) if f64 else (KERNEL_TOL, 4)
     y_k = dia.dia_body(e, x_dev)
@@ -1783,8 +1962,60 @@ def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50) -> dict:
           f"{same['bound_ms'] / ms:.3f} reached)")
     print(f"  x-mode A/B ({other.x_mode}, {g0.x_mode}, {g0.x_mode}, "
           f"{other.x_mode}): {ab}")
+    extra = {} if acc_into is None else time_dia_acc(e, x_dev, acc_into, n)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **bounds(b, same))
+                library_ms=lib_ms, **bounds(b, same), **extra)
+
+
+def time_apply(model, result, dev, step_s: float, prof: dict,
+               bcoo: dict, card: str, n: int = 100) -> dict:
+    """The flagship's apply as a whole (K1 with the tail, then K9 into its
+    y) at a main path's shapes: against its plain versions on the card
+    (``stream_body_plain``, then ``dia_body_plain`` adding into its y), in
+    turns, beside the step of the chained loop (phase 11: the apply and
+    the chain add, graph replays), the kernels a step launches (phase 12)
+    and cuSPARSE's step (``--model bcoo``, phase 15, the same loop).  The
+    same-work bound: each entry's value once (a column of 2 B in the body,
+    4 B in the tail, none on a diagonal), x and y once."""
+    mod, e = model.module, model.dev
+    x = model.prepare_x(deterministic_x(result["dim"]))
+    plain = lambda: dia.dia_body_plain(  # noqa: E731
+        e, x, out=ehyb_stream.stream_body_plain(mod.cells, x, mod.kahan))
+    y_k, y_p = model.apply(x), plain()
+    torch.cuda.synchronize()
+    max_abs = float((y_k - y_p).abs().max())
+    err = rel(y_k, y_p)
+    check(err <= KERNEL_TOL, f"{result['matrix']}: the apply vs its plain "
+                             f"versions on the card rel {err:.3e}")
+    ms, plain_ms, turns = in_turns(lambda: model.apply(x), plain, n,
+                                   max(n // 10, 2))
+    st = model.ehyb.stats
+    vb = x.element_size()
+    n_bytes = st["nnz_dia"] * vb + st["nnz_ell"] * (vb + 2) \
+        + (st["nnz_er"] + st["nnz_long"]) * (vb + 4) \
+        + vb * (x.numel() + y_k.numel())
+    b = bound(n_bytes, 2 * result["nnz"], dev, vb == 8)
+    bcoo_ms = 1e3 * bcoo["seconds"] / bcoo["iters"]
+    step_us = 1e6 * step_s
+    lo, hi = PARENT_STEP_US[result["matrix"]]
+    gflops = 2e-9 * result["nnz"] / step_s
+    print(f"  {result['matrix']}: the apply device ms per call (plain, "
+          f"apply, apply, plain): {turns}; same-work bound "
+          f"{b['bound_ms']:.5f} ms ({n_bytes} B, {b['bound_ms'] / ms:.3f} "
+          f"reached)")
+    print(f"  {result['matrix']}: a step (the apply and the chain add) "
+          f"{step_us:.2f} us, {gflops:.2f} GFLOP/s, "
+          f"{prof['launches_per_step']:g} kernels, "
+          f"{100 * prof['busy_share']:.1f}% busy; before K1 took the tail "
+          f"{lo}-{hi} us (PERF.md); cuSPARSE (--model bcoo) "
+          f"{1e3 * bcoo_ms:.2f} us, {bcoo['gflops']:.2f} GFLOP/s: "
+          f"vs_baseline {bcoo_ms / (1e3 * step_s):.3f}; {card}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=bcoo_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], step_us=step_us,
+                launches_per_step=prof["launches_per_step"],
+                busy_share=prof["busy_share"], gflops=gflops,
+                bcoo_us=1e3 * bcoo_ms, bcoo_gflops=bcoo["gflops"])
 
 
 def time_routed(model, result, m: MatrixCOO, dev) -> dict:
@@ -1917,13 +2148,31 @@ def check_loop(res: dict, model, dev) -> dict:
     return out
 
 
+#: The kernels a step of the flagship's chained loop may launch where K1
+#: runs (name fragments as the profiler shows them): K1, K9 and the chain
+#: add.
+STEP_KERNELS = {"K1": "stream_body", "K9": "dia_kernel",
+                "chain add": "add"}
+
+
+def step_kernels(kernels: list, n: int) -> dict:
+    """The kernels ``n`` chained steps launched once a step or more (the
+    profiler's count over the steps; a call's copies of x in and y out
+    come once a call), by name: launches a step."""
+    return {e.key: e.count / n for e in kernels if e.count >= n}
+
+
 def profile_path(name: str, result: dict, model, graph_s: float,
-                 n: int = 20) -> None:
+                 n: int = 20, strict: bool = False) -> dict:
     """Device time by kernel over ``n`` iterations of a main path's graph
     loop (``torch.profiler``), the device's busy share of the unprofiled
-    graph loop's time per iteration, and ``phase_breakdown``'s device time
-    per phase.  Where the profiler sees no kernel inside the graph
-    replays, the split comes from the eager loop instead (said so)."""
+    graph loop's time per iteration, the kernels a step launches, and
+    ``phase_breakdown``'s device time per phase.  Where the profiler sees
+    no kernel inside the graph replays, the split comes from the eager
+    loop instead (said so).  With ``strict`` (a flagship row where K1
+    runs) a step must launch K1, K9 and the chain add once each and no
+    other kernel: no torch scatter, fill or copy.  Returns the step's
+    launches and busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1951,9 +2200,22 @@ def profile_path(name: str, result: dict, model, graph_s: float,
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
         print(f"    {e.device_time_total / n:10.2f} us  x{e.count / n:g}  "
               f"{e.key[:90]}")
+    steps = step_kernels(kernels, n)
+    print(f"  {name}: a step launches {sum(steps.values()):g} kernels "
+          f"({len(steps)} kinds; {100 * busy_us / wall_us:.1f}% busy): "
+          + "; ".join(f"x{c:g} {k[:60]}" for k, c in steps.items()))
+    if strict:
+        kinds = {key: next((w for w, frag in STEP_KERNELS.items()
+                            if frag in key), None) for key in steps}
+        check(sorted(kinds.values(), key=str) == sorted(STEP_KERNELS)
+              and all(c == 1 for c in steps.values()),
+              f"{name}: a step of the flagship launches K1, K9 and the "
+              f"chain add once each and nothing else: {kinds}")
     phases = phase_breakdown(model, x_dev, iters=n)
     print("    phase_breakdown (device us per call, CUDA graph replay): "
           + ", ".join(f"{k} {1e6 * v:.2f}" for k, v in phases.items()))
+    return dict(launches_per_step=sum(steps.values()),
+                busy_share=busy_us / wall_us)
 
 
 def check_cg(model, dev) -> None:
@@ -2468,16 +2730,19 @@ def check_f64_small(dev) -> None:
     check_dia_small(dev, torch.float64)
 
 
-def k1_forms(e) -> dict:
+def k1_forms(e, fold: bool = False) -> dict:
     """The f64 kernel's plan forms of body ``e``: the table form and
     direct columns (where a piece holds fewer than DIRECT_BELOW cells a
     table row, and in every piece), both in the body's row order, and the
-    shipped plan (``k1_plan``: direct pieces and grouped rows where ``e``
-    is scattered)."""
-    return {"table": build_stream_cells(e),
-            "direct": build_stream_cells(e, direct_below=DIRECT_BELOW),
-            "all direct": build_stream_cells(e, direct_below=np.inf),
-            "shipped": k1_plan(e)}
+    shipped plan (``k1_options``: direct pieces and grouped rows where
+    ``e`` is scattered); with ``fold`` each with the EHYB tail folded in (the
+    shipped one is then the flagship's, ``k1_folded_plan``)."""
+    return {"table": build_stream_cells(e, fold=fold),
+            "direct": build_stream_cells(e, direct_below=DIRECT_BELOW,
+                                         fold=fold),
+            "all direct": build_stream_cells(e, direct_below=np.inf,
+                                             fold=fold),
+            "shipped": build_stream_cells(e, fold=fold, **k1_options(e))}
 
 
 def check_k1_f64_forms(dev) -> None:
@@ -2851,15 +3116,18 @@ def table_rows(text: str) -> list:
 
 def check_body_row(r: dict) -> None:
     """An EHYB body row launched the kernel of every phase it holds: K9
-    where it has DIA entries, K1 or the window cache where it has a body,
-    and neither where it has none."""
+    where it has DIA entries, K1 or the window cache where it has body, ER
+    or long-row entries (K1 folds the last two in), and neither where it
+    has none."""
     la = r["launches"]
     body = la["K1"] + la["WC"]
+    rest = r["nnz_ell"] + r["nnz_er"] + r["nnz_long"]
     check(r["engine"] == "EhybSpmv" and (la["K9"] > 0) == (r["nnz_dia"] > 0)
-          and (body > 0) == (r["nnz_ell"] > 0) and la["RX"] == 0,
+          and (body > 0) == (rest > 0) and la["RX"] == 0,
           f"{r['matrix']}: {r['engine']}, K9 {la['K9']} launches for "
           f"{r['nnz_dia']} DIA entries, K1 {la['K1']} and the window cache "
-          f"{la['WC']} for {r['nnz_ell']} body entries")
+          f"{la['WC']} for {r['nnz_ell']} body, {r['nnz_er']} ER and "
+          f"{r['nnz_long']} long-row entries")
 
 
 def check_routed_row(r: dict) -> None:
@@ -3050,10 +3318,12 @@ def check_heavy_16k(dev) -> list:
 
 def check_dword_1m(dev, prebuild: "Prewarm") -> dict:
     """21c: ``powerlaw_1m --dword`` at full size through the CLI, its host
-    artifact from ``prebuild``'s cache: within F64_TOL of the oracle, K1 f64
-    launched over a plan in the split form, the peak device memory of the
-    run; then K1 timed by :func:`time_k1_split` (no table form: its walk
-    is ``chip_k1_sweep.py --long --f64``'s); returns its kernels entry."""
+    artifact and K1's plan from ``prebuild``'s cache: within F64_TOL of the
+    oracle, K1 f64 launched over a plan in the split form that holds the ER
+    tail and the long rows (its build seconds on the host, its load, and
+    the step beside the parent's), the peak device memory of the run; then
+    K1 timed by :func:`time_k1_split` (no table form: its walk is
+    ``chip_k1_sweep.py --long --f64``'s); returns its kernels entry."""
     rc, since, out = prebuild.wait(PREWARM_TIMEOUT_S)
     print("".join(f"    {ln}\n" for ln in out.splitlines()), end="")
     check(rc == 0, f"the prebuild exited {rc} after {since:.1f} s")
@@ -3066,6 +3336,20 @@ def check_dword_1m(dev, prebuild: "Prewarm") -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     p = model.module.cells
     st = p.stats
+    lay = res["layout"]
+    step_us = 1e6 * res["seconds"] / res["iters"]
+    lo, hi = PARENT_STEP_US["powerlaw_1m --dword"]
+    check(st["folded"] and st["tail_cells"] == lay["nnz_er"]
+          + lay["nnz_long"] and st["real_cells"] == lay["nnz_ell"]
+          + lay["nnz_er"] + lay["nnz_long"] and launches["K1"] > 0,
+          f"powerlaw_1m --dword: K1's plan holds the tail ({lay['nnz_er']} "
+          f"ER and {lay['nnz_long']} long-row entries beside "
+          f"{lay['nnz_ell']} of the body: {st['real_cells']} cells, "
+          f"{st['compact_cells']} with padding), built in "
+          f"{st['build_seconds']:.1f} s on the host, loaded from the cache "
+          f"in {res['setup_seconds']['k1_plan']:.1f} s; a step {step_us:.1f} "
+          f"us ({res['gflops']:.2f} GFLOP/s) beside {lo:g} us before K1 "
+          "took the tail (PERF.md)")
     check(res["engine"] == "EhybSpmv" and res["dim"] == 1 << 20
           and "cache_load" in res["setup_seconds"] and launches["K1"] > 0
           and split(p) and p.cell_val.dtype == torch.float64,
@@ -3078,7 +3362,9 @@ def check_dword_1m(dev, prebuild: "Prewarm") -> dict:
     k = time_k1_split("powerlaw_1m --dword", model, dev, model.prepare_x(
         deterministic_x(res["dim"])), table=False)
     return dict(K1_SPLIT_1M, launches=launches["K1"], peak_bytes=peak,
-                gflops=res["gflops"], **k)
+                gflops=res["gflops"], step_us=step_us,
+                plan_seconds=st["build_seconds"],
+                plan_load_seconds=res["setup_seconds"]["k1_plan"], **k)
 
 
 def main() -> int:
@@ -3159,7 +3445,8 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
         check_k1_case(f"edge body{' kahan' if kahan else ''}", e,
                       rng.standard_normal(e.padded_x_rows), kahan, dev,
                       table=True)
-    if split(k1_plan(e)):    # its 80-step row blocks past SPLIT_STEPS
+    # its 80-step row blocks past SPLIT_STEPS
+    if split(build_stream_cells(e, **k1_options(e))):
         check_k1_case("edge body (split form)", e,
                       rng.standard_normal(e.padded_x_rows), False, dev)
     print("  K1's split form (heavy-tailed bodies: long row blocks in chunks)")
@@ -3254,7 +3541,13 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
 
     phase("10: kernels, plain versions and cuSPARSE at the main paths' "
           "shapes (device time, CUDA graph replay)")
-    print("  K1 on permuted_poisson_512's body (main path 1):")
+    t10 = time.perf_counter()
+    print("  K1 with the tail folded in and K9 adding into its y, on small "
+          "artifacts with ER, long-row and hub-split rows:")
+    check_fold_small(dev)
+    print(f"  (the fold's small artifacts {time.perf_counter() - t10:.1f} "
+          "s)")
+    print("  K1 on permuted_poisson_512's body and tail (main path 1):")
     k1 = time_k1(model1, res1, dev)
     print("  K1 on permuted_poisson_1024 on its own resident path:")
     m6 = generate.load_corpus("permuted_poisson_1024")
@@ -3274,8 +3567,9 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     k9 = time_dia(model3, res3, dev)
     print("  K9 on permuted_poisson_4096's diagonal:")
     time_dia(model4, res4, dev, n=20)
-    print("  K9 on permuted_poisson_512's diagonal (main path 1):")
-    time_dia(model1, res1, dev, n=100)
+    print("  K9 on permuted_poisson_512's diagonal (main path 1), in both "
+          "modes:")
+    k9_512 = time_dia(model1, res1, dev, n=100, acc=True)
     print("  K1 on permuted_poisson_4096's body, its plan built for it (the "
           "TPU's K2 regime; L2 instead of the window cache):")
     t0 = time.perf_counter()
@@ -3310,11 +3604,17 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
           "loop, in turns")
     loop_s = {res["matrix"]: check_loop(res, model, dev)
               for res, model in rows}
+    for res, _ in rows:
+        lo, hi = PARENT_STEP_US.get(res["matrix"], (None, None))
+        if lo is not None:
+            step_us = 1e6 * loop_s[res["matrix"]]["graph"]
+            print(f"  {res['matrix']}: a step {step_us:.2f} us, beside "
+                  f"{lo}-{hi} us before K1 took the tail (PERF.md)")
 
     phase("12: where the device time goes per iteration under the graph")
-    for res, model in rows:
-        profile_path(res["matrix"], res, model,
-                     loop_s[res["matrix"]]["graph"])
+    prof = {res["matrix"]: profile_path(
+        res["matrix"], res, model, loop_s[res["matrix"]]["graph"],
+        strict=model is model1) for res, model in rows}
 
     phase(f"13: CG on {res1['matrix']} through the flagship (K1 and K9 in "
           "the graph)")
@@ -3324,17 +3624,19 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     check_power(model1)
 
     phase(f"15: the baselines on {res1['matrix']} through the CLI")
-    base = {}
+    base, base_res = {}, {}
     for name in ("csr", "bcoo", "hyb"):
         res, model, _ = drive(BASELINE_ARGS + [name])
         check(res["engine"] == type(model).__name__ == {
             "csr": "CsrSpmv", "bcoo": "BcooSpmv", "hyb": "HybSpmv"}[name],
             f"--model {name} ran {res['engine']}")
-        base[name] = res["gflops"]
+        base[name], base_res[name] = res["gflops"], res
         del model
     print(f"  {res1['matrix']}: ehyb {res1['gflops']:.2f} GFLOP/s, "
           + ", ".join(f"{k} {v:.2f}" for k, v in base.items())
           + " GFLOP/s (the CLI's graph loop, 500 iterations each)")
+    apply = time_apply(model1, res1, dev, loop_s[res1["matrix"]]["graph"],
+                       prof[res1["matrix"]], base_res["bcoo"], card)
 
     phase(f"16: the sharded path: K1 with a row-block list, then "
           f"ShardedEhybSpmv at 1, 2 and 4 ranks on {SHARDED_MATRIX}, and "
@@ -3385,10 +3687,12 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     st = model8.module.cells.stats
     got = {k: st[k] for k in FEM_DWORD_PLAN}
     check(got == FEM_DWORD_PLAN and not split(model8.module.cells)
-          and st["max_width"] <= stream_cells.SPLIT_STEPS_F64,
-          f"fem3d_68 --dword's K1 plan as the parent built it, no row "
-          f"block past SPLIT_STEPS_F64 {stream_cells.SPLIT_STEPS_F64}: "
-          f"{got}")
+          and st["folded"] and st["tail_cells"] == lay["nnz_er"]
+          + lay["nnz_long"] and st["real_cells"] == lay["nnz_ell"]
+          + lay["nnz_er"] + lay["nnz_long"],
+          f"fem3d_68 --dword's K1 plan with its tail ({st['tail_cells']} "
+          f"cells) folded in, as the fold first built it, no row block past "
+          f"SPLIT_STEPS_F64 {stream_cells.SPLIT_STEPS_F64}: {got}")
     check(res8["dim"] == 943296 and res8["rel_error"] <= F64_TOL
           and launch8["K9"] > 0 and launch8["WC"] == 0,
           f"fem3d_68 in f64: rel {res8['rel_error']:.3e}, {K9F64['name']} "
@@ -3455,6 +3759,9 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
         dict(K1, launches=launch1["K1"], **k1),
         dict(RX, launches=launch2["RX"], **rx),
         dict(K9, launches=launch3["K9"], **k9),
+        dict(K9, name="dia (accumulate mode, permuted_poisson_512)",
+             launches=launch1["K9"], **dict(k9_512, ms=k9_512["acc_ms"])),
+        dict(APPLY, launches=launch1["K1"], **apply),
         dict(WC, launches=launch4["WC"], **wc),
         dict(SK1, **sk1),
         dict(K1F64, launches=launch7["K1"], **k1f64),

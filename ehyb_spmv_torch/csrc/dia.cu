@@ -59,10 +59,18 @@
 //   the bytes a thread has in flight.  The x windows are 16-B aligned in
 //   doubles (wlo even), and the edge tests count two doubles a 16-B load.
 //
+// * Accumulate mode (ACC; the flagship's apply, ops/ehyb_stream.py): K1
+//   writes y first (the body and the EHYB tail), and K9 finishes it in
+//   place: each row's diagonal sum, formed in registers as in the write
+//   mode, is added once into y (y[i] = y[i] + s), read and written with
+//   the same 16-B accesses.  It costs y read once more; it saves the
+//   separate DIA output, its fill and the add that combined them.  Built
+//   at the default geometry's (STEP, QUADS) in float and double.
+//
 // Template parameters: T the value type (float or double), STEP diagonals
 // per step, QUADS quads per thread per tile, STAGED x mode, VEC 16-B value
 // loads (dim_r a multiple of 4 and dia_val 16-B aligned; else four guarded
-// scalar loads), EDGE guarded x reads.
+// scalar loads), EDGE guarded x reads, ACC the accumulate mode.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,6 +178,14 @@ __device__ __forceinline__ dquad load_val(const double* vk, long long i,
   return v;
 }
 
+__device__ __forceinline__ float add_rn_t(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+__device__ __forceinline__ double add_rn_t(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
 __device__ __forceinline__ float ldg_or_zero(const float* x, long long n_x,
                                              long long g) {
   return (g >= 0 && g < n_x) ? __ldg(x + g) : 0.0f;
@@ -257,9 +273,38 @@ __device__ __forceinline__ void store_quad(double* y, dquad v) {
   reinterpret_cast<double2*>(y)[1] = make_double2(v.z, v.w);
 }
 
+// The accumulate mode's quad: y[i .. i + 3] read with 16-B loads, each
+// row's sum added once (y + s, rounded to nearest), written back.
+__device__ __forceinline__ void add_quad(float* y, float4 s) {
+  float4 v = *reinterpret_cast<const float4*>(y);
+  v.x = __fadd_rn(v.x, s.x);
+  v.y = __fadd_rn(v.y, s.y);
+  v.z = __fadd_rn(v.z, s.z);
+  v.w = __fadd_rn(v.w, s.w);
+  *reinterpret_cast<float4*>(y) = v;
+}
+
+__device__ __forceinline__ void add_quad(double* y, dquad s) {
+  double2* p = reinterpret_cast<double2*>(y);
+  const double2 a = p[0], b = p[1];
+  p[0] = make_double2(__dadd_rn(a.x, s.x), __dadd_rn(a.y, s.y));
+  p[1] = make_double2(__dadd_rn(b.x, s.z), __dadd_rn(b.y, s.w));
+}
+
+// One row's sum into y: written (the write mode) or added (ACC).
+template <bool ACC, typename T>
+__device__ __forceinline__ void put_row(T* y, T s) {
+  if (ACC) {
+    *y = add_rn_t(*y, s);
+  } else {
+    *y = s;
+  }
+}
+
 // One tile: quads [qa, qb) of the rows, x from `xs` (STAGED: the tile's
 // windows, holding x[4 * qa + wlo_r + j] at xs[base_r + j]) or from x.
-template <typename T, int STEP, int QUADS, bool STAGED, bool VEC, bool EDGE>
+template <typename T, int STEP, int QUADS, bool STAGED, bool VEC, bool EDGE,
+          bool ACC>
 __device__ __forceinline__ void tile_sums(const DiaArgs<T>& a, const int* s_d,
                                           const int* s_xo, const T* xs,
                                           long long qa, long long qb) {
@@ -318,13 +363,15 @@ __device__ __forceinline__ void tile_sums(const DiaArgs<T>& a, const int* s_d,
   for (int p = 0; p < QUADS; ++p) {
     if (!live[p]) continue;
     const long long i = row[p];
-    if (VEC) {
+    if (VEC && ACC) {
+      add_quad(a.y + i, acc[p]);
+    } else if (VEC) {
       store_quad(a.y + i, acc[p]);
     } else {
-      a.y[i] = acc[p].x;
-      if (i + 1 < a.dim_r) a.y[i + 1] = acc[p].y;
-      if (i + 2 < a.dim_r) a.y[i + 2] = acc[p].z;
-      if (i + 3 < a.dim_r) a.y[i + 3] = acc[p].w;
+      put_row<ACC>(a.y + i, acc[p].x);
+      if (i + 1 < a.dim_r) put_row<ACC>(a.y + i + 1, acc[p].y);
+      if (i + 2 < a.dim_r) put_row<ACC>(a.y + i + 2, acc[p].z);
+      if (i + 3 < a.dim_r) put_row<ACC>(a.y + i + 3, acc[p].w);
     }
   }
 }
@@ -356,7 +403,7 @@ __device__ __forceinline__ void stage_windows(const DiaArgs<T>& a,
   }
 }
 
-template <typename T, int STEP, int QUADS, bool STAGED, bool VEC>
+template <typename T, int STEP, int QUADS, bool STAGED, bool VEC, bool ACC>
 __global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs<T> a) {
   constexpr int kVec = Quad<T>::kVec;
   extern __shared__ __align__(16) float smem[];
@@ -384,7 +431,7 @@ __global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs<T> a) {
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 1;\n" ::);
       __syncthreads();
-      tile_sums<T, STEP, QUADS, true, VEC, false>(
+      tile_sums<T, STEP, QUADS, true, VEC, false, ACC>(
           a, s_d, s_xo, bufs + (j & 1) * a.stage_floats, qa, qb);
       __syncthreads();
     }
@@ -397,11 +444,11 @@ __global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs<T> a) {
       const bool inside = 4 * qa + (a.d_min & ~(kVec - 1)) >= 0 &&
                           4 * qb + (a.d_max & ~(kVec - 1)) + kVec <= a.n_x;
       if (inside)
-        tile_sums<T, STEP, QUADS, false, VEC, false>(a, s_d, s_xo, nullptr,
-                                                     qa, qb);
+        tile_sums<T, STEP, QUADS, false, VEC, false, ACC>(a, s_d, s_xo,
+                                                          nullptr, qa, qb);
       else
-        tile_sums<T, STEP, QUADS, false, VEC, true>(a, s_d, s_xo, nullptr,
-                                                    qa, qb);
+        tile_sums<T, STEP, QUADS, false, VEC, true, ACC>(a, s_d, s_xo,
+                                                         nullptr, qa, qb);
     }
   }
 }
@@ -410,18 +457,25 @@ __global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs<T> a) {
 // types differ with the value type).
 using KernelFn = const void*;
 
-template <typename T, int STEP, int QUADS>
+template <typename T, int STEP, int QUADS, bool ACC = false>
 KernelFn pick_xv(int staged, int vec) {
   if (staged)
-    return vec ? (KernelFn)dia_kernel<T, STEP, QUADS, true, true>
-               : (KernelFn)dia_kernel<T, STEP, QUADS, true, false>;
-  return vec ? (KernelFn)dia_kernel<T, STEP, QUADS, false, true>
-             : (KernelFn)dia_kernel<T, STEP, QUADS, false, false>;
+    return vec ? (KernelFn)dia_kernel<T, STEP, QUADS, true, true, ACC>
+               : (KernelFn)dia_kernel<T, STEP, QUADS, true, false, ACC>;
+  return vec ? (KernelFn)dia_kernel<T, STEP, QUADS, false, true, ACC>
+             : (KernelFn)dia_kernel<T, STEP, QUADS, false, false, ACC>;
 }
 
-// The kernel variant (the double one where `f64`), or nullptr where none
-// is built.  In double only the default geometry's (STEP, QUADS) is built.
-KernelFn pick(int step, int quads, int staged, int vec, int f64) {
+// The kernel variant (the double one where `f64`, the accumulate mode
+// where `acc`), or nullptr where none is built.  In double only the
+// default geometry's (STEP, QUADS) is built, and the accumulate mode only
+// at it, in float and double.
+KernelFn pick(int step, int quads, int staged, int vec, int f64, int acc) {
+  if (acc) {
+    if (step != 4 || quads != 1) return nullptr;
+    return f64 ? pick_xv<double, 4, 1, true>(staged, vec)
+               : pick_xv<float, 4, 1, true>(staged, vec);
+  }
   if (f64) {
     return step == 4 && quads == 1 ? pick_xv<double, 4, 1>(staged, vec)
                                    : nullptr;
@@ -471,9 +525,9 @@ cudaError_t launch(KernelFn fn, const void* val, const int* table,
 // negative CUDA error.  cudaErrorInvalidValue (-1) where no such variant is
 // built.
 extern "C" int ehyb_dia_resident_blocks(int step, int quads, int staged,
-                                        int vec, int f64, int threads,
-                                        long long smem) {
-  const KernelFn fn = pick(step, quads, staged, vec, f64);
+                                        int vec, int f64, int acc,
+                                        int threads, long long smem) {
+  const KernelFn fn = pick(step, quads, staged, vec, f64, acc);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   int rc = allow_smem(fn, (size_t)smem);
   if (rc != 0) return -rc;
@@ -486,8 +540,8 @@ extern "C" int ehyb_dia_resident_blocks(int step, int quads, int staged,
 // Registers a thread of a variant takes (cudaFuncGetAttributes), or a
 // negative CUDA error.
 extern "C" int ehyb_dia_registers(int step, int quads, int staged, int vec,
-                                  int f64) {
-  const KernelFn fn = pick(step, quads, staged, vec, f64);
+                                  int f64, int acc) {
+  const KernelFn fn = pick(step, quads, staged, vec, f64, acc);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const int rc = (int)cudaFuncGetAttributes(&attr, fn);
@@ -498,15 +552,17 @@ extern "C" int ehyb_dia_registers(int step, int quads, int staged, int vec,
 // cudaGetLastError(); 0 means the launch was accepted.  `val`, `x` and `y`
 // are float (double where `f64`); `table` is the plan's device array
 // (ops/dia.py::DiaPlan.table); `grid`, `threads`, `tile_quads`,
-// `stage_floats` (values) and `smem` are the plan's.
+// `stage_floats` (values) and `smem` are the plan's.  With `acc` each row's
+// sum is added into y[i] (y holds at least dim_r values, 16-B aligned
+// where `vec`), else written there.
 extern "C" int ehyb_dia(const void* val, const int* table, int n_diag,
                         int n_runs, int d_min, int d_max, long long dim_r,
                         const void* x, long long n_x, void* y, int step,
-                        int quads, int staged, int vec, int f64, int threads,
-                        int grid, int tile_quads, int stage_floats,
-                        long long smem, void* stream) {
+                        int quads, int staged, int vec, int f64, int acc,
+                        int threads, int grid, int tile_quads,
+                        int stage_floats, long long smem, void* stream) {
   if (dim_r <= 0 || n_diag <= 0) return 0;
-  const KernelFn fn = pick(step, quads, staged, vec, f64);
+  const KernelFn fn = pick(step, quads, staged, vec, f64, acc);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const int rc = allow_smem(fn, (size_t)smem);
   if (rc != 0) return rc;

@@ -197,12 +197,19 @@ def _copy_(dst, src) -> None:
 
 
 def _chain_into(out, x, y: torch.Tensor, eps: float) -> None:
-    """out ← x + eps·y, with y resized to each of x's vectors."""
+    """out ← x + eps·y, with y resized to each of x's vectors, in one add.
+    Where y is shorter than x only out's first rows are written: the rest
+    are x's already (a chain's ``out`` starts as a copy of x, and only this
+    add writes it), which is what adding y's zero padding would give."""
     if isinstance(x, tuple):
         for o, xi in zip(out, x):
             _chain_into(o, xi, y, eps)
+        return
+    n, m = x.shape[-1], y.shape[-1]
+    if m >= n:
+        torch.add(x, y[..., :n], alpha=eps, out=out)
     else:
-        torch.add(x, _resize_like(y, x), alpha=eps, out=out)
+        torch.add(x[..., :m], y, alpha=eps, out=out[..., :m])
 
 
 def _resize_like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -118,11 +118,17 @@ class EhybPlainSpmv(SpmvModel):
         # cache key = the config AS GIVEN (the layout switches below are
         # deterministic for (matrix, config))
         cfg_key = cfg
+        #: The artifact's cache path without its suffix, beside which K1's
+        #: plan is cached (None: no cache).
+        self.plan_cache = None
         # a cached gather-wall verdict fires before the EHYB artifact load
         # and the ordering chain, both of which it would throw away
         self._pre_order_hook(m)
         if cfg.artifact_cache:
-            from ..core.cache import load_artifacts
+            from ..core.cache import cache_paths, load_artifacts
+
+            self.plan_cache = cache_paths(m, cfg, cfg.cache_dir)[0][
+                :-len(".ehyb.npz")]
 
             hit = load_artifacts(m, cfg, cfg.cache_dir)
             if hit is not None:
@@ -235,7 +241,8 @@ class EhybPlainSpmv(SpmvModel):
     def _upload(self, cfg) -> None:
         self.dev = self.ehyb.to_torch(dtype=cfg.dtype, device=self.device)
         if cfg.dword_values:
-            self.module = make_dword_apply(self.ehyb, self.dev)
+            self.module = make_dword_apply(self.ehyb, self.dev,
+                                           self.plan_cache)
             self.setup_seconds["k1_plan"] = self.module.plan_seconds
         else:
             self.module = self._make_module()
@@ -256,7 +263,9 @@ class EhybPlainSpmv(SpmvModel):
         a plan the card reads the plan's compact cells, not the padded body
         it dropped at upload: the window cache's ``layout_bytes`` (cells
         and staged rows) or K1's ``stream_bytes`` (cells, pieces and
-        tables) stand in for the body's cells."""
+        tables) stand in for the body's cells.  K1's plan holds the ER and
+        long-row entries too, so where it runs they are counted once, in
+        the body's phase, and have no phase of their own."""
         cfg = self.config
         phases = phase_roofline(
             self.ehyb.stats, dim=self.m.dimension,
@@ -269,7 +278,10 @@ class EhybPlainSpmv(SpmvModel):
             phases["body"] = (phases["body"][0],
                               wincache.stats["layout_bytes"])
         elif cells is not None:
-            phases["body"] = (phases["body"][0], cells.stats["stream_bytes"])
+            flops = phases["body"][0]
+            if cells.stats.get("folded"):
+                flops += phases.pop("er")[0] + phases.pop("long")[0]
+            phases["body"] = (flops, cells.stats["stream_bytes"])
         return phases
 
 
@@ -333,7 +345,8 @@ class EhybSpmv(EhybPlainSpmv):
         module = make_stream_apply(self.ehyb, self.dev,
                                    kahan=self.config.compensated_sum,
                                    value_bytes=np.dtype(
-                                       self.config.dtype).itemsize)
+                                       self.config.dtype).itemsize,
+                                   cache=self.plan_cache)
         # the body plan's build, a part of the upload phase
         if module.wincache is not None:
             self.setup_seconds["wincache_plan"] = module.plan_seconds

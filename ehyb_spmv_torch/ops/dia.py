@@ -17,7 +17,10 @@ for tensors on the CPU.  A CUDA call launches the kernel or raises.  Values
 and x are float32, or float64 for the precision mode (``ops/dword.py``),
 whose kernel is built for the default (STEP, QUADS) in both x modes; its
 plan counts what 16 B hold in doubles (:func:`make_plan`'s
-``value_bytes``).
+``value_bytes``).  With ``out`` the kernel runs in its accumulate mode
+(built at the default (STEP, QUADS)): each row's diagonal sum is added once
+into ``out`` in place, which is how the flagship's apply finishes the y K1
+wrote (``ops/ehyb_stream.py``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 
 from ..core.ehyb import EhybDevice
 from .build import BuiltLibrary, build_cuda_library
-from .torch_ops import ehyb_dia
+from .torch_ops import dia_terms
 
 #: Shared memory one block may hold on the H100 (232,448 bytes).
 SMEM_LIMIT_BYTES = 227 * 1024
@@ -42,6 +45,9 @@ RUN_GAP = 16
 BUILT_STEPS = ((2, 1), (4, 1), (8, 1), (4, 2))
 #: The (STEP, QUADS) pairs built in float64: the default geometry's.
 BUILT_STEPS_F64 = ((4, 1),)
+#: The (STEP, QUADS) pairs the accumulate mode is built for, in float32 and
+#: float64: the default geometry's.
+BUILT_STEPS_ACC = ((4, 1),)
 X_MODES = ("ldg", "staged")
 #: Value types the kernel is built for, by their size in bytes.
 DTYPES = {4: torch.float32, 8: torch.float64}
@@ -68,13 +74,16 @@ class DiaGeometry:
     def tile_rows(self) -> int:
         return 4 * self.threads * self.quads
 
-    def check(self, value_bytes: int = 4) -> None:
+    def check(self, value_bytes: int = 4, acc: bool = False) -> None:
         if value_bytes not in DTYPES:
             raise ValueError(f"no kernel built for {value_bytes}-byte values")
         built = BUILT_STEPS if value_bytes == 4 else BUILT_STEPS_F64
+        if acc:
+            built = BUILT_STEPS_ACC
         if (self.step, self.quads) not in built:
             raise ValueError(f"no kernel built for step {self.step}, quads "
-                             f"{self.quads} in {value_bytes}-byte values "
+                             f"{self.quads} in {value_bytes}-byte values"
+                             f"{' (accumulate mode)' if acc else ''} "
                              f"(built: {built})")
         if self.x_mode not in X_MODES:
             raise ValueError(f"x_mode {self.x_mode!r} not in {X_MODES}")
@@ -179,12 +188,13 @@ class DiaPlan:
 
 
 def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
-              blocks: int = 8 * 132, value_bytes: int = 4) -> DiaPlan:
+              blocks: int = 8 * 132, value_bytes: int = 4,
+              acc: bool = False) -> DiaPlan:
     """The kernel's geometry for ``len(offsets)`` diagonals of ``dim_r``
     rows of ``value_bytes``-byte values, on a grid of at most ``blocks``
     blocks (the resident blocks of the card; fewer where the rows are fewer
-    than a tile per block)."""
-    geometry.check(value_bytes)
+    than a tile per block); ``acc``: for the accumulate mode."""
+    geometry.check(value_bytes, acc)
     offsets = tuple(int(d) for d in offsets)
     if not offsets or list(offsets) != sorted(set(offsets)):
         raise ValueError("offsets must be distinct, sorted and not empty")
@@ -224,8 +234,8 @@ def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
 _lock = threading.Lock()
 _built = None
 _lib = None
-#: (offsets, dim_r, vec, geometry, value bytes, device) → (plan, its table
-#: on the card),
+#: (offsets, dim_r, vec, geometry, value bytes, accumulate mode, device) →
+#: (plan, its table on the card),
 #: made once so that a call (and a CUDA graph capture of it) copies nothing
 #: to the card.
 _plans: dict = {}
@@ -243,63 +253,64 @@ def build_kernel() -> BuiltLibrary:
             built = build_cuda_library("ehyb_dia", ["dia.cu"])
             lib = ctypes.CDLL(built.path)
             lib.ehyb_dia.restype = ctypes.c_int
-            lib.ehyb_dia.argtypes = [
+            lib.ehyb_dia.argtypes = ([
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+                + [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_void_p])
             lib.ehyb_dia_registers.restype = ctypes.c_int
-            lib.ehyb_dia_registers.argtypes = [ctypes.c_int] * 5
+            lib.ehyb_dia_registers.argtypes = [ctypes.c_int] * 6
             lib.ehyb_dia_resident_blocks.restype = ctypes.c_int
-            lib.ehyb_dia_resident_blocks.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+            lib.ehyb_dia_resident_blocks.argtypes = [ctypes.c_int] * 7 + [
+                ctypes.c_longlong]
             _built, _lib = built, lib
         return _built
 
 
 def resident_blocks(geometry: DiaGeometry, smem_bytes: int, vec: bool,
-                    device, value_bytes: int = 4) -> int:
-    """Blocks of this geometry that stay resident on one SM of ``device``
-    (the kernel's occupancy at its registers and shared memory); raises
-    where not one does, as the launch would be refused."""
+                    device, value_bytes: int = 4, acc: bool = False) -> int:
+    """Blocks of this geometry (in the accumulate mode where ``acc``) that
+    stay resident on one SM of ``device`` (the kernel's occupancy at its
+    registers and shared memory); raises where not one does, as the launch
+    would be refused."""
     build_kernel()
     with torch.cuda.device(device):
         n = _lib.ehyb_dia_resident_blocks(
             geometry.step, geometry.quads, int(geometry.x_mode == "staged"),
-            int(vec), int(value_bytes == 8), geometry.threads, smem_bytes)
+            int(vec), int(value_bytes == 8), int(acc), geometry.threads,
+            smem_bytes)
     if n <= 0:
         raise RuntimeError(f"DIA kernel {geometry} with {smem_bytes} B of "
                            f"shared memory cannot run (occupancy {n})")
     return n
 
 
-def registers(geometry: DiaGeometry, vec: bool, value_bytes: int = 4) -> int:
+def registers(geometry: DiaGeometry, vec: bool, value_bytes: int = 4,
+              acc: bool = False) -> int:
     """Registers a thread of the geometry's kernel variant takes."""
     build_kernel()
     return _lib.ehyb_dia_registers(geometry.step, geometry.quads,
                                    int(geometry.x_mode == "staged"),
-                                   int(vec), int(value_bytes == 8))
+                                   int(vec), int(value_bytes == 8), int(acc))
 
 
 def device_plan(offsets: tuple, dim_r: int, vec: bool, device,
-                geometry: DiaGeometry = None, value_bytes: int = 4):
-    """The plan for these diagonals on ``device`` and its table on the card
-    (made once and kept)."""
+                geometry: DiaGeometry = None, value_bytes: int = 4,
+                acc: bool = False):
+    """The plan for these diagonals on ``device`` (in the accumulate mode
+    where ``acc``) and its table on the card (made once and kept)."""
     geometry = GEOMETRY if geometry is None else geometry
     device = torch.device(device)
-    key = (offsets, dim_r, vec, geometry, value_bytes, device)
+    key = (offsets, dim_r, vec, geometry, value_bytes, acc, device)
     hit = _plans.get(key)
     if hit is None:
-        probe = make_plan(offsets, dim_r, geometry, 1, value_bytes)
+        probe = make_plan(offsets, dim_r, geometry, 1, value_bytes, acc)
         per_sm = min(geometry.blocks_per_sm,
                      resident_blocks(geometry, probe.smem_bytes, vec, device,
-                                     value_bytes))
+                                     value_bytes, acc))
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
         plan = make_plan(offsets, dim_r, geometry, per_sm * n_sm,
-                         value_bytes)
+                         value_bytes, acc)
         hit = (plan, torch.tensor(plan.table(), dtype=torch.int32,
                                   device=device))
         _plans[key] = hit
@@ -326,26 +337,45 @@ def _check(e: EhybDevice, x_pad: torch.Tensor) -> None:
         raise ValueError(f"dia_val on {v.device}, x_pad on {x_pad.device}")
 
 
+def _check_out(e: EhybDevice, x_pad: torch.Tensor, out) -> None:
+    """Refuse an ``out`` the accumulate mode cannot add into."""
+    if out is None:
+        return
+    dim_r = e.dia_val.shape[1] if e.dia_offsets else 0
+    if out.dtype != x_pad.dtype or out.dim() != 1 \
+            or not out.is_contiguous() or out.device != x_pad.device \
+            or out.shape[0] < dim_r:
+        raise ValueError(f"out must be a contiguous 1-D {x_pad.dtype} "
+                         f"tensor on {x_pad.device} of at least {dim_r} "
+                         f"rows")
+
+
 def _launch(e: EhybDevice, x_pad: torch.Tensor,
-            geometry: DiaGeometry = None) -> torch.Tensor:
-    """One launch at ``geometry`` (the default where None), counted."""
+            geometry: DiaGeometry = None,
+            out: torch.Tensor = None) -> torch.Tensor:
+    """One launch at ``geometry`` (the default where None), counted: into
+    a new y, or added into ``out`` (the accumulate mode)."""
     _check(e, x_pad)
+    _check_out(e, x_pad, out)
     v = e.dia_val
     dim_r = v.shape[1]
-    vec = dim_r % 4 == 0 and v.data_ptr() % 16 == 0
+    acc = out is not None
+    vec = dim_r % 4 == 0 and v.data_ptr() % 16 == 0 \
+        and (not acc or out.data_ptr() % 16 == 0)
     vb = v.element_size()
     plan, table = device_plan(e.dia_offsets, dim_r, vec, x_pad.device,
-                              geometry, vb)
+                              geometry, vb, acc)
     g = plan.geometry
-    y = torch.empty(dim_r, dtype=v.dtype, device=x_pad.device)
+    y = out if acc else torch.empty(dim_r, dtype=v.dtype,
+                                    device=x_pad.device)
     if not dim_r:
         return y
     rc = _lib.ehyb_dia(
         v.data_ptr(), table.data_ptr(), len(plan.offsets), len(plan.runs),
         plan.offsets[0], plan.offsets[-1], dim_r, x_pad.data_ptr(),
         x_pad.shape[0], y.data_ptr(), g.step, g.quads, int(plan.staged),
-        int(vec), int(vb == 8), g.threads, plan.grid, plan.tile_quads,
-        plan.stage_floats, plan.smem_bytes,
+        int(vec), int(vb == 8), int(acc), g.threads, plan.grid,
+        plan.tile_quads, plan.stage_floats, plan.smem_bytes,
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ehyb_dia launch failed: CUDA error {rc}")
@@ -353,19 +383,24 @@ def _launch(e: EhybDevice, x_pad: torch.Tensor,
     return y
 
 
-def dia_body(e: EhybDevice, x_pad: torch.Tensor) -> torch.Tensor:
+def dia_body(e: EhybDevice, x_pad: torch.Tensor,
+             out: torch.Tensor = None) -> torch.Tensor:
     """y[i] = Σ_k dia_val[k, i] · x[i + d_k] for i < dia_val.shape[1], an x
-    index outside x_pad reading as zero; length 0 without diagonals.
+    index outside x_pad reading as zero; length 0 without diagonals.  With
+    ``out`` (at least that many rows) each row's sum is added into
+    ``out[i]`` in place (``out[i] + y[i]``), and ``out`` is returned.
 
     CPU tensors take :func:`dia_body_plain`; CUDA tensors launch the kernel
-    (float64 values and x take the float64 kernel) or raise."""
+    (float64 values and x take the float64 kernel; ``out`` its accumulate
+    mode) or raise."""
     if x_pad.device.type == "cpu":
-        return dia_body_plain(e, x_pad)
+        return dia_body_plain(e, x_pad, out)
     if x_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {x_pad.device}")
     if not e.dia_offsets:
-        return x_pad.new_zeros(0)
-    return _launch(e, x_pad)
+        _check_out(e, x_pad, out)
+        return x_pad.new_zeros(0) if out is None else out
+    return _launch(e, x_pad, out=out)
 
 
 #: Kernel launches since the count was last reset (a run sets it to 0 to
@@ -373,7 +408,23 @@ def dia_body(e: EhybDevice, x_pad: torch.Tensor) -> torch.Tensor:
 dia_body.launches = 0
 
 
-def dia_body_plain(e: EhybDevice, x_pad: torch.Tensor) -> torch.Tensor:
-    """Plain-torch version of the kernel: the shifted-slice op, one
-    ``addcmul_`` per diagonal (same inputs, same output)."""
-    return ehyb_dia(e, x_pad)
+def dia_body_plain(e: EhybDevice, x_pad: torch.Tensor,
+                   out: torch.Tensor = None) -> torch.Tensor:
+    """Plain-torch version of the kernel: the shifted-slice op with a
+    product and an add per diagonal, in the kernel's order and rounding
+    (same inputs, same output, bit for bit on the CPU; the plain models'
+    ``torch_ops.ehyb_dia`` fuses them); with ``out`` the rows' sums are
+    then added into it in one add, as the kernel's accumulate mode adds
+    them."""
+    _check_out(e, x_pad, out)
+    if not e.dia_offsets:
+        y = x_pad.new_zeros(0)
+    else:
+        y = x_pad.new_zeros(e.dia_val.shape[1])
+        for v, xs in dia_terms(e, x_pad):
+            # a product, then an add: a fused multiply-add would round once
+            y.add_(v * xs)
+    if out is None:
+        return y
+    out[:y.shape[0]].add_(y)
+    return out

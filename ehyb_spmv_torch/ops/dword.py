@@ -14,15 +14,15 @@ the mode is the plain EHYB apply in f64.
   no hub-row splitting, no relaxed-layout switch.  The flagship pins no
   layout in this mode, as the JAX flagship runs no Pallas kernel in it, so
   ``ehyb``, ``ehyb_xla`` and ``hyb`` build the JAX package's ``EhybMatrix``.
-* The apply (:func:`make_dword_apply`) runs the SELL body through K1 over
-  its compact plan in f64 (``csrc/ehyb_stream.cu``; the unordered body is
+* The apply (:func:`make_dword_apply`) runs the SELL body, the ER tail and
+  the long rows (where the TPU packs lane chains) through K1 over one
+  compact plan in f64 (``csrc/ehyb_stream.cu``; the unordered body is
   scattered, so the plan takes direct columns and groups its rows where
-  that pays, and a heavy-tailed body's long row blocks go in chunks,
-  :func:`~.stream_cells.k1_plan`) and the DIA part
-  through K9 in f64 (``csrc/dia.cu``); the ER tail, long rows (an f64
-  ``index_add_`` over their stream, where the TPU packs lane chains) and
-  combine stay torch ops, in f64.  The TPU branch is the XLA one
-  (``module.branch == "dword xla"``): the window cache never runs here.
+  that pays, and a row block a hub row or its tail makes long goes in
+  chunks, :func:`~.stream_cells.k1_folded_plan`), then the DIA part
+  through K9 in f64 (``csrc/dia.cu``), added into K1's y.  The TPU branch
+  is the XLA one (``module.branch == "dword xla"``): the window cache
+  never runs here.
 * On the CPU the same module takes the kernels' plain versions, which are
   dtype-generic: the plain torch formulation in f64.
 
@@ -38,7 +38,7 @@ from ..config import EhybConfig
 from ..core.ehyb import EhybDevice, EhybMatrix
 from ..utils.log import get_logger
 from .ehyb_stream import EhybStreamApply
-from .stream_cells import k1_plan
+from .stream_cells import has_tail, k1_folded_plan
 
 log = get_logger(__name__)
 
@@ -55,25 +55,29 @@ def dword_config(cfg: EhybConfig) -> EhybConfig:
                                relax_body="never")
 
 
-def make_dword_apply(e: EhybMatrix, dev: EhybDevice):
+def make_dword_apply(e: EhybMatrix, dev: EhybDevice, cache: str = None):
     """The mode's apply for artifact ``e`` (f64 host values) and its device
-    mirror ``dev``: K1 over the body's compact plan and K9, both in f64,
-    the other phases as torch ops.  As in the flagship, ``dev`` gives up
-    its padded body once the plan is on the device; the plan's build
-    seconds are ``apply.plan_seconds``."""
+    mirror ``dev``: K1 over the compact plan of the body and the tail (ER
+    and long-row entries as cells of their true rows), then K9 adding the
+    diagonals into K1's y, both in f64.  As in the flagship, ``dev`` gives
+    up its padded body once the plan is on the device; the plan's build
+    seconds (its load's, where ``cache``, the artifact's cache path, holds
+    it: ``stream_cells.k1_folded_plan``) are ``apply.plan_seconds``."""
     t0 = time.perf_counter()
     cells = None
-    if dev.body_nnz:
-        plan = k1_plan(e)
+    if dev.body_nnz or has_tail(e):
+        plan = k1_folded_plan(e, cache=cache)
         cells = plan.to_torch(dev.slice_offset.device)
         dev.ell_col = dev.ell_val = None
         st = plan.stats
-        log.info("precision mode: K1 in f64 over %d row blocks (%d cut for "
-                 "the 16-bit range, %d of %d pieces direct, rows %s, %d in "
-                 "%d chunks), %.1f MB of cells", st["n_rb"],
-                 st["split_rbs"], st["direct_pieces"], st["n_pieces"],
-                 "grouped" if st["grouped"] else "in body order",
-                 st["chunked_rbs"], st["n_chunks"], st["cell_bytes"] / 1e6)
+        log.info("precision mode: K1 in f64 with the tail folded in (%d "
+                 "cells of ER and long-row entries) over %d row blocks (%d "
+                 "cut for the 16-bit range, %d of %d pieces direct, rows "
+                 "%s, %d in %d chunks), %.1f MB of cells", st["tail_cells"],
+                 st["n_rb"], st["split_rbs"], st["direct_pieces"],
+                 st["n_pieces"], "grouped" if st["grouped"] else
+                 "in body order", st["chunked_rbs"], st["n_chunks"],
+                 st["cell_bytes"] / 1e6)
     # the TPU's branch here: the JAX package's XLA dword formulation
     apply = EhybStreamApply(dev, cells=cells, branch="dword xla")
     apply.plan_seconds = time.perf_counter() - t0

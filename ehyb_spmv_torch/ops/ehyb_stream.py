@@ -14,12 +14,15 @@ fallbacks.  :func:`make_stream_apply` picks K1 or the window-cache kernel
 :func:`stream_body` launches the kernel for tensors on a CUDA device and
 takes the plain version :func:`stream_body_plain` only for tensors on the
 CPU.  A CUDA call launches the kernel or raises; nothing falls back.  The
+flagship's plan holds the EHYB tail too (:func:`~.stream_cells.k1_folded_plan`:
+ER, long-row and hub-split entries as cells of their true rows), so its
+apply is K1 into a fresh y, then K9 adding the diagonals into it.  The
 plan's values and x are float32, or float64 (the precision mode,
 ``ops/dword.py``, and a ``dtype="float64"`` config), whose kernels are
 built at one row a thread with x through L1/L2, plain or Kahan, with or
 without a row-block list: a plan in the table form and the body's row
 order takes the float kernel's code in float64, and a plan with direct
-pieces or a row map (:func:`~.stream_cells.k1_plan`: a scattered body's)
+pieces or a row map (:func:`~.stream_cells.k1_options`: a scattered body's)
 a float64 kernel of its own.  A plan in the split form (a heavy-tailed
 body's: row blocks cut into chunks, ``stream_cells.split``) takes a split
 variant, built at one row a thread with x through L1/L2, in float32 and
@@ -43,9 +46,10 @@ from .build import BuiltLibrary, build_cuda_library
 from .dia import SMEM_LIMIT_BYTES, dia_body
 from .ehyb_wincache import WinCacheDevice, build_wincache_plan, wincache_body
 from .stream_cells import (BLOCK_ROWS, PIECE_CELL, PIECE_RB, PIECE_ROW,
-                           StreamCellsDevice, k1_plan, split)
-from .torch_ops import (chain_offsets, combine_ehyb, ehyb_er, ehyb_long,
-                        neumaier_add, neumaier_pairs)
+                           StreamCellsDevice, has_tail, k1_folded_plan,
+                           split)
+from .torch_ops import (add_tail_, chain_offsets, ehyb_er, ehyb_long,
+                        fold_split_, neumaier_add, neumaier_pairs)
 
 log = get_logger(__name__)
 
@@ -483,61 +487,94 @@ def fold_pairs(p: StreamCellsDevice, y: torch.Tensor, s: torch.Tensor,
 
 
 class EhybStreamApply(torch.nn.Module):
-    """Device apply of the flagship: the body kernel, the DIA kernel and the
-    torch ER, long-row and combine phases.  ``forward(x_pad)`` → padded y.
+    """Device apply of the flagship.  ``forward(x_pad)`` → padded y, of the
+    body's length (``n_slices * 128`` rows; ``models/base.py``'s
+    ``_resize_like`` fits it to x).
 
-    The body runs through the window-cache kernel when ``wincache`` (its
-    plan on the device) is given, else through K1 over ``cells`` (its
-    plan on the device)."""
+    Where K1 runs (``cells``, its plan on the device, which must hold the
+    EHYB tail: :func:`~.stream_cells.k1_folded_plan`), a call is two
+    launches: K1 writes y (body, ER, long and hub-split rows), then K9 adds
+    the diagonals into it in place.  Where the window cache runs the body
+    (``wincache``, its plan on the device), K9 adds into the window cache's
+    y in place and the tail stays torch ops added into it
+    (:func:`~.torch_ops.fold_split_`, :func:`~.torch_ops.add_tail_`).  An
+    artifact with neither a body nor a tail is K9's alone."""
 
     def __init__(self, e: EhybDevice, kahan: bool = False,
                  cells: StreamCellsDevice = None,
                  wincache: WinCacheDevice = None, branch: str = ""):
         super().__init__()
-        if e.body_nnz and (cells is None) == (wincache is None):
+        if cells is not None and wincache is not None or \
+                e.body_nnz and cells is None and wincache is None:
             raise ValueError("a body needs exactly one plan: K1's cells or "
                              "the window cache's")
+        if wincache is None and has_tail(e) and (
+                cells is None or not cells.stats.get("folded")):
+            raise ValueError("the artifact has ER, long-row or hub-split "
+                             "entries, and K1's plan does not hold them: "
+                             "build it with stream_cells.k1_folded_plan")
         self.e = e
         self.kahan = kahan
         self.cells = cells
         self.wincache = wincache
         #: The TPU branch the JAX flagship takes for this artifact.
         self.branch = branch
+        #: y's rows: the body's.
+        self.n_rows = e.slice_win_start.shape[0] * LANES
+        #: The ER lanes before the padding (the window-cache path's tail).
+        self.n_er_rows = int((e.er_rows < e.dim).sum()) \
+            if wincache is not None else 0
 
     def body(self, x_pad: torch.Tensor) -> torch.Tensor:
-        e = self.e
-        if e.body_nnz == 0:
-            # everything went to DIA/ER/long: nothing for the body to do
-            return x_pad.new_zeros(e.slice_win_start.shape[0] * LANES)
+        """The body's sums: K1's with the tail folded in, or the window
+        cache's (the body alone)."""
         if self.wincache is not None:
-            return wincache_body(e, self.wincache, x_pad, self.kahan)
+            return wincache_body(self.e, self.wincache, x_pad, self.kahan)
+        if self.cells is None:
+            # everything went to DIA: nothing for the body to do
+            return x_pad.new_zeros(self.n_rows)
         return stream_body(self.cells, x_pad, self.kahan)
 
     def forward(self, x_pad: torch.Tensor) -> torch.Tensor:
         e = self.e
-        return combine_ehyb(e, self.body(x_pad), ehyb_er(e, x_pad),
-                            ehyb_long(e, x_pad), dia_body(e, x_pad))
+        if self.wincache is not None:
+            y = fold_split_(e, self.body(x_pad))
+            dia_body(e, x_pad, out=y)
+            return add_tail_(e, y, ehyb_er(e, x_pad), ehyb_long(e, x_pad),
+                             self.n_er_rows)
+        if self.cells is None and e.dia_offsets:
+            return dia_body(e, x_pad)
+        return dia_body(e, x_pad, out=self.body(x_pad))
 
     def phases(self) -> dict:
-        """Each phase of the apply as a function of x_pad, by name."""
+        """Each phase of the apply as a function of x_pad, by name: K1's
+        (the body with the tail) and K9's; the window-cache path's body
+        (the window cache), K9's and its torch ER and long rows."""
         e = self.e
-        return {"dia": lambda x: dia_body(e, x), "body": self.body,
-                "er": lambda x: ehyb_er(e, x),
-                "long": lambda x: ehyb_long(e, x)}
+        out = {"body": self.body, "dia": lambda x: dia_body(e, x)}
+        if self.wincache is not None:
+            out.update(er=lambda x: ehyb_er(e, x),
+                       long=lambda x: ehyb_long(e, x))
+        return out
 
 
 def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,
-                      value_bytes: int = 4) -> EhybStreamApply:
+                      value_bytes: int = 4,
+                      cache: str = None) -> EhybStreamApply:
     """The flagship's apply for this artifact: the TPU branch decides the
     body kernel.  Where the JAX package runs K3 or K4 (x past
     ``X_RESIDENT_BYTES`` and the window-cache plan schedules) the body goes
     through the window-cache kernel; everywhere else through K1, which
-    computes the bodies of K2, K5 and K6 and the XLA fallbacks too.
+    computes the bodies of K2, K5 and K6 and the XLA fallbacks too, and
+    the EHYB tail with them (its plan is ``k1_folded_plan``'s; an empty
+    body with a tail gets a plan of the tail alone).
 
     Both kernels read a plan of the body's real cells, built here from
     ``e`` and uploaded beside ``dev``, so ``dev`` then gives up its padded
     cells (``ell_col`` and ``ell_val`` become None); ``e`` keeps them on
-    the host.  The plan's build seconds are ``apply.plan_seconds``."""
+    the host.  The plan's build seconds are ``apply.plan_seconds``; with
+    ``cache`` (the artifact's cache path) K1's plan is cached beside the
+    artifact, and a cached one loaded (``stream_cells.k1_folded_plan``)."""
     branch = stream_plan.tpu_body_branch(e, value_bytes)
     device = dev.slice_offset.device
     cells = wincache = None
@@ -553,18 +590,20 @@ def make_stream_apply(e: EhybMatrix, dev: EhybDevice, kahan: bool = False,
                  st["chunked_slices"], st["cell_bytes"] / 1e6,
                  st["body_bytes"] / 1e6, st["staged_bytes"] / 1e6,
                  st["x_bytes"] / 1e6)
-    elif branch != "skipped":
-        plan = k1_plan(e)
+    elif branch != "skipped" or has_tail(e):
+        plan = k1_folded_plan(e, cache=cache)
         cells = plan.to_torch(device)
         st = plan.stats
-        log.info("body [%s on the TPU]: K1, %d row blocks (%d cut into "
-                 "pieces, %d in %d chunks of at most %d steps), %.1f MB "
-                 "of cells in place of %.1f MB padded", branch, st["n_rb"],
+        log.info("body [%s on the TPU]: K1 with the tail folded in (%d "
+                 "cells of ER, long-row and hub-split entries), then K9 "
+                 "into its y; %d row blocks (%d cut into pieces, %d in %d "
+                 "chunks of at most %d steps), %.1f MB of cells in place "
+                 "of %.1f MB padded", branch, st["tail_cells"], st["n_rb"],
                  st["split_rbs"], st["chunked_rbs"], st["n_chunks"],
                  st["split_steps"], st["cell_bytes"] / 1e6,
                  st["body_bytes"] / 1e6)
     else:
-        log.info("body [%s on the TPU]: none (all DIA/ER/long)", branch)
+        log.info("body [%s on the TPU]: none (all DIA): K9 alone", branch)
     if cells is not None or wincache is not None:
         dev.ell_col = dev.ell_val = None
     apply = EhybStreamApply(dev, kahan=kahan, cells=cells,

@@ -24,7 +24,7 @@ real ones and re-encodes them for ``csrc/ehyb_stream.cu``:
 Two options serve a body whose columns are scattered, as the precision
 mode's unordered one (``ops/dword.py``), where a table holds about one x
 row per cell; the float64 kernel reads them, so they are asked for float64
-values only (:func:`k1_plan`):
+values only (:func:`k1_options`):
 
 * **direct pieces** (``direct_below``): a piece with fewer cells than
   ``direct_below`` times its table rows keeps no table and stores each
@@ -41,8 +41,8 @@ values only (:func:`k1_plan`):
 
 A third option serves a heavy-tailed body, whose hub rows make some row
 blocks far wider than the rest; every K1 variant but the row-block lists
-reads it (:func:`k1_plan` takes it for float32 and float64 values, with or
-without compensation, over any of the forms above):
+reads it (:func:`k1_options` takes it for float32 and float64 values, with
+or without compensation, over any of the forms above):
 
 * **the split form** (``split_steps``): a row block wider than
   ``split_steps`` steps (the sum of its pieces' widths) is cut into pieces
@@ -58,12 +58,34 @@ without compensation, over any of the forms above):
   ``split_steps`` gets the plan it gets without the option, byte for
   byte.
 
+The flagship's plan also **folds the EHYB tail** (``fold``,
+:func:`k1_folded_plan`): every entry the apply would otherwise add around
+K1 becomes a cell of its true row, after the row's body cells, so K1
+computes the body, the ER tail, the long rows and the hub-split rows into
+one y, and K9 then adds the diagonals into it (``ops/ehyb_stream.py``).
+A row's cells then run: its body cells in step order, the cells of the
+overflow rows that ``split_src`` maps to it (``split_dst``; in split
+order, each in step order), its ER entries (``er_val``/``er_col`` by
+``er_rows``, in ER step order; padding lanes and the dump row dropped) and
+its long-row entries (``long_val``/``long_col`` by ``long_seg``, in stream
+order).  The overflow rows themselves keep no cell, so K1 writes them 0.
+The appended cells take the piece forms above like any other, and a row
+block their tail makes wider than ``split_steps`` the split form.  An
+artifact with no tail gets the plan it gets without the option, byte for
+byte; one with an empty body and a tail a plan of its tail alone.
+
 The arrays are the plan's only link to the padded body: the flagship frees
-the padded cells on the device once the plan is uploaded.
+the padded cells on the device once the plan is uploaded.  Where the
+artifact cache is on, the flagship's plan is cached beside the artifact
+(:func:`k1_folded_plan`'s ``cache``), so a cached setup loads it.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -71,6 +93,9 @@ import torch
 from ..config import LANES
 from ..core.coo import MatrixCOO
 from ..core.ehyb import EhybMatrix
+from ..utils.log import get_logger
+
+log = get_logger(__name__)
 
 #: Rows of a row block: one width, one table.
 BLOCK_ROWS = 32
@@ -115,6 +140,11 @@ SPLIT_STEPS_F64 = 80
 #: 32-B sectors a row block writes to y in body order, and through a row
 #: map (one a row): the grouping's cost in the sector estimate.
 _Y_SECTORS = (BLOCK_ROWS * 8 // 32, BLOCK_ROWS)
+
+#: Bump on any change to the plans :func:`build_stream_cells` makes: a
+#: cached plan (:func:`k1_folded_plan`'s ``cache``) is the builder's
+#: output, keyed by its inputs.
+PLAN_VERSION = 1
 
 #: Columns of the ``piece`` array.
 PIECE_CELL, PIECE_ROW, PIECE_NEXT, PIECE_RB = range(4)
@@ -172,6 +202,26 @@ class StreamCellsPlan:
     def to_torch(self, device=None) -> "StreamCellsDevice":
         return StreamCellsDevice(self).to(device)
 
+    def save(self, path: str) -> None:
+        """Write the plan to ``path`` (an uncompressed ``.npz``), through a
+        temporary file, so that a reader sees the whole plan or none."""
+        arrays = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(self)
+                  if f.name not in ("n_slices", "stats")}
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
+        np.savez(tmp, n_slices=self.n_slices, stats_json=json.dumps(
+            self.stats, default=lambda v: v.item()), **arrays)
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "StreamCellsPlan":
+        """The plan :meth:`save` wrote to ``path``."""
+        with np.load(path) as z:
+            kw = {k: z[k] for k in z.files if k not in ("n_slices",
+                                                         "stats_json")}
+            return cls(n_slices=int(z["n_slices"]),
+                       stats=json.loads(str(z["stats_json"])), **kw)
+
 
 class StreamCellsDevice(torch.nn.Module):
     """Device mirror of :class:`StreamCellsPlan`: its arrays as buffers,
@@ -222,6 +272,30 @@ def split(p) -> bool:
     return len(p.item) > 0
 
 
+def _stable_order(key: np.ndarray) -> np.ndarray:
+    """``np.argsort(key, kind="stable")`` of non-negative integer keys:
+    where ``key * n + i`` fits in int64, a sort of those values (numpy
+    sorts int64 values several times faster than it argsorts them)."""
+    n = key.size
+    if n and int(key.max()) < np.iinfo(np.int64).max // n - 1:
+        return np.sort(key.astype(np.int64) * n + np.arange(n)) % n
+    return np.argsort(key, kind="stable")
+
+
+def _unique_first(key: np.ndarray):
+    """The sorted distinct values of ``key`` (non-negative integers), the
+    index of each one's first occurrence, and each element's index into
+    them: ``np.unique(key, return_index=True, return_inverse=True)``."""
+    o = _stable_order(key)
+    s = key[o]
+    new = np.empty(s.size, bool)
+    new[:1] = True
+    np.not_equal(s[1:], s[:-1], out=new[1:])
+    inv = np.empty(s.size, np.int64)
+    inv[o] = np.cumsum(new) - 1
+    return s[new], o[new], inv
+
+
 def decode_columns(e: EhybMatrix, a: int, b: int) -> np.ndarray:
     """(b - a, 128) global x column of every cell of steps [a, b): the
     decoding of ``ops/torch_ops.py::body_gather_index`` (plain window-local
@@ -241,35 +315,56 @@ def decode_columns(e: EhybMatrix, a: int, b: int) -> np.ndarray:
     return base + ((attr >> 7) & 7) * LANES + lo
 
 
-def _cut_pieces(step: np.ndarray, xrow: np.ndarray, max_steps: int = 0):
-    """Piece number of each cell of one row block (cells in step order):
-    greedy over its steps, a piece closes where the next step's x rows
-    would take its table past ``MAX_TABLE_ROWS``, or where it holds
-    ``max_steps`` steps (0: no such limit).  Each piece is found in numpy
-    over a window of steps that doubles until the piece ends inside it."""
-    bounds = np.r_[0, np.flatnonzero(np.diff(step)) + 1, step.size]
-    n_steps = bounds.size - 1
+def _cut_pieces(step: np.ndarray, xrow: np.ndarray, max_steps: int = 0,
+                group: np.ndarray = None):
+    """Piece number of each cell of row blocks ``group`` (0, 1, ...; None:
+    one row block), each block's cells in step order and the blocks one
+    after another: greedy over a block's steps, a piece closes where the
+    next step's x rows would take its table past ``MAX_TABLE_ROWS``, or
+    where it holds ``max_steps`` steps (0: no such limit).  Every block's
+    next piece is found at once in numpy, over a window of steps from its
+    start that doubles until the piece ends inside it."""
+    if not step.size:
+        return np.zeros(0, np.int64)
+    g = np.zeros(step.size, np.int64) if group is None else group
+    sb = np.r_[np.flatnonzero(np.r_[True, (step[1:] != step[:-1])
+                                    | (g[1:] != g[:-1])]), step.size]
+    # each block's steps: sb[first[b]:first[b + 1]] (its cells' offsets)
+    n_blocks = int(g[-1]) + 1
+    first = np.searchsorted(g[sb[:-1]], np.arange(n_blocks + 1))
+    n_x = int(xrow.max()) + 1
     piece = np.zeros(step.size, np.int64)
-    n = i0 = 0
-    while i0 < n_steps:
-        lim = min(n_steps, i0 + max_steps) if max_steps else n_steps
-        w = 64
-        while True:
-            i1 = min(lim, i0 + w)
-            _, first = np.unique(xrow[bounds[i0]:bounds[i1]],
-                                 return_index=True)
-            if first.size > MAX_TABLE_ROWS:
-                # the step holding the first x row past the table closes it
-                at = np.sort(first)[MAX_TABLE_ROWS] + bounds[i0]
-                end = int(np.searchsorted(bounds, at, side="right")) - 1
-                break
-            if i1 == lim:
-                end = lim
-                break
-            w *= 2
-        piece[bounds[i0]:bounds[end]] = n
-        n += 1
-        i0 = end
+    cur, n = first[:-1].copy(), np.zeros(n_blocks, np.int64)
+    w0 = max_steps or 64
+    win = np.full(n_blocks, w0, np.int64)
+    act = np.flatnonzero(cur < first[1:])
+    while act.size:
+        s, end = cur[act], first[act + 1]
+        lim = np.minimum(end, s + max_steps) if max_steps else end
+        e = np.minimum(lim, s + win[act])
+        c0, cnt = sb[s], sb[e] - sb[s]
+        at = np.cumsum(cnt) - cnt
+        idx = np.repeat(c0 - at, cnt) + np.arange(int(cnt.sum()))
+        w = np.repeat(np.arange(act.size), cnt)
+        # the x rows each window has seen so far, in cell order
+        new = np.zeros(idx.size, np.int64)
+        new[_unique_first(w * n_x + xrow[idx])[1]] = 1
+        seen = np.cumsum(new)
+        seen -= (seen[at] - new[at])[w]
+        p = np.flatnonzero(seen > MAX_TABLE_ROWS)
+        # the step holding a window's first x row past the table closes it
+        p = p[np.r_[True, w[p][1:] != w[p][:-1]]] if p.size else p
+        close = np.where(e == lim, e, -1)
+        close[w[p]] = np.searchsorted(sb, idx[p], side="right") - 1
+        done = close >= 0
+        mine = done[w] & (idx < sb[np.maximum(close, 0)][w])
+        piece[idx[mine]] = n[act][w[mine]]
+        a = act[done]
+        n[a] += 1
+        cur[a] = close[done]
+        win[a] = w0
+        win[act[~done]] *= 2
+        act = act[cur[act] < first[act + 1]]
     return piece
 
 
@@ -289,6 +384,80 @@ def _decode(e: EhybMatrix, s0: int, s1: int, offs: np.ndarray):
     row = (s0 + sl) * LANES + ln
     col = decode_columns(e, a, b)[st, ln]
     return row, k, a + st, col, val[st, ln]
+
+
+def _tail(e: EhybMatrix, offs: np.ndarray, n_rows: int):
+    """The cells the fold appends (see the module docstring), each as (true
+    row, x column, value), sorted by row and in a row's order: the
+    hub-split overflow rows' body cells, the ER entries, the long-row
+    entries; and a mask of the overflow rows (None where there are none).
+    Zero values are dropped, as the body's padding is."""
+    rows, cols, vals = [], [], []
+    is_src = None
+    if e.split_src.size:
+        src = e.split_src.astype(np.int64)
+        owner = np.full(n_rows, -1, np.int64)
+        owner[src] = np.arange(src.size)
+        is_src = owner >= 0
+        s0, s1 = int(src.min()) // LANES, int(src.max()) // LANES + 1
+        row, k, _, col, val = _decode(e, s0, s1, offs)
+        mine = owner[row]
+        sel = mine >= 0
+        # each overflow row's cells in step order, the rows in split order
+        o = np.lexsort((k[sel], mine[sel]))
+        rows.append(e.split_dst.astype(np.int64)[mine[sel][o]])
+        cols.append(col[sel][o])
+        vals.append(val[sel][o])
+    if e.er_val.size:
+        er_offs = e.er_slice_offset.astype(np.int64)
+        st, ln = np.nonzero(e.er_val[:int(er_offs[-1])] != 0)
+        step_slice = np.repeat(np.arange(er_offs.size - 1), np.diff(er_offs))
+        row = e.er_rows.astype(np.int64)[step_slice[st] * e.er_val.shape[1]
+                                         + ln]
+        keep = row < e.dim                    # the dump row: padding lanes
+        rows.append(row[keep])
+        cols.append(e.er_col[st, ln][keep].astype(np.int64))
+        vals.append(e.er_val[st, ln][keep])
+    if e.long_val.size:
+        keep = e.long_val != 0
+        rows.append(e.long_rows.astype(np.int64)[e.long_seg[keep]])
+        cols.append(e.long_col[keep].astype(np.int64))
+        vals.append(e.long_val[keep])
+    if not rows:
+        return None, is_src
+    row = np.concatenate(rows)
+    o = _stable_order(row)
+    return (row[o], np.concatenate(cols)[o],
+            np.concatenate(vals).astype(e.ell_val.dtype)[o]), is_src
+
+
+def _fold_span(cells, tail, is_src, r0: int, r1: int, n_steps: int):
+    """A span's decoded body cells (``_decode``: rows in [r0, r1)) with the
+    tail folded in: the overflow rows' cells dropped (``is_src``), and the
+    tail's cells of these rows appended at the places after each row's
+    body cells, ordered by place; a tail cell's step is ``n_steps`` plus
+    its place, so a row block's pieces are cut between places there."""
+    row, k, st, col, val = cells
+    if is_src is not None:
+        keep = ~is_src[row]
+        row, k, st, col, val = row[keep], k[keep], st[keep], col[keep], \
+            val[keep]
+    if tail is None:
+        return row, k, st, col, val
+    t_row, t_col, t_val = tail
+    lo, hi = np.searchsorted(t_row, (r0, r1))
+    if lo == hi:
+        return row, k, st, col, val
+    t_row, t_col, t_val = t_row[lo:hi], t_col[lo:hi], t_val[lo:hi]
+    n = hi - lo
+    count = np.bincount(row - r0, minlength=r1 - r0)
+    first = np.r_[0, np.flatnonzero(np.diff(t_row)) + 1]
+    rank = np.arange(n) - np.repeat(first, np.diff(np.r_[first, n]))
+    t_k = count[t_row - r0] + rank
+    o = _stable_order(t_k)
+    return (np.concatenate([row, t_row[o]]), np.concatenate([k, t_k[o]]),
+            np.concatenate([st, n_steps + t_k[o]]),
+            np.concatenate([col, t_col[o]]), np.concatenate([val, t_val[o]]))
 
 
 def _widths(rb, row, pc, n_rb: int) -> np.ndarray:
@@ -333,41 +502,83 @@ def _units(rb, lane, k, step, col, val, n_rb: int, n_xrows: int,
                               > split_steps)
     pc = np.zeros(rb.size, np.int64)
     unit = rb.copy()
-    extra_rb = []
+    extra_rb = np.zeros(0, np.int64)
     if over.size or long.size:
-        order = np.argsort(rb, kind="stable")
+        order = _stable_order(rb)
         bounds = np.searchsorted(rb[order], np.arange(n_rb + 1))
 
-        def cut(rbs, max_steps: int) -> None:
-            for r in rbs:
-                cells = order[bounds[r]:bounds[r + 1]]
-                pc[cells] = _cut_pieces(step[cells], xrow[cells], max_steps)
+        def rb_cells(rbs) -> np.ndarray:
+            """The cells of row blocks ``rbs``, each block's in step
+            order."""
+            n = bounds[rbs + 1] - bounds[rbs]
+            before = np.cumsum(n) - n
+            return order[np.repeat(bounds[rbs] - before, n)
+                         + np.arange(int(n.sum()))]
 
-        cut(over, 0)
-        if split_steps and over.size:
+        def cut_by_steps(rbs, max_steps: int) -> np.ndarray:
+            """The greedy cut of :func:`_cut_pieces` where it is a cut every
+            ``max_steps`` steps (no such piece reads more x rows than a
+            table holds), for all of ``rbs`` at once; returns the row blocks
+            it is not."""
+            cells = rb_cells(rbs)
+            g = np.repeat(np.arange(rbs.size), bounds[rbs + 1] - bounds[rbs])
+            st = step[cells]
+            new = np.r_[True, (st[1:] != st[:-1]) | (g[1:] != g[:-1])]
+            rank = np.cumsum(new) - 1
+            first = np.r_[0, np.flatnonzero(np.diff(g)) + 1]
+            piece = (rank - rank[first][g]) // max_steps
+            key = np.unique((g * (piece.max() + 1) + piece) * n_xrows
+                            + xrow[cells])
+            unit_key = key // n_xrows
+            count = np.bincount(unit_key, minlength=rbs.size
+                                * (int(piece.max()) + 1))
+            fits = count.reshape(rbs.size, -1).max(axis=1) <= MAX_TABLE_ROWS
+            ok = fits[g]
+            pc[cells[ok]] = piece[ok]
+            return rbs[~fits]
+
+        def cut(rbs, max_steps: int) -> None:
+            if max_steps and rbs.size:
+                rbs = cut_by_steps(rbs, max_steps)
+            if rbs.size:
+                cells = rb_cells(rbs)
+                g = np.repeat(np.arange(rbs.size),
+                              bounds[rbs + 1] - bounds[rbs])
+                pc[cells] = _cut_pieces(step[cells], xrow[cells], max_steps,
+                                        g)
+
+        # a row block already long is cut once, below, by both limits
+        short = np.setdiff1d(over, long)
+        cut(short, 0)
+        if split_steps and short.size:
             # a cut row block is as wide as its pieces together
-            in_over = np.zeros(n_rb, bool)
-            in_over[over] = True
-            sel = in_over[rb]
+            in_short = np.zeros(n_rb, bool)
+            in_short[short] = True
+            sel = in_short[rb]
             width = _widths(rb[sel], row[sel], pc[sel], n_rb)
-            long = np.union1d(long, over[width[over] > split_steps])
+            long = np.union1d(long, short[width[short] > split_steps])
         cut(long, split_steps)
         cut_rbs = np.union1d(over, long)
-        for r in cut_rbs:
-            cells = order[bounds[r]:bounds[r + 1]]
-            unit[cells] = np.where(pc[cells] == 0, r,
-                                   n_rb + len(extra_rb) + pc[cells] - 1)
-            extra_rb += [r] * int(pc[cells].max())
+        # each cut row block's later pieces, numbered after the main pieces
+        # in (row block, piece) order
+        cells = rb_cells(cut_rbs)
+        n_later = np.zeros(n_rb, np.int64)
+        # a block's pieces follow its steps: its last cell's is its last
+        n_later[cut_rbs] = pc[cells[np.cumsum(
+            bounds[cut_rbs + 1] - bounds[cut_rbs]) - 1]]
+        extra_rb = np.repeat(cut_rbs, n_later[cut_rbs])
+        before = np.zeros(n_rb, np.int64)
+        before[cut_rbs] = np.cumsum(n_later[cut_rbs]) - n_later[cut_rbs]
+        unit[cells] = np.where(pc[cells] == 0, rb[cells],
+                               n_rb + before[rb[cells]] + pc[cells] - 1)
         # a row's rank restarts in each piece: its rank among the row's
         # cells of the piece (the cut row blocks' cells in step order)
-        cells = order[np.concatenate([np.arange(bounds[r], bounds[r + 1])
-                                      for r in cut_rbs])]
         g = unit[cells] * BLOCK_ROWS + row[cells]
-        o = np.argsort(g, kind="stable")
+        o = _stable_order(g)
         first = np.r_[0, np.flatnonzero(np.diff(g[o])) + 1]
         k[cells[o]] = np.arange(cells.size) - np.repeat(
             first, np.diff(np.r_[first, cells.size]))
-    n_units = n_rb + len(extra_rb)
+    n_units = n_rb + extra_rb.size
     # one width per unit: its longest row
     row_cells = np.bincount(unit * BLOCK_ROWS + row,
                             minlength=n_units * BLOCK_ROWS)
@@ -377,8 +588,7 @@ def _units(rb, lane, k, step, col, val, n_rb: int, n_xrows: int,
     pos = start[unit] + k * BLOCK_ROWS + row
     # each unit's distinct x rows, sorted; a unit with fewer cells than
     # direct_below a row keeps no table and reads its columns directly
-    key, inv = np.unique(unit * n_xrows + xrow, return_inverse=True)
-    inv = inv.reshape(-1)
+    key, _, inv = _unique_first(unit * n_xrows + xrow)
     key_unit = key // n_xrows
     t_size = np.bincount(key_unit, minlength=n_units)
     direct = (width > 0) & (width * BLOCK_ROWS
@@ -527,13 +737,15 @@ def _work_items(piece: np.ndarray, n_rb: int, split_steps: int):
 
 def build_stream_cells(e: EhybMatrix, x_rows: int = None,
                        direct_below: float = 0.0, group_rows: int = 0,
-                       split_steps: int = 0) -> StreamCellsPlan:
+                       split_steps: int = 0,
+                       fold: bool = False) -> StreamCellsPlan:
     """Decode the body of ``e`` once and re-encode its real cells as K1's
     compact plan.  ``x_rows`` is the length of the x the body reads
     (``e.padded_x_rows`` where None; a shard's ``x_ext`` is longer).
     ``direct_below`` and ``group_rows`` (0: off) are the scattered body's
     options of the module docstring, ``split_steps`` (0: off) the heavy
-    tail's; the float kernels read neither of the first two."""
+    tail's; the float kernels read neither of the first two.  With
+    ``fold`` the plan also holds the EHYB tail (the module docstring)."""
     offs = e.slice_offset.astype(np.int64)
     n_slices = offs.shape[0] - 1
     n_steps = int(offs[-1]) if n_slices else 0
@@ -541,6 +753,17 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
     n_xrows = -(-x_rows // LANES)
     n_rb = RB_PER_SLICE * n_slices
     val_dtype = e.ell_val.dtype
+    tail, is_src = _tail(e, offs, n_rb * BLOCK_ROWS) if fold else (None,
+                                                                    None)
+    n_tail = 0 if tail is None else int(tail[0].size)
+
+    def cells_of(a: int, b: int):
+        cells = _decode(e, a, b, offs)
+        if tail is None and is_src is None:
+            return cells
+        return _fold_span(cells, tail, is_src, a * LANES, b * LANES,
+                          n_steps)
+
     spans = []
     s0 = 0
     while s0 < n_slices:
@@ -551,15 +774,16 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
         s0 = s1
     # a body whose row blocks hold fewer cells than direct_below an x row
     # is scattered: a grouping of its rows is weighed.  While the spans so
-    # far are scattered, their decoded cells (row, place, column, value)
-    # are kept for it, so such a body is decoded once; once they are not,
-    # the kept cells go, and a body scattered after all is decoded again
+    # far are scattered, their decoded cells (row, place, column, value,
+    # whether a body cell) are kept for it, so such a body is decoded once;
+    # once they are not, the kept cells go, and a body scattered after all
+    # is decoded again
     kept = [] if group_rows and n_rb else None
     parts, n_keys, n_real = [], 0, 0
     for a, b in spans:
-        row, k, st, col, val = _decode(e, a, b, offs)
+        row, k, st, col, val = cells_of(a, b)
         if kept is not None:
-            kept.append((row, k.copy(), col, val))
+            kept.append((row, k.copy(), col, val, st < n_steps))
         rb0 = RB_PER_SLICE * a
         u = _units(row // BLOCK_ROWS - rb0, row, k, st, col, val,
                    RB_PER_SLICE * (b - a), n_xrows, direct_below, split_steps)
@@ -573,12 +797,17 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
     row_map = sectors = None
     if group_rows and n_rb and n_real < direct_below * n_keys:
         if kept is None:
-            kept = [(row, k, col, val) for row, k, _, col, val in
-                    (_decode(e, a, b, offs) for a, b in spans)]
-        row, k, col, val = (np.concatenate(a) for a in zip(*kept))
+            kept = [(row, k, col, val, st < n_steps)
+                    for row, k, st, col, val in
+                    (cells_of(a, b) for a, b in spans)]
+        row, k, col, val, body = (np.concatenate(a) for a in zip(*kept))
         kept = None
         n_rows = n_rb * BLOCK_ROWS
-        order = group_order(row, col, n_rows, group_rows)
+        # the partition reads the body's pattern: a folded tail's cells are
+        # out of the body's windows by construction, and would only make
+        # the partition (the build's costliest step) slower; the sectors
+        # are weighed over every cell
+        order = group_order(row[body], col[body], n_rows, group_rows)
         pos = np.empty(n_rows, np.int64)
         pos[order] = np.arange(n_rows)
         prow = pos[row]
@@ -587,11 +816,11 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
         if sectors[1] < sectors[0]:
             row_map = order
             # a row block's cells by place: its pieces cut between places
-            o = np.argsort(k, kind="stable")
+            o = _stable_order(k)
             parts = [_split(_units(
                 prow[o] // BLOCK_ROWS, prow[o], k[o], k[o], col[o], val[o],
                 n_rb, n_xrows, direct_below, split_steps), n_rb, 0)]
-        del row, k, col, val, prow
+        del row, k, col, val, prow, body
     piece, width, t_size, rows, cell_val, cell_idx, cell_col, direct = \
         _assemble(parts, n_rb, val_dtype)
     n_pieces = len(piece) - 1
@@ -621,6 +850,8 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
         n_rb=n_rb, n_pieces=n_pieces,
         split_rbs=int(np.unique(piece[n_rb:n_pieces, PIECE_RB]).size),
         real_cells=n_real, compact_cells=n_cells,
+        # the fold: whether the plan holds the tail, and its cells
+        folded=bool(fold), tail_cells=n_tail,
         padded_cells=n_steps * LANES,
         max_width=int(width.max()) if width.size else 0,
         # the most cells a row takes over its pieces (the places of the
@@ -664,13 +895,56 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
             piece_slot=piece_slot.astype(np.int32))))
 
 
-def k1_plan(e: EhybMatrix, x_rows: int = None) -> StreamCellsPlan:
-    """K1's plan of a flagship or precision-mode body, plain or compensated
-    alike: float64 values take direct pieces and grouped rows where the
-    body is scattered, and the split form where a row block is wider than
-    ``SPLIT_STEPS_F64``; float32 values the split form where a row block is
-    wider than ``SPLIT_STEPS``."""
+def k1_options(e: EhybMatrix) -> dict:
+    """The options of K1's plans for ``e``'s value type, plain or
+    compensated alike: float64 values take direct pieces and grouped rows
+    where the body is scattered, and the split form where a row block is
+    wider than ``SPLIT_STEPS_F64``; float32 values the split form where a
+    row block is wider than ``SPLIT_STEPS``.  ``build_stream_cells(e,
+    **k1_options(e))`` is the plan of the body alone."""
     if e.ell_val.dtype == np.float64:
-        return build_stream_cells(e, x_rows, DIRECT_BELOW, GROUP_ROWS,
-                                  SPLIT_STEPS_F64)
-    return build_stream_cells(e, x_rows, split_steps=SPLIT_STEPS)
+        return dict(direct_below=DIRECT_BELOW, group_rows=GROUP_ROWS,
+                    split_steps=SPLIT_STEPS_F64)
+    return dict(split_steps=SPLIT_STEPS)
+
+
+def k1_folded_plan(e: EhybMatrix, x_rows: int = None,
+                   cache: str = None) -> StreamCellsPlan:
+    """K1's plan of a flagship or precision-mode artifact: the body with
+    :func:`k1_options`, and the EHYB tail folded in, so that the plan holds
+    the whole apply but its diagonals (ER, long-row and hub-split entries
+    as cells of their true rows; the module docstring).  Where ``e`` has
+    no tail it is the body's plan byte for byte.
+
+    ``cache`` (None: off) is the artifact's path in the cache without its
+    suffix: the plan is read from a file beside it, keyed by the options,
+    ``x_rows``, the value type and ``PLAN_VERSION``, where one is there;
+    else built and written there, with its build's seconds in
+    ``stats["build_seconds"]``."""
+    opts = dict(k1_options(e), fold=True)
+    if cache is None:
+        return build_stream_cells(e, x_rows, **opts)
+    key = hashlib.sha256(json.dumps(dict(
+        opts, x_rows=x_rows, dtype=str(e.ell_val.dtype),
+        version=PLAN_VERSION), sort_keys=True).encode()).hexdigest()[:16]
+    path = f"{cache}.k1-{key}.npz"
+    if os.path.exists(path):
+        try:
+            plan = StreamCellsPlan.load(path)
+            log.info("loaded cached K1 plan <- %s", path)
+            return plan
+        except Exception as exc:  # a corrupted cache: build again
+            log.warning("K1 plan cache load failed (%s); rebuilding", exc)
+    t0 = time.perf_counter()
+    plan = build_stream_cells(e, x_rows, **opts)
+    plan.stats["build_seconds"] = time.perf_counter() - t0
+    plan.save(path)
+    log.info("cached K1 plan -> %s", path)
+    return plan
+
+
+def has_tail(e) -> bool:
+    """Whether artifact ``e`` (host or device) has entries outside its body
+    and diagonals: ER, long-row or hub-split ones."""
+    return bool(e.er_val.shape[0] or e.long_val.shape[0]
+                or e.split_src.shape[0])

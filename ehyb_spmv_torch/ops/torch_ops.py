@@ -3,10 +3,12 @@
 Port counterpart of ``ehyb_spmv_gpu_tpu/ops/xla_ops.py``: the COO product of
 the ``csr`` baseline and the EHYB phases.
 These are the port's always-available formulations: they run on the CPU
-(tests, oracle cross-checks) and on the GPU, where the flagship model keeps
-the ER tail, long rows, DIA and combine as torch ops (the JAX package leaves
-the same phases to XLA) and runs the SELL body through the hand-written
-kernel in ``ops/ehyb_stream.py``.
+(tests, oracle cross-checks), in the plain models (``ehyb_xla``, ``hyb``)
+and on the sharded path.  The flagship runs the SELL body and the tail
+through K1 and the DIA part through K9 (``ops/ehyb_stream.py``); where it
+runs the window cache instead of K1, the tail stays the torch ops here,
+added into the window cache's y in place (:func:`fold_split_`,
+:func:`add_tail_`).
 
 ``segment_sum`` and ``.at[].add`` become ``index_add_``.  Every function
 takes the :class:`~..core.ehyb.EhybDevice` mirror and a padded x.
@@ -102,14 +104,11 @@ def chain_offsets(group: torch.Tensor, width: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def ehyb_dia(e: EhybDevice, x_pad: torch.Tensor,
-             x_base: int = 0) -> torch.Tensor:
-    """DIA body: y[i] = Σ_k dia_val[k, i] · x[i + d_k], one shifted slice of
-    x per static offset.  Returns y of length ``dia_val.shape[1]``, or length
-    0 when no diagonals were extracted."""
+def dia_terms(e: EhybDevice, x_pad: torch.Tensor, x_base: int = 0) -> list:
+    """Each diagonal's (values, x slice): ``dia_val[k]`` and the slice of x
+    it multiplies, ``x[i + d_k]`` for i < ``dia_val.shape[1]`` (an index
+    outside x_pad reading as zero)."""
     offs = e.dia_offsets
-    if not offs:
-        return x_pad.new_zeros(0)
     dim_r = e.dia_val.shape[1]
     lo = min(min(offs) + x_base, 0)          # most negative slice start
     hi = max(max(offs) + x_base + dim_r, x_pad.shape[0])
@@ -117,11 +116,21 @@ def ehyb_dia(e: EhybDevice, x_pad: torch.Tensor,
     if lo < 0 or hi > x_pad.shape[0]:
         x_ext = torch.nn.functional.pad(x_pad, (-lo, hi - x_pad.shape[0]))
     dia_val = e.dia_val.to(x_pad.dtype)
-    y = x_pad.new_zeros(dim_r)
-    for k, d in enumerate(offs):
-        start = x_base + d - lo
+    return [(dia_val[k], x_ext[x_base + d - lo:x_base + d - lo + dim_r])
+            for k, d in enumerate(offs)]
+
+
+def ehyb_dia(e: EhybDevice, x_pad: torch.Tensor,
+             x_base: int = 0) -> torch.Tensor:
+    """DIA body: y[i] = Σ_k dia_val[k, i] · x[i + d_k], one shifted slice of
+    x per static offset.  Returns y of length ``dia_val.shape[1]``, or length
+    0 when no diagonals were extracted."""
+    if not e.dia_offsets:
+        return x_pad.new_zeros(0)
+    y = x_pad.new_zeros(e.dia_val.shape[1])
+    for v, xs in dia_terms(e, x_pad, x_base):
         # in place on the fresh accumulator: one fused multiply-add a term
-        y.addcmul_(dia_val[k], x_ext[start:start + dim_r])
+        y.addcmul_(v, xs)
     return y
 
 
@@ -201,23 +210,43 @@ def ehyb_long(e: EhybDevice, x_pad: torch.Tensor) -> torch.Tensor:
 def combine_ehyb(e: EhybDevice, y_body: torch.Tensor, y_er: torch.Tensor,
                  y_long: torch.Tensor, y_dia: torch.Tensor = None
                  ) -> torch.Tensor:
-    """Assemble the final (reordered, padded) y from the phases.
+    """Assemble the final (reordered, padded) y from the phases: a copy of
+    the body's sums with a slack slice, then :func:`fold_split_`, the
+    diagonals' sums and :func:`add_tail_` in place.
 
     ER padding lanes point at the dump row ``dim``, so ``er_rows`` holds
-    duplicates; ``index_add_`` accumulates them."""
+    duplicates; ``index_add_`` accumulates them into the slack."""
     ny = y_body.shape[0] + LANES  # slack so the dump row `dim` is in range
     y = y_body.new_zeros(ny)
     y[: y_body.shape[0]] = y_body
-    if e.split_src.shape[0]:
-        # hub-row splitting: overflow rows fold into their true rows, then
-        # are zeroed so the padded tail stays clean
-        y.index_add_(0, e.split_dst, y_body.index_select(0, e.split_src))
-        y[e.split_src.long()] = 0.0
+    fold_split_(e, y)
     if y_dia is not None and y_dia.shape[0]:
         n = min(y_dia.shape[0], ny)
         y[:n] += y_dia[:n]
-    if y_er.shape[0]:
-        y.index_add_(0, e.er_rows, y_er)
+    return add_tail_(e, y, y_er, y_long)
+
+
+def fold_split_(e: EhybDevice, y: torch.Tensor) -> torch.Tensor:
+    """Hub-row splitting in place: the overflow rows of ``y`` (a body's
+    sums) added into their true rows, then zeroed so the padded tail stays
+    clean."""
+    if e.split_src.shape[0]:
+        y.index_add_(0, e.split_dst, y.index_select(0, e.split_src))
+        y.index_fill_(0, e.split_src.long(), 0.0)
+    return y
+
+
+def add_tail_(e: EhybDevice, y: torch.Tensor, y_er: torch.Tensor,
+              y_long: torch.Tensor, er_lanes: int = None) -> torch.Tensor:
+    """The ER tail's sums ``y_er`` and the long rows' ``y_long`` added into
+    ``y`` in place, by ``er_rows`` and ``long_rows``.  ``er_lanes`` (a host
+    int: the ER lanes before the padding that points at the dump row)
+    bounds the ER lanes added, so that ``y`` needs no row for the dump row;
+    None adds every lane."""
+    n_er = y_er.shape[0] if er_lanes is None else min(er_lanes,
+                                                       y_er.shape[0])
+    if n_er:
+        y.index_add_(0, e.er_rows[:n_er], y_er[:n_er])
     if y_long.shape[0]:
         y.index_add_(0, e.long_rows, y_long)
     return y

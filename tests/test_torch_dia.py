@@ -356,3 +356,42 @@ def test_f64_kernel_refuses_what_is_not_built():
         dia._launch(e, x, dataclasses.replace(dia.GEOMETRY, step=8))
     with pytest.raises(ValueError, match="x_pad's type"):
         dia._launch(e, x.float())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_dia_out_adds_into_y(dtype):
+    """K9's accumulate mode (``out``, the flagship's apply: K9 finishes the
+    y K1 wrote): each row's diagonal sum is added once into ``out`` in
+    place, bit for bit ``y + dia_body_plain(e, x)``, rows past the
+    diagonals' untouched; the replay of the kernel's walk of its
+    accumulate plan, added into y, within 1e-14 in f64; an ``out`` it
+    cannot add into, and a geometry the mode is not built for, refused."""
+    val, x = _inputs(3)
+    val, x = val.astype(dtype), x.astype(dtype)
+    e = types.SimpleNamespace(dia_offsets=OFFSETS,
+                              dia_val=torch.from_numpy(val))
+    xt = torch.from_numpy(x)
+    y0 = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        DIM + 128).astype(dtype))
+    out = y0.clone()
+    got = dia.dia_body(e, xt, out=out)
+    assert got is out
+    want = y0[:DIM] + dia.dia_body_plain(e, xt)
+    assert torch.equal(out[:DIM], want) and torch.equal(out[DIM:], y0[DIM:])
+    assert torch.equal(dia.dia_body_plain(e, xt, out=y0.clone()), out)
+    if dtype == np.float64:
+        plan = dia.make_plan(OFFSETS, DIM, G0, value_bytes=8, acc=True)
+        replay = y0.numpy()[:DIM] + _replay(plan, val, x)
+        assert rel(out[:DIM].numpy(), replay) <= 1e-14
+    with pytest.raises(ValueError, match="out must be"):
+        dia.dia_body(e, xt, out=y0[:DIM - 4].clone())
+    with pytest.raises(ValueError, match="out must be"):
+        dia.dia_body(e, xt, out=y0.to(torch.float16))
+    with pytest.raises(ValueError, match="accumulate"):
+        dia.make_plan(OFFSETS, DIM, dataclasses.replace(G0, step=8),
+                      acc=True)
+    # without diagonals ``out`` comes back as it was
+    none = types.SimpleNamespace(dia_offsets=(), dia_val=torch.zeros(
+        0, DIM, dtype=torch.from_numpy(val).dtype))
+    assert torch.equal(dia.dia_body(none, xt, out=y0.clone()), y0)

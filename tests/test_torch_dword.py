@@ -73,8 +73,8 @@ CASES = {
 }
 #: The cases with a SELL body (the Poisson matrix is all DIA).
 BODY_CASES = ["chain", "long_rows", "scattered", "stress"]
-#: K1's plan forms: name → build_stream_cells options (None: k1_plan, the
-#: shipped one).
+#: K1's plan forms: name → build_stream_cells options, the tail folded in
+#: (None: k1_folded_plan, the shipped one).
 FORMS = {"table": {}, "all direct": {"direct_below": np.inf},
          "shipped": None}
 
@@ -253,17 +253,18 @@ def test_dword_heavy_tail_split_matches_oracle_and_jax(steps, powerlaw_small,
 @pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("case", BODY_CASES)
 def test_dword_plan_forms_match_oracle_and_jax(case, form, built):
-    """The ``ehyb`` model with its body's plan in each form (the table
-    form; direct columns in every piece; the shipped ``k1_plan``, which
-    groups the scattered case's rows and gives long_rows pieces of both
-    kinds and, its dense rows past SPLIT_STEPS_F64, the split form): the
-    product within 1e-12 of the oracle and of the JAX double-word result,
-    and bit for bit the table form's where the plan is not split (a split
-    plan adds a chunked row block's chunks as partials: within 1e-12)."""
+    """The ``ehyb`` model with its plan (the body and the tail folded in)
+    in each form (the table form; direct columns in every piece; the
+    shipped ``k1_folded_plan``, which groups the scattered case's rows and
+    gives long_rows pieces of both kinds and, its dense rows past
+    SPLIT_STEPS_F64, the split form): the product within 1e-12 of the
+    oracle and of the JAX double-word result, and bit for bit the table
+    form's where the plan is not split (a split plan adds a chunked row
+    block's chunks as partials: within 1e-12)."""
     m, r, p, x, want = built(case, "ehyb")
     kw = FORMS[form]
-    plan = stream_cells.k1_plan(p.ehyb) if kw is None \
-        else stream_cells.build_stream_cells(p.ehyb, **kw)
+    plan = stream_cells.k1_folded_plan(p.ehyb) if kw is None \
+        else stream_cells.build_stream_cells(p.ehyb, fold=True, **kw)
     st = plan.stats
     if form == "shipped":
         assert st["grouped"] == (case == "scattered")
@@ -271,7 +272,7 @@ def test_dword_plan_forms_match_oracle_and_jax(case, form, built):
             assert st["direct_pieces"] > 0
         assert stream_cells.split(plan) == (case == "long_rows")
     shipped, table = p.module.cells, stream_cells.build_stream_cells(
-        p.ehyb).to_torch()
+        p.ehyb, fold=True).to_torch()
     try:
         p.module.cells = table
         y_table = p.matvec(x)

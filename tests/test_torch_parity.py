@@ -85,6 +85,16 @@ def port_from_ref(e_ref):
     return ehyb_from_arrays(ehyb_fields(e_ref), meta)
 
 
+def body_rows(got, want):
+    """``want`` (a combine's padded y: the body's rows and one slice of
+    slack for the ER dump row) cut to the rows of ``got`` (the flagship's
+    y: the body's rows), after checking that the slack holds zeros."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape[0] <= want.shape[0] <= got.shape[0] + 128
+    assert not np.any(want[got.shape[0]:])
+    return want[:got.shape[0]]
+
+
 def rel(got, want) -> float:
     got = np.asarray(got, dtype=np.float64)
     want = np.asarray(want, dtype=np.float64)

@@ -16,6 +16,9 @@ from ehyb_spmv_torch.utils.profiling import (phase_breakdown,
 from test_torch_parity import coo_for
 
 EHYB_PHASES = {"dia", "body", "er", "long", "full_apply"}
+#: The flagship's phases where K1 runs: K1 (the body with the tail folded
+#: in) and K9.
+FLAGSHIP_PHASES = {"body", "dia", "full_apply"}
 
 
 @pytest.fixture(scope="module")
@@ -44,10 +47,17 @@ def test_roofline_report_totals_bytes_model(models, name):
 
 
 def test_roofline_counts_the_k1_plan_not_the_padded_body(models):
+    """K1's plan holds the body and the tail: the body's phase counts the
+    plan's bytes and every body, ER and long-row entry's flops, and the ER
+    and long rows have no phase of their own."""
     model = models["ehyb"]
-    body = model.roofline_phases()["body"]
-    assert body == (2 * model.ehyb.stats["nnz_ell"],
-                    model.module.cells.stats["stream_bytes"])
+    phases = model.roofline_phases()
+    st = model.ehyb.stats
+    assert model.module.cells.stats["folded"]
+    assert phases["body"] == (2 * (st["nnz_ell"] + st["nnz_er"]
+                                   + st["nnz_long"]),
+                              model.module.cells.stats["stream_bytes"])
+    assert "er" not in phases and "long" not in phases
 
 
 @pytest.mark.parametrize("name", ["ehyb", "ehyb_xla", "csr", "ehyb_split"])
@@ -55,22 +65,29 @@ def test_phase_breakdown_keys(models, name):
     model = models[name]
     x_dev = model.prepare_x(deterministic_x(model.m.dimension))
     t = phase_breakdown(model, x_dev, iters=3)
-    want = EHYB_PHASES if name in ("ehyb", "ehyb_xla") else {"full_apply"}
+    want = {"ehyb": FLAGSHIP_PHASES, "ehyb_xla": EHYB_PHASES}.get(
+        name, {"full_apply"})
     assert set(t) == want
     assert all(v >= 0.0 and not math.isnan(v) for v in t.values())
 
 
 def test_phases_sum_to_the_apply(models):
     """The phases the breakdown times are the apply's own parts: combined,
-    they give the apply's y."""
+    they give the apply's y (the flagship's: K9's sums added into K1's y,
+    the plain model's: the combine of its four)."""
     from ehyb_spmv_torch.ops.torch_ops import combine_ehyb
 
     for name in ("ehyb", "ehyb_xla"):
         model = models[name]
         x_dev = model.prepare_x(deterministic_x(model.m.dimension))
         p = model.module.phases()
-        y = combine_ehyb(model.dev, p["body"](x_dev), p["er"](x_dev),
-                         p["long"](x_dev), p["dia"](x_dev))
+        if name == "ehyb":
+            y = p["body"](x_dev)
+            y_dia = p["dia"](x_dev)
+            y[:y_dia.shape[0]] += y_dia
+        else:
+            y = combine_ehyb(model.dev, p["body"](x_dev), p["er"](x_dev),
+                             p["long"](x_dev), p["dia"](x_dev))
         assert bool((y == model.apply(x_dev)).all()), name
 
 

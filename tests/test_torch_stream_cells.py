@@ -14,18 +14,21 @@ Bit equality holds because a row's cells keep their step order and the
 dropped cells are zeros (finite x); the Kahan variant sums in float64 on
 both sides.  Against the exact-f64 oracle: rel <= 5e-6 (the suite's
 bound)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv_gpu_tpu.io import generate
 
 import ehyb_spmv_torch as port
 from chip_smoke import edge_body, long_body
 from ehyb_spmv_torch.ops import ehyb_stream, stream_cells
 from ehyb_spmv_torch.ops.torch_ops import body_gather_index, ehyb_body
-from test_torch_parity import (PORT, cancellation_matrix, config_for,
-                               coo_for, host_pipeline, rel)
+from test_torch_parity import (PORT, body_rows, cancellation_matrix,
+                               config_for, coo_for, host_pipeline, rel)
 
 ORACLE_TOL = 5e-6
 MAX = stream_cells.MAX_TABLE_ROWS
@@ -90,8 +93,14 @@ def _dword(m, **extra):
         device="cpu").setup(coo_for(PORT, m)).ehyb
 
 
+def _body_plan(e):
+    """K1's plan of the body of ``e`` alone, with the options of its value
+    type (``stream_cells.k1_options``)."""
+    return stream_cells.build_stream_cells(e, **stream_cells.k1_options(e))
+
+
 def _patch_split(monkeypatch, steps: int) -> None:
-    """Every split threshold and chunk length of ``k1_plan`` at ``steps``."""
+    """Every split threshold and chunk length of K1's plans at ``steps``."""
     for name in ("SPLIT_STEPS", "SPLIT_STEPS_F64"):
         monkeypatch.setattr(stream_cells, name, steps)
 
@@ -208,7 +217,7 @@ def test_plan_plain_equals_padded_body(case, fixture, layout, wps, extra,
                       4: 4}[wps]
     if case == "hub_split":
         assert e.split_src.size > 0
-    plan = stream_cells.k1_plan(e)
+    plan = _body_plan(e)
     p = plan.to_torch()
     x = torch.ones(e.padded_x_rows) if fixture == "cancellation" else _x(e)
     want = ehyb_body(d, x, compensated=kahan)
@@ -247,7 +256,7 @@ def test_plan_replay(case, fixture, layout, wps, extra, kahan, poisson,
     once).  A Poisson body's compact cells are within 1.1x its nnz."""
     extra = _split_steps(extra, monkeypatch)
     e = _artifact(request, fixture, layout, wps, extra)
-    plan = stream_cells.k1_plan(e)
+    plan = _body_plan(e)
     piece, n_rb = plan.piece.astype(np.int64), plan.n_rb
     n_p = len(piece) - 1
     # chains: each piece once, of its own row block, later pieces in order
@@ -465,7 +474,7 @@ def test_f64_neumaier_keeps_the_cancelled_row(monkeypatch):
     naive = ehyb_stream.stream_body(p, x, False)
     assert float(naive[r0]) != exact
     _patch_split(monkeypatch, 4)
-    plan = stream_cells.k1_plan(e)
+    plan = _body_plan(e)
     assert r0 // 32 in plan.chunk_rb
     q = plan.to_torch()
     assert float(ehyb_stream.stream_body(q, x, True)[r0]) == exact
@@ -484,7 +493,7 @@ def test_f32_compensated_split_keeps_the_cancelled_row(monkeypatch):
     x = torch.ones(e.padded_x_rows)
     for steps in (stream_cells.SPLIT_STEPS, 4):
         _patch_split(monkeypatch, steps)
-        plan = stream_cells.k1_plan(e)
+        plan = _body_plan(e)
         assert r0 // 32 in plan.chunk_rb
         p = plan.to_torch()
         assert float(ehyb_stream.stream_body(p, x, True)[r0]) == 99.0
@@ -649,7 +658,7 @@ def test_mixed_plan_decodes_like_the_table_form():
     arrays hold every cell."""
     e = _edge_f64()
     table = stream_cells.build_stream_cells(e)
-    plan = stream_cells.k1_plan(e)
+    plan = _body_plan(e)
     st = plan.stats
     width = np.diff(plan.piece[:, 0])
     empty = int((width == 0).sum())
@@ -671,7 +680,7 @@ def test_f64_flagship_plan_keeps_the_table_form(scrambled):
     cfg = config_for(PORT, True, "sell_rx", 2, dtype="float64")
     e = host_pipeline(PORT, coo_for(PORT, scrambled), cfg)[2]
     assert e.ell_val.dtype == np.float64
-    plan, table = stream_cells.k1_plan(e), stream_cells.build_stream_cells(e)
+    plan, table = _body_plan(e), stream_cells.build_stream_cells(e)
     st = plan.stats
     assert st["real_cells"] >= stream_cells.DIRECT_BELOW * st["table_rows"]
     assert st["direct_pieces"] == 0 and not st["grouped"]
@@ -680,7 +689,7 @@ def test_f64_flagship_plan_keeps_the_table_form(scrambled):
     for f in ("piece", "rows", "cell_val", "cell_idx"):
         np.testing.assert_array_equal(getattr(plan, f), getattr(table, f))
     e32 = _artifact(None, "edges", None, 0, {})
-    p32 = stream_cells.k1_plan(e32)
+    p32 = _body_plan(e32)
     assert p32.stats["direct_pieces"] == 0 and p32.cell_col.size == 0
 
 
@@ -693,7 +702,7 @@ def test_wrapper_refuses_what_the_kernels_do_not_read(scrambled):
     x32 = torch.zeros(e32.padded_x_rows)
     with pytest.raises(ValueError, match="table form only"):
         ehyb_stream._check(bad, x32)
-    grouped = stream_cells.k1_plan(_dword(scrambled))
+    grouped = _body_plan(_dword(scrambled))
     assert grouped.stats["grouped"]
     p = grouped.to_torch()
     x = torch.zeros(p.stats["x_rows"], dtype=torch.float64)
@@ -726,16 +735,16 @@ SPLIT_BODIES = {"long": ("long", None, 0, {}),
 
 
 def _split_plan(request, body, steps, monkeypatch):
-    """The body's artifact and its k1_plan with every split threshold and
+    """The body's artifact and its K1 plan with every split threshold and
     chunk length at ``steps``."""
     _patch_split(monkeypatch, steps)
     e = _artifact(request, *SPLIT_BODIES[body])
-    return e, stream_cells.k1_plan(e)
+    return e, _body_plan(e)
 
 
 def _k1_options(e) -> dict:
-    """``build_stream_cells``'s options of k1_plan for ``e``'s value type,
-    but the split form's."""
+    """``stream_cells.k1_options`` for ``e``'s value type but the split
+    form's."""
     if e.ell_val.dtype == np.float64:
         return dict(direct_below=stream_cells.DIRECT_BELOW,
                     group_rows=stream_cells.GROUP_ROWS)
@@ -811,7 +820,7 @@ def test_split_plan_work_items(case, body, steps, request, monkeypatch):
     """The split form at SPLIT_STEPS = ``steps``: exactly the row blocks
     wider than it are chunked, every work item walks at most ``steps``
     steps, the items come longest first and walk every piece once, a
-    chunked row block's slots follow its chain, and k1_plan is the builder
+    chunked row block's slots follow its chain, and K1's plan is the builder
     with ``split_steps``.  The long body reaches a row block exactly at the
     limit (kept whole), one just past it (two chunks), empty rows, a hub in
     the last row block and chunks that end inside a piece chain; a
@@ -936,7 +945,7 @@ def test_split_apply_matches_jax_and_oracle(steps, powerlaw_small,
     x[:dim] = np.random.default_rng(1).standard_normal(dim)
     got = apply(torch.from_numpy(x)).numpy()
     want = np.asarray(xla_ops.ehyb_apply_xla(e_ref.to_jax(), jnp.asarray(x)))
-    assert rel(got, want) <= ORACLE_TOL
+    assert rel(got, body_rows(got, want)) <= ORACLE_TOL
     m_perm = r.apply_to_matrix(coo_for(REF, powerlaw_small))
     assert rel(got[:dim], oracle_spmv(m_perm, x[:dim].astype(np.float64))) \
         <= ORACLE_TOL
@@ -1078,16 +1087,16 @@ def test_float_plans_unchanged_by_the_split_form(case, fixture, layout, wps,
                                                  request, monkeypatch):
     """The fixtures with no row block wider than the split form's threshold
     for their type (SPLIT_STEPS in float32, SPLIT_STEPS_F64 in float64;
-    compensated or not: the plan does not depend on it) get from k1_plan,
+    compensated or not: the plan does not depend on it) get from K1's plan,
     as shipped, the plan the builder made before the split form
     (``_parent_units``: the step-by-step cut and the per-piece rank loop;
     in float64 with direct pieces and the grouping weighed), byte for byte.
     The edge body's row blocks reach that cut and that rank restart; being
-    80 steps wide, past SPLIT_STEPS, they are split by k1_plan in float32,
+    80 steps wide, past SPLIT_STEPS, they are split by K1's plan in float32,
     so there the builder's table form (no split_steps) is held to it (so is
-    any fixture wider than its threshold that k1_plan splits)."""
+    any fixture wider than its threshold that K1's plan splits)."""
     e = _artifact(request, fixture, layout, wps, extra)
-    plan = stream_cells.k1_plan(e)
+    plan = _body_plan(e)
     opts = _k1_options(e)
     with monkeypatch.context() as mp:
         mp.setattr(stream_cells, "_units", _parent_units)
@@ -1117,7 +1126,7 @@ def test_split_plans_keep_the_old_rank_loop(case, body, steps, request,
     e, plan = _split_plan(request, body, steps, monkeypatch)
     with monkeypatch.context() as mp:
         mp.setattr(stream_cells, "_units", _parent_units)
-        parent = stream_cells.k1_plan(e)
+        parent = _body_plan(e)
     assert stream_cells.split(plan)
     _same_plans(plan, parent)
 
@@ -1154,7 +1163,7 @@ def test_wrapper_refuses_split_plans_it_cannot_read():
         ehyb_stream._launch(p, x, geometry=ehyb_stream.StreamGeometry(
             x_mode="staged"))
     wide = long_body(stream_cells.SPLIT_STEPS)
-    assert stream_cells.split(stream_cells.k1_plan(wide))
+    assert stream_cells.split(_body_plan(wide))
     assert p.partial.numel() == 2 * p.n_chunks * 32
 
 
@@ -1204,13 +1213,204 @@ def _greedy_cut(step, xrow, max_steps):
 def test_cut_pieces_is_the_greedy_cut(max_steps):
     """``_cut_pieces`` (numpy over doubling windows of steps) cuts a row
     block where the step-by-step greedy cut does, on row blocks of 1 to
-    32 cells a step over x ranges below and far past a table."""
+    32 cells a step over x ranges below and far past a table, one at a
+    time and all of them in one call."""
     rng = np.random.default_rng(max_steps)
+    blocks = []
     for n_x in (40, 600, 5000, 100000):
         n_st = int(rng.integers(200, 1500))
         step = np.repeat(np.sort(rng.choice(8 * n_st, n_st, replace=False)),
                          rng.integers(1, 33, n_st))
         xrow = rng.integers(0, n_x, step.size)
+        want = _greedy_cut(step, xrow, max_steps)
         np.testing.assert_array_equal(
-            stream_cells._cut_pieces(step, xrow, max_steps),
-            _greedy_cut(step, xrow, max_steps))
+            stream_cells._cut_pieces(step, xrow, max_steps), want)
+        blocks.append((step, xrow, want))
+    step, xrow, want = (np.concatenate(a) for a in zip(*blocks))
+    group = np.repeat(np.arange(len(blocks)), [b[0].size for b in blocks])
+    np.testing.assert_array_equal(
+        stream_cells._cut_pieces(step, xrow, max_steps, group), want)
+
+
+#: The folded plan (``k1_folded_plan``: the body and the EHYB tail in one
+#: plan) on small artifacts with a tail, in each form: (case, fixture,
+#: config, build options (None: the shipped ``k1_folded_plan``), kahan,
+#: the form the plan must take).  The fixtures: "scrambled" in the plain
+#: windowed layout (1,024-row windows) has ER entries and one diagonal;
+#: "dense_rows" (scrambled with three rows of 1,152 entries,
+#: ``generate.with_dense_rows``) adds long rows, whose row blocks the tail
+#: makes wide enough for the split form; "powerlaw_small" in the
+#: flagship's relaxed layout with ``row_split_threshold=4`` has hub-split
+#: overflow rows (and one ER entry).  "dword" is the precision mode's host
+#: config with the same windows (f64 values).
+FOLD_CASES = [
+    ("f32_table", "scrambled", "f32", None, False, "table"),
+    ("f32_split", "dense_rows", "f32", None, False, "split"),
+    ("f32_hub_split", "powerlaw_small", "hub", None, False, "split"),
+    ("f64_table", "scrambled", "f64", None, False, "table"),
+    ("f64_direct_dword", "dense_rows", "dword", None, False,
+     "split direct"),
+    ("f64_grouped_dword", "scrambled", "dword",
+     dict(direct_below=np.inf, group_rows=256), False, "grouped direct"),
+    ("f64_split", "dense_rows", "f64", None, False, "split direct"),
+    ("f64_kahan_split", "dense_rows", "f64", None, True, "split direct"),
+    ("f64_kahan_grouped_split", "scrambled", "dword",
+     dict(direct_below=np.inf, group_rows=256, split_steps=2), True,
+     "grouped direct split"),
+]
+
+
+def _fold_config(kind: str, pkg: str = PORT):
+    import importlib
+
+    cfg = importlib.import_module(f"{pkg}.config")
+    if kind == "hub":
+        return config_for(pkg, True, "sell_rx", 2, row_split_threshold=4)
+    if kind == "dword":
+        return dataclasses.replace(
+            cfg.EhybConfig(window_rows=1024), dtype="float64",
+            row_split_threshold=0, relax_body="never")
+    return cfg.EhybConfig(window_rows=1024, body_layout="sell",
+                          dtype="float64" if kind == "f64" else "float32")
+
+
+def _tail_entries(e):
+    """Every body, ER and long-row entry of ``e`` as (true row, column,
+    value), the hub-split overflow rows' entries under their true rows,
+    and the count of those."""
+    offs = e.slice_offset.astype(np.int64)
+    n_steps = int(offs[-1])
+    st, ln = np.nonzero(e.ell_val[:n_steps] != 0)
+    row = np.repeat(np.arange(len(offs) - 1), np.diff(offs))[st] * 128 + ln
+    col = body_gather_index(e.to_torch()).numpy()[st, ln]
+    rmap = np.arange(len(offs) * 128)
+    rmap[e.split_src] = e.split_dst
+    er_offs = e.er_slice_offset.astype(np.int64)
+    est, eln = np.nonzero(e.er_val[:int(er_offs[-1])] != 0)
+    er_row = e.er_rows[np.repeat(np.arange(len(er_offs) - 1),
+                                 np.diff(er_offs))[est] * 128 + eln]
+    rows = np.concatenate([rmap[row], er_row, e.long_rows[e.long_seg]])
+    cols = np.concatenate([col, e.er_col[est, eln], e.long_col])
+    vals = np.concatenate([e.ell_val[st, ln], e.er_val[est, eln],
+                           e.long_val])
+    return rows.astype(np.int64), cols.astype(np.int64), vals, int(
+        np.isin(row, e.split_src).sum())
+
+
+@pytest.mark.parametrize("case,fixture,kind,opts,kahan,form", FOLD_CASES,
+                         ids=[c[0] for c in FOLD_CASES])
+def test_folded_plan_holds_the_tail(case, fixture, kind, opts, kahan, form,
+                                    request):
+    """The folded plan (1) holds every body, ER and long-row entry exactly
+    once, the hub-split rows' entries under their true rows and nothing in
+    the overflow rows; (2) walked by K1's plain version, then K9's plain
+    version adding the diagonals into its y, gives ``combine_ehyb`` of the
+    four phases (f32 rel <= 1e-6, f64 1e-14), with y the body's rows; and
+    (3) the flagship's apply on it matches the JAX package's
+    ``ehyb_apply_xla`` of the same artifact at rel <= 2e-6 in f32, and the
+    exact-f64 oracle of the reordered matrix at 1e-12 in f64."""
+    from ehyb_spmv_gpu_tpu.ops import xla_ops
+    import jax.numpy as jnp
+
+    from ehyb_spmv_torch.ops import dia
+    from ehyb_spmv_torch.ops.torch_ops import combine_ehyb, ehyb_er, ehyb_long
+    from test_torch_parity import REF, port_from_ref
+
+    m = request.getfixturevalue("scrambled" if fixture == "dense_rows"
+                                else fixture)
+    if fixture == "dense_rows":
+        m = generate.with_dense_rows(m, 3, 0.5)
+    f64 = kind != "f32" and kind != "hub"
+    if f64:
+        _, r, e = host_pipeline(PORT, m, _fold_config(kind))
+    else:
+        _, r, e_ref = host_pipeline(REF, m, _fold_config(kind, REF))
+        e = port_from_ref(e_ref)
+    st = e.stats
+    assert st["nnz_er"] > 0 and (st["nnz_long"] > 0) == (
+        fixture == "dense_rows") and bool(e.split_src.size) == (
+        kind == "hub") and (st["nnz_dia"] > 0) == (fixture != "powerlaw_small")
+    plan = stream_cells.k1_folded_plan(e) if opts is None else \
+        stream_cells.build_stream_cells(e, fold=True, **dict(
+            stream_cells.k1_options(e), **opts))
+    pst = plan.stats
+    assert pst["folded"] and ("split" in form) == stream_cells.split(plan)
+    assert ("direct" in form) == (pst["direct_pieces"] > 0)
+    assert ("grouped" in form) == pst["grouped"]
+    # (1) every entry once, each where it belongs
+    _, row, _, col, val, _ = _replay(plan)
+    real = val != 0
+    n_all = st["nnz_ell"] + st["nnz_er"] + st["nnz_long"]
+    assert real.sum() == pst["real_cells"] == n_all
+    want_r, want_c, want_v, n_moved = _tail_entries(e)
+    assert pst["tail_cells"] == st["nnz_er"] + st["nnz_long"] + n_moved
+    assert (n_moved > 0) == (kind == "hub")
+    got_k = np.lexsort((val[real], col[real], row[real]))
+    want_k = np.lexsort((want_v, want_c, want_r))
+    np.testing.assert_array_equal(row[real][got_k], want_r[want_k])
+    np.testing.assert_array_equal(col[real][got_k], want_c[want_k])
+    np.testing.assert_array_equal(val[real][got_k], want_v[want_k])
+    assert not np.isin(row[real], e.split_src).any()
+    # (2) the plain walks against the combine of the four phases
+    d = e.to_torch()
+    p = plan.to_torch()
+    x = _x(e)
+    y = dia.dia_body_plain(d, x, out=ehyb_stream.stream_body_plain(
+        p, x, kahan))
+    assert y.shape == (plan.n_rb * 32,)
+    want = combine_ehyb(d, ehyb_body(d, x, kahan), ehyb_er(d, x),
+                        ehyb_long(d, x), dia.dia_body_plain(d, x)).numpy()
+    assert rel(y.numpy(), body_rows(y.numpy(), want)) <= (
+        1e-14 if f64 else 1e-6)
+    # (3) the flagship's apply against JAX (f32) or the oracle (f64)
+    apply = ehyb_stream.EhybStreamApply(e.to_torch(), kahan=kahan, cells=p)
+    got = apply(x).numpy()
+    dim = e.dim
+    if f64:
+        m_perm = r.apply_to_matrix(coo_for(PORT, m))
+        want = oracle_spmv(m_perm, x.numpy()[:dim])
+        assert rel(got[:dim], want) <= 1e-12
+    else:
+        want = np.asarray(xla_ops.ehyb_apply_xla(e_ref.to_jax(),
+                                                 jnp.asarray(x.numpy())))
+        assert rel(got, body_rows(got, want)) <= 2e-6
+
+
+@pytest.mark.parametrize("dword", [False, True], ids=["f32", "dword"])
+def test_folded_plan_is_cached_beside_the_artifact(scrambled, powerlaw_small,
+                                                   dword, tmp_path,
+                                                   monkeypatch):
+    """With the artifact cache on, the flagship's K1 plan with its tail
+    folded in is written beside the artifact with its build's seconds, and
+    a second setup loads it: the same plan byte for byte, the same y; K1's
+    options key the file, so a changed split threshold builds and caches
+    another.  The tails: powerlaw_small in the relaxed layout with hub-row
+    splitting (ER entries and hub-split rows); in the precision mode the
+    scrambled Poisson with dense rows in 1,024-row windows (ER entries and
+    long rows)."""
+    if dword:
+        m = coo_for(PORT, generate.with_dense_rows(scrambled, 3, 0.5))
+        extra = dict(dword_values=True, window_rows=1024)
+    else:
+        m = coo_for(PORT, powerlaw_small)
+        extra = dict(body_layout="sell_rx", row_split_threshold=4)
+    cfg = port.EhybConfig(artifact_cache=True, cache_dir=str(tmp_path),
+                          **extra)
+    first = port.EhybSpmv(cfg, device="cpu").setup(m)
+    files = sorted(tmp_path.glob("*.k1-*.npz"))
+    a = first.module.cells
+    assert len(files) == 1 and a.stats["folded"] and a.stats["tail_cells"]
+    second = port.EhybSpmv(cfg, device="cpu").setup(m)
+    b = second.module.cells
+    assert "cache_load" in second.setup_seconds
+    assert b.stats == a.stats and b.stats["build_seconds"] > 0
+    buffers = dict(b.named_buffers())
+    for name, buf in a.named_buffers():
+        assert torch.equal(buf, buffers[name]), name
+    x = deterministic_x(m.dimension)
+    np.testing.assert_array_equal(first.matvec(x), second.matvec(x))
+    monkeypatch.setattr(stream_cells, "SPLIT_STEPS_F64" if dword
+                        else "SPLIT_STEPS", 4)
+    third = port.EhybSpmv(cfg, device="cpu").setup(m)
+    assert len(list(tmp_path.glob("*.k1-*.npz"))) == 2
+    assert stream_cells.split(third.module.cells)

@@ -28,7 +28,7 @@ from ehyb_spmv_gpu_tpu.io import generate
 import ehyb_spmv_torch as port
 from ehyb_spmv_torch.ops import ehyb_stream, ehyb_wincache, stream_plan
 from ehyb_spmv_torch.ops.torch_ops import body_gather_index, ehyb_body
-from test_torch_parity import (PORT, REF, assert_same_ehyb,
+from test_torch_parity import (PORT, REF, assert_same_ehyb, body_rows,
                                cancellation_matrix, config_for, coo_for,
                                host_pipeline, port_from_ref, rel)
 
@@ -524,7 +524,8 @@ def test_wincache_plain_matches_pallas_hbm(case, fixture, wps, variant,
     xt = torch.from_numpy(x)
     got = ehyb_stream.EhybStreamApply(d_pt, kahan=kahan,
                                       wincache=plan)(xt).numpy()
-    assert got.shape == want.shape
+    # y has the body's rows: the combine's slack for the ER dump row goes
+    want = body_rows(got, want)
     assert rel(got, want) <= PARITY_TOL, rel(got, want)
     if kahan:
         r0 = int(r_ref.old_to_new[0])
@@ -631,3 +632,42 @@ def test_wincache_check_takes_both_types(scrambled, monkeypatch, dtype):
     with pytest.raises(ValueError, match=f"takes 1 to {most} groups"):
         ehyb_wincache._check(model.dev, plan, x)
 
+
+
+@pytest.mark.parametrize("case", ["hub_split", "er_long_dia"])
+def test_wincache_apply_adds_the_tail_in_place(case, powerlaw_small,
+                                               scrambled):
+    """Where the window cache runs the body, the flagship adds the rest
+    into its y in place: the hub-split rows folded and zeroed, K9's
+    accumulate mode, the ER tail's real lanes and the long rows; bit for
+    bit the combine of the four phases it replaced, cut to the body's
+    rows (the combine's slack for the ER dump row holds zeros; here the
+    dump row, 2,304, lies past y).  Fixtures: powerlaw_small in the
+    relaxed layout with hub-row splitting; the scrambled Poisson with dense
+    rows in the windowed layout (ER, long rows and one diagonal)."""
+    from ehyb_spmv_torch.ops import dia
+    from ehyb_spmv_torch.ops.torch_ops import combine_ehyb, ehyb_er, ehyb_long
+
+    if case == "hub_split":
+        cfg = config_for(PORT, True, "sell_rx", 2, row_split_threshold=4)
+        m = powerlaw_small
+    else:
+        cfg = config_for(PORT, False, window_rows=1024, body_layout="sell")
+        m = generate.with_dense_rows(scrambled, 3, 0.5)
+    e = host_pipeline(PORT, m, cfg)[2]
+    st = e.stats
+    if case == "hub_split":
+        assert e.split_src.size > 0 and st["nnz_er"] > 0
+    else:
+        assert min(st["nnz_er"], st["nnz_long"], st["nnz_dia"]) > 0
+        assert e.dim == e.n_slices * 128          # the dump row is past y
+    d = e.to_torch()
+    plan = ehyb_wincache.build_wincache_plan(e).to_torch()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        e.padded_x_rows).astype(np.float32))
+    got = ehyb_stream.EhybStreamApply(d, wincache=plan)(x).numpy()
+    want = combine_ehyb(d, ehyb_wincache.wincache_body(d, plan, x),
+                        ehyb_er(d, x), ehyb_long(d, x),
+                        dia.dia_body_plain(d, x)).numpy()
+    assert got.shape == (e.n_slices * 128,)
+    np.testing.assert_array_equal(got, body_rows(got, want))
