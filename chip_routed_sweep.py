@@ -1,20 +1,26 @@
 """Geometry sweep of the one-pass routed kernel on one CUDA GPU.
 
-    python3 chip_routed_sweep.py
+    python3 chip_routed_sweep.py [MATRIX ...]
 
-Builds ``random_1m``'s routed schedule (1,048,576 rows, 16,769,356 nnz; the
-gather-wall row that the flagship's gate hands to the routed engine),
-decodes it once, and tiles its entries for each plan geometry: dst rows per
-group, parts the x chunks are cut into, 1024-column windows per staged
-chunk, threads per block.  For each it checks the kernel against the plain
-version of the default plan, and prints the blocks, the x staged from L2
-against x, the MB the kernel moves through device memory and the device
-time per call (CUDA graph replay), beside cuSPARSE over the same entries.
-It also prints the shared-memory atomics in the compiled kernel
-(``cuobjdump -sass``; none are expected: a pass holds a row at most once, so
-the sums need no ``atomicAdd``, which this card runs on shared f32 as a
-compare-and-swap loop, ``ATOMS.CAST.SPIN``).  It is how the defaults of
-``ops/route_xcache.py`` were chosen.
+For each corpus matrix (default: ``random_1m``, 1,048,576 rows, 16,769,356
+nnz, the gather-wall row that the flagship's gate hands to the routed
+engine, and ``random_4m``, 4,194,304 rows, 33,550,394 nnz, whose schedule
+the host builds in four 1M-column blocks and the model runs in one plan)
+it sets up the routed model, decodes its schedules once, and tiles their
+entries for each plan geometry: dst rows per group, parts the x chunks are
+cut into, 1024-column windows per chunk, and whether the plan stages its
+chunks in shared memory or reads x[col] through L2 (``direct``); each at
+the listed threads per block.  For each it checks the kernel against the
+plain version of the model's own plan, and prints
+the blocks, the L2 bytes staged per entry, the MB the kernel moves through
+device memory and the device time per call (CUDA graph replay), beside
+cuSPARSE over the same entries.  It also prints the shared-memory atomics
+in the compiled kernel (``cuobjdump -sass``; none are expected: a pass
+holds a row at most once, so the sums need no ``atomicAdd``, which this
+card runs on shared f32 as a compare-and-swap loop, ``ATOMS.CAST.SPIN``).
+It is how the defaults and the geometry rule of ``ops/route_xcache.py``
+were chosen.  The last line is one JSON object: the fastest reading of each
+matrix.
 
 Imports only the port and ``chip_smoke.py``'s helpers.  Exits non-zero
 without a CUDA device or when a check fails.
@@ -22,6 +28,7 @@ without a CUDA device or when a check fails.
 from __future__ import annotations
 
 import collections
+import json
 import os
 import re
 import subprocess
@@ -37,11 +44,38 @@ from ehyb_spmv_torch.io import generate
 from ehyb_spmv_torch.ops import route_xcache as rx
 from ehyb_spmv_torch.ops.build import find_nvcc
 
-#: (group rows, parts, windows per chunk); each runs at every THREADS.
-GEOMETRIES = [(g, p, 8) for g in (8192, 16384, 32768, 49152)
-              for p in (1, 2, 4, 8)] + [(16384, 4, 4), (32768, 4, 4),
-                                         (32768, 4, 2)]
-THREADS = (256, 512, 1024)
+
+def staged(group_rows, parts, threads, windows=8):
+    """A staged plan: chunks of ``windows`` in shared memory."""
+    return dict(group_rows=group_rows, parts=parts, chunk_windows=windows,
+                direct=False), threads
+
+
+def direct(group_rows, windows, threads):
+    """A direct plan: one part, nothing staged, chunks of ``windows``."""
+    return dict(group_rows=group_rows, parts=1, chunk_windows=windows,
+                direct=True), threads
+
+
+#: Per matrix: (plan geometry, threads per block).
+GEOMETRIES = {
+    "random_1m": [
+        staged(32768, 4, (1024,)),
+        direct(4096, 128, (256, 512)),
+        direct(8192, 64, (512, 1024)),
+        direct(2048, 256, (256,)),
+    ],
+    "random_4m": [
+        staged(32768, 4, (1024,)),
+        staged(32768, 1, (512, 1024)),
+        direct(32768, 8, (512,)),
+        direct(16384, 32, (512,)),
+        direct(8192, 64, (256, 512)),
+        direct(4096, 128, (128, 256, 512)),
+        direct(4096, 64, (256,)),
+        direct(2048, 256, (128, 256)),
+    ],
+}
 
 
 def sass_atomics(path: str) -> dict:
@@ -52,6 +86,61 @@ def sass_atomics(path: str) -> dict:
     out = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, timeout=300).stdout
     return dict(collections.Counter(re.findall(r"\bATOMS\.[A-Z0-9.]+", out)))
+
+
+def sweep(name: str, dev) -> dict:
+    """Every geometry of ``GEOMETRIES[name]`` on the matrix; the fastest
+    reading."""
+    t0 = time.perf_counter()
+    m = generate.load_corpus(name)
+    model = port.RoutedSpmv(port.EhybConfig(), device=dev).setup(m)
+    p0 = model.routed_apply.plan
+    print(f"{name} setup {time.perf_counter() - t0:.1f} s "
+          f"({model.setup_seconds}); the model's plan: "
+          f"{'direct' if p0.direct else 'staged'}, {p0.group_rows} rows, "
+          f"{p0.parts} parts, {p0.chunk_cols} columns a chunk, "
+          f"{p0.threads} threads", flush=True)
+    x = model.prepare_x(deterministic_x(m.dimension))
+    want = rx.route_xcache_plain(p0, x)
+    row, col = rx.plan_rows_cols(p0)
+    a = cs.csr_of(row, col, p0.ent_val, p0.n_rows, p0.n_x)
+    del row, col
+    lib_ms = cs.device_ms_per_call(lambda: torch.mv(a, x), 20)
+    del a
+    t0 = time.perf_counter()
+    entries = rx.decode_blocks(model.blocks, model._lo)
+    print(f"{name}: cuSPARSE over the same entries {lib_ms:.4f} ms; decode "
+          f"{time.perf_counter() - t0:.1f} s; {cs.card_state()}", flush=True)
+    best = None
+    for g, threads_list in GEOMETRIES[name]:
+        t0 = time.perf_counter()
+        plan = rx.tile_entries(entries, p0.n_rows, p0.n_x, **g)
+        tile_s = time.perf_counter() - t0
+        pd = plan.to_torch(dev)
+        st = plan.stats
+        for threads in threads_list:
+            tag = (f"  {'direct' if st['direct'] else 'staged'}: rows "
+                   f"{st['group_rows']} parts {st['parts']} windows "
+                   f"{st['chunk_windows']} threads {threads}:")
+            y = rx._launch(pd, x, threads)
+            torch.cuda.synchronize()
+            err = cs.rel(y, want)
+            cs.check(err <= cs.KERNEL_TOL, f"{tag} vs plain rel {err:.3e}")
+            ms = cs.device_ms_per_call(lambda: rx._launch(pd, x, threads),
+                                       20)
+            print(f"{tag} {ms:.4f} ms (cuSPARSE {lib_ms:.4f}); "
+                  f"{st['n_tiles']} blocks; {st['n_segs']} segments, "
+                  f"{st['mean_segment_entries']:.0f} entries each, "
+                  f"{st['passes']} passes; largest tile "
+                  f"{st['max_tile_entries']} entries; from L2 "
+                  f"{st['staged_bytes'] / st['entries']:.2f} B an entry "
+                  f"staged; {st['layout_bytes'] / 1e6:.1f} MB moved; tiling "
+                  f"{tile_s:.1f} s", flush=True)
+            if best is None or ms < best["ms"]:
+                best = dict(g, threads=threads, ms=ms, library_ms=lib_ms)
+        del pd, plan
+    print(f"{name}: fastest {best}; {cs.card_state()}", flush=True)
+    return best
 
 
 def main() -> int:
@@ -68,49 +157,8 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
     print(f"shared-memory atomics in the SASS: {sass_atomics(built.path)}")
-    t0 = time.perf_counter()
-    m = generate.load_corpus("random_1m")
-    model = port.RoutedSpmv(port.EhybConfig(), device=dev).setup(m)
-    rm, p0 = model.blocks[0], model.applies[0].plan
-    print(f"random_1m setup {time.perf_counter() - t0:.1f} s "
-          f"({model.setup_seconds})", flush=True)
-    x = model.prepare_x(deterministic_x(m.dimension))
-    want = rx.route_xcache_plain(p0, x)
-    row, col = rx.plan_rows_cols(p0)
-    a = cs.csr_of(row, col, p0.ent_val, p0.n_rows, p0.n_x)
-    del row, col
-    lib_ms = cs.device_ms_per_call(lambda: torch.mv(a, x), 20)
-    del a
-    t0 = time.perf_counter()
-    entries = rx.decode_routed(rm)
-    print(f"cuSPARSE over the same entries {lib_ms:.4f} ms; decode "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for group_rows, parts, chunk in GEOMETRIES:
-        t0 = time.perf_counter()
-        plan = rx.tile_entries(entries, rm.n_dst_rows, rm.padded_x_rows,
-                               group_rows, parts, chunk)
-        tile_s = time.perf_counter() - t0
-        pd = plan.to_torch(dev)
-        st = plan.stats
-        for threads in THREADS:
-            y = rx._launch(pd, x, threads)
-            torch.cuda.synchronize()
-            err = cs.rel(y, want)
-            cs.check(err <= cs.KERNEL_TOL,
-                     f"{group_rows} rows, {st['parts']} parts, "
-                     f"{st['chunk_windows']} windows, {threads} threads: "
-                     f"vs plain rel {err:.3e}")
-            ms = cs.device_ms_per_call(
-                lambda: rx._launch(pd, x, threads), 20)
-            print(f"  rows {group_rows} parts {st['parts']} windows "
-                  f"{st['chunk_windows']} threads {threads}: {ms:.4f} ms "
-                  f"(cuSPARSE {lib_ms:.4f}); {st['n_tiles']} blocks, largest "
-                  f"tile {st['max_tile_entries']} entries (mean "
-                  f"{st['mean_tile_entries']:.0f}); staged "
-                  f"{st['staged_bytes'] / st['x_bytes']:.3f} x x; "
-                  f"{st['layout_bytes'] / 1e6:.1f} MB moved; tiling "
-                  f"{tile_s:.1f} s", flush=True)
-        del pd
+    names = sys.argv[1:] or list(GEOMETRIES)
+    print(json.dumps({name: sweep(name, dev) for name in names}))
     return 0
 
 

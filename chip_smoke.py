@@ -131,9 +131,17 @@ the five corpus rows no other phase drives (``poisson2d_512``,
 ``stencil27_24``, ``fem3d_32``, ``random_4m`` in the routed engine's
 column-block mode, ``powerlaw_1m``), its table rebuilt from its log by
 ``scripts_torch/sweep_table.py``.  Each row prints its engine, launches,
-rel error, setup and wall.  Then K1 on powerlaw_1m's dense sub-matrix (the
-degree split's EHYB part, from the prewarmed cache), plain and
-compensated.
+rel error, setup and wall; random_4m must launch the routed kernel once a
+product.  Then K1 on powerlaw_1m's dense sub-matrix (the degree split's
+EHYB part, from the prewarmed cache), plain and compensated, and (20e)
+the routed kernel on random_4m's one plan over its four column blocks
+(a direct plan), against its plain version, bit for bit twice, timed
+beside cuSPARSE over the same entries, and its graph loop profiled.
+
+The routed kernel's plans: phase 4 holds it over staged plans at two part
+counts and over direct plans (x read through L2, the rule's choice at
+random_4m's density), bit for bit against the CPU replay of its order of
+sums (``route_xcache.route_xcache_replay``).
 
 Last, K1's split variants in float64 and compensated (phase 21): against
 their plain versions on small bodies that reach chunked table and direct
@@ -1118,26 +1126,42 @@ def routed_plain(d, x: torch.Tensor) -> torch.Tensor:
     return route.to_input_space(d, stages_plain(d, x))
 
 
-def check_schedule(name: str, rm, ap, x: torch.Tensor) -> None:
-    """The one-pass kernel on one schedule's plan against its plain version
-    and against the plain K7/K8 pair (the schedule's stage arrays uploaded
-    for it), and the whole apply ``ap`` against the pair's."""
-    d = rm.to_torch(device=x.device)
-    p = ap.plan
+def check_plan(name: str, p, x: torch.Tensor) -> None:
+    """The routed kernel over plan ``p`` against its plain version, bit for
+    bit against the CPU replay of its fixed order of sums, and the same bits
+    twice."""
     y_k = route_xcache.route_xcache(p, x)
     y_again = route_xcache.route_xcache(p, x)
     y_p = route_xcache.route_xcache_plain(p, x)
+    torch.cuda.synchronize()
+    err = rel(y_k, y_p)
+    same = np.array_equal(y_k.cpu().numpy(),
+                          route_xcache.route_xcache_replay(p, x))
+    st = p.stats
+    check(bool(torch.isfinite(y_k).all()) and err <= KERNEL_TOL and same
+          and torch.equal(y_k, y_again),
+          f"{name} ({'direct' if p.direct else 'staged'}: {st['n_tiles']} "
+          f"tiles of {st['group_rows']} rows x {st['parts']} parts, "
+          f"{p.chunk_cols} columns a chunk, {p.threads} threads; "
+          f"{st['n_segs']} segments, {st['passes']} passes, "
+          f"{st['entries']} entries): route_xcache vs plain rel {err:.3e}, "
+          f"the CPU replay's bits {same}, the same bits twice")
+
+
+def check_schedule(name: str, rm, ap, x: torch.Tensor) -> None:
+    """The one-pass kernel on one schedule's plan against its plain version
+    (and the replay of its order) and against the plain K7/K8 pair (the
+    schedule's stage arrays uploaded for it), and the whole apply ``ap``
+    against the pair's."""
+    d = rm.to_torch(device=x.device)
+    p = ap.plan
+    check_plan(name, p, x)
+    y_k = route_xcache.route_xcache(p, x)
     y_s = stages_plain(d, x)
     torch.cuda.synchronize()
-    err_p, err_s = rel(y_k, y_p), rel(y_k, y_s)
-    st = p.stats
-    check(bool(torch.isfinite(y_k).all()) and err_p <= KERNEL_TOL
-          and err_s <= KERNEL_TOL and torch.equal(y_k, y_again),
-          f"{name} ({st['n_tiles']} tiles of {st['group_rows']} rows x "
-          f"{st['parts']} parts, {st['n_segs']} segments, {st['passes']} "
-          f"passes, {st['entries']} entries): route_xcache vs plain rel "
-          f"{err_p:.3e}, vs the plain K7/K8 pair rel {err_s:.3e}, the same "
-          "bits twice")
+    err_s = rel(y_k, y_s)
+    check(err_s <= KERNEL_TOL, f"{name}: route_xcache vs the plain K7/K8 "
+                               f"pair rel {err_s:.3e}")
     y_k = ap(x)
     y_p = routed_plain(d, x)
     torch.cuda.synchronize()
@@ -1157,19 +1181,56 @@ def block_mode_model(m: MatrixCOO, dev) -> port.RoutedSpmv:
     return model
 
 
+def check_rx_geometries(dev) -> None:
+    """The routed kernel over staged plans at two part and thread counts
+    and over direct plans, against its plain version and bit for bit
+    against the CPU replay, on a 131,072-row matrix cut into 16 groups;
+    then the rule's own plans at random_1m's and random_4m's densities, on
+    2^18 rows."""
+    m = random_coo(1 << 17, 4, seed=29)
+    model = port.RoutedSpmv(port.EhybConfig(), device=dev).setup(m)
+    rm = model.blocks[0]
+    x = model.prepare_x(deterministic_x(m.dimension))
+    entries = route_xcache.decode_routed(rm)
+    geometries = [dict(parts=1, threads=1024), dict(parts=2, threads=256),
+                  dict(direct=True, chunk_windows=32, threads=256),
+                  dict(direct=True, group_rows=1024, parts=2,
+                       chunk_windows=64, threads=128)]
+    for geometry in geometries:
+        geometry = dict(dict(group_rows=8192, chunk_windows=4), **geometry)
+        p = route_xcache.tile_entries(entries, rm.n_dst_rows,
+                                      rm.padded_x_rows,
+                                      **geometry).to_torch(dev)
+        check_plan(f"{geometry}", p, x)
+    n = 1 << 18
+    rng = np.random.default_rng(31)
+    for name, per_row, direct in (("random_1m", 4, False),
+                                  ("random_4m", 0.5, True)):
+        k = int(per_row * n)
+        p = route_xcache.tile_entries(
+            (np.sort(rng.integers(0, n, k)), rng.integers(0, n, k),
+             rng.standard_normal(k).astype(np.float32)), n, n).to_torch(dev)
+        kind = "direct" if p.direct else "staged"
+        check(p.direct == direct, f"{name}'s density at {n} rows: the rule "
+                                  f"picks a {kind} plan")
+        check_plan(f"the rule at {name}'s density", p, torch.as_tensor(
+            rng.standard_normal(n).astype(np.float32), device=dev))
+
+
 def check_routed_small(dev) -> None:
-    """Every layout of the TPU's routed schedule, on small matrices."""
+    """Every layout of the TPU's routed schedule, on small matrices; the
+    column blocks of one matrix in one plan; staged and direct plans."""
     cfg = port.EhybConfig()
     x_of = deterministic_x
     # slice layout, one block, identity dst
     m = generate.random_general(16384, 12, seed=3)
     model = port.RoutedSpmv(cfg, device=dev).setup(m)
-    d = model.applies[0].d
+    d = model.routed_apply.d
     check(len(model.blocks) == 1 and not model.blocks[0].octet and d.ident
           and isinstance(d, RoutedEpilogue),
           "slice: one block, slice layout, identity dst, no stage arrays on "
           "the card")
-    check_schedule("slice", model.blocks[0], model.applies[0],
+    check_schedule("slice", model.blocks[0], model.routed_apply,
                    model.prepare_x(x_of(m.dimension)))
     models = [("slice", m, model)]
     # octet layout, permuted dst (built as the JAX suite builds it)
@@ -1186,21 +1247,33 @@ def check_routed_small(dev) -> None:
     err = rel_np(y, oracle_spmv(m, x_of(m.dimension)))
     check(err <= ORACLE_TOL, f"octet: apply vs oracle rel {err:.3e} <= "
                              f"{ORACLE_TOL}")
-    # column-block mode
+    # column-block mode: the four blocks' entries in one plan
     m = random_coo(1 << 15, 8, seed=17)
     model = block_mode_model(m, dev)
-    check(len(model.blocks) == 4, f"blocks: {len(model.blocks)} blocks")
+    p = model.routed_apply.plan
+    check(len(model.blocks) == 4 and p.stats["blocks"] == 4
+          and p.n_ent == m.nnz,
+          f"blocks: {len(model.blocks)} schedules, one plan over "
+          f"{p.stats['blocks']} blocks and {p.n_ent} entries")
     x = model.prepare_x(x_of(m.dimension))
-    for i, (rm, ap, lo) in enumerate(zip(model.blocks, model.applies,
-                                         model._lo)):
-        check_schedule(f"block {i}", rm, ap, x[lo:lo + ap.d.padded_x_rows])
+    check_plan("blocks", p, x)
+    y_pair = sum(routed_plain(rm.to_torch(device=dev),
+                              x[lo:lo + rm.padded_x_rows])
+                 for rm, lo in zip(model.blocks, model._lo))
+    reset_launches()
+    y = model.apply(x)
+    torch.cuda.synchronize()
+    err = rel(y, y_pair)
+    check(err <= KERNEL_TOL and route_xcache.route_xcache.launches == 1,
+          f"blocks: the apply ({route_xcache.route_xcache.launches} launch) "
+          f"vs the blocks' plain K7/K8 pairs added rel {err:.3e}")
     models.append(("blocks", m, model))
     # slice layout with a spill tail
     m = generate.random_general(4096, 12, seed=9, power_law=0.8)
     model = port.RoutedSpmv(cfg, device=dev).setup(m)
     spill = model.blocks[0].stats["nnz_spill"]
     check(spill > 0, f"spill: {spill} spilled entries")
-    check_schedule("spill", model.blocks[0], model.applies[0],
+    check_schedule("spill", model.blocks[0], model.routed_apply,
                    model.prepare_x(x_of(m.dimension)))
     models.append(("spill", m, model))
     # the degree-split hybrid (K1 beside the routed kernel)
@@ -1212,6 +1285,9 @@ def check_routed_small(dev) -> None:
         err = rel_np(model.matvec(x), oracle_spmv(m, x))
         check(err <= ORACLE_TOL,
               f"{name}: {model.name} vs oracle rel {err:.3e} <= {ORACLE_TOL}")
+    print("  the routed kernel over staged plans at two part counts and "
+          "over direct plans:")
+    check_rx_geometries(dev)
 
 
 class patched:
@@ -2018,16 +2094,34 @@ def time_apply(model, result, dev, step_s: float, prof: dict,
                 bcoo_us=1e3 * bcoo_ms, bcoo_gflops=bcoo["gflops"])
 
 
-def time_routed(model, result, m: MatrixCOO, dev) -> dict:
-    """The one-pass routed kernel at random_1m's shapes against its plain
-    version and the plain K7/K8 pair, and the whole routed apply; cuSPARSE
-    over the same entries in dst order (the same function) and over the
-    whole matrix in the original order.  Bounds: the same work in any
-    layout (the kernel's ``bound_ms``), and the bytes of the plan's layout
-    (``layout_bound_ms``: the same work plus the partials and maps)."""
-    check(len(model.applies) == 1, "random_1m runs one routed block")
-    rm, ap = model.blocks[0], model.applies[0]
-    p = ap.plan
+def rx_plan_line(p, plan_s: float) -> str:
+    """The routed plan's geometry and what it stages, for the log."""
+    st = p.stats
+    return (f"plan: {'direct' if p.direct else 'staged'}, {st['n_tiles']} "
+            f"blocks ({st['n_groups']} groups of {st['group_rows']} rows x "
+            f"{st['parts']} parts), {p.chunk_cols} columns a chunk, "
+            f"{p.threads} threads, {st['smem_bytes']} B of shared memory; "
+            f"{st['n_segs']} segments ({st['mean_segment_entries']:.0f} "
+            f"entries each), "
+            f"{st['passes']} passes; {st['entries']} entries "
+            f"({st['spilled']} spilled) from {st['blocks']} schedule(s), "
+            f"largest tile {st['max_tile_entries']} (mean "
+            f"{st['mean_tile_entries']:.0f}); staged from L2 "
+            f"{st['staged_bytes']} B ({st['staged_bytes'] / st['entries']:.2f}"
+            f" B an entry, {st['staged_bytes'] / st['x_bytes']:.3f} x x); "
+            f"built in {plan_s:.2f} s")
+
+
+def time_routed(model, result, m: MatrixCOO, dev, pair: bool = True) -> dict:
+    """The one-pass routed kernel at the model's shapes against its plain
+    version (and, where ``pair``, the plain K7/K8 pair of its one schedule),
+    two launches bit for bit, and the whole routed apply; cuSPARSE over the
+    same entries in dst order (the same function) and over the whole matrix
+    in the original order.  Bounds: the same work in any layout (the
+    kernel's ``bound_ms``), and the bytes of the plan's layout
+    (``layout_bound_ms``: the same work plus the partials and maps); the L2
+    bytes the plan stages stand beside them."""
+    p = model.routed_apply.plan
     x_dev = model.prepare_x(deterministic_x(m.dimension))
     y_k = route_xcache.route_xcache(p, x_dev)
     y_again = route_xcache.route_xcache(p, x_dev)
@@ -2040,14 +2134,17 @@ def time_routed(model, result, m: MatrixCOO, dev) -> dict:
           f"route_xcache vs plain rel {err:.3e} <= {KERNEL_TOL} (max abs "
           f"{max_abs:.3e}, {p.n_ent} entries), the same bits twice")
     del y_again
-    d = rm.to_torch(device=dev)
-    y_s = stages_plain(d, x_dev)
-    torch.cuda.synchronize()
-    err = rel(y_k, y_s)
-    check(err <= KERNEL_TOL, f"route_xcache vs the plain K7/K8 pair rel "
-                             f"{err:.3e}, max abs "
-                             f"{float((y_k - y_s).abs().max()):.3e}")
-    del d, y_s
+    if pair:
+        check(len(model.blocks) == 1, f"{result['matrix']} runs one "
+                                      "routed schedule")
+        d = model.blocks[0].to_torch(device=dev)
+        y_s = stages_plain(d, x_dev)
+        torch.cuda.synchronize()
+        err = rel(y_k, y_s)
+        check(err <= KERNEL_TOL, f"route_xcache vs the plain K7/K8 pair rel "
+                                 f"{err:.3e}, max abs "
+                                 f"{float((y_k - y_s).abs().max()):.3e}")
+        del d, y_s
     ms, plain_ms, turns = in_turns(
         lambda: route_xcache.route_xcache(p, x_dev),
         lambda: route_xcache.route_xcache_plain(p, x_dev), 50, 5)
@@ -2063,7 +2160,7 @@ def time_routed(model, result, m: MatrixCOO, dev) -> dict:
     del a_dst
     st = p.stats
     lay = bound(st["layout_bytes"], 2 * p.n_ent, dev)
-    # 1M columns need 32-bit column indices
+    # millions of columns need 32-bit column indices
     same = same_work_bound(m.nnz, 4, m.dimension, m.n_rows, dev)
     # the routed engine's first yardstick: one cuSPARSE CSR matvec over the
     # whole matrix, in the original ordering
@@ -2075,21 +2172,12 @@ def time_routed(model, result, m: MatrixCOO, dev) -> dict:
                         device=dev)
     y_l = torch.mv(a, x).cpu().numpy()
     err = rel_np(y_l, oracle_spmv(m, deterministic_x(m.dimension)))
-    check(err <= ORACLE_TOL, f"cuSPARSE over random_1m vs oracle rel "
-                             f"{err:.3e}")
+    check(err <= ORACLE_TOL, f"cuSPARSE over {result['matrix']} vs oracle "
+                             f"rel {err:.3e}")
     whole_ms = device_ms_per_call(lambda: torch.mv(a, x), 20)
+    del a
     print(f"  route_xcache device ms (plain, kernel, kernel, plain): {turns}")
-    print(f"  plan: {st['n_tiles']} blocks ({st['n_groups']} groups of "
-          f"{st['group_rows']} rows x {st['parts']} parts), "
-          f"{st['chunk_windows']} windows per chunk, {route_xcache.THREADS} "
-          f"threads, {st['smem_bytes']} B of shared memory; "
-          f"{st['n_segs']} segments, "
-          f"{st['passes']} passes; {st['entries']} entries "
-          f"({st['spilled']} spilled), largest tile "
-          f"{st['max_tile_entries']} (mean {st['mean_tile_entries']:.0f}); "
-          f"staged {st['staged_bytes'] / st['x_bytes']:.3f} x x "
-          f"({st['staged_bytes']} B from L2); built in "
-          f"{result['setup_seconds']['route_plan']:.2f} s")
+    print(f"  {rx_plan_line(p, result['setup_seconds']['route_plan'])}")
     print(f"  bounds: layout {lay['bound_ms']:.4f} ms ({st['layout_bytes']} "
           f"B: entries {st['ent_bytes']}, x {st['x_bytes']}, partials "
           f"{st['partial_bytes']}, y {st['y_bytes']}, maps "
@@ -2104,7 +2192,9 @@ def time_routed(model, result, m: MatrixCOO, dev) -> dict:
           f"device GFLOP/s {2e-6 * m.nnz / apply_ms:.2f}, cuSPARSE's "
           f"{2e-6 * m.nnz / whole_ms:.2f}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **bounds(lay, same))
+                library_ms=lib_ms, **bounds(lay, same),
+                l2_staged_bytes=st["staged_bytes"],
+                plan="direct" if p.direct else "staged")
 
 
 def check_loop(res: dict, model, dev) -> dict:
@@ -2163,16 +2253,20 @@ def step_kernels(kernels: list, n: int) -> dict:
 
 
 def profile_path(name: str, result: dict, model, graph_s: float,
-                 n: int = 20, strict: bool = False) -> dict:
+                 n: int = 20, strict: bool = False,
+                 eager_fallback: bool = False) -> dict:
     """Device time by kernel over ``n`` iterations of a main path's graph
     loop (``torch.profiler``), the device's busy share of the unprofiled
     graph loop's time per iteration, the kernels a step launches, and
     ``phase_breakdown``'s device time per phase.  Where the profiler sees
     no kernel inside the graph replays, the split comes from the eager
-    loop instead (said so).  With ``strict`` (a flagship row where K1
-    runs) a step must launch K1, K9 and the chain add once each and no
+    loop instead (said so); with ``eager_fallback`` also where what it sees
+    of the replays is under half the step (a graph it does not trace: its
+    x copy-in alone), and the busy share is then the eager loop's device
+    time over the graph loop's wall.  With ``strict`` (a flagship row where
+    K1 runs) a step must launch K1, K9 and the chain add once each and no
     other kernel: no torch scatter, fill or copy.  Returns the step's
-    launches and busy share."""
+    launches, busy share and what the profiler saw of the replays."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2188,9 +2282,18 @@ def profile_path(name: str, result: dict, model, graph_s: float,
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.device_time_total > 0]
-        if kernels:
+        if loop != model.iterate:
             break
-        source = "the eager loop (the profiler saw no kernel in the graph)"
+        seen_us = sum(e.device_time_total for e in kernels) / n
+        graph_seen = dict(us=seen_us, kernels=sum(
+            e.count for e in kernels if "Memcpy" not in e.key) / n)
+        if kernels and not (eager_fallback and seen_us < 0.5e6 * graph_s):
+            break
+        print(f"  {name}: the profiler saw {seen_us:.2f} us per iteration "
+              f"of the graph replays ({graph_seen['kernels']:g} kernels a "
+              "step); the split below is the eager loop's")
+        source = ("the eager loop (the profiler did not trace the graph's "
+                  "kernels)")
     busy_us = sum(e.device_time_total for e in kernels) / n
     wall_us = 1e6 * graph_s
     print(f"  {name}: device busy {busy_us:.2f} us per iteration "
@@ -2215,7 +2318,7 @@ def profile_path(name: str, result: dict, model, graph_s: float,
     print("    phase_breakdown (device us per call, CUDA graph replay): "
           + ", ".join(f"{k} {1e6 * v:.2f}" for k, v in phases.items()))
     return dict(launches_per_step=sum(steps.values()),
-                busy_share=busy_us / wall_us)
+                busy_share=busy_us / wall_us, graph_seen=graph_seen)
 
 
 def check_cg(model, dev) -> None:
@@ -3233,8 +3336,14 @@ def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> dict:
         for mat in ("poisson2d_512", "stencil27_24", "fem3d_32"):
             check_body_row(swept[mat]["ehyb"])
         r4 = swept["random_4m"]["ehyb"]
+        # one product is one launch of K9 on the all-DIA poisson2d_512
+        products = swept["poisson2d_512"]["ehyb"]["launches"]["K9"]
         if r4["engine"] == "RoutedSpmv":
             check_routed_row(r4)
+            check(r4["launches"]["RX"] == products,
+                  f"random_4m: {r4['launches']['RX']} {RX['name']} launches "
+                  f"for {products} products ({r4['routed_blocks']} column "
+                  "blocks in one plan)")
         else:
             print(f"  FINDING: the gate kept the body on random_4m "
                   f"({r4['engine']})")
@@ -3277,8 +3386,30 @@ def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> dict:
                   kahan_max_abs_err=k1k["max_abs_err"])
         del model, md, x
         print(f"  20d wall {time.perf_counter() - t1:.1f} s")
+        print(f"  20e: {RX['name']} on random_4m's one plan over its four "
+              f"column blocks, from the prewarmed cache ({card})")
+        t1 = time.perf_counter()
+        with cache_dir(prewarm.cache_dir):
+            m4 = generate.load_corpus("random_4m")
+            model = port.RoutedSpmv(port.EhybConfig(artifact_cache=True),
+                                    device="cuda").setup(m4)
+        print(f"  setup {time.perf_counter() - t1:.1f} s "
+              f"({model.setup_seconds}); {len(model.blocks)} schedules")
+        check(len(model.blocks) == 4
+              and model.routed_apply.plan.stats["blocks"] == 4,
+              f"random_4m: {len(model.blocks)} column blocks, one plan")
+        res = dict(matrix="random_4m", dim=m4.dimension, nnz=m4.nnz,
+                   iters=100, setup_seconds=model.setup_seconds)
+        rx4 = time_routed(model, res, m4, model.device, pair=False)
+        rx4["launches"] = r4["launches"]["RX"]
+        loop = check_loop(res, model, model.device)
+        profile_path("random_4m", res, model, loop["graph"],
+                     eager_fallback=True)
+        del model, m4
+        rx4["wall_s"] = time.perf_counter() - t1
+        print(f"  20e wall {rx4['wall_s']:.1f} s")
     print(f"  phase 20 wall {time.perf_counter() - t0:.1f} s")
-    return dict(k1, launches=rp["launches"]["K1"])
+    return dict(k1, launches=rp["launches"]["K1"]), rx4
 
 
 # ---------------------------------------------------------------------------
@@ -3452,10 +3583,13 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     print("  K1's split form (heavy-tailed bodies: long row blocks in chunks)")
     check_k1_split(dev)
 
-    phase("4: the routed kernel vs its plain version and the plain K7/K8 "
-          "pair on small matrices (slice, octet, column blocks, spill) and "
-          "the split model")
+    phase("4: the routed kernel vs its plain version, its CPU replay and the "
+          "plain K7/K8 pair on small matrices (slice, octet, column blocks "
+          "in one plan, spill), the split model, staged and direct plans")
+    t4 = time.perf_counter()
     check_routed_small(dev)
+    t4 = time.perf_counter() - t4
+    print(f"  phase 4 wall {t4:.1f} s")
 
     phase("5: K9 and the window cache vs plain versions on small matrices; "
           "K1 where the TPU runs K5 or K6")
@@ -3615,6 +3749,18 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     prof = {res["matrix"]: profile_path(
         res["matrix"], res, model, loop_s[res["matrix"]]["graph"],
         strict=model is model1) for res, model in rows}
+    # the graphs above were captured before the profiler first ran in this
+    # process; capture random_1m's again now, after it, and profile them
+    model2._chains.clear()
+    again = profile_path(f"{res2['matrix']} (graphs captured after a "
+                         "profile)", res2, model2,
+                         loop_s[res2["matrix"]]["graph"])
+    print(f"  FINDING: graphs captured after the profiler has run: it saw "
+          f"{again['graph_seen']['kernels']:g} kernels a step of "
+          f"{res2['matrix']}'s replays ({again['graph_seen']['us']:.2f} us), "
+          f"against {prof[res2['matrix']]['graph_seen']['kernels']:g} "
+          f"({prof[res2['matrix']]['graph_seen']['us']:.2f} us) for the "
+          "graphs captured before")
 
     phase(f"13: CG on {res1['matrix']} through the flagship (K1 and K9 in "
           "the graph)")
@@ -3735,7 +3881,7 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     t20 = time.perf_counter()
     phase("20: the bench surface: bench_torch's headline, its precision "
           "mode, and scripts_torch/sweep.py on " + ", ".join(SWEEP_ROWS))
-    k1_1m = check_bench_surface(prewarm, res1, card)
+    k1_1m, rx4 = check_bench_surface(prewarm, res1, card)
     t21 = time.perf_counter()
     phase("21: K1's split variants in float64 and compensated: small "
           "bodies, powerlaw_16k in four configs, powerlaw_1m --dword")
@@ -3750,14 +3896,16 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     k1_1m_dword = check_dword_1m(dev, prebuild_dword)
     print(f"  21c wall {time.perf_counter() - t1:.1f} s")
     t_end = time.perf_counter()
-    print(f"  phase 17 {t18 - t17:.1f} s, phase 18 {t19 - t18:.1f} s, phase "
-          f"19 {t20 - t19:.1f} s, phase 20 {t21 - t20:.1f} s, phase 21 "
+    print(f"  phase 4 {t4:.1f} s, phase 17 {t18 - t17:.1f} s, phase 18 "
+          f"{t19 - t18:.1f} s, phase 19 {t20 - t19:.1f} s, phase 20 "
+          f"{t21 - t20:.1f} s (20e {rx4.pop('wall_s'):.1f} s), phase 21 "
           f"{t_end - t21:.1f} s; script wall {t_end - t_start:.1f} s")
 
     print(json.dumps({"small_gate": gates}))
     print(json.dumps({"kernels": [
         dict(K1, launches=launch1["K1"], **k1),
         dict(RX, launches=launch2["RX"], **rx),
+        dict(RX, name="route_xcache@random_4m", **rx4),
         dict(K9, launches=launch3["K9"], **k9),
         dict(K9, name="dia (accumulate mode, permuted_poisson_512)",
              launches=launch1["K9"], **dict(k9_512, ms=k9_512["acc_ms"])),

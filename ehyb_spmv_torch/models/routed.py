@@ -9,9 +9,12 @@ stages (K7, K8) and its spill tail; the schedule's own stage arrays stay on
 the host.
 
 Beyond the single-level router's select-chain bound (~2M columns at
-16 nnz/row) the model switches to COLUMN-BLOCK mode: the matrix splits into
-1M-column vertical blocks, each block runs its own routed instance, and the
-blocks' input-space outputs sum.
+16 nnz/row) the host switches to COLUMN-BLOCK mode, as the TPU does: the
+matrix splits into 1M-column vertical blocks, each with its own schedule
+(cached under the JAX package's names).  The chain bound is the TPU's
+select chain, which the card's kernel does not have: every block's entries,
+moved to its columns of the shared x, go into one plan, and a product is one
+launch.
 
 The engine exists because the TPU has no hardware gather from HBM; the H100
 has one, and whether the routed engine pays there at all is measured beside
@@ -34,7 +37,7 @@ from ..core.coo import MatrixCOO
 from ..core.route import (WIN, RoutedEpilogue, RoutedMatrix, _choose_params,
                           build_routed, routed_row_perm)
 from ..ops.route import RoutedApply
-from ..ops.route_xcache import build_route_plan
+from ..ops.route_xcache import cached_blocks_plan
 from ..utils.log import get_logger
 from .base import SpmvModel
 
@@ -111,8 +114,9 @@ def _block_ranges(dim: int, block_cols: int = None) -> List[tuple]:
 
 class RoutedSpmv(SpmvModel):
     """Routed SpMV (the TPU's routed schedule, run on the card as one pass
-    over x chunks staged in shared memory), column-blocked past the
-    single-level chain bound.
+    over its entries, x staged in shared memory or read through L2); the
+    host builds its schedule in column blocks past the single-level chain
+    bound, and the card runs the blocks in one plan.
 
     ``external_order=True`` skips the internal dst row permutation and
     builds identity-dst on the row order AS GIVEN — for composers (the
@@ -233,9 +237,8 @@ class RoutedSpmv(SpmvModel):
             self._x_rows = None
             out_rows = None  # builder default (square case)
         self.blocks: List[RoutedMatrix] = []
-        self.applies: List[RoutedApply] = []
         self._lo = []
-        convert_s = upload_s = plan_s = 0.0
+        convert_s = 0.0
         ext = "-ext" if self._external_order else ""
         for i, (lo, hi) in enumerate(ranges):
             tag = ext + (f"-b{i}of{n_blocks}" if n_blocks > 1 else "")
@@ -258,24 +261,32 @@ class RoutedSpmv(SpmvModel):
                 convert_s += time.perf_counter() - t1
                 if cfg.artifact_cache:
                     _save_routed(rm, path)
-            t2 = time.perf_counter()
-            plan = build_route_plan(rm)
-            t3 = time.perf_counter()
-            plan_s += t3 - t2
-            # the card gets the plan and the epilogue's maps; the stage
-            # arrays stay on the host (self.blocks)
             self.blocks.append(rm)
-            self.applies.append(RoutedApply(
-                RoutedEpilogue(rm).to(self.device),
-                plan.to_torch(self.device)))
             self._lo.append(lo)
-            upload_s += time.perf_counter() - t3
         if convert_s:
             self.setup_seconds["convert"] = convert_s
         else:
             self.setup_seconds["cache_load"] = time.perf_counter() - t0
-        self.setup_seconds["route_plan"] = plan_s
-        self.setup_seconds["upload"] = upload_s
+        # one plan over every block's entries, one epilogue: the blocks are
+        # identity-dst on the same rows, so block 0's slice serves them all
+        t2 = time.perf_counter()
+        epi = RoutedEpilogue(self.blocks[0])
+        if n_blocks > 1 and not (epi.ident and all(
+                RoutedEpilogue(rm).ident for rm in self.blocks[1:])):
+            raise ValueError("column blocks must be identity-dst")
+        # the plan is cached beside the schedules (built once per matrix)
+        cache = (_cache_path(self._cache_m, cfg.cache_dir, ext + (
+            f"-{n_blocks}blocks" if n_blocks > 1 else ""))[:-len(".npz")]
+            if cfg.artifact_cache else None)
+        plan = cached_blocks_plan(self.blocks, self._lo,
+                                  self._padded_x_rows, cache)
+        t3 = time.perf_counter()
+        # the card gets the plan and the epilogue's maps; the stage arrays
+        # stay on the host (self.blocks)
+        self.routed_apply = RoutedApply(epi.to(self.device),
+                                        plan.to_torch(self.device))
+        self.setup_seconds["route_plan"] = t3 - t2
+        self.setup_seconds["upload"] = time.perf_counter() - t3
         self.routed = self.blocks[0]   # introspection convenience
         self.setup_seconds["total"] = time.perf_counter() - t0
 
@@ -301,21 +312,14 @@ class RoutedSpmv(SpmvModel):
 
     def roofline_phases(self) -> dict:
         """(flops, device-memory bytes) per iteration: what the routed
-        kernel of each block moves (its plan's entries and maps, x once,
-        its partial y written and read back, y once).  The TPU's stage
-        streams and product array never reach the card, so they are not
-        counted."""
-        return {"routed": (2 * self.m.nnz, sum(
-            ap.plan.stats["layout_bytes"] for ap in self.applies))}
+        kernel moves (its plan's entries and maps, x once, its partial y
+        written and read back, y once).  The TPU's stage streams and
+        product array never reach the card, so they are not counted."""
+        return {"routed": (2 * self.m.nnz,
+                           self.routed_apply.plan.stats["layout_bytes"])}
 
     @torch.no_grad()
     def apply(self, x_dev: torch.Tensor) -> torch.Tensor:
-        """One SpMV in the permuted input space; column blocks each read
-        their own slice of x and their outputs sum."""
-        y = None
-        for ap, lo in zip(self.applies, self._lo):
-            xs = (x_dev if len(self.applies) == 1
-                  else x_dev[lo:lo + ap.d.padded_x_rows])
-            yb = ap(xs)
-            y = yb if y is None else y + yb
-        return y
+        """One SpMV in the permuted input space: one launch over every
+        column block's entries."""
+        return self.routed_apply(x_dev)

@@ -107,11 +107,12 @@ def to_input_space(d: RoutedEpilogue, y_dst: torch.Tensor) -> torch.Tensor:
 
 
 class RoutedApply(torch.nn.Module):
-    """Routed SpMV of one schedule: the one-pass kernel over its plan
-    (routed and spilled entries), then the epilogue (the role of
-    ``make_routed_apply``).  ``forward(x_pad)`` takes x padded to
-    ``padded_x_rows`` in the schedule's column space and returns y of
-    ``out_rows`` rows in input space."""
+    """Routed SpMV of one plan (one schedule, or every column block of one
+    matrix): the one-pass kernel over the plan's routed and spilled
+    entries, then the epilogue (the role of ``make_routed_apply``).
+    ``forward(x_pad)`` takes x padded to the plan's ``n_x`` rows in the
+    schedules' column space and returns y of ``out_rows`` rows in input
+    space."""
 
     def __init__(self, d: RoutedEpilogue, plan: RoutePlanDevice):
         super().__init__()

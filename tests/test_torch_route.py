@@ -191,8 +191,8 @@ def test_routed_model_matches_jax_and_oracle(external_order, built,
 
 def test_routed_block_mode_matches_jax_and_oracle(monkeypatch):
     """Column-block mode with BLOCK_COLS patched small: both packages split
-    into the same blocks with the same schedules, and the blocks' summed
-    outputs hit the oracle."""
+    into the same blocks with the same schedules; the port's one plan over
+    both blocks gives the JAX model's summed blocks and the oracle."""
     m = _random_coo(1 << 15, 8, seed=17)
     monkeypatch.setenv("EHYB_ROUTE_SB_MAX", SB_SMALL)
     monkeypatch.setattr(ref_routed, "BLOCK_COLS", 1 << 14)
@@ -209,6 +209,9 @@ def test_routed_block_mode_matches_jax_and_oracle(monkeypatch):
     assert len(model.blocks) == len(jmodel.blocks) == 2
     for a, b in zip(jmodel.blocks, model.blocks):
         _assert_same_routed(a, b)
+    # the port runs both blocks' entries through one plan, one launch
+    plan = model.routed_apply.plan
+    assert plan.stats["blocks"] == 2 and plan.n_ent == m.nnz
     x = deterministic_x(m.dimension)
     got = model.matvec(x)
     assert rel(got, oracle_spmv(m, x)) <= ORACLE_TOL
