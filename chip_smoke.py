@@ -60,20 +60,31 @@ residual from the exact-f64 oracle, a checkpointed solve cut at 500
 iterations and resumed), power iteration (graph against eager), and the
 ``csr``, ``bcoo`` and ``hyb`` baselines through the CLI beside ``ehyb``.
 
-Last, the sharded path (``ehyb_spmv_torch/parallel/``): K1 with a
-row-block list against its plain version (a sharded stencil's interior,
-boundary, both and empty lists, row blocks cut for the 16-bit range,
-Kahan, at every built variant); ``ShardedEhybSpmv`` at one rank on
-``permuted_poisson_1024`` with no process group, through the graph loop
-(its launch counts set to 0 before it and read after; against the oracle,
-the flagship and, in turns, the flagship's graph loop); two and four gloo
-ranks on the one card (``parallel/launch.py``; NCCL refuses two ranks on
-one device), each rank's interior and boundary row blocks, the exchange
-size and its eager µs per apply (the ranks share the card: not scaling);
-the sharded K1 per rank and list, timed on its own; the sharded routed
-engine at one rank on ``random_1m`` and, with the sharded degree split, at
-two ranks on small matrices.  The ``kernels`` line lists the sharded K1
-beside the other four.
+Last, the sharded path (``ehyb_spmv_torch/parallel/``), whose rank's
+apply is K1 over its interior row blocks, K1 over the rest and K9 with an
+x base adding the diagonals into K1's y (the shard's plan holds its ER
+and long rows): K1 with a row-block list against its plain version (a
+sharded stencil's interior, boundary, both and empty lists, row blocks
+cut for the 16-bit range, Kahan, at every built variant), its split
+variants over lists of work items (a heavy-tailed matrix's shards in f32
+and f64, plain and Kahan), K9 with an x base (both modes, f32 and f64);
+``ShardedEhybSpmv`` at one rank on ``permuted_poisson_1024`` with no
+process group, through the graph loop (its launch counts set to 0 before
+it and read after: K1 and K9 once an apply; against the oracle, the
+flagship and, in turns, the flagship's graph loop; a step profiled: K1,
+K9 and the chain add, nothing else); two and four gloo ranks on the one
+card (``parallel/launch.py``; NCCL refuses two ranks on one device), each
+rank's interior and boundary row blocks, its K1 and K9 launches an apply,
+the exchange size and its eager µs per apply (the ranks share the card:
+not scaling); the sharded K1 per rank and list, timed on its own; the
+sharded routed engine at one rank on ``random_1m`` and, with the sharded
+degree split, at two ranks on small matrices; last (16e)
+``ShardedDegreeSplitSpmv`` at one rank on ``powerlaw_1m`` at full size,
+its host setup built in the background from phase 1 on
+(``scripts_torch/prewarm.py --models ehyb_split_sharded``), against the
+oracle, its graph loop and its dense rows' K1 over a list of work items
+timed.  The ``kernels`` line lists the sharded K1 (also on powerlaw_1m's
+dense rows) and K9 with an x base beside the others.
 
 Then the precision mode (``--dword``: f64 values, x, y and sums; phase 17):
 K1 and K9 in f64 against their f64 plain versions (rel <= 1e-12) on the
@@ -203,11 +214,11 @@ from ehyb_spmv_torch.ops import dia, ehyb_stream, ehyb_wincache, route
 from ehyb_spmv_torch.ops import route_xcache, stream_plan
 from ehyb_spmv_torch.ops.build import BUILD_DIR
 from ehyb_spmv_torch.ops import stream_cells
-from ehyb_spmv_torch.ops.stream_cells import (DIRECT_BELOW, PIECE_CELL,
-                                              PIECE_RB, PIECE_ROW,
-                                              build_stream_cells,
+from ehyb_spmv_torch.ops.stream_cells import (DIRECT_BELOW, ITEM_PIECE,
+                                              PIECE_CELL, PIECE_RB,
+                                              PIECE_ROW, build_stream_cells,
                                               k1_folded_plan, k1_options,
-                                              split)
+                                              list_items, split)
 from ehyb_spmv_torch.parallel import launch
 from ehyb_spmv_torch.parallel.comm import rank_device
 from ehyb_spmv_torch.parallel.hybrid import ShardedDegreeSplitSpmv
@@ -304,6 +315,10 @@ PARENT_STEP_US = {"permuted_poisson_512": (26.53, 26.84),
                   "fem3d_68_audikw_class": (152.87, 155.09),
                   "permuted_poisson_4096": (566.62, 581.52),
                   "powerlaw_1m --dword": (1420.0, 1420.0)}
+#: A step of ``ehyb_sharded`` at one rank on permuted_poisson_1024 before
+#: its apply took the tail into K1 and the diagonals into K9 (PERF.md, the
+#: graph loop on an H100 at 700 W): us.
+PARENT_SHARDED_STEP_US = 64.63
 _ROUTE = "ehyb_spmv_gpu_tpu/ops/route_pallas.py"
 RX = {"name": "route_xcache", "route": "cuda",
       "source": "ehyb_spmv_torch/csrc/route_xcache.cu",
@@ -359,6 +374,19 @@ K1_SPLIT = {
         replaces=f"{_PALLAS}:148 (K1, kahan=True)")}
 K1_SPLIT_1M = dict(K1F64, name="ehyb_stream_body (f64, long rows, "
                                "powerlaw_1m --dword)")
+#: The sharded K1 over a heavy-tailed shard: powerlaw_1m's dense rows
+#: (``ehyb_split_sharded`` at one rank, phase 16e), its split form through
+#: a list of work items, the tail folded in.
+SK1_SPLIT_1M = dict(SK1, name="ehyb_stream_body (work-item list, "
+                              "powerlaw_1m dense rows, ehyb_split_sharded "
+                              "world 1)")
+#: K9 with an x base: the sharded apply's diagonals (phase 16b), where the
+#: JAX sharded path runs its DIA in XLA.
+K9_BASE = {"name": "dia (x base, ehyb_sharded permuted_poisson_1024 D=1)",
+           "route": "cuda", "source": "ehyb_spmv_torch/csrc/dia.cu",
+           "replaces": "ehyb_spmv_gpu_tpu/ops/dia_pallas.py:68 (K9); the "
+                       "JAX sharded path's DIA is XLA "
+                       "(ehyb_spmv_gpu_tpu/parallel/spmv.py:652)"}
 SK1F64 = {"name": "ehyb_stream_body (f64, row-block list)", "route": "cuda",
           "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
           "replaces": "ehyb_spmv_gpu_tpu/parallel/spmv.py:511 (_stream_call, "
@@ -406,6 +434,10 @@ HEAVY_CONFIGS = {"--dword": dict(dword_values=True),
 DWORD_1M_ARGS = ["-g", "powerlaw_1m", "--model", "ehyb", "-i", "50",
                  "--json", "--device", "cuda", "--dword"]
 PREBUILD_FEM_ARGS = ("--models", "ehyb", "--dword", "fem3d_68_audikw_class")
+#: Phase 16e's host setup: powerlaw_1m's sharded degree split at one rank,
+#: in the sharded path's config (1024-row windows).
+PREBUILD_SHARDED_ARGS = ("--models", "ehyb_split_sharded", "--window-rows",
+                         "1024", "powerlaw_1m")
 PREBUILD_DWORD_ARGS = ("--models", "ehyb", "--dword", "powerlaw_1m")
 #: fem3d_68 --dword's K1 plan with its 1,865,876 ER entries folded in, as
 #: the fold first built it (its widest row block, 80 steps, is not past
@@ -2043,6 +2075,56 @@ def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50,
                 library_ms=lib_ms, **bounds(b, same), **extra)
 
 
+def time_dia_base(e, x_dev: torch.Tensor, base: int, y0: torch.Tensor, dev,
+                  n: int = 100) -> dict:
+    """K9 with an x base as the sharded apply runs it (the accumulate mode,
+    adding into K1's y ``y0``): bit for bit with its plain version on the
+    CPU, timed in turns with its plain version on the card (each adding
+    into a buffer of its own), cuSPARSE over the same diagonal entries,
+    both bounds (the accumulate mode reads y once more)."""
+    f64 = x_dev.dtype == torch.float64
+    vb = x_dev.element_size()
+    tol = F64_TOL if f64 else KERNEL_TOL
+    e_cpu = types.SimpleNamespace(dia_offsets=e.dia_offsets,
+                                  dia_val=e.dia_val.cpu())
+    out = y0.clone()
+    dia.dia_body(e, x_dev, out=out, x_base=base)
+    want = dia.dia_body_plain(e_cpu, x_dev.cpu(), out=y0.cpu(), x_base=base)
+    torch.cuda.synchronize()
+    max_abs = float((out.cpu() - want).abs().max())
+    check(torch.equal(out.cpu(), want),
+          f"K9 with x base {base} in its accumulate mode at the shard's "
+          f"shape bit for bit with its plain version on the CPU")
+    shifted = types.SimpleNamespace(
+        dia_offsets=tuple(d + base for d in e.dia_offsets), dia_val=e.dia_val)
+    a = dia_csr(shifted, x_dev.shape[0], dev)
+    y_l = torch.mv(a, x_dev)
+    err = rel(y_l, dia.dia_body_plain(e, x_dev, x_base=base))
+    check(err <= tol, f"cuSPARSE over the {a.values().numel()} DIA entries "
+                      f"vs plain rel {err:.3e}")
+    buf, buf_p = y0.clone(), y0.clone()
+    ms, plain_ms, turns = in_turns(
+        lambda: dia.dia_body(e, x_dev, out=buf, x_base=base),
+        lambda: dia.dia_body_plain(e, x_dev, out=buf_p, x_base=base),
+        n, max(n // 10, 2))
+    lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), n)
+    k, dim_r = e.dia_val.shape
+    plan, _ = dia.device_plan(e.dia_offsets, dim_r, dim_r % 4 == 0, dev,
+                              None, vb, True, base)
+    layout = plan.stats["layout_bytes"] + vb * dim_r
+    b = bound(layout, 2 * k * dim_r, dev, f64)
+    # each entry's value, x and K1's y read once, y written once
+    same = same_work_bound(a.values().numel(), 0, x_dev.numel() + dim_r,
+                           dim_r, dev, vb)
+    print(f"  K9 (x base {base}, {k} diagonals, {dim_r} rows, accumulate "
+          f"mode) device ms per call (plain, kernel, kernel, plain): "
+          f"{turns}; cuSPARSE {lib_ms:.4f} ms; layout bound "
+          f"{b['bound_ms']:.4f} ms ({layout} B); same-work bound "
+          f"{same['bound_ms']:.4f} ms ({same['bytes']} B); {card_state()}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **bounds(b, same))
+
+
 def time_apply(model, result, dev, step_s: float, prof: dict,
                bcoo: dict, card: str, n: int = 100) -> dict:
     """The flagship's apply as a whole (K1 with the tail, then K9 into its
@@ -2405,26 +2487,40 @@ def check_power(model) -> None:
 # Phase 16: the sharded path.
 # ---------------------------------------------------------------------------
 
-def rb_rows(rbs: torch.Tensor) -> torch.Tensor:
-    """The y rows of row blocks ``rbs``."""
-    return (rbs.long()[:, None] * 32
+def rb_rows(rbs: torch.Tensor, p=None) -> torch.Tensor:
+    """The y rows of row blocks ``rbs`` (of plan ``p``: through its row
+    map where it has one)."""
+    rows = (rbs.long()[:, None] * 32
             + torch.arange(32, device=rbs.device)).reshape(-1)
+    if p is not None and p.row_map.numel():
+        rows = p.row_map.to(rbs.device).long()[rows]
+    return rows
+
+
+def list_row_blocks(piece: np.ndarray, lst: np.ndarray) -> np.ndarray:
+    """The row blocks a K1 list names (``piece``: its plan's piece array):
+    the ids, or its work items' row blocks (each once)."""
+    if lst.ndim == 1:
+        return lst.astype(np.int64)
+    return np.unique(piece[lst[:, ITEM_PIECE], PIECE_RB]).astype(np.int64)
 
 
 def check_k1_list(name: str, plan, rbs: np.ndarray, x: np.ndarray,
                   kahan: bool, dev) -> None:
-    """K1 over the row-block list ``rbs`` of ``plan`` (a host
-    StreamCellsPlan, f32 or f64 values) at every geometry of
-    :func:`k1_geometries` for its type, into a y of sentinels: the listed
-    rows against the plain version on the card (within KERNEL_TOL, F64_TOL
-    in f64) and on the CPU (bit for bit where Kahan is off or the type is
-    f64), every other row untouched."""
+    """K1 over the row blocks ``rbs`` of ``plan`` (a host StreamCellsPlan,
+    f32 or f64 values; over a plan in the split form their work items, at
+    the split geometry) at every geometry of :func:`k1_geometries` for its
+    type, into a y of sentinels: the listed rows (through the plan's row
+    map where it has one) against the plain version on the card (within
+    KERNEL_TOL, F64_TOL in f64) and on the CPU (bit for bit where Kahan is
+    off or the type is f64), every other row untouched."""
     p, p_cpu = plan.to_torch(dev), plan.to_torch()
     f64 = plan.cell_val.dtype == np.float64
     tol = F64_TOL if f64 else KERNEL_TOL
     exact = f64 or not kahan
     x_dev = torch.as_tensor(x, dtype=p.cell_val.dtype, device=dev)
-    lst = torch.as_tensor(np.ascontiguousarray(rbs, dtype=np.int32),
+    lst = torch.as_tensor(list_items(plan, rbs) if split(plan) else
+                          np.ascontiguousarray(rbs, dtype=np.int32),
                           device=dev)
     fill = -7.0
     y_p = torch.full((p.n_rb * 32,), fill, dtype=x_dev.dtype, device=dev)
@@ -2432,11 +2528,14 @@ def check_k1_list(name: str, plan, rbs: np.ndarray, x: np.ndarray,
     y_cpu = torch.full((p.n_rb * 32,), fill, dtype=x_dev.dtype)
     ehyb_stream.stream_body_plain(p_cpu, x_dev.cpu(), kahan,
                                   rb_list=lst.cpu(), out=y_cpu)
-    rows = rb_rows(lst)
+    rows = rb_rows(torch.as_tensor(np.asarray(rbs, np.int64), device=dev),
+                   p)
     other = torch.ones(p.n_rb * 32, dtype=torch.bool, device=dev)
     other[rows] = False
     worst, same = 0.0, True
-    for g in k1_geometries(f64):
+    geometries = ([ehyb_stream.SPLIT_GEOMETRY] if split(plan)
+                  else k1_geometries(f64))
+    for g in geometries:
         y = torch.full((p.n_rb * 32,), fill, dtype=x_dev.dtype, device=dev)
         ehyb_stream._launch(p, x_dev, kahan, g, rb_list=lst, out=y)
         torch.cuda.synchronize()
@@ -2447,11 +2546,13 @@ def check_k1_list(name: str, plan, rbs: np.ndarray, x: np.ndarray,
                          "outside the list written")
         worst = max(worst, err)
         same = same and torch.equal(y.cpu(), y_cpu)
+    form = (f", {lst.shape[0]} work items of the split form"
+            if split(plan) else "")
     check(not exact or same,
-          f"K1 list {name} ({len(rbs)} of {p.n_rb} row blocks, "
+          f"K1 list {name} ({len(rbs)} of {p.n_rb} row blocks{form}, "
           f"{plan.stats['split_rbs']} of the plan's cut for the 16-bit "
           f"range{', f64' if f64 else ''}{', Kahan' if kahan else ''}): "
-          f"{len(k1_geometries(f64))} geometries, listed rows vs plain rel "
+          f"{len(geometries)} geometries, listed rows vs plain rel "
           f"<= {worst:.3e}, the others untouched"
           + ("; bit for bit with the plain version on the CPU" if exact
              else ""))
@@ -2470,8 +2571,8 @@ def check_k1_lists(dev) -> None:
         check(sc.interior.size > 0 and sc.boundary.size > 0,
               f"scrambled stencil shard {d}/2: {sc.interior.size} interior, "
               f"{sc.boundary.size} boundary row blocks")
-        n_x = sh.rows_per_dev + 2 * sh.window_rows
-        x = rng.standard_normal(n_x)
+        # [x_ext | recv]: the folded tail reads the exchanged values
+        x = rng.standard_normal(sc.plan.stats["x_rows"])
         lists = {"interior": sc.interior, "boundary": sc.boundary,
                  "both": np.concatenate([sc.interior, sc.boundary]),
                  "empty": np.zeros(0, np.int32)}
@@ -2494,84 +2595,185 @@ def check_k1_lists(dev) -> None:
                           dev)
 
 
+def check_k1_split_lists(dev) -> None:
+    """16a: K1's split variants over lists of work items against their
+    plain versions: the heavy-tailed test matrix (powerlaw_small) sharded
+    at two ranks in float32 and float64 (each config's plan in the split
+    form, the tail folded in), each shard's interior, boundary and both
+    lists and a chunked row block alone, plain and Kahan."""
+    m = generate.random_general(**POWERLAW_SMALL)
+    rng = np.random.default_rng(18)
+    for dtype in ("float32", "float64"):
+        sh = plan_sharded(m, port.EhybConfig(dtype=dtype, **SHARDED_CFG),
+                          2).sharded
+        for d in range(2):
+            sc = build_shard_cells(shard_matrix(sh, d), sh)
+            plan = sc.plan
+            check(split(plan) and plan.stats["folded"],
+                  f"powerlaw_small {dtype} shard {d}/2: the split form "
+                  f"({plan.stats['chunked_rbs']} row blocks in "
+                  f"{plan.stats['n_chunks']} chunks, {plan.stats['n_items']} "
+                  f"work items), {plan.stats['tail_cells']} tail cells; "
+                  f"{sc.interior.size} interior, {sc.boundary.size} boundary "
+                  "row blocks")
+            x = rng.standard_normal(plan.stats["x_rows"])
+            lists = {"interior": sc.interior, "boundary": sc.boundary,
+                     "both": np.concatenate([sc.interior, sc.boundary]),
+                     "one chunked row block": plan.chunk_rb[:1]}
+            for kind, rbs in lists.items():
+                for kahan in (False, True):
+                    check_k1_list(f"split shard {d} {kind} {dtype}"
+                                  f"{' kahan' if kahan else ''}", plan,
+                                  rng.permutation(rbs).astype(np.int32), x,
+                                  kahan, dev)
+
+
+#: K9's x-base cases: (offsets, rows, x values, base).  The sharded
+#: apply's shape (a base of W = 1,024 past a halo of as many values), an
+#: odd base, and a base with reads past both ends of x.
+DIA_BASE_CASES = (((-1024, -1, 0, 1, 1024), 8192, 8192 + 2048, 1024),
+                  ((-3, 0, 5), 4099, 4200, 3),
+                  ((-40, -1, 0, 1, 40), 4096, 4096, 20))
+
+
+def check_dia_base(dev) -> None:
+    """16a: K9 with an x base (row i reads ``x[x_base + i + d_k]``, the
+    sharded apply's diagonals) against its plain version on the CPU, bit
+    for bit, at every built geometry of its type in the write mode and at
+    the default one in the accumulate mode, in f32 and f64."""
+    rng = np.random.default_rng(19)
+    for offsets, dim_r, n_x, base in DIA_BASE_CASES:
+        for dt in (torch.float32, torch.float64):
+            val = torch.as_tensor(rng.standard_normal((len(offsets), dim_r)),
+                                  dtype=dt)
+            e = types.SimpleNamespace(dia_offsets=offsets,
+                                      dia_val=val.to(dev))
+            e_cpu = types.SimpleNamespace(dia_offsets=offsets, dia_val=val)
+            x = torch.as_tensor(rng.standard_normal(n_x), dtype=dt)
+            x_dev = x.to(dev)
+            want = dia.dia_body_plain(e_cpu, x, x_base=base)
+            y0 = torch.as_tensor(rng.standard_normal(dim_r + 8), dtype=dt)
+            want_acc = dia.dia_body_plain(e_cpu, x, out=y0.clone(),
+                                          x_base=base)
+            same, n_run = True, 0
+            for g in dia_geometries(dt == torch.float64):
+                try:
+                    dia.make_plan(offsets, dim_r, g, 1, x.element_size(),
+                                  x_base=base)
+                except ValueError:
+                    continue
+                n_run += 1
+                y = dia._launch(e, x_dev, g, x_base=base)
+                same = same and torch.equal(y.cpu(), want)
+            out = y0.to(dev)
+            dia.dia_body(e, x_dev, out=out, x_base=base)
+            torch.cuda.synchronize()
+            check(same and torch.equal(out.cpu(), want_acc),
+                  f"K9 with x base {base} ({len(offsets)} diagonals, "
+                  f"{dim_r} rows, x {n_x}, {dt}): {n_run} geometries in the "
+                  "write mode and the accumulate mode, bit for bit with "
+                  "the plain version on the CPU")
+
+
 def plan_f64(plan):
     """A K1 host plan with its values in f64 (for the f64 list variants)."""
     return dataclasses.replace(plan, cell_val=plan.cell_val.astype(
         np.float64))
 
 
-def list_work(p, rbs: np.ndarray, n_x: int, dev) -> dict:
-    """What K1 over the list ``rbs`` of the plan ``p`` (on the card) must
-    move: its cells, pieces and table rows, the list, the x rows of its
-    tables and its y rows; the real entries (nonzero cells) with their
-    decoded columns; and those entries as a CSR of the plan's rows
-    (cuSPARSE's operand).  Values, x and y count the plan's value size."""
+def list_work(p, lst: np.ndarray, n_x: int, dev) -> dict:
+    """What K1 over the list ``lst`` (row-block ids, or a split plan's work
+    items) of the plan ``p`` (on the card) must move: its cells (a table
+    piece's with a 2-B index, a direct piece's with a 4-B column), pieces
+    and table rows, the list, the x rows its cells read, its y rows and a
+    split plan's partials (written and read once); the real entries
+    (nonzero cells) with their decoded columns; and those entries as a CSR
+    of the y rows (cuSPARSE's operand).  Values, x and y count the plan's
+    value size."""
     vb = p.cell_val.element_size()
-    plan = types.SimpleNamespace(
-        piece=p.piece.cpu().numpy(), rows=p.rows.cpu().numpy(),
-        cell_val=p.cell_val.cpu().numpy(), cell_idx=p.cell_idx.cpu().numpy(),
-        n_rb=p.n_rb)
-    piece = plan.piece.astype(np.int64)
+    piece = p.piece.cpu().numpy().astype(np.int64)
+    table_rows = p.rows.cpu().numpy().astype(np.int64)
+    cell_val = p.cell_val.cpu().numpy()
+    cell_idx = p.cell_idx.cpu().numpy()
+    cell_col = p.cell_col.cpu().numpy()
+    row_map = p.row_map.cpu().numpy()
+    rbs = list_row_blocks(piece, lst)
     sel = np.isin(piece[:-1, PIECE_RB], rbs)
     n_cells = np.diff(piece[:, PIECE_CELL])
     n_rows = np.diff(piece[:, PIECE_ROW])
     cell_sel = np.repeat(sel, n_cells)
     row_sel = np.repeat(sel, n_rows)
-    x_rows = np.unique(plan.rows[row_sel])
     pid = np.repeat(np.arange(len(piece) - 1), n_cells)
-    cell = np.flatnonzero(cell_sel & (plan.cell_val != 0))
+    cell = np.flatnonzero(cell_sel & (cell_val != 0))
     first = piece[pid[cell]]
-    idx = plan.cell_idx[cell].astype(np.int64) & 0xFFFF
-    col = plan.rows[first[:, PIECE_ROW] + (idx >> 7)].astype(np.int64) \
-        * 128 + (idx & 127)
+    direct = n_rows[pid[cell]] == 0
+    col = np.zeros(cell.size, np.int64)
+    if cell_idx.size:
+        t = ~direct
+        idx = cell_idx[cell[t]].astype(np.int64) & 0xFFFF
+        col[t] = table_rows[first[t, PIECE_ROW] + (idx >> 7)] * 128 \
+            + (idx & 127)
+    if cell_col.size:
+        col[direct] = cell_col[cell[direct]]
     row = first[:, PIECE_RB] * 32 + (cell - first[:, PIECE_CELL]) % 32
-    layout = (int(cell_sel.sum()) * (vb + 2) + int(sel.sum()) * 16
-              + int(row_sel.sum()) * 4 + rbs.size * 4
-              + x_rows.size * 128 * vb + rbs.size * 32 * vb)
+    if row_map.size:
+        row = row_map[row]
+    n_sel = int(cell_sel.sum())
+    n_direct = int(np.repeat(sel & (n_rows == 0), n_cells).sum())
+    x_rows = np.union1d(table_rows[row_sel], col[direct] >> 7)
+    n_chunks = int((lst[:, 2] >= 0).sum()) if lst.ndim == 2 else 0
+    layout = (n_sel * vb + 2 * (n_sel - n_direct) + 4 * n_direct
+              + int(sel.sum()) * 16 + int(row_sel.sum()) * 4 + lst.size * 4
+              + x_rows.size * 128 * vb + rbs.size * 32 * vb
+              + 2 * n_chunks * 32 * vb)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    a = csr_of(t(row), t(col), t(plan.cell_val[cell]), plan.n_rb * 32, n_x)
+    a = csr_of(t(row), t(col), t(cell_val[cell]), p.n_rb * 32, n_x)
     return dict(layout_bytes=layout, nnz=int(cell.size),
-                n_cols=int(np.unique(col).size), csr=a)
+                n_cols=int(np.unique(col).size), csr=a, rbs=rbs,
+                direct_cells=n_direct, chunk_items=n_chunks)
 
 
-def time_k1_list(p, rbs: np.ndarray, x_dev: torch.Tensor, kahan: bool, dev,
+def time_k1_list(p, lst: np.ndarray, x_dev: torch.Tensor, kahan: bool, dev,
                  n: int = 100, n_plain: int = 10) -> dict:
-    """K1 over one row-block list at its real shapes: kernel and plain
-    version in turns, cuSPARSE over the same entries, the layout and
-    same-work bounds."""
-    lst = torch.as_tensor(np.ascontiguousarray(rbs, dtype=np.int32),
-                          device=dev)
+    """K1 over one list (row-block ids, or a split plan's work items) at its
+    real shapes: kernel and plain version in turns, cuSPARSE over the same
+    entries, the layout and same-work bounds."""
     f64 = x_dev.dtype == torch.float64
     tol = F64_TOL if f64 else KERNEL_TOL
+    w = list_work(p, lst, x_dev.numel(), dev)
+    lst = torch.as_tensor(np.ascontiguousarray(lst, dtype=np.int32),
+                          device=dev)
     y = torch.zeros(p.n_rb * 32, dtype=x_dev.dtype, device=dev)
     y_p = torch.zeros(p.n_rb * 32, dtype=x_dev.dtype, device=dev)
     ehyb_stream.stream_body(p, x_dev, kahan, rb_list=lst, out=y)
     ehyb_stream.stream_body_plain(p, x_dev, kahan, rb_list=lst, out=y_p)
-    w = list_work(p, rbs, x_dev.numel(), dev)
     y_l = torch.mv(w["csr"], x_dev)
     torch.cuda.synchronize()
-    rows = rb_rows(lst)
+    rows = rb_rows(torch.as_tensor(w["rbs"], device=dev), p)
     max_abs = float((y - y_p).abs().max())
     err = rel(y[rows], y_p[rows])
     check(err <= tol and rel(y_l[rows], y_p[rows]) <= tol,
-          f"K1 over {len(rbs)} listed row blocks vs plain rel {err:.3e} "
-          f"(max abs {max_abs:.3e}); cuSPARSE over their {w['nnz']} entries "
-          f"rel {rel(y_l[rows], y_p[rows]):.3e}")
+          f"K1 over {len(w['rbs'])} listed row blocks"
+          + (f" ({lst.shape[0]} work items)" if lst.dim() == 2 else "")
+          + f" vs plain rel {err:.3e} (max abs {max_abs:.3e}); cuSPARSE "
+          f"over their {w['nnz']} entries rel "
+          f"{rel(y_l[rows], y_p[rows]):.3e}")
     ms, plain_ms, turns = in_turns(
         lambda: ehyb_stream.stream_body(p, x_dev, kahan, rb_list=lst, out=y),
         lambda: ehyb_stream.stream_body_plain(p, x_dev, kahan, rb_list=lst,
                                               out=y_p), n, n_plain)
     lib_ms = device_ms_per_call(lambda: torch.mv(w["csr"], x_dev), n)
     b = bound(w["layout_bytes"], 2 * w["nnz"], dev, f64)
-    same = same_work_bound(w["nnz"], 2, w["n_cols"], rows.numel(), dev,
-                           x_dev.element_size())
+    idx_bytes = 4 if w["direct_cells"] else 2
+    same = same_work_bound(w["nnz"], idx_bytes, w["n_cols"], rows.numel(),
+                           dev, x_dev.element_size())
     print(f"    device ms (plain, kernel, kernel, plain): {turns}; cuSPARSE "
           f"{lib_ms:.4f} ms; layout bound {b['bound_ms']:.4f} ms "
           f"({w['layout_bytes']} B, {b['bound_ms'] / ms:.3f} reached); "
           f"same-work bound {same['bound_ms']:.4f} ms ({same['bytes']} B)")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, **bounds(b, same),
-                row_blocks=int(len(rbs)), nnz=w["nnz"])
+                row_blocks=int(len(w["rbs"])), nnz=w["nnz"])
 
 
 def time_graph_loops(models: dict, x: dict, nnz: int, dev, card: str,
@@ -2602,8 +2804,9 @@ def sharded_rank(rank: int, world: int, m, host, extra: bool) -> dict:
     """One rank of the sharded path on the card (16c/16d, 19d): the sharded
     EHYB model on ``host`` (in its config's dtype; its y against nothing
     here: rank 0 returns the gathered y), its row-block counts, K1's
-    launches in one apply, the eager chained loop against one apply, and
-    the host-clock microseconds per eager apply; with ``extra``, the
+    and K9's launches in one apply, the eager chained loop against one
+    apply, and the host-clock microseconds per eager apply; with ``extra``,
+    the
     sharded routed engine and the sharded degree split on small matrices,
     against the oracle."""
     dev = rank_device("cuda", rank)
@@ -2615,6 +2818,7 @@ def sharded_rank(rank: int, world: int, m, host, extra: bool) -> dict:
     y = model.apply(xd)
     torch.cuda.synchronize(dev)
     launches = ehyb_stream.stream_body.launches
+    k9 = dia.dia_body.launches
     y_host = model.recover_y(y)
     err_loop = rel(model.iterate(xd, 3), y)
     torch.distributed.barrier()
@@ -2628,8 +2832,9 @@ def sharded_rank(rank: int, world: int, m, host, extra: bool) -> dict:
     out = dict(rank=rank, interior=st["n_interior"],
                boundary=st["n_boundary"], S=model.sharded.exchange_slots,
                staged=model.module.ex.staged, loop=model.loop,
-               launches=launches, err_loop=err_loop, us_per_apply=us,
-               y=y_host if rank == 0 else None)
+               launches=launches, k9=k9,
+               n_diag=len(model.sharded.dia_offsets), err_loop=err_loop,
+               us_per_apply=us, y=y_host if rank == 0 else None)
     if extra:
         rm = random_coo(131072, 8, seed=21)
         xr = deterministic_x(rm.dimension)
@@ -2687,15 +2892,45 @@ def check_sharded(m, model_flat, m_gather, dev, card: str) -> dict:
     err = rel_np(y, y_flat)
     check(err <= KERNEL_TOL, f"world 1 vs the flagship ehyb rel {err:.3e} "
                              f"<= {KERNEL_TOL}")
-    time_graph_loops({"ehyb": model_flat, "ehyb_sharded D=1": model},
-                     {"ehyb": model_flat.prepare_x(x),
-                      "ehyb_sharded D=1": xd}, m.nnz, dev, card)
+    n_diag = len(model.sharded.dia_offsets)
+    reset_launches()
+    model.apply(xd)
+    torch.cuda.synchronize(dev)
+    one = (ehyb_stream.stream_body.launches, dia.dia_body.launches)
+    check(one == (1, int(n_diag > 0)) and st["folded"],
+          f"world 1: one apply launches K1 {one[0]} time(s) (the boundary "
+          f"list; its plan holds the shard's {st['tail_cells']} ER and "
+          f"long-row cells) and K9 {one[1]} (the {n_diag} diagonals, x base "
+          f"{model.module.ex.W}, into K1's y): no torch ER, long-row, DIA "
+          "or combine op")
+    gf = time_graph_loops({"ehyb": model_flat, "ehyb_sharded D=1": model},
+                          {"ehyb": model_flat.prepare_x(x),
+                           "ehyb_sharded D=1": xd}, m.nnz, dev, card)
+    step_s = 2e-9 * m.nnz / gf["ehyb_sharded D=1"]
+    print(f"  ehyb_sharded D=1: a step {1e6 * step_s:.2f} us beside "
+          f"{PARENT_SHARDED_STEP_US} us before its apply took the tail and "
+          f"K9 (PERF.md); {card}")
+    prof = profile_path(f"ehyb_sharded D=1 on {SHARDED_MATRIX}",
+                        {"dim": m.dimension}, model, step_s, strict=True)
+    print("    phase_breakdown on x_buf's own rows (no copy of x in; "
+          "device us per call): " + ", ".join(
+              f"{k} {1e6 * v:.2f}" for k, v in phase_breakdown(
+                  model, model.module.ex.x_local, iters=20).items()))
     print(f"  the sharded K1 at D=1 over all {st['n_boundary']} row blocks "
           "(the boundary list):")
     sk1 = time_k1_list(cells.plan, cells.boundary.cpu().numpy(),
                        model.module.ex.x_buf, model.module.kahan, dev)
+    sk1.update(gflops_d1=gf["ehyb_sharded D=1"], step_us=1e6 * step_s,
+               launches_per_step=prof["launches_per_step"],
+               busy_share=prof["busy_share"], k9_launches=one[1])
+    print(f"  K9 with an x base at D=1 ({n_diag} diagonals of "
+          f"{model.sharded.rows_per_dev} rows, base {model.module.ex.W}), "
+          "adding into K1's y:")
+    mod = model.module
+    k9b = time_dia_base(mod.e, mod.ex.x_buf, mod.ex.W, mod.phases()[
+        "body boundary"](mod.ex.x_local), dev) if n_diag else None
     y1 = y
-    del model
+    del model, mod
 
     print(f"  16c: D=2 and D=4 gloo ranks on the one card, on "
           f"{SHARDED_MATRIX} (the ranks share cuda:0, so their times are "
@@ -2714,14 +2949,16 @@ def check_sharded(m, model_flat, m_gather, dev, card: str) -> dict:
             print(f"    rank {r['rank']}: {r['interior']} interior, "
                   f"{r['boundary']} boundary row blocks; S={r['S']}; "
                   f"staged {r['staged']}; loop {r['loop']}; K1 launches in "
-                  f"one apply {r['launches']}; eager loop vs apply rel "
+                  f"one apply {r['launches']}, K9 {r['k9']} ({r['n_diag']} "
+                  f"diagonals); eager loop vs apply rel "
                   f"{r['err_loop']:.3e}; {r['us_per_apply']:.1f} us per "
                   "eager apply")
             check(r["interior"] > 0 and r["boundary"] > 0
-                  and r["launches"] == 2 and r["loop"] == "eager"
-                  and r["err_loop"] <= LOOP_TOL,
+                  and r["launches"] == 2 and r["k9"] == int(r["n_diag"] > 0)
+                  and r["loop"] == "eager" and r["err_loop"] <= LOOP_TOL,
                   f"D={world} rank {r['rank']}: both kinds of row block, "
-                  "two K1 launches an apply, the eager loop")
+                  "two K1 launches and one K9 launch an apply, the eager "
+                  "loop")
         any_s = any_s or res[0]["S"] > 0
         err, err1 = rel_np(res[0]["y"], want), rel_np(res[0]["y"], y1)
         check(err <= ORACLE_TOL and err1 <= KERNEL_TOL,
@@ -2755,8 +2992,8 @@ def check_sharded(m, model_flat, m_gather, dev, card: str) -> dict:
             dtype=torch.float32, device=dev)
         for kind in ("interior", "boundary"):
             print(f"   rank {r} {kind}:")
-            t = time_k1_list(p, getattr(sc, kind), x_ext, False, dev,
-                             n=50, n_plain=5)
+            t = time_k1_list(p, sc.kernel_list(getattr(sc, kind)), x_ext,
+                             False, dev, n=50, n_plain=5)
             per_rank.append(dict(rank=r, kind=kind, ms=t["ms"],
                                  plain_ms=t["plain_ms"],
                                  library_ms=t["library_ms"],
@@ -2774,7 +3011,65 @@ def check_sharded(m, model_flat, m_gather, dev, card: str) -> dict:
           f"world 1 routed vs oracle rel {err:.3e} <= {ORACLE_TOL}; "
           f"{route_xcache.route_xcache.launches} routed launches; "
           f"setup {rmodel.setup_seconds}")
-    return dict(launches=launches, **sk1, d4_per_rank=per_rank)
+    return dict(launches=launches, **sk1, d4_per_rank=per_rank,
+                k9_base=k9b)
+
+
+def check_split_sharded_1m(dev, card: str, prebuild: "Prewarm") -> dict:
+    """16e: ``ShardedDegreeSplitSpmv`` at one rank on powerlaw_1m at full
+    size, its host setup (the sharded setup, the rank's K1 plan, the
+    routed schedules and plans) read from ``prebuild``'s cache, built in
+    the background from phase 1 on: against the oracle within ORACLE_TOL;
+    the dense rows' K1 plan in the split form with their tail folded in,
+    launched once an apply over the boundary list's work items; the graph
+    loop's GFLOP/s beside the flat degree split's (``BENCH_SWEEP_H100.md``);
+    then the dense rows' K1 timed (:func:`time_k1_list`: both bounds, its
+    plain version, cuSPARSE over the same entries).  Returns its kernels
+    entry."""
+    rc, since, out = prebuild.wait(PREWARM_TIMEOUT_S)
+    print("".join(f"    {ln}\n" for ln in out.splitlines()), end="")
+    check(rc == 0, f"the prebuild exited {rc} after {since:.1f} s")
+    t0 = time.perf_counter()
+    m = generate.load_corpus("powerlaw_1m")
+    x = deterministic_x(m.dimension)
+    with cache_dir(prebuild.cache_dir):
+        want, hit = bench_torch.cached_oracle(m, x)
+        model = ShardedDegreeSplitSpmv(
+            port.EhybConfig(artifact_cache=True, **SHARDED_CFG),
+            device=dev).setup(m)
+    setup_s = time.perf_counter() - t0
+    part = model.e
+    cells = part.module.cells
+    st = cells.stats
+    check("cache_load" in part.setup_seconds,
+          f"corpus, oracle ({'cached' if hit else 'computed'}) and setup "
+          f"from the cache in {setup_s:.1f} s: {model.setup_seconds}")
+    reset_launches()
+    err = rel_np(model.matvec(x), want)
+    n = (ehyb_stream.stream_body.launches, dia.dia_body.launches,
+         route_xcache.route_xcache.launches)
+    n_diag = len(part.sharded.dia_offsets)
+    check(err <= ORACLE_TOL and split(cells.plan) and st["folded"]
+          and n[:2] == (1, int(n_diag > 0)) and n[2] > 0
+          and m.nnz == 25_138_615,
+          f"ehyb_split_sharded at world 1 on powerlaw_1m ({m.nnz} entries, "
+          f"{part.m.nnz} in the dense rows) vs oracle rel {err:.3e} <= "
+          f"{ORACLE_TOL}; the dense rows' K1 plan in the split form "
+          f"({st['chunked_rbs']} row blocks in {st['n_chunks']} chunks, "
+          f"{st['n_items']} work items, {st['tail_cells']} tail cells); "
+          f"one apply launches K1 {n[0]}, K9 {n[1]} ({n_diag} diagonals), "
+          f"the routed kernel {n[2]}")
+    gf = graph_loop_gflops(model, model.prepare_x(x), m.nnz, dev, n=200)
+    print(f"  ehyb_split_sharded D=1 on powerlaw_1m: {gf:.2f} GFLOP/s "
+          f"beside the flat degree split's 161.37 (BENCH_SWEEP_H100.md); "
+          f"{card}; {card_state()}")
+    print(f"  the dense rows' K1 over their {st['n_boundary']} row blocks "
+          "(the boundary list's work items):")
+    sk1 = time_k1_list(cells.plan, cells.boundary.cpu().numpy(),
+                       part.module.ex.x_buf, part.module.kahan, dev, n=50,
+                       n_plain=3)
+    return dict(SK1_SPLIT_1M, launches=n[0], rel_error=err, gflops=gf,
+                setup_s=setup_s, **sk1)
 
 
 # ---------------------------------------------------------------------------
@@ -2857,7 +3152,8 @@ def check_k1_f64_forms(dev) -> None:
     edge body in f64 (cut and empty row blocks; its direct form mixes
     pieces with and without a table) and the f64 cancellation matrix's
     compensated flagship body (±1e17, x all ones); the all-direct forms
-    also with row-block lists; a grouped plan refuses a list."""
+    and the grouped plans also with row-block lists (a grouped plan's
+    rows through its row map)."""
     rng = np.random.default_rng(17)
     dword = port.EhybConfig(dword_values=True)
     edge = edge_body()
@@ -2900,12 +3196,13 @@ def check_k1_f64_forms(dev) -> None:
                         "geometries, bit for bit with the table form's "
                         "plain version on the CPU")
             if st["grouped"]:
-                try:
-                    ehyb_stream.stream_body(p, x_dev, rb_list=torch.zeros(
-                        1, dtype=torch.int32, device=dev))
-                    check(False, f"{name}: a grouped plan took a list")
-                except ValueError:
-                    pass
+                # a list names the plan's row blocks, written through the
+                # row map (a sharded float64 plan may be grouped)
+                rbs = rng.permutation(plan.n_rb)[: max(plan.n_rb // 3, 1)]
+                for kahan in (False, True):
+                    check_k1_list(f"{name} {form} (grouped) list"
+                                  f"{' kahan' if kahan else ''}", plan,
+                                  rbs.astype(np.int32), x, kahan, dev)
         direct = forms["all direct"]
         rbs = rng.permutation(direct.n_rb)[: max(direct.n_rb // 3, 1)]
         for kahan in (False, True):
@@ -3508,10 +3805,14 @@ def main() -> int:
         # phase 20's rows, built on the host while the card runs 1-19
         prewarm = jobs.enter_context(
             Prewarm(cache, "prewarm", ["--models", "ehyb", *PREWARM_ROWS]))
-        return run_phases(prewarm, jobs)
+        # 16e's host setup (powerlaw_1m's sharded degree split at one rank)
+        sharded = jobs.enter_context(
+            Prewarm(cache, "prebuild_sharded", PREBUILD_SHARDED_ARGS))
+        return run_phases(prewarm, sharded, jobs)
 
 
-def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
+def run_phases(prewarm: Prewarm, prebuild_sharded: Prewarm,
+               jobs: contextlib.ExitStack) -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -3787,10 +4088,21 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
     phase(f"16: the sharded path: K1 with a row-block list, then "
           f"ShardedEhybSpmv at 1, 2 and 4 ranks on {SHARDED_MATRIX}, and "
           "the sharded routed and degree-split engines")
-    print("  16a: K1 with a row-block list vs its plain version")
+    t16 = time.perf_counter()
+    print("  16a: K1 with a row-block list vs its plain version; its split "
+          "variants over lists of work items; K9 with an x base")
     check_k1_lists(dev)
+    check_k1_split_lists(dev)
+    check_dia_base(dev)
     sk1 = check_sharded(m6, model6, model2.m, dev, card)
+    k9_base = sk1.pop("k9_base")
     del model6, m6
+    t16e = time.perf_counter()
+    print(f"  16e: ehyb_split_sharded at world 1 on powerlaw_1m at full size "
+          f"({card})")
+    sk1_1m = check_split_sharded_1m(dev, card, prebuild_sharded)
+    print(f"  16e wall {time.perf_counter() - t16e:.1f} s; phase 16 "
+          f"{time.perf_counter() - t16:.1f} s")
 
     t17 = time.perf_counter()
     phase("17: the precision mode: K1 and K9 in f64 against their f64 plain "
@@ -3912,6 +4224,9 @@ def run_phases(prewarm: Prewarm, jobs: contextlib.ExitStack) -> int:
         dict(APPLY, launches=launch1["K1"], **apply),
         dict(WC, launches=launch4["WC"], **wc),
         dict(SK1, **sk1),
+        sk1_1m,
+        *([dict(K9_BASE, launches=sk1["k9_launches"], **k9_base)]
+          if k9_base is not None else []),
         dict(K1F64, launches=launch7["K1"], **k1f64),
         dict(K1F64_FEM, launches=launch8["K1"], **k1f64_fem),
         dict(K9F64, launches=launch8["K9"], **k9f64),

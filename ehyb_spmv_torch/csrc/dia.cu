@@ -10,7 +10,10 @@
 //   y[i] = sum over k of dia_val[k * dim_r + i] * x[i + d_k]
 //
 // and an x index outside [0, n_x) reads as zero (the padding of the plain
-// torch op, ops/torch_ops.py::ehyb_dia).  The terms are added in order of k,
+// torch op, ops/torch_ops.py::ehyb_dia).  An x base (the sharded apply's
+// diagonals, which read a shard's x_ext past its left halo: row i reads
+// x[x_base + i + d_k]) is the host plan's: it shifts every offset by the
+// base (ops/dia.py::make_plan), so the kernel reads x[i + d] as ever.  The terms are added in order of k,
 // each product rounded on its own, as the plain version adds them.
 //
 // What the TPU needed and this leaves behind: pack_dia's (nb, K*Brows, 128)

@@ -147,6 +147,13 @@ class SpmvModel(abc.ABC):
         _chain_into(xin, x, y, eps)
         return y
 
+    def _chain_input(self, x_dev):
+        """The buffer the graph loop's step reads x from, which the step's
+        add then overwrites: a clone of ``x_dev``.  A model whose apply
+        reads x from a buffer of its own names that buffer, and spares
+        the apply its copy a step."""
+        return _clone(x_dev)
+
     def _chain_for(self, x_dev, eps: float) -> "_Chain":
         key = (_layout(x_dev), float(eps))
         chain = self._chains.get(key)
@@ -162,7 +169,7 @@ class _Chain:
 
     def __init__(self, model: SpmvModel, x_dev, eps: float):
         self.x = _clone(x_dev)
-        self.xin = _clone(x_dev)
+        self.xin = model._chain_input(x_dev)
         warm_up(lambda: model._chain_step(self.x, self.xin, eps),
                 model.device)
 

@@ -20,7 +20,11 @@ plan counts what 16 B hold in doubles (:func:`make_plan`'s
 ``value_bytes``).  With ``out`` the kernel runs in its accumulate mode
 (built at the default (STEP, QUADS)): each row's diagonal sum is added once
 into ``out`` in place, which is how the flagship's apply finishes the y K1
-wrote (``ops/ehyb_stream.py``).
+wrote (``ops/ehyb_stream.py``).  With ``x_base`` row i reads
+``x[x_base + i + d_k]``: the sharded apply's diagonals read a shard's
+``x_ext`` past its left halo (``parallel/spmv.py``).  The plan holds the
+base as shifted offsets (:func:`make_plan`), so the kernel reads x at row
+plus offset as it always did, and a plan at base 0 is the plan it was.
 """
 from __future__ import annotations
 
@@ -133,6 +137,9 @@ class DiaPlan:
     smem_bytes: int
     #: Bytes of a value: 4 (float32) or 8 (float64).
     value_bytes: int = 4
+    #: Where row 0's diagonal 0 reads x: ``offsets`` are the diagonals'
+    #: offsets plus this base.
+    x_base: int = 0
 
     @property
     def per_load(self) -> int:
@@ -189,13 +196,15 @@ class DiaPlan:
 
 def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
               blocks: int = 8 * 132, value_bytes: int = 4,
-              acc: bool = False) -> DiaPlan:
+              acc: bool = False, x_base: int = 0) -> DiaPlan:
     """The kernel's geometry for ``len(offsets)`` diagonals of ``dim_r``
     rows of ``value_bytes``-byte values, on a grid of at most ``blocks``
     blocks (the resident blocks of the card; fewer where the rows are fewer
-    than a tile per block); ``acc``: for the accumulate mode."""
+    than a tile per block); ``acc``: for the accumulate mode; ``x_base``:
+    where row 0 reads x, held as every offset shifted by it (row i's
+    diagonal k reads ``x[i + d_k + x_base]``, the kernel's ``x[i + d]``)."""
     geometry.check(value_bytes, acc)
-    offsets = tuple(int(d) for d in offsets)
+    offsets = tuple(int(d) + int(x_base) for d in offsets)
     if not offsets or list(offsets) != sorted(set(offsets)):
         raise ValueError("offsets must be distinct, sorted and not empty")
     if max(abs(offsets[0]), abs(offsets[-1])) >= 2 ** 30:
@@ -228,14 +237,14 @@ def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
     return DiaPlan(geometry=geometry, offsets=offsets, dim_r=int(dim_r),
                    grid=grid, runs=runs, windows=tuple(windows),
                    xo=tuple(xo), stage_floats=stage_floats, smem_bytes=smem,
-                   value_bytes=value_bytes)
+                   value_bytes=value_bytes, x_base=int(x_base))
 
 
 _lock = threading.Lock()
 _built = None
 _lib = None
-#: (offsets, dim_r, vec, geometry, value bytes, accumulate mode, device) →
-#: (plan, its table on the card),
+#: (offsets, dim_r, vec, geometry, value bytes, accumulate mode, x base,
+#: device) → (plan, its table on the card),
 #: made once so that a call (and a CUDA graph capture of it) copies nothing
 #: to the card.
 _plans: dict = {}
@@ -296,21 +305,23 @@ def registers(geometry: DiaGeometry, vec: bool, value_bytes: int = 4,
 
 def device_plan(offsets: tuple, dim_r: int, vec: bool, device,
                 geometry: DiaGeometry = None, value_bytes: int = 4,
-                acc: bool = False):
+                acc: bool = False, x_base: int = 0):
     """The plan for these diagonals on ``device`` (in the accumulate mode
-    where ``acc``) and its table on the card (made once and kept)."""
+    where ``acc``, reading x from ``x_base``) and its table on the card
+    (made once and kept)."""
     geometry = GEOMETRY if geometry is None else geometry
     device = torch.device(device)
-    key = (offsets, dim_r, vec, geometry, value_bytes, acc, device)
+    key = (offsets, dim_r, vec, geometry, value_bytes, acc, x_base, device)
     hit = _plans.get(key)
     if hit is None:
-        probe = make_plan(offsets, dim_r, geometry, 1, value_bytes, acc)
+        probe = make_plan(offsets, dim_r, geometry, 1, value_bytes, acc,
+                          x_base)
         per_sm = min(geometry.blocks_per_sm,
                      resident_blocks(geometry, probe.smem_bytes, vec, device,
                                      value_bytes, acc))
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
         plan = make_plan(offsets, dim_r, geometry, per_sm * n_sm,
-                         value_bytes, acc)
+                         value_bytes, acc, x_base)
         hit = (plan, torch.tensor(plan.table(), dtype=torch.int32,
                                   device=device))
         _plans[key] = hit
@@ -351,10 +362,11 @@ def _check_out(e: EhybDevice, x_pad: torch.Tensor, out) -> None:
 
 
 def _launch(e: EhybDevice, x_pad: torch.Tensor,
-            geometry: DiaGeometry = None,
-            out: torch.Tensor = None) -> torch.Tensor:
+            geometry: DiaGeometry = None, out: torch.Tensor = None,
+            x_base: int = 0) -> torch.Tensor:
     """One launch at ``geometry`` (the default where None), counted: into
-    a new y, or added into ``out`` (the accumulate mode)."""
+    a new y, or added into ``out`` (the accumulate mode), row i reading x
+    from ``x_base + i``."""
     _check(e, x_pad)
     _check_out(e, x_pad, out)
     v = e.dia_val
@@ -364,7 +376,7 @@ def _launch(e: EhybDevice, x_pad: torch.Tensor,
         and (not acc or out.data_ptr() % 16 == 0)
     vb = v.element_size()
     plan, table = device_plan(e.dia_offsets, dim_r, vec, x_pad.device,
-                              geometry, vb, acc)
+                              geometry, vb, acc, int(x_base))
     g = plan.geometry
     y = out if acc else torch.empty(dim_r, dtype=v.dtype,
                                     device=x_pad.device)
@@ -383,24 +395,25 @@ def _launch(e: EhybDevice, x_pad: torch.Tensor,
     return y
 
 
-def dia_body(e: EhybDevice, x_pad: torch.Tensor,
-             out: torch.Tensor = None) -> torch.Tensor:
-    """y[i] = Σ_k dia_val[k, i] · x[i + d_k] for i < dia_val.shape[1], an x
-    index outside x_pad reading as zero; length 0 without diagonals.  With
-    ``out`` (at least that many rows) each row's sum is added into
-    ``out[i]`` in place (``out[i] + y[i]``), and ``out`` is returned.
+def dia_body(e: EhybDevice, x_pad: torch.Tensor, out: torch.Tensor = None,
+             x_base: int = 0) -> torch.Tensor:
+    """y[i] = Σ_k dia_val[k, i] · x[x_base + i + d_k] for i <
+    dia_val.shape[1], an x index outside x_pad reading as zero; length 0
+    without diagonals.  With ``out`` (at least that many rows) each row's
+    sum is added into ``out[i]`` in place (``out[i] + y[i]``), and ``out``
+    is returned.
 
     CPU tensors take :func:`dia_body_plain`; CUDA tensors launch the kernel
     (float64 values and x take the float64 kernel; ``out`` its accumulate
     mode) or raise."""
     if x_pad.device.type == "cpu":
-        return dia_body_plain(e, x_pad, out)
+        return dia_body_plain(e, x_pad, out, x_base)
     if x_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {x_pad.device}")
     if not e.dia_offsets:
         _check_out(e, x_pad, out)
         return x_pad.new_zeros(0) if out is None else out
-    return _launch(e, x_pad, out=out)
+    return _launch(e, x_pad, out=out, x_base=x_base)
 
 
 #: Kernel launches since the count was last reset (a run sets it to 0 to
@@ -409,19 +422,20 @@ dia_body.launches = 0
 
 
 def dia_body_plain(e: EhybDevice, x_pad: torch.Tensor,
-                   out: torch.Tensor = None) -> torch.Tensor:
+                   out: torch.Tensor = None,
+                   x_base: int = 0) -> torch.Tensor:
     """Plain-torch version of the kernel: the shifted-slice op with a
     product and an add per diagonal, in the kernel's order and rounding
     (same inputs, same output, bit for bit on the CPU; the plain models'
-    ``torch_ops.ehyb_dia`` fuses them); with ``out`` the rows' sums are
-    then added into it in one add, as the kernel's accumulate mode adds
-    them."""
+    ``torch_ops.ehyb_dia`` fuses them), row i reading x from ``x_base +
+    i``; with ``out`` the rows' sums are then added into it in one add, as
+    the kernel's accumulate mode adds them."""
     _check_out(e, x_pad, out)
     if not e.dia_offsets:
         y = x_pad.new_zeros(0)
     else:
         y = x_pad.new_zeros(e.dia_val.shape[1])
-        for v, xs in dia_terms(e, x_pad):
+        for v, xs in dia_terms(e, x_pad, x_base):
             # a product, then an add: a fused multiply-add would round once
             y.add_(v * xs)
     if out is None:

@@ -26,8 +26,10 @@ pieces or a row map (:func:`~.stream_cells.k1_options`: a scattered body's)
 a float64 kernel of its own.  A plan in the split form (a heavy-tailed
 body's: row blocks cut into chunks, ``stream_cells.split``) takes a split
 variant, built at one row a thread with x through L1/L2, in float32 and
-float64, plain or Kahan, over every piece form, without a list: the
-wrapper refuses a split plan with a row-block list.
+float64, plain or Kahan, over every piece form; a list over it is a list
+of its work items (:func:`~.stream_cells.list_items`), which the split
+variants walk in place of the plan's, so the sharded apply
+(``parallel/spmv.py``) runs a heavy-tailed shard in two such calls.
 """
 from __future__ import annotations
 
@@ -45,9 +47,9 @@ from . import stream_plan
 from .build import BuiltLibrary, build_cuda_library
 from .dia import SMEM_LIMIT_BYTES, dia_body
 from .ehyb_wincache import WinCacheDevice, build_wincache_plan, wincache_body
-from .stream_cells import (BLOCK_ROWS, PIECE_CELL, PIECE_RB, PIECE_ROW,
-                           StreamCellsDevice, has_tail, k1_folded_plan,
-                           split)
+from .stream_cells import (BLOCK_ROWS, ITEM_PIECE, PIECE_CELL, PIECE_RB,
+                           PIECE_ROW, StreamCellsDevice, has_tail,
+                           k1_folded_plan, split)
 from .torch_ops import (add_tail_, chain_offsets, ehyb_er, ehyb_long,
                         fold_split_, neumaier_add, neumaier_pairs)
 
@@ -237,11 +239,19 @@ def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
 
 
 def _check_split(p: StreamCellsDevice, rb_list) -> None:
-    """Refuse a plan in the split form with a row-block list (no list
-    variant reads it)."""
-    if split(p) and rb_list is not None:
-        raise ValueError("a plan in the split form is read without a "
-                         "row-block list only")
+    """Refuse a list the plan's form is not read with: a plan in the split
+    form takes a (k, 4) list of its work items
+    (:func:`~.stream_cells.list_items`), the table form a 1-D list of row
+    blocks."""
+    if rb_list is None:
+        return
+    if split(p) and (rb_list.dim() != 2 or rb_list.shape[1] != 4):
+        raise ValueError("a plan in the split form takes a (k, 4) list of "
+                         "its work items (stream_cells.list_items), not a "
+                         "row-block list")
+    if not split(p) and rb_list.dim() != 1:
+        raise ValueError("a plan in the table form takes a 1-D row-block "
+                         "list, not a list of work items")
 
 
 def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
@@ -249,12 +259,8 @@ def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
     list leaves rows unwritten."""
     n = p.n_rb * BLOCK_ROWS
     if rb_list is not None:
-        if p.row_map.numel():
-            raise ValueError("a row-block list takes a plan in the body's "
-                             "row order (no row map)")
-        if rb_list.dtype != torch.int32 or rb_list.dim() != 1 \
-                or not rb_list.is_contiguous():
-            raise ValueError("rb_list must be a contiguous 1-D int32 tensor")
+        if rb_list.dtype != torch.int32 or not rb_list.is_contiguous():
+            raise ValueError("rb_list must be a contiguous int32 tensor")
         if rb_list.device != x_pad.device:
             raise ValueError(f"rb_list on {rb_list.device}, x_pad on "
                              f"{x_pad.device}")
@@ -306,18 +312,26 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
     f64 = x_pad.dtype == torch.float64
     y = _output(p, x_pad, rb_list, out)
     build_kernel()
-    n = p.n_rb if rb_list is None else rb_list.shape[0]
+    if rb_list is not None:
+        n = rb_list.shape[0]
+    else:
+        n = p.n_items if chunked else p.n_rb
     if not n:
         return y
     ptr = lambda t: t.data_ptr() if t.numel() else None  # noqa: E731
     if chunked:
+        # a list of work items is walked in place of the plan's
+        items = p.item if rb_list is None else rb_list
+        if items.data_ptr() % 16:
+            raise ValueError("a list of work items must be 16-byte aligned "
+                             "(the kernel reads an item with one 16-B load)")
         rc = _lib.ehyb_stream_body_split(
             p.piece.data_ptr(), p.rows.data_ptr(), p.cell_val.data_ptr(),
             ptr(p.cell_idx), ptr(p.cell_col), ptr(p.row_map),
-            p.item.data_ptr(), p.chunk_first.data_ptr(),
+            items.data_ptr(), p.chunk_first.data_ptr(),
             p.partial.data_ptr(), p.counter.data_ptr(), x_pad.data_ptr(),
-            y.data_ptr(), p.n_items, int(bool(kahan)), int(f64), g.threads,
-            grid_of(p, g, kahan, x_pad.device),
+            y.data_ptr(), n, int(bool(kahan)), int(f64), g.threads,
+            grid_of(p, g, kahan, x_pad.device, n),
             torch.cuda.current_stream(x_pad.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ehyb_stream_body_split launch failed: CUDA "
@@ -345,10 +359,13 @@ def stream_body(p: StreamCellsDevice, x_pad: torch.Tensor,
     """SELL-body sums per row, flattened to (n_slices * 128,), over K1's
     compact plan ``p``.
 
-    With ``rb_list`` (int32 row-block ids, each at most once) only those
-    row blocks are computed and only their rows of the output are written:
-    into ``out`` where it is given (the sharded path fills one y with two
-    calls over disjoint lists), else into a new y of zeros.
+    With ``rb_list`` (int32 row-block ids, each at most once; over a plan
+    in the split form, the (k, 4) work items of the listed row blocks,
+    :func:`~.stream_cells.list_items`) only those row blocks are computed
+    and only their rows of the output are written (through the row map
+    where the plan has one): into ``out`` where it is given (the sharded
+    path fills one y with two calls over disjoint lists), else into a new
+    y of zeros.
 
     CPU tensors take :func:`stream_body_plain`; CUDA tensors launch the
     kernel (``kahan`` selects the compensated variant; float64 x takes the
@@ -376,15 +393,17 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
     ``kahan`` a float32 x sums in float64 and rounds once, the answer the
     compensated kernel reaches to about one ulp; a float64 x adds each
     row's products in the kernel's order with Neumaier compensation.  With
-    ``rb_list`` it writes the listed row blocks' rows of the full sums into
-    ``out`` (or into zeros), as the kernel does.  A plan in the split form
+    ``rb_list`` (row blocks, or a split plan's work items) it writes the
+    listed row blocks' rows of the full sums into ``out`` (or into zeros),
+    as the kernel does.  A plan in the split form
     adds a chunk's products into its partial (a float64 x with ``kahan``:
     its (sum, compensation) pair), then a chunked row block's partials
     into y in chunk order (:func:`fold_pairs`), as the kernel does."""
     dev = x_pad.device
-    if rb_list is not None and p.row_map.numel():
-        _output(p, x_pad, rb_list, out)      # raises
     _check_split(p, rb_list)
+    if x_pad.shape[0] < p.stats["x_rows"]:
+        raise ValueError(f"x_pad has {x_pad.shape[0]} rows; the plan reads "
+                         f"{p.stats['x_rows']}")
     neumaier = kahan and x_pad.dtype == torch.float64
     acc = torch.float64 if kahan else x_pad.dtype
     n = p.n_rb * BLOCK_ROWS
@@ -455,10 +474,15 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
     if rb_list is None:
         return y if out is None else out.copy_(y)
     out = _output(p, x_pad, rb_list, out)
-    rb = rb_list.long()
-    out.view(-1, BLOCK_ROWS).index_copy_(
-        0, rb, y.view(-1, BLOCK_ROWS).index_select(0, rb))
-    return out
+    rb = rb_list.long() if rb_list.dim() == 1 else \
+        p.piece[rb_list[:, ITEM_PIECE].long(), PIECE_RB].long()
+    rows = (rb[:, None] * BLOCK_ROWS
+            + torch.arange(BLOCK_ROWS, device=dev)).reshape(-1)
+    if p.row_map.numel():
+        rows = p.row_map.long()[rows]
+    # a chunked row block's items name it once each: the same rows, the
+    # same values
+    return out.index_copy_(0, rows, y.index_select(0, rows))
 
 
 def fold_pairs(p: StreamCellsDevice, y: torch.Tensor, s: torch.Tensor,

@@ -40,9 +40,9 @@ values only (:func:`k1_options`):
   cut between places in its rows, as its rows come from several slices.
 
 A third option serves a heavy-tailed body, whose hub rows make some row
-blocks far wider than the rest; every K1 variant but the row-block lists
-reads it (:func:`k1_options` takes it for float32 and float64 values, with
-or without compensation, over any of the forms above):
+blocks far wider than the rest; every K1 variant reads it
+(:func:`k1_options` takes it for float32 and float64 values, with or
+without compensation, over any of the forms above):
 
 * **the split form** (``split_steps``): a row block wider than
   ``split_steps`` steps (the sum of its pieces' widths) is cut into pieces
@@ -56,7 +56,11 @@ or without compensation, over any of the forms above):
   are ordered longest first (``item``), so the kernel's persistent grid
   does not end on a tail.  A body with no row block wider than
   ``split_steps`` gets the plan it gets without the option, byte for
-  byte.
+  byte.  A list over a plan in this form (the sharded apply's interior and
+  boundary row blocks) is a list of work items, :func:`list_items`: the
+  listed row blocks' items, every chunk of a chunked one among them, so
+  the last of its chunks to finish adds its partials into y as in a full
+  call.
 
 The flagship's plan also **folds the EHYB tail** (``fold``,
 :func:`k1_folded_plan`): every entry the apply would otherwise add around
@@ -270,6 +274,16 @@ class StreamCellsDevice(torch.nn.Module):
 def split(p) -> bool:
     """Whether plan ``p`` (host or device) is in the split form."""
     return len(p.item) > 0
+
+
+def list_items(p: StreamCellsPlan, rbs) -> np.ndarray:
+    """The work items of the row blocks ``rbs`` of plan ``p`` (in the
+    split form): the rows of ``p.item`` whose row block is listed, in the
+    plan's order (longest first), a chunked row block's every chunk among
+    them.  It is the list the split variants take where the table form's
+    take ``rbs``."""
+    rb = p.piece[p.item[:, ITEM_PIECE], PIECE_RB]
+    return np.ascontiguousarray(p.item[np.isin(rb, rbs)], dtype=np.int32)
 
 
 def _stable_order(key: np.ndarray) -> np.ndarray:

@@ -27,12 +27,15 @@ import torch
 
 from ..config import EhybConfig, LANES, cdiv, round_up
 from ..core.coo import MatrixCOO
-from ..core.route import WIN, RoutedMatrix, _choose_params, build_routed
+from ..core.route import (WIN, RoutedEpilogue, RoutedMatrix, _choose_params,
+                          build_routed)
 from ..models.base import SpmvModel
-from ..models.routed import BLOCK_COLS, _block_ranges
+from ..models.routed import BLOCK_COLS, _block_ranges, _cache_path
 from ..ops.route import RoutedApply
+from ..ops.route_xcache import cached_blocks_plan
 from ..utils.log import get_logger
 from .comm import all_gather_rows, group_rank_world, rank_device
+from .spmv import load_or_build
 
 log = get_logger(__name__)
 
@@ -140,14 +143,33 @@ class ShardedRoutedSpmv(SpmvModel):
         super().__init__(config, device=rank_device(device, self.rank))
         self.loop = "eager"
 
+    def _built(self, m: MatrixCOO, block_cols: Optional[int]):
+        """This rank's schedules ``([(schedule, column offset)], rows per
+        shard, padded x length)`` and, with the config's
+        ``artifact_cache``, their cache path without its suffix: read from
+        the cache where it holds them, else built (and written there)."""
+        def build():
+            blocks, r_sh, L = build_sharded_routed(
+                m, self.n_dev, block_cols=block_cols, shards=[self.rank])
+            return [(built[self.rank], lo) for built, lo in blocks], r_sh, L
+
+        if not self.config.artifact_cache:
+            return build(), None
+        stem = _cache_path(m, self.config.cache_dir,
+                           f"-sharded{self.n_dev}-r{self.rank}"
+                           f"-bc{block_cols or 0}")[:-len(".npz")]
+        return load_or_build(f"{stem}.pkl", build,
+                             "sharded routed schedules")[0], stem
+
     def setup(self, m: MatrixCOO,
               block_cols: Optional[int] = None) -> "ShardedRoutedSpmv":
+        """Build (or, with the config's ``artifact_cache``, read) this
+        rank's schedules and upload their plans."""
         self.m = m
         self.setup_seconds = {}
         self.ehyb = None
         t0 = time.perf_counter()
-        blocks, r_sh, L = build_sharded_routed(
-            m, self.n_dev, block_cols=block_cols, shards=[self.rank])
+        (blocks, r_sh, L), cache = self._built(m, block_cols)
         self.r_sh = r_sh
         #: Length of the gathered x: every block's windows and every rank's
         #: rows.
@@ -155,10 +177,14 @@ class ShardedRoutedSpmv(SpmvModel):
         self.setup_seconds["convert"] = time.perf_counter() - t0
         t1 = time.perf_counter()
         #: (schedule of this rank, column offset) per column block.
-        self.blocks: List[Tuple[RoutedMatrix, int]] = [
-            (built[self.rank], lo) for built, lo in blocks]
-        self.applies = [RoutedApply.of(rm, self.device)
-                        for rm, _ in self.blocks]
+        self.blocks: List[Tuple[RoutedMatrix, int]] = blocks
+        # each block's plan (RoutedApply.of's), cached beside the schedules
+        self.applies = [RoutedApply(
+            RoutedEpilogue(rm).to(self.device), cached_blocks_plan(
+                [rm], [0], rm.padded_x_rows,
+                None if cache is None else f"{cache}-b{i}").to_torch(
+                    self.device))
+            for i, (rm, _) in enumerate(self.blocks)]
         self.routed = self.blocks[0][0]
         self.x_full = torch.zeros(self._x_rows, dtype=torch.float32,
                                   device=self.device)

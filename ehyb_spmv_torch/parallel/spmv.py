@@ -10,16 +10,19 @@ through a process group:
     tightly-coupled rows contiguously;
   * the SELL **body** reads x rows of the rank's ``x_ext = [left halo W |
     local R | right halo W]``: the halos come from the ring neighbours
-    (the JAX path's ``ppermute``), and the body runs K1
-    (``csrc/ehyb_stream.cu``) twice over one plan of the shard
-    (``parallel/shard_cells.py``), first over the row blocks that read only
-    local rows (while the halos are in flight), then over the rest;
+    (the JAX path's ``ppermute``);
   * the **ER tail + long rows** read columns anywhere, served by one
     compressed ``all_to_all`` of per-(owner, requester) request lists
     computed at conversion time, received after ``x_ext`` in one buffer
     (``parallel/comm.py``);
-  * the **DIA** part reads ``x_ext`` with base W through the torch op
-    (``ops/torch_ops.py::ehyb_dia``), as the JAX path runs it in XLA.
+  * K1 (``csrc/ehyb_stream.cu``) computes both over one plan of the shard
+    that holds the body and the tail (``parallel/shard_cells.py``, the
+    flagship's ``k1_folded_plan``), in two launches: first over the row
+    blocks that read only local rows (while the halos and the exchange are
+    in flight), then over the rest;
+  * the **DIA** part is K9 (``csrc/dia.cu``) in its accumulate mode,
+    reading ``x_ext`` with base W and adding into K1's y, where the JAX
+    path runs it in XLA.
 
 The host half (:func:`build_sharded` and the layout decisions of
 :func:`plan_sharded`) is a copy of the JAX package's, so both packages cut
@@ -31,9 +34,12 @@ converts once and hands each rank the result (:class:`ShardedSetup`).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import os
+import pickle
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,8 +53,9 @@ from ..core.reorder import Reordering, identity_reordering, two_level_reorder
 from ..models.base import SpmvModel
 from ..models.ehyb import (_CYC_MW_VREG, _CYC_RX4_VREG, _CYC_RX_VREG,
                            _QUAD_WASTE_GATE, _RELAX_WASTE_GATE)
+from ..ops.dia import dia_body
 from ..ops.ehyb_stream import stream_body
-from ..ops.torch_ops import combine_ehyb, ehyb_dia, ehyb_er, ehyb_long
+from ..ops.stream_cells import BLOCK_ROWS, has_tail
 from ..partition import partition_rows
 from ..utils.log import get_logger
 from ..utils.timing import phase_roofline
@@ -495,6 +502,68 @@ def plan_sharded(m: MatrixCOO, config: EhybConfig,
                         sharded=sh, seconds=seconds)
 
 
+#: Bump on any change to what :func:`plan_sharded` makes: a cached setup
+#: is its output, keyed by its inputs.
+SETUP_VERSION = 1
+
+
+def sharded_cache_path(m: MatrixCOO, config: EhybConfig, n_dev: int) -> str:
+    """Where the artifact cache keeps :func:`plan_sharded`'s output for
+    ``m``, ``config`` and ``n_dev`` ranks: a path without its suffix, keyed
+    like the flagship's artifacts (the matrix's and the config's
+    fingerprints) and by the world size and ``SETUP_VERSION``."""
+    from ..core.cache import (DEFAULT_CACHE_DIR, config_fingerprint,
+                              matrix_fingerprint)
+
+    key = hashlib.sha256(json.dumps(dict(
+        config=config_fingerprint(config), relax_body=config.relax_body,
+        n_dev=n_dev, version=SETUP_VERSION),
+        sort_keys=True).encode()).hexdigest()[:16]
+    return os.path.join(config.cache_dir or DEFAULT_CACHE_DIR,
+                        f"{matrix_fingerprint(m)}-sharded-{key}")
+
+
+def load_or_build(path: str, build, what: str):
+    """The object pickled at ``path`` where it is there and reads, else
+    ``build()``'s, written there (through a temporary file, so that a
+    reader sees all of it or nothing); and whether it was loaded.  The
+    cache holds only what this package wrote."""
+    if os.path.exists(path):
+        try:
+            with open(path, "rb") as f:
+                obj = pickle.load(f)
+            log.info("loaded cached %s <- %s", what, path)
+            return obj, True
+        except (OSError, EOFError, pickle.UnpicklingError,
+                AttributeError) as exc:  # a corrupted cache: build again
+            log.warning("%s cache load failed (%s); building again", what,
+                        exc)
+    obj = build()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+    log.info("cached %s -> %s", what, path)
+    return obj, False
+
+
+def cached_plan_sharded(m: MatrixCOO, config: EhybConfig,
+                        n_dev: int) -> Tuple[ShardedSetup, str]:
+    """:func:`plan_sharded`'s output, read from the artifact cache where
+    it holds one (its ``seconds`` then the load's), else made and written
+    there; and its path without the suffix, beside which the ranks' K1
+    plans are cached."""
+    stem = sharded_cache_path(m, config, n_dev)
+    t0 = time.perf_counter()
+    host, loaded = load_or_build(f"{stem}.pkl", lambda: plan_sharded(
+        m, config, n_dev), "sharded setup")
+    if loaded:
+        load_s = time.perf_counter() - t0
+        host.seconds = {"cache_load": load_s, "total": load_s}
+    return host, stem
+
+
 # ---------------------------------------------------------------------------
 # Device half: one rank's apply.
 # ---------------------------------------------------------------------------
@@ -503,54 +572,83 @@ class ShardedEhybApply(torch.nn.Module):
     """One rank's apply (the JAX path's ``_shard_body``):
     ``forward(x_local)`` → the rank's R rows of y.
 
-    Per call: start the halo and ER exchanges; run K1 over the interior row
-    blocks (local x rows only); complete the exchanges; run K1 over the
-    boundary row blocks into the same y; the ER and long rows on
-    ``[x_ext | recv]``; DIA on ``x_ext`` with base W; combine and truncate
-    to R rows."""
+    Per call: start the halo and ER exchanges; run K1 over the interior
+    row blocks (local x only) into y; complete the exchanges; run K1 over
+    the boundary row blocks into the same y; K9 adds the diagonals into y
+    in place, reading ``x_ext`` with base W; y's first R rows.  K1's plan
+    holds the shard's ER and long rows
+    (:func:`~.shard_cells.build_shard_cells`, the flagship's
+    ``k1_folded_plan``): a plan that does not is refused, and no torch
+    tail runs."""
 
-    def __init__(self, e, cells: Optional[ShardCellsDevice],
-                 ex: ShardExchange, kahan: bool = False):
+    def __init__(self, e, cells: ShardCellsDevice, ex: ShardExchange,
+                 kahan: bool = False):
         super().__init__()
+        if cells is None or has_tail(e) and not cells.plan.stats.get(
+                "folded"):
+            raise ValueError("the shard has ER or long-row entries, and K1's "
+                             "plan does not hold them: build it with "
+                             "shard_cells.build_shard_cells")
         self.e = e
         self.cells = cells
         self.ex = ex
         self.kahan = kahan
+        #: y's rows: the shard's R.
+        self.n_rows = cells.plan.n_rb * BLOCK_ROWS
 
-    def body_split(self, y: torch.Tensor, part: str) -> None:
+    def _load(self, x_local: torch.Tensor) -> None:
+        """x's local rows into ``x_buf`` (nothing where ``x_local`` is
+        them: the chained loop's step writes there)."""
+        if x_local.data_ptr() != self.ex.x_local.data_ptr():
+            self.ex.x_local.copy_(x_local)
+
+    def body_split(self, y: torch.Tensor, part: str) -> bool:
         """K1 over the ``part`` ("interior" or "boundary") row blocks of the
-        shard's plan, into their rows of ``y``."""
+        shard's plan, into their rows of ``y``; whether it ran."""
         c = self.cells
-        rbs = c.interior if part == "interior" else c.boundary
-        if c.plan.n_cells and rbs.shape[0]:
-            stream_body(c.plan, self.ex.x_buf, self.kahan, rb_list=rbs,
-                        out=y)
+        lst = c.interior if part == "interior" else c.boundary
+        if not (c.plan.n_cells and lst.shape[0]):
+            return False
+        stream_body(c.plan, self.ex.x_buf, self.kahan, rb_list=lst, out=y)
+        return True
 
     def forward(self, x_local: torch.Tensor) -> torch.Tensor:
-        e, ex = self.e, self.ex
-        R = ex.R
-        if x_local.data_ptr() != ex.x_local.data_ptr():
-            ex.x_local.copy_(x_local)
+        ex = self.ex
+        self._load(x_local)
         pending = ex.start()
-        n_body = e.slice_win_start.shape[0] * LANES
-        if self.cells is None:
-            y_body = ex.x_buf.new_zeros(n_body)
-        else:
-            y_body = ex.x_buf.new_empty(n_body)
-            self.body_split(y_body, "interior")
+        # the two lists write every row; a plan with no cells writes none
+        y = (ex.x_buf.new_empty if self.cells.plan.n_cells
+             else ex.x_buf.new_zeros)(self.n_rows)
+        self.body_split(y, "interior")
         ex.finish(pending)
-        if self.cells is not None:
-            self.body_split(y_body, "boundary")
-        x = ex.x_buf
-        y = combine_ehyb(e, y_body, ehyb_er(e, x), ehyb_long(e, x),
-                         ehyb_dia(e, x, x_base=ex.W))
-        return y[:R]
+        self.body_split(y, "boundary")
+        dia_body(self.e, ex.x_buf, out=y, x_base=ex.W)
+        return y[:ex.R]
+
+    def phases(self) -> dict:
+        """Each kernel of the apply as a function of x_local, by name: K1
+        over the interior row blocks, K1 over the boundary ones (each into
+        a y of its own; empty where its list is), K9 (writing its own y);
+        all on ``x_buf`` as the last exchange left it."""
+        def body(part: str):
+            def run(x_local: torch.Tensor) -> torch.Tensor:
+                self._load(x_local)
+                y = self.ex.x_buf.new_empty(self.n_rows)
+                return y if self.body_split(y, part) else y[:0]
+            return run
+
+        def dia(x_local: torch.Tensor) -> torch.Tensor:
+            self._load(x_local)
+            return dia_body(self.e, self.ex.x_buf, x_base=self.ex.W)
+
+        return {"body interior": body("interior"),
+                "body boundary": body("boundary"), "dia": dia}
 
 
 class ShardedEhybSpmv(SpmvModel):
     """One rank of the row-sharded EHYB model: global partition + reorder,
-    uniform row shards, halo'd window body in two K1 launches, compressed
-    ER exchange.
+    uniform row shards, the halo'd window body and the tail in two K1
+    launches and the diagonals in one K9 launch, compressed ER exchange.
 
     ``group`` is the ``torch.distributed`` process group of the ranks
     (None: the default group where one is initialized, else a world of one
@@ -573,9 +671,15 @@ class ShardedEhybSpmv(SpmvModel):
     def setup(self, m: MatrixCOO,
               host: Optional[ShardedSetup] = None) -> "ShardedEhybSpmv":
         """Convert (or take ``host``, made by :func:`plan_sharded` for this
-        world size) and upload this rank's shard."""
+        world size) and upload this rank's shard.  With the config's
+        ``artifact_cache`` a setup made here is read from the cache where
+        it holds one (:func:`cached_plan_sharded`), and so is the rank's
+        K1 plan."""
         self.m = m
-        if host is None:
+        cache = None
+        if host is None and self.config.artifact_cache:
+            host, cache = cached_plan_sharded(m, self.config, self.n_dev)
+        elif host is None:
             host = plan_sharded(m, self.config, self.n_dev)
         if host.sharded.n_dev != self.n_dev:
             raise ValueError(f"setup made for {host.sharded.n_dev} ranks, "
@@ -594,12 +698,14 @@ class ShardedEhybSpmv(SpmvModel):
                            sh.send_idx[self.rank], sh.exchange_slots,
                            self.device, cfg.dtype)
         t2 = time.perf_counter()
-        cells = None
-        if dev.body_nnz:
-            cells = build_shard_cells(
-                e, sh, force_boundary=os.environ.get(
-                    "EHYB_FORCE_BOUNDARY", "") == "1").to_torch(self.device)
-            dev.ell_col = dev.ell_val = None
+        # K1's plan holds the body and the tail: the padded body stays on
+        # the host
+        cells = build_shard_cells(
+            e, sh, force_boundary=os.environ.get(
+                "EHYB_FORCE_BOUNDARY", "") == "1",
+            cache=None if cache is None else f"{cache}-r{self.rank}"
+        ).to_torch(self.device)
+        dev.ell_col = dev.ell_val = None
         self.setup_seconds["k1_plan"] = time.perf_counter() - t2
         self.module = ShardedEhybApply(dev, cells, ex,
                                        kahan=bool(cfg.compensated_sum))
@@ -612,27 +718,26 @@ class ShardedEhybSpmv(SpmvModel):
             log.info("rank %d: %d ranks — iterate runs eagerly (the "
                      "exchanges cannot be captured in a CUDA graph)",
                      self.rank, self.n_dev)
-        st = cells.stats if cells is not None else {}
+        st = cells.stats
         log.info("rank %d/%d on %s: R=%d W=%d layout=%s S=%d, %d interior "
-                 "and %d boundary row blocks", self.rank, self.n_dev,
-                 self.device, sh.rows_per_dev, sh.window_rows,
-                 sh.stats["layout"], sh.exchange_slots,
-                 st.get("n_interior", 0), st.get("n_boundary", 0))
+                 "and %d boundary row blocks (%d chunked), %d tail cells",
+                 self.rank, self.n_dev, self.device, sh.rows_per_dev,
+                 sh.window_rows, sh.stats["layout"], sh.exchange_slots,
+                 st["n_interior"], st["n_boundary"], st["chunked_rbs"],
+                 st["tail_cells"])
         return self
 
     # -- vector plumbing ---------------------------------------------------
     def prepare_x(self, x: np.ndarray) -> torch.Tensor:
-        """Host x (original order) → this rank's R rows, written into the
-        middle of its ``x_ext`` buffer (the returned tensor is that view)."""
+        """Host x (original order) → this rank's R rows on its device (the
+        apply copies them into the middle of its ``x_ext`` buffer)."""
         R = self.sharded.rows_per_dev
         xr = self.reordering.vector_reorder(np.asarray(x))
         lo = self.rank * R
         part = np.zeros(R, dtype=self.config.dtype)
         mine = xr[lo:lo + R]
         part[: mine.shape[0]] = mine
-        xl = self.module.ex.x_local
-        xl.copy_(torch.from_numpy(part))
-        return xl
+        return torch.from_numpy(part).to(self.device)
 
     def recover_y(self, y: torch.Tensor) -> np.ndarray:
         """Every rank's R rows (gathered over the group) → host f64 y in the
@@ -647,22 +752,26 @@ class ShardedEhybSpmv(SpmvModel):
             return self.iterate_eager(x_dev, n_iters, eps)
         return super().iterate(x_dev, n_iters, eps)
 
+    def _chain_input(self, x_dev):
+        """The graph loop's step input is ``x_buf``'s local rows, which K1
+        and K9 read: the step's add writes x there, and no copy runs a
+        step."""
+        return self.module.ex.x_local
+
     def roofline_phases(self) -> dict:
-        """(flops, device-memory bytes) per apply of this rank: its plan's
-        cells and tables (in place of the padded body), the union DIA, the
-        ER and long streams, ``x_ext`` and ``recv`` read once and y written
-        once."""
+        """(flops, device-memory bytes) per apply of this rank, as the
+        apply runs it: K1 over its plan (cells, pieces and tables, with
+        the ER and long-row entries among the cells), K9 over the union
+        DIA, ``x_ext`` and ``recv`` read once and y written once."""
         sh = self.sharded
         R, W, S, D = (sh.rows_per_dev, sh.window_rows, sh.exchange_slots,
                       sh.n_dev)
         vb = np.dtype(self.config.dtype).itemsize
-        phases = phase_roofline(
+        st = phase_roofline(
             self.ehyb.stats, value_bytes=vb,
             ell_index_bytes=np.dtype(self.config.index_dtype).itemsize)
-        phases["x/y vectors"] = (0, (R + 2 * W + D * S + R) * vb)
-        phases["dia"] = (phases["dia"][0], len(sh.dia_offsets) * R * vb)
-        cells = self.module.cells if self.module is not None else None
-        if cells is not None:
-            phases["body"] = (phases["body"][0],
-                              cells.plan.stats["stream_bytes"])
-        return phases
+        return {
+            "x/y vectors": (0, (R + 2 * W + D * S + R) * vb),
+            "dia": (st["dia"][0], len(sh.dia_offsets) * R * vb),
+            "body": (st["body"][0] + st["er"][0] + st["long"][0],
+                     self.module.cells.plan.stats["stream_bytes"])}

@@ -5,7 +5,8 @@ the port's cache namespace (``EHYB_TORCH_CACHE_DIR``, default
 measurement.
 
     python3 scripts_torch/prewarm.py [--models ehyb,...] [--dtype float64]
-                                     [--dword] [matrix ...]
+                                     [--dword] [--window-rows N]
+                                     [matrix ...]
 
 The port's counterpart of ``scripts/prewarm.py``.  The host layer (ordering,
 EHYB conversion, routed schedules, the gate's structural verdict) does not
@@ -13,7 +14,10 @@ depend on the device, and the cache keys hash only the matrix and the
 config, so artifacts built here are the ones a card run looks up.  The
 models run with ``device="cpu"``; the small gate (below 65,536 rows) times
 its candidates only on a card (``EhybSpmv._can_measure``), so no verdict
-that is a hardware measurement is written here.
+that is a hardware measurement is written here.  ``ehyb_split_sharded``
+(asked for by name) is the sharded degree split at one rank: its host
+setup (``parallel/spmv.py::cached_plan_sharded``, the rank's K1 plan and
+its routed schedules and plans) is cached the same way.
 
 Prints one line per matrix (corpus load and oracle, HIT or MISS) and one per
 (matrix, model): setup seconds, HIT or MISS, and the engine.  A MISS on a
@@ -33,9 +37,12 @@ sys.path.insert(0, REPO)
 
 #: The cache loads' log lines (a routed HIT must not hide an EHYB miss: the
 #: flagship can delegate and load only routed artifacts).
-_HIT_LINES = ("loaded cached EHYB artifacts", "loaded cached routed artifacts")
+_HIT_LINES = ("loaded cached EHYB artifacts", "loaded cached routed artifacts",
+              "loaded cached sharded setup")
 #: The sweep's models that build artifacts (the baselines build none).
 MODELS = ("ehyb", "ehyb_routed", "ehyb_split")
+#: The sharded models built at one rank, where their names are asked for.
+SHARDED = ("ehyb_split_sharded",)
 
 
 def main(argv=None) -> int:
@@ -45,6 +52,9 @@ def main(argv=None) -> int:
     import ehyb_spmv_torch as port
     from ehyb_spmv_torch.core.coo import deterministic_x
     from ehyb_spmv_torch.io import generate
+    from ehyb_spmv_torch.parallel.hybrid import ShardedDegreeSplitSpmv
+
+    classes = {**port.MODELS, "ehyb_split_sharded": ShardedDegreeSplitSpmv}
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("matrices", nargs="*", default=DEFAULT,
@@ -57,7 +67,12 @@ def main(argv=None) -> int:
                         "(default float32, the sweep's)")
     p.add_argument("--dword", action="store_true",
                    help="the precision mode, as the CLI's --dword")
+    p.add_argument("--window-rows", type=int, default=None,
+                   help="the config's window_rows (default the config's; "
+                        "the sharded path's Pallas branch takes 1024)")
     args = p.parse_args(argv)
+    extra = ({} if args.window_rows is None
+             else {"window_rows": args.window_rows})
     columns = args.models.split(",")
     # HIT is read from the cache loads' INFO lines
     logging.getLogger("ehyb_torch").setLevel(logging.INFO)
@@ -71,17 +86,18 @@ def main(argv=None) -> int:
         print(f"{mat}: corpus {t_load:.1f} s, oracle "
               f"{time.perf_counter() - t0:.1f} s {'HIT' if hit else 'MISS'}",
               flush=True)
-        for name in row_models(mat, columns):
-            if name not in MODELS:
+        for name in row_models(mat, columns) + [
+                c for c in columns if c in SHARDED]:
+            if name not in MODELS + SHARDED:
                 continue
             buf = io.StringIO()
             handler = logging.StreamHandler(buf)
             logging.getLogger("ehyb_torch").addHandler(handler)
             t0 = time.perf_counter()
             try:
-                model = port.MODELS[name](
+                model = classes[name](
                     port.EhybConfig(artifact_cache=True, dtype=args.dtype,
-                                    dword_values=args.dword),
+                                    dword_values=args.dword, **extra),
                     device="cpu").setup(m)
                 hit = any(s in buf.getvalue() for s in _HIT_LINES)
                 status = f"{'HIT' if hit else 'MISS'} [{type(model).__name__}]"

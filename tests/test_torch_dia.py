@@ -3,7 +3,8 @@ kernel's wrapper takes for CPU tensors) against the JAX Pallas DIA kernel K9
 in interpret mode, in both of K9's variants and on a multi-run offset set,
 the flagship on an all-DIA FEM matrix against the JAX flagship with K9
 forced, and the kernel's host plan (offset runs, tiles, staged windows),
-replayed in numpy as ``csrc/dia.cu`` walks it.
+replayed in numpy as ``csrc/dia.cu`` walks it, also at an x base (the
+sharded apply's).
 
 Bounds: f32 rel <= 2e-6 in norm against the JAX kernel (the same products,
 summed in another order); rel <= 5e-6 against the exact-f64 oracle (the
@@ -395,3 +396,45 @@ def test_dia_out_adds_into_y(dtype):
     none = types.SimpleNamespace(dia_offsets=(), dia_val=torch.zeros(
         0, DIM, dtype=torch.from_numpy(val).dtype))
     assert torch.equal(dia.dia_body(none, xt, out=y0.clone()), y0)
+
+
+@pytest.mark.parametrize("x_mode", dia.X_MODES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("x_base", [0, 3, 1024])
+def test_dia_x_base(x_base, dtype, x_mode):
+    """K9 with an x base (the sharded apply's diagonals, which read a
+    shard's ``x_ext`` past its left halo): row i reads ``x[x_base + i +
+    d_k]``, an index outside x reading as zero.  The plain version against
+    ``torch_ops.ehyb_dia(..., x_base=)`` (its terms fused: rel <= 2e-6 in
+    f32, 1e-14 in f64) and the exact sum; its accumulate mode adds the same
+    sums into ``out``; the plan at a base is the plan of the offsets
+    shifted by it (at base 0 the plan it was), and the kernel's walk of it,
+    replayed, equals the plain version bit for bit."""
+    from ehyb_spmv_torch.ops.torch_ops import ehyb_dia
+
+    rng = np.random.default_rng(17)
+    n_x = DIM + 2 * 1024
+    val = rng.standard_normal((len(OFFSETS), DIM)).astype(dtype)
+    x = rng.standard_normal(n_x).astype(dtype)
+    e = types.SimpleNamespace(dia_offsets=OFFSETS,
+                              dia_val=torch.from_numpy(val))
+    xt = torch.from_numpy(x)
+    got = dia.dia_body(e, xt, x_base=x_base)
+    tol = PARITY_TOL if dtype == np.float32 else 1e-14
+    assert rel(got.numpy(), ehyb_dia(e, xt, x_base=x_base).numpy()) <= tol
+    shifted = tuple(d + x_base for d in OFFSETS)
+    assert rel(got.numpy(), _exact(val, x, shifted)) <= tol
+    y0 = torch.from_numpy(rng.standard_normal(DIM).astype(dtype))
+    out = dia.dia_body(e, xt, out=y0.clone(), x_base=x_base)
+    assert torch.equal(out, y0 + got)
+    geometry = dataclasses.replace(G0, x_mode=x_mode)
+    vb = np.dtype(dtype).itemsize
+    plan = dia.make_plan(OFFSETS, DIM, geometry, value_bytes=vb,
+                         x_base=x_base)
+    moved = dia.make_plan(shifted, DIM, geometry, value_bytes=vb)
+    assert plan == dataclasses.replace(moved, x_base=x_base)
+    assert plan.offsets == shifted
+    if x_base == 0:
+        assert plan == moved
+    np.testing.assert_array_equal(_replay(plan, val, x), got.numpy())

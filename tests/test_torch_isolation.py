@@ -35,6 +35,7 @@ import chip_wincache_sweep
 import chip_routed_sweep
 import chip_dia_sweep
 import chip_k1_sweep
+import chip_sharded_ab
 import bench_torch
 import scripts_torch.sweep
 import scripts_torch.sweep_table

@@ -65,18 +65,27 @@ def test_sharded_ehyb_matches_jax_and_oracle(ranks, name):
 
 def test_sharded_ehyb_row_block_kinds(ranks):
     """Both kinds of row block exist at two ranks and more (none interior
-    at one), the exchange runs where the cut needs it, the loop is eager
-    on the CPU and repeats the apply bit for bit at eps 0."""
+    at one; at two ranks scrambled's ER cells, folded into K1's plan, put
+    every row block of its shards on the boundary side, and dim_2025 has
+    both), the exchange runs where the cut needs it, every plan holds its
+    shard's tail, the heavy-tailed case's plans are in the split form at
+    every world, and the loop is eager on the CPU and repeats the apply
+    bit for bit at eps 0."""
     world, res = ranks
+    n_int = 0
     for name in EHYB_CASES:
         st = [r["stats"][name] for r in res]
-        assert all(s["loop"] == "eager" and s["iterate_equal"] for s in st)
+        assert all(s["loop"] == "eager" and s["iterate_equal"]
+                   and s["folded"] for s in st)
+        n_int += sum(s["interior"] for s in st)
         if world == 1:
             assert all(s["interior"] == 0 and s["boundary"] > 0 for s in st)
         elif name == "scrambled":
-            assert sum(s["interior"] for s in st) > 0
             assert sum(s["boundary"] for s in st) > 0
             assert st[0]["S"] > 0
+        if name == "powerlaw_split":
+            assert sum(s["chunked"] for s in st) > 0
+    assert (n_int > 0) == (world > 1)
 
 
 def test_sharded_routed(ranks, monkeypatch):

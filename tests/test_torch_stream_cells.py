@@ -694,22 +694,34 @@ def test_f64_flagship_plan_keeps_the_table_form(scrambled):
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_read(scrambled):
-    """A float32 plan with direct pieces or a row map, and a row-block
-    list over a grouped plan (lists name body row blocks), are refused
-    before any build."""
+    """A float32 plan with direct pieces or a row map is refused before
+    any build.  A row-block list over a grouped plan names the plan's row
+    blocks, whose rows are written through the row map (the float64 list
+    kernel reads the map: a sharded float64 plan may be grouped); a list
+    of work items over it (a plan in the table form) is refused."""
     e32 = edge_body()
     bad = stream_cells.build_stream_cells(e32, direct_below=8.0).to_torch()
     x32 = torch.zeros(e32.padded_x_rows)
     with pytest.raises(ValueError, match="table form only"):
         ehyb_stream._check(bad, x32)
     grouped = _body_plan(_dword(scrambled))
-    assert grouped.stats["grouped"]
+    assert grouped.stats["grouped"] and not stream_cells.split(grouped)
     p = grouped.to_torch()
-    x = torch.zeros(p.stats["x_rows"], dtype=torch.float64)
-    lst = torch.zeros(1, dtype=torch.int32)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        p.stats["x_rows"]))
+    full = ehyb_stream.stream_body(p, x)
+    lst = torch.tensor([0, p.n_rb - 1], dtype=torch.int32)
+    rows = p.row_map.long()[(lst.long()[:, None] * 32
+                             + torch.arange(32)).reshape(-1)]
+    other = torch.ones_like(full, dtype=torch.bool)
+    other[rows] = False
     for fn in (ehyb_stream.stream_body, ehyb_stream.stream_body_plain):
+        y = torch.full_like(full, -1.0)
+        fn(p, x, rb_list=lst, out=y)
+        assert torch.equal(y[rows], full[rows])
+        assert bool((y[other] == -1.0).all())
         with pytest.raises(ValueError, match="row-block list"):
-            fn(p, x, rb_list=lst)
+            fn(p, x, rb_list=torch.zeros((1, 4), dtype=torch.int32))
 
 
 # --- the split form (heavy-tailed bodies) ---------------------------------
@@ -1134,10 +1146,10 @@ def test_split_plans_keep_the_old_rank_loop(case, body, steps, request,
 def test_wrapper_refuses_split_plans_it_cannot_read():
     """A plan in the split form is read by the split variants at one row a
     thread with x through L1/L2, in float32 and float64, plain or Kahan,
-    without a row-block list: with a list, at another rows-per-thread and
-    with x staged, the wrapper raises (on the CPU too, before any build);
-    every value type and Kahan passes its checks, and the compensated
-    plan is the plain one."""
+    with or without a list of its work items: with a row-block list, at
+    another rows-per-thread and with x staged, the wrapper raises (on the
+    CPU too, before any build); every value type and Kahan passes its
+    checks, and the compensated plan is the plain one."""
     e = long_body(4)
     p = stream_cells.build_stream_cells(e, split_steps=4).to_torch()
     x = torch.zeros(e.padded_x_rows)
@@ -1154,6 +1166,7 @@ def test_wrapper_refuses_split_plans_it_cannot_read():
         for kahan in (False, True):
             ehyb_stream._check(q, xq)
             ehyb_stream._check_split(q, None)
+            ehyb_stream._check_split(q, q.item)
             ehyb_stream.check_built(ehyb_stream.SPLIT_GEOMETRY, xq.dtype,
                                     True)
             assert ehyb_stream.stream_body(q, xq, kahan).dtype == xq.dtype

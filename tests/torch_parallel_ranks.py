@@ -26,6 +26,10 @@ EHYB_CASES = {
     "scrambled_f64": (lambda: generate.permuted(generate.poisson2d(48),
                                                 seed=11),
                       {"dtype": "float64"}),
+    # heavy-tailed (the suite's powerlaw_small): every world's shards reach
+    # K1's split form, their lists work items
+    "powerlaw_split": (lambda: generate.random_general(
+        3000, 16, seed=5, power_law=0.8), {}),
 }
 
 
@@ -53,6 +57,7 @@ def check_rank(rank: int, world: int) -> dict:
         st = model.module.cells.stats
         out["stats"][name] = dict(
             interior=st["n_interior"], boundary=st["n_boundary"],
+            chunked=st["chunked_rbs"], folded=st["folded"],
             S=model.sharded.exchange_slots, loop=model.loop,
             iterate_equal=bool(torch.equal(y1, y3)))
         out["y"][name] = model.recover_y(y1)
