@@ -15,7 +15,10 @@ form of heavy-tailed bodies whose long row blocks are cut into chunks, on
 a synthetic long body and powerlaw_small at a small split and the shipped
 one, bit for bit, its combine also under CUDA-graph replays; K9 at every
 built variant, in both of its x modes, on cases that reach its tile and x
-edges; and K1 where the JAX package would run K5 or K6, timed there), then
+edges, its spread form (the small parts' variant) and the geometry its
+rule picks also bit for bit with the plain version run on the CPU, in the
+write and the accumulate mode and at an x base; and K1 where the JAX
+package would run K5 or K6, timed there), then
 drives four main paths end to end through the CLI and checks each against
 the exact-f64 oracle:
 
@@ -39,7 +42,10 @@ its plain version at its main path's shapes (K1 also on
 cache both on ``permuted_poisson_1024`` forced past the residency limit,
 where the TPU runs K3), beside one cuSPARSE call
 (``torch.sparse_csr_tensor`` matvec) as
-a yardstick, with K1 and K9 also in their other x mode, in turns, and
+a yardstick, with K1 and K9 also in their other x mode, in turns (K9
+also at the three DIA rows too small to fill the card at its default
+geometry, ``stencil27_24``, ``poisson2d_512`` and ``fem3d_32``, in turns
+with the default where its rule takes the spread form), and
 prints one JSON line of kernels with two bounds each:
 ``bound_ms``, the same work in any layout (each entry's value and column,
 x and y once: what the function must move), and ``layout_bound_ms``, the
@@ -409,6 +415,9 @@ RANK_TIMEOUT_S = 300
 #: ``scripts_torch/sweep.py --models ehyb``.
 SWEEP_ROWS = ("poisson2d_512", "stencil27_24", "fem3d_32", "random_4m",
               "powerlaw_1m")
+#: The corpus's DIA rows whose default K9 grid leaves the card short of
+#: one wave (K9 their only kernel), timed in phase 10.
+SMALL_DIA_ROWS = ("stencil27_24", "poisson2d_512", "fem3d_32")
 #: The rows phase 20 runs the flagship on: ``scripts_torch/prewarm.py``
 #: builds their artifacts and oracles on the host while the card runs
 #: phases 1-19, the costliest first.
@@ -1357,17 +1366,67 @@ def cache_dir(path: str):
         port_cache.DEFAULT_CACHE_DIR = old
 
 
+#: K9's spread form as the small checks reach it: its default, tiles of
+#: 32 rows in chunks of 8 diagonals (most cases take several chunks), and
+#: tiles of 256 rows (one a thread) in chunks of 16.
+SPREAD_CHECKS = (dia.SpreadGeometry(),
+                 dia.SpreadGeometry(rows=32, chunk=8),
+                 dia.SpreadGeometry(rows=256, chunk=16))
+
+
 def dia_geometries(f64: bool = False):
     """Every built K9 variant (256 threads) in both x modes, the default
     geometry, and 128 and 512 threads; in f64 those of them built in f64
-    (the default STEP and QUADS)."""
+    (the default STEP and QUADS); the spread form at
+    :data:`SPREAD_CHECKS`."""
     built = dia.BUILT_STEPS_F64 if f64 else dia.BUILT_STEPS
     out = [dia.DiaGeometry(threads=256, step=s, quads=q, x_mode=mode)
            for s, q in built for mode in dia.X_MODES]
     out += [dia.GEOMETRY]
     out += [dia.DiaGeometry(threads=t, x_mode=mode)
             for t in (128, 512) for mode in dia.X_MODES]
-    return out
+    return out + list(SPREAD_CHECKS)
+
+
+def check_dia_exact(name: str, e, x: torch.Tensor) -> None:
+    """K9's spread form at :data:`SPREAD_CHECKS`, and the geometry
+    ``choose_geometry`` picks, bit for bit with the plain version run on
+    the CPU, in the write mode and the accumulate mode, at x base 0 and 3
+    (each an own plan)."""
+    e_cpu = types.SimpleNamespace(dia_offsets=e.dia_offsets,
+                                  dia_val=e.dia_val.cpu())
+    x_cpu = x.cpu()
+    dim_r = e.dia_val.shape[1]
+    y0 = torch.as_tensor(np.random.default_rng(23).standard_normal(
+        dim_r + 4), dtype=x.dtype)
+    n_run = 0
+    for base in (0, 3):
+        want = dia.dia_body_plain(e_cpu, x_cpu, x_base=base)
+        want_acc = dia.dia_body_plain(e_cpu, x_cpu, out=y0.clone(),
+                                      x_base=base)
+        for g in (*SPREAD_CHECKS, None):
+            if g is not None:
+                try:
+                    dia.make_plan(e.dia_offsets, dim_r, g, 1,
+                                  x.element_size(), x_base=base)
+                except ValueError:
+                    continue
+            out = y0.clone().to(x.device)
+            y = dia._launch(e, x, g, x_base=base)
+            dia._launch(e, x, g, out=out, x_base=base)
+            n_run += 1
+            if not (torch.equal(y.cpu(), want)
+                    and torch.equal(out.cpu(), want_acc)):
+                check(False, f"K9 {name} at {g or 'the rule'}, x base "
+                             f"{base}: vs the plain version on the CPU, "
+                             f"rel {rel(y.cpu(), want):.3e} (write), "
+                             f"{rel(out.cpu(), want_acc):.3e} (accumulate)")
+    plan, _ = dia.device_plan(e.dia_offsets, dim_r, dim_r % 4 == 0,
+                              x.device, None, x.element_size())
+    check(True, f"K9 {name} ({x.dtype}): the spread form at {n_run} "
+                f"plans (the rule picks {plan.geometry}) in the write and "
+                "the accumulate mode, at x base 0 and 3, bit for bit with "
+                "the plain version on the CPU")
 
 
 def check_dia_case(name: str, e, x: torch.Tensor) -> None:
@@ -1481,7 +1540,8 @@ def check_dia_small(dev, dtype=torch.float32) -> None:
     ragged last tile; odd and negative offsets (the shifted 16-B loads);
     offsets past both ends of x (the guarded x reads, the zero-filled
     windows); a run wider than a tile; fem3d_16's 99 diagonals in 9 runs
-    (in f64 through the precision mode)."""
+    (in f64 through the precision mode); at each, the spread form and the
+    rule's geometry bit for bit (:func:`check_dia_exact`)."""
     f64 = dtype == torch.float64
     rng = np.random.default_rng(5)
     cases = [("one diagonal", (0,), 100_000, 100_000),
@@ -1500,6 +1560,7 @@ def check_dia_small(dev, dtype=torch.float32) -> None:
         x = torch.as_tensor(rng.standard_normal(n_x), dtype=dtype,
                             device=dev)
         check_dia_case(name, e, x)
+        check_dia_exact(name, e, x)
     m = generate.fem3d(16)
     model = port.EhybSpmv(port.EhybConfig(dword_values=f64),
                           device=dev).setup(m)
@@ -1507,6 +1568,8 @@ def check_dia_small(dev, dtype=torch.float32) -> None:
     check(len(e.dia_offsets) == 99 and e.dia_val.dtype == dtype,
           f"fem3d_16: {len(e.dia_offsets)} diagonals, {e.dia_val.dtype}")
     check_dia_case("fem3d_16", e, model.prepare_x(
+        deterministic_x(m.dimension)))
+    check_dia_exact("fem3d_16", e, model.prepare_x(
         deterministic_x(m.dimension)))
     x = deterministic_x(m.dimension)
     err = rel_np(model.matvec(x), oracle_spmv(m, x))
@@ -2013,10 +2076,13 @@ def time_dia_acc(e, x_dev: torch.Tensor, y0: torch.Tensor, n: int) -> dict:
 
 
 def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50,
-                  acc_into: torch.Tensor = None) -> dict:
-    """K9 on the DIA part ``e`` (f32 or f64, as x): kernel, plain version
-    and cuSPARSE over the same DIA entries, both bounds, and the A/B of the
-    two x modes (the default geometry with the other mode, in turns); with
+                  acc_into: torch.Tensor = None,
+                  spread_ab: bool = False) -> dict:
+    """K9 on the DIA part ``e`` (f32 or f64, as x): kernel (at the rule's
+    geometry), plain version and cuSPARSE over the same DIA entries, both
+    bounds, and the A/B of the two x modes (the default geometry with the
+    other mode, in turns); where the rule takes the spread form, or with
+    ``spread_ab``, the spread form and the default geometry in turns; with
     ``acc_into`` (a y to add into) also the accumulate mode
     (:func:`time_dia_acc`)."""
     f64 = x_dev.dtype == torch.float64
@@ -2046,7 +2112,7 @@ def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50,
     ms, plain_ms, turns = in_turns(lambda: dia.dia_body(e, x_dev),
                                    lambda: dia.dia_body_plain(e, x_dev),
                                    n, max(n // 10, 2))
-    ab = in_turns(lambda: dia.dia_body(e, x_dev),
+    ab = in_turns(lambda: dia._launch(e, x_dev, g0),
                   lambda: dia._launch(e, x_dev, other), n, n)[2]
     lib_ms = device_ms_per_call(lambda: torch.mv(a, x_dev), n)
     k, dim_r = e.dia_val.shape
@@ -2058,10 +2124,29 @@ def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50,
     same = same_work_bound(a.values().numel(), 0, x_dev.numel(), dim_r, dev,
                            vb)
     print(f"  K9 ({k} diagonals in {st['runs']} runs, {dim_r} rows; "
-          f"{g0.threads} threads, {g0.quads} quads, step {g0.step}, x "
-          f"{g0.x_mode}; grid {st['grid']}, tiles of {st['tile_rows']} "
+          f"{plan.geometry}; grid {st['grid']}, tiles of {st['tile_rows']} "
           f"rows, {st['smem_bytes']} B of shared memory) device ms per call "
           f"(plain, kernel, kernel, plain): {turns}")
+    extra = {}
+    if plan.spread or spread_ab:
+        # the spread form (the rule's, or the one it would take) and the
+        # default geometry in turns
+        sg = plan.geometry if plan.spread else dia.spread_geometry(
+            dim_r, torch.cuda.get_device_properties(dev).multi_processor_count,
+            dia._per_sm(g0, e.dia_offsets, dim_r, dim_r % 4 == 0, dev, vb,
+                        False, 0))
+        y_s, y_d = dia._launch(e, x_dev, sg), dia._launch(e, x_dev, g0)
+        check(torch.equal(y_d, y_k) and torch.equal(y_s, y_k),
+              f"K9's default geometry and the spread form {sg} agree bit "
+              "for bit")
+        d_a, s_a, s_b, d_b = in_turns(lambda: dia._launch(e, x_dev, sg),
+                                      lambda: dia._launch(e, x_dev, g0),
+                                      n, n)[2]
+        extra = dict(default_ms=(d_a + d_b) / 2, spread_ms=(s_a + s_b) / 2)
+        print(f"  K9 the spread form vs the default geometry (default, "
+              f"spread, spread, default): {(d_a, s_a, s_b, d_b)}; spread / "
+              f"default = {(s_a + s_b) / (d_a + d_b):.3f}; the rule takes "
+              f"{'the spread form' if plan.spread else 'the default'}")
     print(f"  cuSPARSE over its entries {lib_ms:.4f} ms (K9 / cuSPARSE = "
           f"{ms / lib_ms:.3f}); layout bound {b['bound_ms']:.4f} ms "
           f"({st['layout_bytes']} B, {b['bound_by']}; "
@@ -2070,9 +2155,42 @@ def time_dia_part(e, x_dev: torch.Tensor, dev, n: int = 50,
           f"{same['bound_ms'] / ms:.3f} reached)")
     print(f"  x-mode A/B ({other.x_mode}, {g0.x_mode}, {g0.x_mode}, "
           f"{other.x_mode}): {ab}")
-    extra = {} if acc_into is None else time_dia_acc(e, x_dev, acc_into, n)
+    if acc_into is not None:
+        extra.update(time_dia_acc(e, x_dev, acc_into, n))
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, **bounds(b, same), **extra)
+
+
+def time_dia_small(dev) -> dict:
+    """K9 at the corpus's DIA rows too small to fill the card at the
+    default geometry (:data:`SMALL_DIA_ROWS`), each at full size and set up
+    through the flagship as the CLI does: one product against the oracle
+    (K9 launched once), then :func:`time_dia_part` (the rule's geometry
+    beside its plain version, cuSPARSE and both bounds; the spread form and
+    the default geometry in turns); returns matrix → its fields for the
+    ``kernels`` line."""
+    out = {}
+    for name in SMALL_DIA_ROWS:
+        t0 = time.perf_counter()
+        m = generate.load_corpus(name)
+        model = port.EhybSpmv(port.EhybConfig(), device=dev).setup(m)
+        e = model.dev
+        xh = deterministic_x(m.dimension)
+        reset_launches()
+        err = rel_np(model.matvec(xh), oracle_spmv(m, xh))
+        n = (dia.dia_body.launches, ehyb_stream.stream_body.launches)
+        check(model.ehyb.stats["nnz_dia"] == m.nnz and n == (1, 0)
+              and err <= ORACLE_TOL,
+              f"{name}: all {m.nnz} entries in {len(e.dia_offsets)} "
+              f"diagonals of {m.dimension} rows, K9 launched {n[0]} time(s) "
+              f"and K1 {n[1]} in a product, rel {err:.3e} vs the oracle "
+              f"(set up in {time.perf_counter() - t0:.1f} s)")
+        out[name] = time_dia_part(e, model.prepare_x(xh), dev, n=100,
+                                  spread_ab=True)
+        print(f"  {name} wall {time.perf_counter() - t0:.1f} s; "
+              f"{card_state()}")
+        del model, m
+    return out
 
 
 def time_dia_base(e, x_dev: torch.Tensor, base: int, y0: torch.Tensor, dev,
@@ -2325,6 +2443,18 @@ def check_loop(res: dict, model, dev) -> dict:
 #: add.
 STEP_KERNELS = {"K1": "stream_body", "K9": "dia_kernel",
                 "chain add": "add"}
+#: Seconds a profiler window waits after it starts before the loop runs,
+#: and after the loop before it stops.  ``torch.profiler`` on the H100 now
+#: and then loses the kernel records at the start of a window of graph
+#: replays (every record, or the first steps'; one K1 record of 20 in two
+#: runs of this script); ``scripts_torch/profile_windows.py`` counts such
+#: windows with and without this wait.
+PROFILE_PAD_S = 0.01
+#: Profiler windows the strict step check may take.  A replayed graph
+#: launches the same kernels every step, so a window whose records do not
+#: show the step exactly is printed with its counts and taken again; the
+#: check fails when none of the windows shows it.
+STRICT_WINDOWS = 5
 
 
 def step_kernels(kernels: list, n: int) -> dict:
@@ -2353,17 +2483,40 @@ def profile_path(name: str, result: dict, model, graph_s: float,
     from torch.profiler import ProfilerActivity, profile
 
     x_dev = model.prepare_x(deterministic_x(result["dim"]))
-    source = "graph replays"
-    for loop in (model.iterate, model.iterate_eager):
+
+    def window(loop) -> list:
         loop(x_dev, 2)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             loop(x_dev, n)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.device_time_total > 0]
+            time.sleep(PROFILE_PAD_S)
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.device_time_total > 0]
+
+    def step_ok(kernels) -> tuple:
+        steps = step_kernels(kernels, n)
+        kinds = {key: next((w for w, frag in STEP_KERNELS.items()
+                            if frag in key), None) for key in steps}
+        return (sorted(kinds.values(), key=str) == sorted(STEP_KERNELS)
+                and all(c == 1 for c in steps.values())), kinds
+
+    source = "graph replays"
+    for loop in (model.iterate, model.iterate_eager):
+        kernels = window(loop)
+        for attempt in range(1, STRICT_WINDOWS if strict else 1):
+            if not kernels or step_ok(kernels)[0]:
+                break
+            print(f"  {name}: profiler window {attempt} of "
+                  f"{STRICT_WINDOWS} does not show the step exactly, its "
+                  "records by kernel (count over "
+                  f"{n} steps): " + "; ".join(
+                      f"{e.count} {e.key[:60]}" for e in kernels)
+                  + "; taking another window")
+            kernels = window(loop)
         if loop != model.iterate:
             break
         seen_us = sum(e.device_time_total for e in kernels) / n
@@ -2390,12 +2543,9 @@ def profile_path(name: str, result: dict, model, graph_s: float,
           f"({len(steps)} kinds; {100 * busy_us / wall_us:.1f}% busy): "
           + "; ".join(f"x{c:g} {k[:60]}" for k, c in steps.items()))
     if strict:
-        kinds = {key: next((w for w, frag in STEP_KERNELS.items()
-                            if frag in key), None) for key in steps}
-        check(sorted(kinds.values(), key=str) == sorted(STEP_KERNELS)
-              and all(c == 1 for c in steps.values()),
-              f"{name}: a step of the flagship launches K1, K9 and the "
-              f"chain add once each and nothing else: {kinds}")
+        ok, kinds = step_ok(kernels)
+        check(ok, f"{name}: a step of the flagship launches K1, K9 and the "
+                  f"chain add once each and nothing else: {kinds}")
     phases = phase_breakdown(model, x_dev, iters=n)
     print("    phase_breakdown (device us per call, CUDA graph replay): "
           + ", ".join(f"{k} {1e6 * v:.2f}" for k, v in phases.items()))
@@ -3541,7 +3691,7 @@ def check_routed_row(r: dict) -> None:
           f"{r['nnz']}")
 
 
-def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> dict:
+def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> tuple:
     """Phase 20: the default headline through ``bench_torch``, its
     precision mode, and ``scripts_torch/sweep.py --models ehyb`` over the
     rows no earlier phase drives; every child in its own process with
@@ -3549,7 +3699,8 @@ def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> dict:
     K1 on powerlaw_1m's dense body (the degree split's EHYB part, set up
     in this process from that cache) timed by :func:`time_k1_split`, plain
     and compensated; returns its kernels entry, with the launches of the
-    sweep's powerlaw_1m run."""
+    sweep's powerlaw_1m run, 20e's entry, and the K9 launches of the
+    sweep's runs of :data:`SMALL_DIA_ROWS`."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()  # the children need the card's memory
     rc, since, out = prewarm.wait(PREWARM_TIMEOUT_S)
@@ -3706,7 +3857,9 @@ def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> dict:
         rx4["wall_s"] = time.perf_counter() - t1
         print(f"  20e wall {rx4['wall_s']:.1f} s")
     print(f"  phase 20 wall {time.perf_counter() - t0:.1f} s")
-    return dict(k1, launches=rp["launches"]["K1"]), rx4
+    k9_launches = {mat: swept[mat]["ehyb"]["launches"]["K9"]
+                   for mat in SMALL_DIA_ROWS}
+    return dict(k1, launches=rp["launches"]["K1"]), rx4, k9_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3894,9 +4047,11 @@ def run_phases(prewarm: Prewarm, prebuild_sharded: Prewarm,
 
     phase("5: K9 and the window cache vs plain versions on small matrices; "
           "K1 where the TPU runs K5 or K6")
+    t5 = time.perf_counter()
     check_dia_small(dev)
     check_wincache_small(dev)
     check_k5_k6(dev)
+    t5 = time.perf_counter() - t5
 
     phase(f"6: main path 1 (python -m ehyb_spmv_torch {' '.join(MAIN_ARGS)})")
     res1, model1, launch1 = drive(MAIN_ARGS)
@@ -4005,6 +4160,12 @@ def run_phases(prewarm: Prewarm, prebuild_sharded: Prewarm,
     print("  K9 on permuted_poisson_512's diagonal (main path 1), in both "
           "modes:")
     k9_512 = time_dia(model1, res1, dev, n=100, acc=True)
+    t10s = time.perf_counter()
+    print("  K9 at the DIA rows too small to fill the card at its default "
+          "geometry (" + ", ".join(SMALL_DIA_ROWS) + "):")
+    k9_small = time_dia_small(dev)
+    t10s = time.perf_counter() - t10s
+    print(f"  (the small DIA rows {t10s:.1f} s)")
     print("  K1 on permuted_poisson_4096's body, its plan built for it (the "
           "TPU's K2 regime; L2 instead of the window cache):")
     t0 = time.perf_counter()
@@ -4028,6 +4189,7 @@ def run_phases(prewarm: Prewarm, prebuild_sharded: Prewarm,
     time_wincache(model5, res5, dev, time_k1(model5, res5, dev, c5,
                                              n_plain=10, n_eager=20), c5)
     del model5, c5
+    t10 = time.perf_counter() - t10
     for res in (res1, res2, res3, res4):
         print(f"  {res['matrix']}: {res['gflops']:.2f} GFLOP/s end to end "
               f"({res['iters']} iterations in {res['seconds']:.4f} s, "
@@ -4193,7 +4355,7 @@ def run_phases(prewarm: Prewarm, prebuild_sharded: Prewarm,
     t20 = time.perf_counter()
     phase("20: the bench surface: bench_torch's headline, its precision "
           "mode, and scripts_torch/sweep.py on " + ", ".join(SWEEP_ROWS))
-    k1_1m, rx4 = check_bench_surface(prewarm, res1, card)
+    k1_1m, rx4, k9_small_launches = check_bench_surface(prewarm, res1, card)
     t21 = time.perf_counter()
     phase("21: K1's split variants in float64 and compensated: small "
           "bodies, powerlaw_16k in four configs, powerlaw_1m --dword")
@@ -4208,7 +4370,9 @@ def run_phases(prewarm: Prewarm, prebuild_sharded: Prewarm,
     k1_1m_dword = check_dword_1m(dev, prebuild_dword)
     print(f"  21c wall {time.perf_counter() - t1:.1f} s")
     t_end = time.perf_counter()
-    print(f"  phase 4 {t4:.1f} s, phase 17 {t18 - t17:.1f} s, phase 18 "
+    print(f"  phase 4 {t4:.1f} s, phase 5 {t5:.1f} s, phase 10 {t10:.1f} "
+          f"s (the small DIA rows {t10s:.1f} s), phase 17 {t18 - t17:.1f} s, "
+          "phase 18 "
           f"{t19 - t18:.1f} s, phase 19 {t20 - t19:.1f} s, phase 20 "
           f"{t21 - t20:.1f} s (20e {rx4.pop('wall_s'):.1f} s), phase 21 "
           f"{t_end - t21:.1f} s; script wall {t_end - t_start:.1f} s")
@@ -4221,6 +4385,9 @@ def run_phases(prewarm: Prewarm, prebuild_sharded: Prewarm,
         dict(K9, launches=launch3["K9"], **k9),
         dict(K9, name="dia (accumulate mode, permuted_poisson_512)",
              launches=launch1["K9"], **dict(k9_512, ms=k9_512["acc_ms"])),
+        *(dict(K9, name=f"dia (small rows, {mat})",
+               launches=k9_small_launches[mat], **k9_small[mat])
+          for mat in SMALL_DIA_ROWS),
         dict(APPLY, launches=launch1["K1"], **apply),
         dict(WC, launches=launch4["WC"], **wc),
         dict(SK1, **sk1),

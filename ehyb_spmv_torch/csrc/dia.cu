@@ -13,8 +13,9 @@
 // torch op, ops/torch_ops.py::ehyb_dia).  An x base (the sharded apply's
 // diagonals, which read a shard's x_ext past its left halo: row i reads
 // x[x_base + i + d_k]) is the host plan's: it shifts every offset by the
-// base (ops/dia.py::make_plan), so the kernel reads x[i + d] as ever.  The terms are added in order of k,
-// each product rounded on its own, as the plain version adds them.
+// base (ops/dia.py::make_plan), so the kernel reads x[i + d] as ever.
+// The terms are added in order of k, each product rounded on its own, as
+// the plain version adds them.
 //
 // What the TPU needed and this leaves behind: pack_dia's (nb, K*Brows, 128)
 // blocking, the lane roll and the sublane select that build each shifted x
@@ -74,6 +75,11 @@
 // per step, QUADS quads per thread per tile, STAGED x mode, VEC 16-B value
 // loads (dim_r a multiple of 4 and dia_val 16-B aligned; else four guarded
 // scalar loads), EDGE guarded x reads, ACC the accumulate mode.
+//
+// * The spread form (dia_kernel_spread, below): for DIA parts whose quads
+//   are too few to fill the card, a block takes a tile of rows and spreads
+//   its diagonals' products over its threads; each row is still summed in
+//   order of k by one thread.  ops/dia.py::choose_geometry picks it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -456,6 +462,134 @@ __global__ void __launch_bounds__(kMaxThreads) dia_kernel(DiaArgs<T> a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The spread form: DIA parts too small to fill the card.
+//
+// The quad kernel gives a thread 4 rows and all K diagonals, so a part of
+// 13,824 rows (stencil27_24) is 27 blocks on 132 SMs, each thread walking
+// 27 diagonals in 7 rounds of loads: the card waits on latency.  Here a
+// block takes a tile of R = 2^rows_log2 consecutive rows and splits the
+// tile's K * R / 4 quad products (one diagonal's values at 4 consecutive
+// rows times their shifted x) over its threads, consecutive threads on
+// consecutive quads of one diagonal: dia_val's rows read coalesced in 16-B
+// loads, the shifted x as two aligned 16-B loads and a select, as the quad
+// kernel reads them.  Each product, rounded on its own, goes to shared
+// memory at [k][r]; after a barrier the thread that owns row r (threads
+// 0 .. R - 1) adds s[0][r] .. s[K-1][r] in order of k from zero, as the
+// plain version adds them, so every value is the plain version's bit for
+// bit.  Where K * R products would take too much shared memory the
+// diagonals come in chunks of `chunk`, the owner carrying its sum across
+// them in a register.  The tiles are dealt round-robin to the resident
+// blocks.  Values and x are read through __ldg: the parts this form serves
+// fit in L2, and stay there between calls.  VEC: 16-B value loads (dim_r a
+// multiple of 4, dia_val 16-B aligned), else four guarded scalar loads.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct SpreadArgs {
+  const T* val;        // (n_diag, dim_r) row-major
+  const int* table;    // [d_0..d_{K-1}]
+  const T* x;          // n_x values, 16-B aligned
+  T* y;                // dim_r values
+  long long dim_r, n_x;
+  int n_diag;
+  int rows_log2;       // R = 2^rows_log2 rows a tile, 4 <= R <= blockDim.x
+  int chunk;           // most diagonals a chunk
+};
+
+// Quad products a thread issues together before any is stored.
+constexpr int kSpreadUnroll = 2;
+
+template <bool VEC>
+__device__ __forceinline__ float4 ldg_val(const float* vk, long long i,
+                                          long long dim_r) {
+  if (VEC) return __ldg(reinterpret_cast<const float4*>(vk + i));
+  return make_float4(i < dim_r ? __ldg(vk + i) : 0.0f,
+                     i + 1 < dim_r ? __ldg(vk + i + 1) : 0.0f,
+                     i + 2 < dim_r ? __ldg(vk + i + 2) : 0.0f,
+                     i + 3 < dim_r ? __ldg(vk + i + 3) : 0.0f);
+}
+
+template <bool VEC>
+__device__ __forceinline__ dquad ldg_val(const double* vk, long long i,
+                                         long long dim_r) {
+  if (VEC) {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(vk + i));
+    const double2 b = __ldg(reinterpret_cast<const double2*>(vk + i + 2));
+    return dquad{a.x, a.y, b.x, b.y};
+  }
+  return dquad{i < dim_r ? __ldg(vk + i) : 0.0,
+               i + 1 < dim_r ? __ldg(vk + i + 1) : 0.0,
+               i + 2 < dim_r ? __ldg(vk + i + 2) : 0.0,
+               i + 3 < dim_r ? __ldg(vk + i + 3) : 0.0};
+}
+
+__device__ __forceinline__ float4 mul_quad(float4 v, float4 x) {
+  return make_float4(__fmul_rn(v.x, x.x), __fmul_rn(v.y, x.y),
+                     __fmul_rn(v.z, x.z), __fmul_rn(v.w, x.w));
+}
+
+__device__ __forceinline__ dquad mul_quad(dquad v, dquad x) {
+  return dquad{__dmul_rn(v.x, x.x), __dmul_rn(v.y, x.y),
+               __dmul_rn(v.z, x.z), __dmul_rn(v.w, x.w)};
+}
+
+template <typename T, bool VEC, bool ACC>
+__global__ void __launch_bounds__(kMaxThreads)
+    dia_kernel_spread(SpreadArgs<T> a) {
+  using Q = quad_t<T>;
+  extern __shared__ __align__(16) float smem[];
+  // a chunk's products, [k][r] (quad j at 4 * j), then the offsets
+  T* s = reinterpret_cast<T*>(smem);
+  int* s_d = reinterpret_cast<int*>(s + ((size_t)a.chunk << a.rows_log2));
+  for (int j = threadIdx.x; j < a.n_diag; j += blockDim.x)
+    s_d[j] = a.table[j];
+  __syncthreads();
+
+  const int shift = a.rows_log2;
+  const int qshift = shift - 2;          // R / 4 quads a tile
+  const int qmask = (1 << qshift) - 1;
+  const long long n_tiles = (a.dim_r + (1 << shift) - 1) >> shift;
+  const int r_own = threadIdx.x;         // the row this thread sums
+  const bool owner = r_own < (1 << shift);
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long t0 = t << shift;
+    T sum = T(0);
+    for (int k0 = 0; k0 < a.n_diag; k0 += a.chunk) {
+      const int kn = min(a.chunk, a.n_diag - k0);
+      const int n = kn << qshift;
+      for (int j0 = threadIdx.x; j0 < n; j0 += kSpreadUnroll * blockDim.x) {
+        Q v[kSpreadUnroll], xv[kSpreadUnroll];
+#pragma unroll
+        for (int u = 0; u < kSpreadUnroll; ++u) {
+          const int j = j0 + u * (int)blockDim.x;
+          const int k = k0 + (j >> qshift);
+          const long long i = t0 + 4 * (j & qmask);
+          const bool live = j < n && i < a.dim_r;
+          v[u] = live ? ldg_val<VEC>(a.val + (size_t)k * a.dim_r, i, a.dim_r)
+                      : zero_quad<T>();
+          xv[u] = live ? load_x<true>(a.x, a.n_x, i + s_d[k])
+                       : zero_quad<T>();
+        }
+#pragma unroll
+        for (int u = 0; u < kSpreadUnroll; ++u) {
+          const int j = j0 + u * (int)blockDim.x;
+          if (j < n) store_quad(s + 4 * (size_t)j, mul_quad(v[u], xv[u]));
+        }
+      }
+      __syncthreads();
+      if (owner) {
+        const T* col = s + r_own;
+        for (int kk = 0; kk < kn; ++kk)
+          sum = add_rn_t(sum, col[(size_t)kk << shift]);
+      }
+      __syncthreads();
+    }
+    const long long i = t0 + r_own;
+    if (owner && i < a.dim_r) put_row<ACC>(a.y + i, sum);
+  }
+}
+
 // A kernel variant, as the runtime API takes it (the variants' parameter
 // types differ with the value type).
 using KernelFn = const void*;
@@ -469,11 +603,30 @@ KernelFn pick_xv(int staged, int vec) {
              : (KernelFn)dia_kernel<T, STEP, QUADS, false, false, ACC>;
 }
 
+template <typename T>
+KernelFn pick_spread_t(int vec, int acc) {
+  if (vec)
+    return acc ? (KernelFn)dia_kernel_spread<T, true, true>
+               : (KernelFn)dia_kernel_spread<T, true, false>;
+  return acc ? (KernelFn)dia_kernel_spread<T, false, true>
+             : (KernelFn)dia_kernel_spread<T, false, false>;
+}
+
+KernelFn pick_spread(int f64, int vec, int acc) {
+  return f64 ? pick_spread_t<double>(vec, acc)
+             : pick_spread_t<float>(vec, acc);
+}
+
 // The kernel variant (the double one where `f64`, the accumulate mode
-// where `acc`), or nullptr where none is built.  In double only the
-// default geometry's (STEP, QUADS) is built, and the accumulate mode only
-// at it, in float and double.
-KernelFn pick(int step, int quads, int staged, int vec, int f64, int acc) {
+// where `acc`), or nullptr where none is built.  `rows` > 0 picks the
+// spread form (tiles of that many rows; step, quads and staged unused),
+// built in float and double, in both modes, with and without 16-B value
+// loads.  Of the quad form
+// double is built only at the default geometry's (STEP, QUADS), and the
+// accumulate mode only at it, in float and double.
+KernelFn pick(int step, int quads, int staged, int vec, int f64, int acc,
+              int rows) {
+  if (rows > 0) return pick_spread(f64, vec, acc);
   if (acc) {
     if (step != 4 || quads != 1) return nullptr;
     return f64 ? pick_xv<double, 4, 1, true>(staged, vec)
@@ -521,6 +674,34 @@ cudaError_t launch(KernelFn fn, const void* val, const int* table,
   return cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, smem, stream);
 }
 
+template <typename T>
+cudaError_t launch_spread(KernelFn fn, const void* val, const int* table,
+                          int n_diag, long long dim_r, const void* x,
+                          long long n_x, void* y, int rows_log2, int chunk,
+                          int threads, int grid, size_t smem,
+                          cudaStream_t stream) {
+  SpreadArgs<T> a;
+  a.val = static_cast<const T*>(val);
+  a.table = table;
+  a.x = static_cast<const T*>(x);
+  a.y = static_cast<T*>(y);
+  a.dim_r = dim_r;
+  a.n_x = n_x;
+  a.n_diag = n_diag;
+  a.rows_log2 = rows_log2;
+  a.chunk = chunk;
+  void* args[] = {&a};
+  return cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, smem, stream);
+}
+
+// log2 of a tile's rows in the spread form, or -1 where the kernel cannot
+// walk them: not a power of two of at least one quad.  Which sizes are
+// used is ops/dia.py's (SpreadGeometry).
+int rows_log2_of(int rows) {
+  if (rows < 4 || (rows & (rows - 1)) != 0) return -1;
+  return __builtin_ctz((unsigned)rows);
+}
+
 }  // namespace
 
 // Blocks of `threads` threads and `smem` bytes of dynamic shared memory
@@ -528,9 +709,9 @@ cudaError_t launch(KernelFn fn, const void* val, const int* table,
 // negative CUDA error.  cudaErrorInvalidValue (-1) where no such variant is
 // built.
 extern "C" int ehyb_dia_resident_blocks(int step, int quads, int staged,
-                                        int vec, int f64, int acc,
+                                        int vec, int f64, int acc, int rows,
                                         int threads, long long smem) {
-  const KernelFn fn = pick(step, quads, staged, vec, f64, acc);
+  const KernelFn fn = pick(step, quads, staged, vec, f64, acc, rows);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   int rc = allow_smem(fn, (size_t)smem);
   if (rc != 0) return -rc;
@@ -543,8 +724,8 @@ extern "C" int ehyb_dia_resident_blocks(int step, int quads, int staged,
 // Registers a thread of a variant takes (cudaFuncGetAttributes), or a
 // negative CUDA error.
 extern "C" int ehyb_dia_registers(int step, int quads, int staged, int vec,
-                                  int f64, int acc) {
-  const KernelFn fn = pick(step, quads, staged, vec, f64, acc);
+                                  int f64, int acc, int rows) {
+  const KernelFn fn = pick(step, quads, staged, vec, f64, acc, rows);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   const int rc = (int)cudaFuncGetAttributes(&attr, fn);
@@ -557,22 +738,34 @@ extern "C" int ehyb_dia_registers(int step, int quads, int staged, int vec,
 // (ops/dia.py::DiaPlan.table); `grid`, `threads`, `tile_quads`,
 // `stage_floats` (values) and `smem` are the plan's.  With `acc` each row's
 // sum is added into y[i] (y holds at least dim_r values, 16-B aligned
-// where `vec`), else written there.
+// where `vec`), else written there.  `rows` > 0 launches the spread form
+// (tiles of `rows` rows, a power of two up to `threads`; `chunk`
+// diagonals a chunk; the table holds the offsets alone).
 extern "C" int ehyb_dia(const void* val, const int* table, int n_diag,
                         int n_runs, int d_min, int d_max, long long dim_r,
                         const void* x, long long n_x, void* y, int step,
                         int quads, int staged, int vec, int f64, int acc,
-                        int threads, int grid, int tile_quads,
-                        int stage_floats, long long smem, void* stream) {
+                        int rows, int chunk, int threads, int grid,
+                        int tile_quads, int stage_floats, long long smem,
+                        void* stream) {
   if (dim_r <= 0 || n_diag <= 0) return 0;
-  const KernelFn fn = pick(step, quads, staged, vec, f64, acc);
+  const KernelFn fn = pick(step, quads, staged, vec, f64, acc, rows);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const int rows_log2 = rows > 0 ? rows_log2_of(rows) : 0;
+  if (rows_log2 < 0 || rows > threads || (rows > 0 && chunk <= 0))
+    return (int)cudaErrorInvalidValue;
   const int rc = allow_smem(fn, (size_t)smem);
   if (rc != 0) return rc;
-  const cudaError_t launched = (f64 ? launch<double> : launch<float>)(
-      fn, val, table, n_diag, n_runs, d_min, d_max, dim_r, x, n_x, y,
-      threads, grid, tile_quads, stage_floats, (size_t)smem,
-      static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t launched =
+      rows > 0
+          ? (f64 ? launch_spread<double> : launch_spread<float>)(
+                fn, val, table, n_diag, dim_r, x, n_x, y, rows_log2, chunk,
+                threads, grid, (size_t)smem, st)
+          : (f64 ? launch<double> : launch<float>)(
+                fn, val, table, n_diag, n_runs, d_min, d_max, dim_r, x, n_x,
+                y, threads, grid, tile_quads, stage_floats, (size_t)smem,
+                st);
   const cudaError_t last = cudaGetLastError();
   return (int)(launched != cudaSuccess ? launched : last);
 }

@@ -25,6 +25,14 @@ wrote (``ops/ehyb_stream.py``).  With ``x_base`` row i reads
 ``x_ext`` past its left halo (``parallel/spmv.py``).  The plan holds the
 base as shifted offsets (:func:`make_plan`), so the kernel reads x at row
 plus offset as it always did, and a plan at base 0 is the plan it was.
+
+A DIA part too small to fill the card takes the kernel's spread form
+(:class:`SpreadGeometry`: a tile of rows and all its diagonals a block, the
+products over the block's threads, each row summed in order of k by one
+thread).  :func:`choose_geometry` picks it where the default grid fills
+at most a quarter of one wave and the diagonals are six or more, where
+the card measured it faster; both forms give the plain version's values
+bit for bit.
 """
 from __future__ import annotations
 
@@ -53,6 +61,10 @@ BUILT_STEPS_F64 = ((4, 1),)
 #: float64: the default geometry's.
 BUILT_STEPS_ACC = ((4, 1),)
 X_MODES = ("ldg", "staged")
+#: The spread form's tile rows (powers of two up to its 256 threads); the
+#: form is built in float32 and float64, in the write and the accumulate
+#: mode.
+SPREAD_ROWS = (32, 64, 128, 256)
 #: Value types the kernel is built for, by their size in bytes.
 DTYPES = {4: torch.float32, 8: torch.float64}
 
@@ -78,6 +90,12 @@ class DiaGeometry:
     def tile_rows(self) -> int:
         return 4 * self.threads * self.quads
 
+    @property
+    def variant(self) -> Tuple[int, int, int, int]:
+        """The kernel variant's (step, quads, staged, spread rows) as
+        ``csrc/dia.cu::pick`` takes them."""
+        return self.step, self.quads, int(self.x_mode == "staged"), 0
+
     def check(self, value_bytes: int = 4, acc: bool = False) -> None:
         if value_bytes not in DTYPES:
             raise ValueError(f"no kernel built for {value_bytes}-byte values")
@@ -98,8 +116,81 @@ class DiaGeometry:
             raise ValueError("blocks_per_sm must be at least 1")
 
 
-#: The geometry every call takes (``chip_dia_sweep.py`` chose it).
+#: The geometry every call takes where the card is full
+#: (``chip_dia_sweep.py`` chose it).
 GEOMETRY = DiaGeometry()
+
+
+@dataclasses.dataclass(frozen=True)
+class SpreadGeometry:
+    """The kernel's spread form (``csrc/dia.cu``, ``dia_kernel_spread``).
+
+    A block takes a tile of ``rows`` consecutive rows (one of
+    :data:`SPREAD_ROWS`) and all its diagonals, ``chunk`` at a time; its
+    ``threads`` split the tile's products, and thread r sums row r's in
+    order of k.  The tiles are dealt round-robin to at most
+    ``blocks_per_sm`` blocks on each SM.  x is read through L1/L2."""
+    rows: int = 64
+    chunk: int = 64
+
+    threads = 256
+    blocks_per_sm = 8
+
+    @property
+    def tile_rows(self) -> int:
+        return self.rows
+
+    @property
+    def variant(self) -> Tuple[int, int, int, int]:
+        """The kernel variant's (step, quads, staged, spread rows) as
+        ``csrc/dia.cu::pick`` takes them."""
+        return 0, 0, 0, self.rows
+
+    def check(self, value_bytes: int = 4, acc: bool = False) -> None:
+        if value_bytes not in DTYPES:
+            raise ValueError(f"no kernel built for {value_bytes}-byte values")
+        if self.rows not in SPREAD_ROWS:
+            raise ValueError(f"rows {self.rows}: one of {SPREAD_ROWS}")
+        if self.chunk < 1:
+            raise ValueError("chunk must be at least 1")
+
+
+#: :func:`choose_geometry` takes the spread form only where the default
+#: geometry's tiles fill at most 1 / SPREAD_WAVE_SHARE of the wave and the
+#: diagonals are at least SPREAD_MIN_DIAGONALS.  Set on an H100
+#: (``chip_dia_sweep.py --small``; spread / default time): 0.33 at
+#: stencil27_24 (27 diagonals, the default's tiles 0.03 of the wave), 0.42
+#: at fem3d_32 (99, 0.18), 0.87 at stencil3d(32, 7) (7, 0.06); 1.04 at
+#: poisson2d(256) (5, 0.12); 1.02-1.07 at 5, 9 and 13 diagonals of 262,144
+#: rows (0.48), 1.24 at one.
+SPREAD_WAVE_SHARE = 4
+SPREAD_MIN_DIAGONALS = 6
+
+
+def spread_geometry(dim_r: int, n_sm: int, resident: int) -> SpreadGeometry:
+    """The spread form for ``dim_r`` rows on a card of ``n_sm`` SMs where
+    ``resident`` blocks of the default geometry stay on each: tiles of the
+    fewest rows of :data:`SPREAD_ROWS` (up to its threads) whose tiles fit
+    in that one wave of blocks, each block a tile."""
+    wave = n_sm * min(GEOMETRY.blocks_per_sm, resident)
+    rows = next((r for r in SPREAD_ROWS if -(-dim_r // r) <= wave),
+                SPREAD_ROWS[-1])
+    return SpreadGeometry(rows=rows)
+
+
+def choose_geometry(dim_r: int, n_diag: int, n_sm: int, resident: int):
+    """The geometry a call of ``n_diag`` diagonals of ``dim_r`` rows takes
+    on a card of ``n_sm`` SMs where ``resident`` blocks of the default
+    geometry stay on each (one wave): :func:`spread_geometry`'s where the
+    default's tiles fill at most ``1 / SPREAD_WAVE_SHARE`` of the wave and
+    the diagonals are at least ``SPREAD_MIN_DIAGONALS``, else
+    :data:`GEOMETRY`.  A pure function of its arguments."""
+    g = GEOMETRY
+    tiles = -(-((dim_r + 3) // 4) // (g.threads * g.quads))
+    wave = n_sm * min(g.blocks_per_sm, resident)
+    if SPREAD_WAVE_SHARE * tiles > wave or n_diag < SPREAD_MIN_DIAGONALS:
+        return g
+    return spread_geometry(dim_r, n_sm, resident)
 
 
 def offset_runs(offsets) -> Tuple[Tuple[int, int, int, int], ...]:
@@ -123,8 +214,10 @@ class DiaPlan:
     j < width_r, at ``base_r + j`` of a buffer of ``stage_floats`` values;
     diagonal k reads its 16-B loads from ``xo_k + (row - t0)``.  Windows,
     bases and reads are aligned to what one 16-B load holds
-    (:attr:`per_load`: 4 floats, or 2 doubles)."""
-    geometry: DiaGeometry
+    (:attr:`per_load`: 4 floats, or 2 doubles).  In the spread form
+    (:attr:`spread`) the tiles are ``geometry.rows`` rows and nothing is
+    staged."""
+    geometry: "DiaGeometry | SpreadGeometry"
     offsets: Tuple[int, ...]
     dim_r: int
     grid: int
@@ -148,11 +241,25 @@ class DiaPlan:
 
     @property
     def staged(self) -> bool:
-        return self.geometry.x_mode == "staged"
+        return bool(self.geometry.variant[2])
+
+    @property
+    def spread(self) -> bool:
+        """The spread form (tiles of ``geometry.rows`` rows, the products
+        spread over a block)."""
+        return isinstance(self.geometry, SpreadGeometry)
+
+    @property
+    def chunk(self) -> int:
+        """The spread form's diagonals a chunk (0 in the quad form)."""
+        return min(self.geometry.chunk, len(self.offsets)) \
+            if self.spread else 0
 
     @property
     def tile_quads(self) -> int:
-        return self.geometry.threads * self.geometry.quads
+        """The quad form's quads a tile (0 in the spread form)."""
+        return 0 if self.spread else \
+            self.geometry.threads * self.geometry.quads
 
     def table(self) -> list:
         """The int32 table the kernel copies to shared memory: the offsets,
@@ -168,7 +275,14 @@ class DiaPlan:
     def tiles(self, b: int) -> Iterator[Tuple[int, int]]:
         """Block b's tiles as row ranges [t0, t1), in the kernel's order
         (``csrc/dia.cu::block_walk``): tiles b, b + grid, ... of one size,
-        as many for every block give or take one."""
+        as many for every block give or take one; in the spread form
+        tiles b, b + grid, ... of ``geometry.rows`` rows
+        (``dia_kernel_spread``)."""
+        if self.spread:
+            r = self.geometry.rows
+            for t0 in range(b * r, self.dim_r, self.grid * r):
+                yield t0, min(t0 + r, self.dim_r)
+            return
         nq, g = (self.dim_r + 3) // 4, self.grid
         rounds = -(-nq // (g * self.tile_quads))
         tq = -(-nq // (g * rounds))
@@ -210,6 +324,9 @@ def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
     if max(abs(offsets[0]), abs(offsets[-1])) >= 2 ** 30:
         raise ValueError("diagonal offsets out of int32 range")
     runs = offset_runs(offsets)
+    if isinstance(geometry, SpreadGeometry):
+        return _spread_plan(geometry, offsets, int(dim_r), runs, blocks,
+                            value_bytes, int(x_base))
     t = geometry.tile_rows
     # the values a 16-B load holds, and the mask that aligns an index to it
     a = 16 // value_bytes
@@ -240,6 +357,25 @@ def make_plan(offsets, dim_r: int, geometry: DiaGeometry = GEOMETRY,
                    value_bytes=value_bytes, x_base=int(x_base))
 
 
+def _spread_plan(geometry: SpreadGeometry, offsets: tuple, dim_r: int,
+                 runs: tuple, blocks: int, value_bytes: int,
+                 x_base: int) -> DiaPlan:
+    """:func:`make_plan` for the spread form: a buffer of a chunk's
+    products (``chunk x rows`` values) and the offsets in shared memory,
+    a grid of a block a tile up to ``blocks``."""
+    chunk = min(geometry.chunk, len(offsets))
+    smem = value_bytes * chunk * geometry.rows + 4 * len(offsets)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"DIA plan needs {smem} B of shared memory per "
+                         f"block ({chunk} diagonals of {geometry.rows} "
+                         f"rows), above {SMEM_LIMIT_BYTES}")
+    grid = max(1, min(blocks, -(-dim_r // geometry.rows)))
+    return DiaPlan(geometry=geometry, offsets=offsets, dim_r=dim_r,
+                   grid=grid, runs=runs, windows=(),
+                   xo=(0,) * len(offsets), stage_floats=0, smem_bytes=smem,
+                   value_bytes=value_bytes, x_base=x_base)
+
+
 _lock = threading.Lock()
 _built = None
 _lib = None
@@ -266,17 +402,17 @@ def build_kernel() -> BuiltLibrary:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-                + [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_void_p])
+                + [ctypes.c_int] * 12 + [ctypes.c_longlong, ctypes.c_void_p])
             lib.ehyb_dia_registers.restype = ctypes.c_int
-            lib.ehyb_dia_registers.argtypes = [ctypes.c_int] * 6
+            lib.ehyb_dia_registers.argtypes = [ctypes.c_int] * 7
             lib.ehyb_dia_resident_blocks.restype = ctypes.c_int
-            lib.ehyb_dia_resident_blocks.argtypes = [ctypes.c_int] * 7 + [
+            lib.ehyb_dia_resident_blocks.argtypes = [ctypes.c_int] * 8 + [
                 ctypes.c_longlong]
             _built, _lib = built, lib
         return _built
 
 
-def resident_blocks(geometry: DiaGeometry, smem_bytes: int, vec: bool,
+def resident_blocks(geometry, smem_bytes: int, vec: bool,
                     device, value_bytes: int = 4, acc: bool = False) -> int:
     """Blocks of this geometry (in the accumulate mode where ``acc``) that
     stay resident on one SM of ``device`` (the kernel's occupancy at its
@@ -284,43 +420,57 @@ def resident_blocks(geometry: DiaGeometry, smem_bytes: int, vec: bool,
     would be refused."""
     build_kernel()
     with torch.cuda.device(device):
+        step, quads, staged, rows = geometry.variant
         n = _lib.ehyb_dia_resident_blocks(
-            geometry.step, geometry.quads, int(geometry.x_mode == "staged"),
-            int(vec), int(value_bytes == 8), int(acc), geometry.threads,
-            smem_bytes)
+            step, quads, staged, int(vec), int(value_bytes == 8), int(acc),
+            rows, geometry.threads, smem_bytes)
     if n <= 0:
         raise RuntimeError(f"DIA kernel {geometry} with {smem_bytes} B of "
                            f"shared memory cannot run (occupancy {n})")
     return n
 
 
-def registers(geometry: DiaGeometry, vec: bool, value_bytes: int = 4,
+def registers(geometry, vec: bool, value_bytes: int = 4,
               acc: bool = False) -> int:
     """Registers a thread of the geometry's kernel variant takes."""
     build_kernel()
-    return _lib.ehyb_dia_registers(geometry.step, geometry.quads,
-                                   int(geometry.x_mode == "staged"),
-                                   int(vec), int(value_bytes == 8), int(acc))
+    step, quads, staged, rows = geometry.variant
+    return _lib.ehyb_dia_registers(step, quads, staged, int(vec),
+                                   int(value_bytes == 8), int(acc), rows)
+
+
+def _per_sm(geometry, offsets: tuple, dim_r: int, vec: bool, device,
+            value_bytes: int, acc: bool, x_base: int) -> int:
+    """The geometry's blocks on one SM: its ``blocks_per_sm``, or fewer
+    where fewer stay resident."""
+    probe = make_plan(offsets, dim_r, geometry, 1, value_bytes, acc, x_base)
+    return min(geometry.blocks_per_sm,
+               resident_blocks(geometry, probe.smem_bytes, vec, device,
+                               value_bytes, acc))
+
+
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def device_plan(offsets: tuple, dim_r: int, vec: bool, device,
-                geometry: DiaGeometry = None, value_bytes: int = 4,
+                geometry=None, value_bytes: int = 4,
                 acc: bool = False, x_base: int = 0):
     """The plan for these diagonals on ``device`` (in the accumulate mode
-    where ``acc``, reading x from ``x_base``) and its table on the card
-    (made once and kept)."""
-    geometry = GEOMETRY if geometry is None else geometry
+    where ``acc``, reading x from ``x_base``) at ``geometry``, or where
+    None at :func:`choose_geometry`'s, and its table on the card (made once
+    and kept)."""
     device = torch.device(device)
     key = (offsets, dim_r, vec, geometry, value_bytes, acc, x_base, device)
     hit = _plans.get(key)
     if hit is None:
-        probe = make_plan(offsets, dim_r, geometry, 1, value_bytes, acc,
-                          x_base)
-        per_sm = min(geometry.blocks_per_sm,
-                     resident_blocks(geometry, probe.smem_bytes, vec, device,
-                                     value_bytes, acc))
-        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = make_plan(offsets, dim_r, geometry, per_sm * n_sm,
+        args = (offsets, dim_r, vec, device, value_bytes, acc, x_base)
+        if geometry is None:
+            per_sm = _per_sm(GEOMETRY, *args)
+            geometry = choose_geometry(dim_r, len(offsets), _n_sm(device),
+                                       per_sm)
+        per_sm = _per_sm(geometry, *args)
+        plan = make_plan(offsets, dim_r, geometry, per_sm * _n_sm(device),
                          value_bytes, acc, x_base)
         hit = (plan, torch.tensor(plan.table(), dtype=torch.int32,
                                   device=device))
@@ -362,11 +512,11 @@ def _check_out(e: EhybDevice, x_pad: torch.Tensor, out) -> None:
 
 
 def _launch(e: EhybDevice, x_pad: torch.Tensor,
-            geometry: DiaGeometry = None, out: torch.Tensor = None,
+            geometry=None, out: torch.Tensor = None,
             x_base: int = 0) -> torch.Tensor:
-    """One launch at ``geometry`` (the default where None), counted: into
-    a new y, or added into ``out`` (the accumulate mode), row i reading x
-    from ``x_base + i``."""
+    """One launch at ``geometry`` (:func:`choose_geometry`'s where None),
+    counted: into a new y, or added into ``out`` (the accumulate mode), row
+    i reading x from ``x_base + i``."""
     _check(e, x_pad)
     _check_out(e, x_pad, out)
     v = e.dia_val
@@ -377,7 +527,7 @@ def _launch(e: EhybDevice, x_pad: torch.Tensor,
     vb = v.element_size()
     plan, table = device_plan(e.dia_offsets, dim_r, vec, x_pad.device,
                               geometry, vb, acc, int(x_base))
-    g = plan.geometry
+    step, quads, staged, rows = plan.geometry.variant
     y = out if acc else torch.empty(dim_r, dtype=v.dtype,
                                     device=x_pad.device)
     if not dim_r:
@@ -385,9 +535,9 @@ def _launch(e: EhybDevice, x_pad: torch.Tensor,
     rc = _lib.ehyb_dia(
         v.data_ptr(), table.data_ptr(), len(plan.offsets), len(plan.runs),
         plan.offsets[0], plan.offsets[-1], dim_r, x_pad.data_ptr(),
-        x_pad.shape[0], y.data_ptr(), g.step, g.quads, int(plan.staged),
-        int(vec), int(vb == 8), int(acc), g.threads, plan.grid,
-        plan.tile_quads, plan.stage_floats, plan.smem_bytes,
+        x_pad.shape[0], y.data_ptr(), step, quads, staged, int(vec),
+        int(vb == 8), int(acc), rows, plan.chunk, plan.geometry.threads,
+        plan.grid, plan.tile_quads, plan.stage_floats, plan.smem_bytes,
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ehyb_dia launch failed: CUDA error {rc}")

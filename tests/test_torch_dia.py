@@ -438,3 +438,179 @@ def test_dia_x_base(x_base, dtype, x_mode):
     if x_base == 0:
         assert plan == moved
     np.testing.assert_array_equal(_replay(plan, val, x), got.numpy())
+
+
+# --- the spread form (small DIA parts) --------------------------------------
+
+def _replay_spread(plan, val, x):
+    """y as ``csrc/dia.cu``'s ``dia_kernel_spread`` computes it from the
+    plan, in the values' type: each block's tiles of ``rows`` rows, the
+    diagonals a chunk at a time, each product rounded alone into the
+    chunk's ``[k][r]`` buffer, then row r's owner adding ``s[0][r] ..
+    s[kn-1][r]`` in order of k into its sum, which starts from zero and
+    carries across the chunks; an x index outside x reads as zero."""
+    n_x, dim_r = x.shape[0], plan.dim_r
+    rows_t, k_all = plan.geometry.rows, len(plan.offsets)
+    y = np.full(dim_r, np.nan, val.dtype)
+    for b in range(plan.grid):
+        for t0, t1 in plan.tiles(b):
+            assert t0 % rows_t == 0 and 0 < t1 - t0 <= rows_t
+            rows = t0 + np.arange(rows_t)
+            live = rows < dim_r
+            at = np.minimum(rows, dim_r - 1)
+            s = np.zeros(rows_t, val.dtype)
+            for k0 in range(0, k_all, plan.chunk):
+                kn = min(plan.chunk, k_all - k0)
+                buf = np.empty((kn, rows_t), val.dtype)
+                for kk in range(kn):
+                    k = k0 + kk
+                    g = rows + plan.offsets[k]
+                    ok = live & (g >= 0) & (g < n_x)
+                    v = np.where(live, val[k, at], 0).astype(val.dtype)
+                    xv = np.where(ok, x[np.clip(g, 0, n_x - 1)],
+                                  0).astype(val.dtype)
+                    buf[kk] = v * xv
+                for kk in range(kn):
+                    s = s + buf[kk]
+            y[t0:t1] = s[:t1 - t0]
+    return y
+
+
+def _small_parts():
+    """(name, offsets, dim_r, x length) of the small DIA parts the spread
+    form serves, scaled down: the corpus's stencil27, poisson2d and fem3d
+    shapes, and offsets past both ends of an x shorter than the rows."""
+    out = []
+    for name, m in (("stencil3d(8, 27)", port_generate.stencil3d(8, 27)),
+                    ("poisson2d(64)", port_generate.poisson2d(64)),
+                    ("fem3d(4)", port_generate.fem3d(4))):
+        offs = tuple(int(d) for d in np.unique(m.col - m.row))
+        out.append((name, offs, m.n_rows, m.n_rows))
+    out.append(("past both ends of x", (-3000, -70, -5, 0, 7, 2999), 2500,
+                2300))
+    return out
+
+
+SMALL_PARTS = _small_parts()
+#: The spread form at its default, in chunks of 8 diagonals over tiles of
+#: 32 rows, and at tiles of 256 rows.
+SPREAD = [dia.SpreadGeometry(),
+          dia.SpreadGeometry(rows=32, chunk=8),
+          dia.SpreadGeometry(rows=256, chunk=32)]
+_jax_k9 = {}
+
+
+def _jax_k9_f32(offsets, dim_r, val, x):
+    """The JAX K9 in interpret mode (one block of rows), kept per input."""
+    key = (offsets, dim_r, val.tobytes(), x.tobytes())
+    if key not in _jax_k9:
+        block = max(1024, -(-dim_r // 1024) * 1024)
+        packed, _ = dp.pack_dia(val, block_rows=block)
+        apply = dp.make_dia_pallas_apply(offsets, dim_r, "float32",
+                                         block_rows=block, interpret=True)
+        _jax_k9[key] = np.asarray(apply(jnp.asarray(packed),
+                                        jnp.asarray(x)))[:dim_r]
+    return _jax_k9[key]
+
+
+@pytest.mark.parametrize("geometry", SPREAD,
+                         ids=["default", "chunks-of-8", "rows-256"])
+@pytest.mark.parametrize("acc", [False, True], ids=["write", "accumulate"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("x_base", [0, 5])
+@pytest.mark.parametrize("name,offsets,dim_r,n_x", SMALL_PARTS,
+                         ids=[c[0] for c in SMALL_PARTS])
+def test_spread_replay_matches_plain(name, offsets, dim_r, n_x, x_base,
+                                     dtype, acc, geometry):
+    """K9's spread form: its walk of the plan (tiles, chunks, the [k][r]
+    products, each row summed in order of k), replayed in numpy, equals
+    the plain version bit for bit in f32 and f64, in the write mode and
+    the accumulate mode (the row's sum added once into y), at an x base;
+    in f32 it stands within PARITY_TOL of the JAX K9 in interpret mode on
+    the offsets shifted by the base, and every value within it of the
+    exact sum."""
+    rng = np.random.default_rng(29)
+    val = rng.standard_normal((len(offsets), dim_r)).astype(dtype)
+    x = rng.standard_normal(n_x).astype(dtype)
+    vb = np.dtype(dtype).itemsize
+    plan = dia.make_plan(offsets, dim_r, geometry, blocks=7, value_bytes=vb,
+                         acc=acc, x_base=x_base)
+    assert plan.spread and plan.chunk == min(geometry.chunk, len(offsets))
+    assert plan.smem_bytes == vb * plan.chunk * geometry.rows \
+        + 4 * len(offsets)
+    got = _replay_spread(plan, val, x)
+    e = types.SimpleNamespace(dia_offsets=offsets,
+                              dia_val=torch.from_numpy(val))
+    xt = torch.from_numpy(x)
+    want = dia.dia_body_plain(e, xt, x_base=x_base).numpy()
+    np.testing.assert_array_equal(got, want)
+    shifted = tuple(d + x_base for d in offsets)
+    tol = PARITY_TOL if dtype == np.float32 else 1e-14
+    assert rel(got, _exact(val, x, shifted)) <= tol
+    if dtype == np.float32:
+        jax_y = _jax_k9_f32(shifted, dim_r, val, x)
+        assert rel(got, jax_y) <= PARITY_TOL, rel(got, jax_y)
+    if acc:
+        y0 = rng.standard_normal(dim_r + 8).astype(dtype)
+        out = dia.dia_body_plain(e, xt, out=torch.from_numpy(y0.copy()),
+                                 x_base=x_base).numpy()
+        replay = y0.copy()
+        replay[:dim_r] = replay[:dim_r] + got
+        np.testing.assert_array_equal(replay, out)
+
+
+#: The card's constants the rule was set on: an H100's 132 SMs, 8 blocks
+#: of the default geometry resident on each.
+N_SM, RESIDENT = 132, 8
+#: (shape, rows, diagonals, the tile rows of the spread form the rule
+#: picks, or None for the default geometry): the ten shapes
+#: ``chip_dia_sweep.py --small`` timed, and pp4096's diagonal.
+RULE_CASES = [("stencil27_24", 13_824, 27, 32),
+              ("poisson2d_512", 262_144, 5, None),
+              ("fem3d_32", 98_304, 99, 128),
+              ("permuted_poisson_512's diagonal", 262_144, 1, None),
+              ("permuted_poisson_1024 D=1's diagonal", 1_048_576, 1, None),
+              ("fem3d_68_audikw_class", 943_296, 99, None),
+              ("permuted_poisson_4096's diagonal", 16_777_216, 1, None),
+              ("poisson2d(256)", 65_536, 5, None),
+              ("stencil3d(32, 7)", 32_768, 7, 32),
+              ("9 diagonals of 512 x 512", 262_144, 9, None),
+              ("13 diagonals of 512 x 512", 262_144, 13, None)]
+
+
+@pytest.mark.parametrize("name,dim_r,n_diag,rows", RULE_CASES,
+                         ids=[c[0] for c in RULE_CASES])
+def test_choose_geometry_at_the_measured_shapes(name, dim_r, n_diag, rows):
+    """The choice rule at the card's constants: the spread form where the
+    default grid fills at most a quarter of one wave and the diagonals are
+    six or more, with the tile rows the sweep found fastest there
+    (stencil27_24, fem3d_32, stencil3d(32, 7)); the default geometry
+    elsewhere (fem3d_68, pp1024 and pp4096 fill the card; at 262,144 rows
+    the default grid is half a wave, and the spread form lost there at 1,
+    5, 9 and 13 diagonals; poisson2d(256)'s 5 lost too)."""
+    g = dia.choose_geometry(dim_r, n_diag, N_SM, RESIDENT)
+    if rows is None:
+        assert g == dia.GEOMETRY
+        return
+    assert isinstance(g, dia.SpreadGeometry) and g.rows == rows
+    plan = dia.make_plan(tuple(range(n_diag)), dim_r, g, N_SM * RESIDENT)
+    # each resident block a tile, the tiles within one wave
+    assert plan.grid == -(-dim_r // rows) <= N_SM * RESIDENT
+    assert 4 * dia.make_plan(tuple(range(n_diag)), dim_r, dia.GEOMETRY,
+                             N_SM * RESIDENT).grid <= N_SM * RESIDENT
+
+
+@pytest.mark.parametrize("geometry,what", [
+    (dia.SpreadGeometry(rows=48), "rows 48"),
+    (dia.SpreadGeometry(rows=512), "rows 512"),
+    (dia.SpreadGeometry(chunk=0), "chunk"),
+    (dia.SpreadGeometry(rows=256, chunk=128), "shared memory"),
+], ids=["rows", "rows-past-threads", "chunk", "shared-memory"])
+def test_spread_plan_refuses_what_the_kernel_does_not_take(geometry, what):
+    """A spread geometry the kernel does not take (tiles not a power of
+    two, or more rows than its 256 threads), or whose chunk of products is
+    past a block's shared memory (128 diagonals of 256 rows in f64: 256
+    KiB), is refused before any launch."""
+    with pytest.raises(ValueError, match=what):
+        dia.make_plan(tuple(range(200)), 100_000, geometry, value_bytes=8)
