@@ -7,6 +7,8 @@ its A/B.
     python3 chip_k1_sweep.py --ab TAG --f64 [CASE ...]  # K1 f64 as shipped
     python3 chip_k1_sweep.py --long     # the split form at heavy tails
     python3 chip_k1_sweep.py --long --f64  # ... in float64 and compensated
+    python3 chip_k1_sweep.py --small    # the split form's small form
+    python3 chip_k1_sweep.py --layout   # powerlaw_1m's plan, hubs apart
 
 Sets up ``permuted_poisson_512`` (262,144 rows) and
 ``permuted_poisson_1024`` (1,048,576 rows) through the flagship, as the CLI
@@ -31,8 +33,9 @@ heavy-tailed shapes are K1's bodies on their main paths: powerlaw_1m's
 dense sub-matrix (the rows ``DegreeSplitSpmv`` gives the flagship) and
 powerlaw_16k's whole body (the small gate keeps it), set up through
 ``EhybSpmv`` with the gate off and the artifact cached
-(``EHYB_TORCH_CACHE_DIR``); their lines add both bounds, cuSPARSE over the
-body's entries and the plan's shape.  It takes K1's plan
+(``EHYB_TORCH_CACHE_DIR``), and random_16k's body set up the same way
+(the split form must leave it as it is); their lines add both bounds,
+cuSPARSE over the body's entries and the plan's shape.  It takes K1's plan
 where the checkout's flagship has one (``model.module.cells``) and the
 padded body where it does not, so it runs in an older checkout too: copy
 this file to the root of the other checkout and run it from the root of
@@ -88,8 +91,35 @@ each time beside the same-work and layout bounds and names the fastest.  ``--ab 
 times K1 f64 as the checkout ships it on the ``F64_CASES`` (or those
 named): pp512 and fem3d_68 in the precision mode, pp512's compensated
 float64 flagship and the sharded engine's boundary list at one rank on
-permuted_poisson_1024 in float64, then drives pp512 ``--dword`` through
-the CLI; it too runs in an older checkout.
+permuted_poisson_1024 in float64 (``powerlaw_1m_dword``, powerlaw_1m in
+the precision mode, only where named: its plan takes minutes to build),
+then drives pp512 ``--dword`` through the CLI; it too runs in an older
+checkout.
+
+``--small`` sweeps the split form's small form (``ops/stream_cells.py``:
+hub rows apart, short hub items, a fixed fold; ``small_steps``,
+``hub_steps``) at powerlaw_16k in ``SMALL_CONFIGS`` (float32 plain and
+compensated, float64 plain and compensated, the precision mode): it first
+runs ``chip_smoke.check_k1_small`` (every variant bit for bit against its
+plain version on small bodies), then, per config, times the parent (the
+split form, ``k1_options(e, lists=True)``) and the small form at every
+``SMALL_SWEEP`` hub threshold x ``HUB_SWEEP`` chunk (a hub chunk's
+steps) x ``SMALL_THREADS`` at the most resident blocks, each held to the
+plain version on the CPU (bit for bit; float32 Kahan within 1e-6), beside
+both bounds and cuSPARSE in the config's type.  The choice,
+``stream_cells.SMALL_STEPS``, ``stream_cells.HUB_STEPS`` and
+``ehyb_stream.SMALL_GEOMETRY``, is the one whose times over the fastest
+at each config sum the least.  Last it reads the rule's floor shapes
+(``FLOOR_SHAPES``' flagship bodies, in float32 and float64: they must
+keep their plans, neither split nor small) and prints the rule's inputs.
+
+``--layout`` reads, on the host, what laying hub rows apart would make of
+powerlaw_1m's plans in ``LAYOUT_CASES`` (the precision mode and
+``--dtype float64``; the rule keeps their split form, whose items are
+tens of thousands): the shipped plan's cells, items and longest item
+beside the small form's layout built with the same options
+(``stream_cells._build`` with ``SMALL_STEPS`` and ``HUB_STEPS``), and the
+entries.  It times nothing.
 
 Imports only the port and ``chip_smoke.py``'s helpers.  Exits non-zero
 without a CUDA device or when a check fails.
@@ -118,7 +148,10 @@ SHAPES = ("permuted_poisson_512", "permuted_poisson_1024")
 #: The heavy-tailed shapes: K1 on powerlaw_1m's dense sub-matrix and on
 #: powerlaw_16k's body.
 LONG_SHAPES = ("powerlaw_1m", "powerlaw_16k")
-AB_SHAPES = SHAPES + LONG_SHAPES
+#: A flagship body the split form must leave as it is (its widest row
+#: block, 46 steps, is the float threshold's floor), timed by ``--ab``.
+FLOOR_BODY = "random_16k"
+AB_SHAPES = SHAPES + LONG_SHAPES + (FLOOR_BODY,)
 #: ``--long``'s split_steps values.
 SPLIT_SWEEP = (48, 64, 96, 128)
 #: The flagship rows whose float bodies K1 reads in the table form: the
@@ -152,6 +185,19 @@ LONG_F64 = {"powerlaw_16k --dword": ("powerlaw_16k",
                                             dict(dtype="float64"))}
 THREADS = (128, 256, 512)
 BLOCKS_PER_SM = (1, 2, 4, 8, 16)
+#: ``--small``'s configs of powerlaw_16k (the CLI's flags → config).
+SMALL_CONFIGS = {"float32": {},
+                 "--compensated": dict(compensated_sum=True),
+                 "--dtype float64": dict(dtype="float64"),
+                 "--dtype float64 --compensated": dict(
+                     dtype="float64", compensated_sum=True),
+                 "--dword": dict(dword_values=True)}
+#: ``--small``'s hub thresholds (a row of more cells is a hub; the row
+#: blocks hold at most as many steps), hub chunks (steps of 32 entries)
+#: and threads a block.
+SMALL_SWEEP = (16, 32, 40)
+HUB_SWEEP = (8, 16, 32)
+SMALL_THREADS = (128, 256, 512)
 #: What the card runs at, beside every reading.  ``chip_smoke.py`` has its
 #: own reader; the A/B runs against older ones too.
 CARD = ("clocks.sm,power.draw,temperature.gpu,clocks_throttle_reasons.active,"
@@ -290,7 +336,7 @@ def run_ab(tag: str, dev, shapes=AB_SHAPES) -> int:
               flush=True)
 
     for name in shapes:
-        heavy = name in LONG_SHAPES
+        heavy = name in LONG_SHAPES or name == FLOOR_BODY
         model, x = heavy_body(name, dev) if heavy else flagship(name, dev)
         kahan = model.module.kahan
         body = getattr(model.module, "cells", None)
@@ -764,6 +810,7 @@ F64_CASES = {
                         dict(dtype="float64", compensated_sum=True)),
     "pp1024_f64_list": ("permuted_poisson_1024",
                         dict(dtype="float64", window_rows=1024)),
+    "powerlaw_1m_dword": ("powerlaw_1m", dict(dword_values=True)),
 }
 
 
@@ -817,13 +864,174 @@ def run_ab_f64(tag: str, dev, cases) -> int:
     return 0
 
 
+def small_geometries():
+    for t in SMALL_THREADS:
+        yield ehyb_stream.StreamGeometry(threads=t, blocks_per_sm=16)
+
+
+def sweep_small(name: str, dev) -> dict:
+    """One ``SMALL_CONFIGS`` config of powerlaw_16k: the parent split form
+    once, then every hub threshold x hub chunk x geometry of the small
+    form; returns (hub threshold, hub chunk, geometry) → ms."""
+    from ehyb_spmv_torch.ops import stream_cells as sc
+
+    m = generate.load_corpus("powerlaw_16k")
+    t0 = time.perf_counter()
+    model = port.EhybSpmv(port.EhybConfig(
+        routed_delegate="never", artifact_cache=True, **SMALL_CONFIGS[name]),
+        device=dev).setup(m)
+    print(f"== powerlaw_16k {name}: setup {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    x = model.prepare_x(deterministic_x(m.dimension))
+    e, kahan = model.ehyb, model.module.kahan
+    f64 = x.dtype == torch.float64
+    x_cpu = x.cpu()
+    fold = model.module.cells.stats["folded"]
+    nnz = model.module.cells.stats["real_cells"]
+    lib = cs.body_library_ms(model, x, dev)
+    same = cs.same_work_bound(nnz, 2, x.numel(), e.slice_offset.shape[0]
+                              * 128 - 128, dev, 8 if f64 else 4)["bound_ms"]
+    parent = build_stream_cells(e, fold=fold, **sc.k1_options(e, lists=True))
+    pp = parent.to_torch(dev)
+    fn = lambda: ehyb_stream.stream_body(pp, x, kahan)  # noqa: E731
+    p_ms = [cs.device_ms_per_call(fn, calls_for(fn)) for _ in range(2)]
+    st = parent.stats
+    print(f"  parent split form: {st['compact_cells']} cells, "
+          f"{st['chunked_rbs']} row blocks in {st['n_chunks']} chunks, "
+          f"{st['n_items']} items of at most {st['max_item_steps']} steps, "
+          f"widest fold {int(np.diff(parent.chunk_first).max())}: "
+          f"{[round(t * 1e3, 2) for t in p_ms]} us at "
+          f"{ehyb_stream.SPLIT_GEOMETRY}; same-work bound {same * 1e3:.3f} "
+          f"us, cuSPARSE ({x.dtype}) {lib * 1e3:.2f} us", flush=True)
+    ms_of = {}
+    for ss, hs in itertools.product(SMALL_SWEEP, HUB_SWEEP):
+        t0 = time.perf_counter()
+        plan = build_stream_cells(e, fold=fold, **dict(
+            sc.k1_options(e), small_steps=ss, hub_steps=hs))
+        secs = time.perf_counter() - t0
+        st = plan.stats
+        cs.check(sc.small(plan), f"{name}: the small form at hub chunk {hs}")
+        want = ehyb_stream.stream_body_plain(plan.to_torch(), x_cpu, kahan)
+        p = plan.to_torch(dev)
+        layout = cs.bound(st["layout_bytes"], 2 * nnz, dev, f64)["bound_ms"]
+        print(f"  small form, hubs past {ss} cells, hub chunk {hs} (got "
+              f"{st['hub_steps']}): built "
+              f"in {secs:.1f} s; {st['compact_cells']} cells "
+              f"({st['hub_cells']} of {st['n_hubs']} hubs), "
+              f"{st['n_items']} items ({st['hub_items']} hub), longest "
+              f"{st['max_item_steps']} steps, widest fold {st['max_fold']}, "
+              f"{st['direct_pieces']} direct "
+              f"pieces, {'grouped' if st['grouped'] else 'body order'}; "
+              f"layout bound {layout * 1e3:.3f} us", flush=True)
+        for g in small_geometries():
+            try:
+                grid = ehyb_stream.grid_of(p, g, kahan, dev)
+            except RuntimeError as exc:
+                print(f"    {g}: not run ({exc})")
+                continue
+            y = ehyb_stream._launch(p, x, kahan, g).cpu()
+            ok = torch.equal(y, want) if f64 or not kahan else \
+                cs.rel(y, want) <= cs.KERNEL_TOL
+            cs.check(ok, f"{name} ({ss}, {hs}) at {g}: the plain version "
+                         "on the CPU")
+            fn = lambda: ehyb_stream._launch(p, x, kahan, g)  # noqa: E731
+            ms = cs.device_ms_per_call(fn, calls_for(fn))
+            ms_of[(ss, hs, g)] = ms
+            regs = ehyb_stream.small_registers(kahan, f64)
+            print(f"    threads {g.threads}: "
+                  f"{ms * 1e3:.2f} us (grid {grid}, {regs} registers); "
+                  f"{min(p_ms) / ms:.2f}x the parent, "
+                  f"{lib / ms:.2f}x cuSPARSE, {same / ms:.3f} of the "
+                  "same-work bound", flush=True)
+        del p, want
+    for k in sorted(ms_of, key=ms_of.get)[:5]:
+        print(f"  fastest at {name}: hubs past {k[0]}, hub chunk {k[1]} at "
+              f"{k[2]}: {ms_of[k] * 1e3:.2f} us")
+    print(f"  card: {CARD} = {smi(CARD)}", flush=True)
+    del model, x, pp
+    return ms_of
+
+
+def small_floor(dev) -> None:
+    """The rule's floor shapes: ``FLOOR_SHAPES``' flagship bodies in float32
+    and float64 keep their plans (neither split nor small), and the rule's
+    inputs at powerlaw_16k's body (its parent's items against the wave)."""
+    from ehyb_spmv_torch.ops import stream_cells as sc
+
+    for name in FLOOR_SHAPES:
+        for cfg in ({}, dict(dtype="float64")):
+            model = port.EhybSpmv(port.EhybConfig(
+                artifact_cache=True, routed_delegate="never", **cfg),
+                device=dev).setup(generate.load_corpus(name))
+            p = model.module.cells
+            cs.check(not sc.split(p), f"{name} {cfg}: neither split nor "
+                     f"small (widest row block {int(plan_widths(p).max())} "
+                     "steps)")
+            del model, p
+    print(f"the rule: the small form where the split form chunks in chunks "
+          f"longer than {sc.SMALL_STEPS} steps and its items are at most "
+          f"{sc.SMALL_WAVE_SHARE} x {sc.WAVE_WARPS}", flush=True)
+
+
+#: ``--layout``'s bodies: name → (matrix, config).
+LAYOUT_CASES = {"powerlaw_1m --dword": ("powerlaw_1m",
+                                        dict(dword_values=True)),
+                "powerlaw_1m --dtype float64": ("powerlaw_1m",
+                                                dict(dtype="float64"))}
+
+
+def run_layout(dev) -> int:
+    from ehyb_spmv_torch.ops import stream_cells as sc
+
+    keys = ("compact_cells", "real_cells", "n_items", "max_item_steps",
+            "chunked_rbs", "n_chunks", "n_hubs", "hub_cells", "hub_items",
+            "max_fold", "grouped", "direct_pieces")
+    for name, (matrix, cfg) in LAYOUT_CASES.items():
+        model, _ = f64_model(matrix, dev, **cfg)
+        e, st = model.ehyb, model.module.cells.stats
+        opts = dict(sc.k1_options(e, lists=True), fold=st["folded"])
+        t0 = time.perf_counter()
+        hub = sc._build(e, None, opts.get("direct_below", 0.0),
+                        opts.get("group_rows", 0), opts["split_steps"],
+                        opts["fold"], sc.SMALL_STEPS, sc.HUB_STEPS).stats
+        print(json.dumps({"case": name, "shipped": {k: st.get(k) for k in
+                                                    keys},
+                          "hubs_apart": {k: hub.get(k) for k in keys},
+                          "hubs_apart_build_s": time.perf_counter() - t0,
+                          "small_form_wanted": bool(st.get("small"))}),
+              flush=True)
+        del model, e
+    return 0
+
+
+def run_small(dev) -> int:
+    built = ehyb_stream.build_kernel()
+    print(f"built in {built.seconds:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cs.check_k1_small(dev)
+    print(f"small bodies checked in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    runs = {name: sweep_small(name, dev) for name in SMALL_CONFIGS}
+    ok = [k for k in runs["float32"] if all(k in r for r in runs.values())]
+    best = {name: min(r.values()) for name, r in runs.items()}
+    pick = min(ok, key=lambda k: sum(r[k] / best[n]
+                                     for n, r in runs.items()))
+    print(f"choice: hubs past {pick[0]}, hub chunk {pick[1]} at {pick[2]}: "
+          + ", ".join(f"{n} {r[pick] * 1e3:.2f} us" for n, r in runs.items()))
+    small_floor(dev)
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     f64, long = "--f64" in args, "--long" in args
-    args = [a for a in args if a not in ("--f64", "--long")]
+    small, layout = "--small" in args, "--layout" in args
+    args = [a for a in args
+            if a not in ("--f64", "--long", "--small", "--layout")]
     ab = args[:2] if args[:1] == ["--ab"] else None
     names = AB_SHAPES if not f64 else tuple(F64_CASES)
-    shapes = tuple(args[2:]) or names
+    shapes = tuple(args[2:]) or (names if not f64 else tuple(
+        k for k in F64_CASES if k != "powerlaw_1m_dword"))
     if (ab is None and args) or (ab is not None and (
             len(ab) != 2 or not set(shapes) <= set(names))) \
             or (long and ab is not None):
@@ -837,6 +1045,10 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     print(smi("name,power.limit"), flush=True)
+    if small:
+        return run_small(dev)
+    if layout:
+        return run_layout(dev)
     if long:
         return run_long_f64(dev) if f64 else run_long(dev)
     if f64:

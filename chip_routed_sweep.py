@@ -1,6 +1,7 @@
 """Geometry sweep of the one-pass routed kernel on one CUDA GPU.
 
     python3 chip_routed_sweep.py [MATRIX ...]
+    python3 chip_routed_sweep.py --remainder [MATRIX]
 
 For each corpus matrix (default: ``random_1m``, 1,048,576 rows, 16,769,356
 nnz, the gather-wall row that the flagship's gate hands to the routed
@@ -21,6 +22,13 @@ card runs on shared f32 as a compare-and-swap loop, ``ATOMS.CAST.SPIN``).
 It is how the defaults and the geometry rule of ``ops/route_xcache.py``
 were chosen.  The last line is one JSON object: the fastest reading of each
 matrix.
+
+``--remainder`` (default ``powerlaw_1m``) sets up ``DegreeSplitSpmv`` on
+the matrix and times the routed kernel on the rows it gives the routed
+engine (the remainder after its dense rows), as the model plans it:
+``chip_smoke.time_routed`` (against its plain version in turns, beside
+cuSPARSE over the same entries and both bounds), with the kernel's
+launches in one product of the model.
 
 Imports only the port and ``chip_smoke.py``'s helpers.  Exits non-zero
 without a CUDA device or when a check fails.
@@ -143,6 +151,31 @@ def sweep(name: str, dev) -> dict:
     return best
 
 
+def remainder(name: str, dev) -> dict:
+    """``route_xcache`` on the degree split's routed remainder of ``name``
+    (see the module docstring); its kernels entry."""
+    t0 = time.perf_counter()
+    m = generate.load_corpus(name)
+    model = port.DegreeSplitSpmv(port.EhybConfig(), device=dev).setup(m)
+    r = model.r
+    print(f"{name}: degree split setup {time.perf_counter() - t0:.1f} s "
+          f"({model.setup_seconds}); the remainder {r.m.nnz} entries of "
+          f"{m.nnz}", flush=True)
+    x = model.prepare_x(deterministic_x(m.dimension))
+    cs.reset_launches()
+    model.apply(x)
+    torch.cuda.synchronize()
+    launches = rx.route_xcache.launches
+    res = dict(matrix=f"{name} remainder", dim=m.dimension, nnz=r.m.nnz,
+               setup_seconds=r.setup_seconds)
+    out = cs.time_routed(r, res, r.m, dev, pair=False)
+    out = dict(name=f"route_xcache@{name} remainder", launches=launches,
+               **out)
+    print(f"{name}: route_xcache launched {launches} time(s) a product; "
+          f"{cs.card_state()}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: needs a CUDA device; none is available",
@@ -157,6 +190,10 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
     print(f"shared-memory atomics in the SASS: {sass_atomics(built.path)}")
+    if sys.argv[1:2] == ["--remainder"]:
+        names = sys.argv[2:] or ["powerlaw_1m"]
+        print(json.dumps({name: remainder(name, dev) for name in names}))
+        return 0
     names = sys.argv[1:] or list(GEOMETRIES)
     print(json.dumps({name: sweep(name, dev) for name in names}))
     return 0

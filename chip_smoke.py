@@ -110,9 +110,10 @@ the small gate (phase 18): ``ehyb`` on ``random_16k`` and
 against the body through the graph loop and keeps the one the 5% rule
 picks; a warm setup reads the verdict without measuring, and
 ``stencil3d(24, 27)`` keeps the body without measuring; then K1 on
-powerlaw_16k's body, its split form against the same body's plan without
-it, in turns.  The ``kernels`` line gains ``ehyb_stream_body (f64)`` at
-both shapes and ``dia (f64)``.
+powerlaw_16k's body, its small form (hub rows apart) against its parent
+split form in turns, and powerlaw_16k's step under the graph loop split
+by kernel (``profile_path``).  The ``kernels`` line gains
+``ehyb_stream_body (f64)`` at both shapes and ``dia (f64)``.
 
 Last, a float64 config (``--dtype float64``, not the precision mode;
 phase 19), whose variants phases 5, 16a and 17a check first, bit for bit
@@ -164,9 +165,15 @@ Last, K1's split variants in float64 and compensated (phase 21): against
 their plain versions on small bodies that reach chunked table and direct
 pieces, a grouped plan and a row block at the threshold (bit for bit in
 float64, within KERNEL_TOL in float32 with Kahan), with the cancellation
-rows only they keep; powerlaw_16k in ``--dword``, ``--dtype float64
+rows only they keep; the split form's small form (``check_k1_small``:
+hub rows apart, short items, a fixed fold) against its plain version on
+small bodies that reach hubs of one chunk and of many, a fold past 32
+partials, table and direct pieces, cut row blocks and a grouped row map
+(bit for bit, float32 Kahan within KERNEL_TOL), also under CUDA-graph
+replays; powerlaw_16k in ``--dword``, ``--dtype float64
 [--compensated]`` and ``--compensated`` (each against the oracle, K1 over
-its split plan against the table form in turns and cuSPARSE in its type);
+its small form against the parent split form in turns and cuSPARSE in its
+type);
 and ``powerlaw_1m --dword`` at full size through the CLI (its host
 artifact built in the background by ``scripts_torch/prewarm.py --dword``,
 as is fem3d_68 ``--dword``'s for phase 17c).  The ``kernels`` line ends
@@ -190,6 +197,7 @@ output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import copy
 import dataclasses
 import json
@@ -224,7 +232,7 @@ from ehyb_spmv_torch.ops.stream_cells import (DIRECT_BELOW, ITEM_PIECE,
                                               PIECE_CELL, PIECE_RB,
                                               PIECE_ROW, build_stream_cells,
                                               k1_folded_plan, k1_options,
-                                              list_items, split)
+                                              list_items, small, split)
 from ehyb_spmv_torch.parallel import launch
 from ehyb_spmv_torch.parallel.comm import rank_device
 from ehyb_spmv_torch.parallel.hybrid import ShardedDegreeSplitSpmv
@@ -340,11 +348,11 @@ K1F64 = {"name": "ehyb_stream_body (f64)", "route": "cuda",
          "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
          "replaces": f"{_PALLAS}:148 (K1) in f64, the body of the precision "
                      "mode (ehyb_spmv_gpu_tpu/ops/dword.py, XLA on the TPU)"}
-#: K1's split variant on the heavy-tailed bodies (plans in the split form):
-#: powerlaw_1m's dense sub-matrix (the degree split's EHYB part, phase 20)
-#: and powerlaw_16k's body (phase 18).
+#: K1's split variant on powerlaw_1m's dense sub-matrix (the degree split's
+#: EHYB part, phase 20), and its small form on powerlaw_16k's body (phase
+#: 18; hub rows apart).
 K1_LONG_1M = dict(K1, name="ehyb_stream_body (long rows, powerlaw_1m split)")
-K1_LONG_16K = dict(K1, name="ehyb_stream_body (long rows, powerlaw_16k)")
+K1_LONG_16K = dict(K1, name="ehyb_stream_body (small form, powerlaw_16k)")
 #: The heavy-tailed test body of phase 3 (``tests/conftest.py``'s
 #: powerlaw_small).
 POWERLAW_SMALL = dict(dim=3000, avg_nnz_per_row=16, seed=5, power_law=0.8)
@@ -362,20 +370,20 @@ SK1 = {"name": "ehyb_stream_body (row-block list)", "route": "cuda",
 K1F64K = {"name": "ehyb_stream_body (f64, Kahan)", "route": "cuda",
           "source": "ehyb_spmv_torch/csrc/ehyb_stream.cu",
           "replaces": f"{_PALLAS}:148 (K1, kahan=True) in a float64 config"}
-#: K1's split variants in float64 and compensated (phase 21): at
-#: powerlaw_16k in each config of ``HEAVY_CONFIGS`` and at powerlaw_1m in
-#: the precision mode.
+#: K1's small form in float64 and compensated (phase 21b): at
+#: powerlaw_16k in each config of ``HEAVY_CONFIGS``; and the split variant
+#: at powerlaw_1m in the precision mode.
 K1_SPLIT = {
-    "--dword": dict(K1F64, name="ehyb_stream_body (f64, long rows, "
+    "--dword": dict(K1F64, name="ehyb_stream_body (f64, small form, "
                                 "powerlaw_16k --dword)"),
-    "--dtype float64": dict(K1F64, name="ehyb_stream_body (f64, long "
-                                        "rows, powerlaw_16k --dtype "
+    "--dtype float64": dict(K1F64, name="ehyb_stream_body (f64, small "
+                                        "form, powerlaw_16k --dtype "
                                         "float64)"),
     "--dtype float64 --compensated": dict(
-        K1F64K, name="ehyb_stream_body (f64, Kahan, long rows, "
+        K1F64K, name="ehyb_stream_body (f64, Kahan, small form, "
                      "powerlaw_16k --dtype float64 --compensated)"),
     "--compensated": dict(
-        K1, name="ehyb_stream_body (Kahan, long rows, powerlaw_16k "
+        K1, name="ehyb_stream_body (Kahan, small form, powerlaw_16k "
                  "--compensated)",
         replaces=f"{_PALLAS}:148 (K1, kahan=True)")}
 K1_SPLIT_1M = dict(K1F64, name="ehyb_stream_body (f64, long rows, "
@@ -888,7 +896,9 @@ def check_k1_split(dev) -> None:
                 check_k1_case(name, e, x, False, dev,
                               cells if e is model.ehyb and steps == shipped
                               else None)
-                st = build_stream_cells(e, **k1_options(e)).stats
+                # the split form itself (a small body's shipped plan
+                # takes its small form, check_k1_small's)
+                st = build_stream_cells(e, **k1_options(e, lists=True)).stats
                 check(st["chunked_rbs"] > 0
                       and st["max_item_steps"] <= steps,
                       f"{name}: {st['chunked_rbs']} row blocks in "
@@ -1044,13 +1054,139 @@ def check_k1_split_variants(dev) -> None:
               "on an SM")
 
 
+@contextlib.contextmanager
+def patched_module(module, **values):
+    """``module``'s attributes set to ``values`` for the length of a
+    ``with`` block."""
+    old = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def small_cases():
+    """Phase 21a's bodies of K1's small form, (name, body, patches of
+    ``stream_cells``): powerlaw_small in float32 (as shipped: hub chunks
+    of 16 steps; then chunks of one step, its widest hub's fold of 51
+    partials), in float64 (table and direct pieces) and in the precision
+    mode, pp96 with three dense rows in the precision mode (direct
+    pieces, the dense rows its hubs, a fold of 145 partials at one-step
+    chunks), pp96 in the precision mode, its rows of more than two cells
+    hubs (grouped rows: y through the row map), and the long body at 128
+    steps with hubs past 100 cells (row blocks cut into pieces between
+    their steps, each piece with a 16-bit table)."""
+    m = generate.random_general(**POWERLAW_SMALL)
+    body = lambda cfg, mat=m: port.EhybSpmv(  # noqa: E731
+        port.EhybConfig(routed_delegate="never", **cfg),
+        device="cpu").setup(mat).ehyb
+    f32 = body({})
+    return [("powerlaw_small", f32, {}),
+            ("powerlaw_small, hub chunks of 1", f32, {"HUB_STEPS": 1}),
+            ("powerlaw_small f64", body({"dtype": "float64"}), {}),
+            ("powerlaw_small --dword", body({"dword_values": True}), {}),
+            ("pp96 with three dense rows --dword", body(
+                {"dword_values": True}, generate.with_dense_rows(
+                    generate.permuted(generate.poisson2d(96), seed=3), 3,
+                    0.5)), {"HUB_STEPS": 1}),
+            ("pp96 --dword", body({"dword_values": True}, generate.permuted(
+                generate.poisson2d(96), seed=3)),
+             {"SPLIT_STEPS_F64": 3, "SMALL_STEPS": 2}),
+            ("long body 128", long_body(128),
+             {"SPLIT_STEPS": 128, "SMALL_STEPS": 100})]
+
+
+def check_k1_small(dev) -> None:
+    """K1's small form (``stream_cells.small``) against its plain version
+    on the CPU, bit for bit (within KERNEL_TOL in float32 with Kahan), at
+    128 and 512 threads and the shipped geometry, plain and Kahan, in
+    float32 and float64, on bodies that reach hubs apart, hub chunks of
+    one step and of several, a fold past 32 partials, table and direct
+    pieces, row blocks of several pieces and a grouped row map; each
+    variant also replayed in a CUDA graph over three x (the counters back
+    at 0 after each), and a list refused."""
+    rng = np.random.default_rng(3)
+    reached = set()
+    for name, e, patch in small_cases():
+        with patched_module(stream_cells, **patch):
+            plan = build_stream_cells(e, **k1_options(e))
+        st = plan.stats
+        f64 = plan.cell_val.dtype == np.float64
+        tables = np.diff(plan.piece[:, PIECE_ROW]) > 0
+        forms = {"hubs": st["n_hubs"] > 0, "one-step chunks":
+                 st["hub_steps"] == 1, "longer chunks": st["hub_steps"] > 1,
+                 "fold past 32": st["max_fold"] > 32,
+                 "table pieces": bool(tables.any()),
+                 "direct pieces": st["direct_pieces"] > 0,
+                 "cut row blocks": st["split_rbs"] > 0,
+                 "grouped": st["grouped"]}
+        reached |= {k for k, v in forms.items() if v}
+        check(small(plan), f"{name}: the small form ({st['n_hubs']} hubs, "
+                           f"{st['hub_items']} hub items of at most "
+                           f"{st['hub_steps']} steps, widest fold "
+                           f"{st['max_fold']}, {st['n_items']} items; "
+                           f"{[k for k, v in forms.items() if v]})")
+        p = plan.to_torch(dev)
+        p_cpu = plan.to_torch()
+        dt = torch.float64 if f64 else torch.float32
+        x = torch.from_numpy(rng.standard_normal(st["x_rows"])).to(dt)
+        for kahan in (False, True):
+            want = ehyb_stream.stream_body_plain(p_cpu, x, kahan)
+            exact = f64 or not kahan
+            for g in small_geometries():
+                y = ehyb_stream._launch(p, x.to(dev), kahan, g).cpu()
+                ok = torch.equal(y, want) if exact else \
+                    rel(y, want) <= KERNEL_TOL
+                check(ok, f"{name}{' Kahan' if kahan else ''} at {g}: "
+                          + ("bit for bit with" if exact else
+                             f"rel {rel(y, want):.3e} from")
+                          + " the plain version on the CPU")
+            if exact:
+                xs = [torch.from_numpy(rng.standard_normal(
+                    st["x_rows"])).to(dt) for _ in range(3)]
+                check(replay_split(p, xs, dev, ehyb_stream.SMALL_GEOMETRY,
+                                   kahan),
+                      f"{name}{' Kahan' if kahan else ''}: three CUDA-graph "
+                      "replays bit for bit with the plain version on the "
+                      "CPU")
+    want = {"hubs", "one-step chunks", "longer chunks", "fold past 32",
+            "table pieces", "direct pieces", "cut row blocks", "grouped"}
+    check(want <= reached, f"the small bodies reach {sorted(reached)}")
+    try:
+        ehyb_stream.stream_body(p, x.to(dev), rb_list=torch.zeros(
+            1, dtype=torch.int32, device=dev))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "a list over a plan in the small form is refused")
+    for kahan, f64 in itertools.product((False, True), (False, True)):
+        g = ehyb_stream.SMALL_GEOMETRY
+        print(f"  small form {'f64' if f64 else 'f32'}"
+              f"{' Kahan' if kahan else ''}: "
+              f"{ehyb_stream.small_registers(kahan, f64)} registers, "
+              f"{ehyb_stream.small_resident_blocks(g, kahan, dev, f64)} "
+              f"blocks of {g.threads} threads resident on an SM")
+
+
+def small_geometries():
+    """The small form's geometries checked: 128 and 512 threads a block,
+    and the shipped one."""
+    return [ehyb_stream.StreamGeometry(threads=t, blocks_per_sm=4)
+            for t in (128, 512)] + [ehyb_stream.SMALL_GEOMETRY]
+
+
 def time_k1_split(name: str, model, dev, x_dev: torch.Tensor,
                   table: bool = True, kahan: bool = None,
                   library_ms: float = None) -> dict:
     """K1 on a heavy-tailed body (``model``'s, in the split form; with
     ``kahan``, None for the model's, its compensated variant): the shipped
-    plan, against the table form (the same body's plan without the split
-    form, each row block walked by one warp) in turns where ``table``,
+    plan, in turns where ``table`` against its parent (a plan in the small
+    form: the split form without it, ``k1_options(e, lists=True)``; else
+    the table form, the plan without the split form, each row block walked
+    by one warp),
     held to the plain version on the CPU (bit for bit, or within
     KERNEL_TOL in float32 with Kahan) and to the float64 sums (the plan's
     plain version in float64) at the suite's bound; beside the
@@ -1065,10 +1201,16 @@ def time_k1_split(name: str, model, dev, x_dev: torch.Tensor,
     check(split(p) and st["n_items"] > 0,
           f"{name}: K1's plan in the split form ({st['chunked_rbs']} row "
           f"blocks in {st['n_chunks']} chunks of at most "
-          f"{st['split_steps']} steps, {st['n_items']} work items)")
+          f"{st['split_steps']} steps, {st['n_hubs']} hub rows apart, "
+          f"{st['n_items']} work items)")
     t0 = time.perf_counter()
-    walk = build_stream_cells(model.ehyb, fold=st["folded"]).to_torch(
-        dev) if table else None
+    # a plan in the small form is held to its parent, the split form
+    # (k1_options' plan for lists); any other to the table form
+    parent = small(p)
+    opts = k1_options(model.ehyb, lists=True) if parent else {}
+    what_walk = "the parent split form" if parent else "the table form"
+    walk = build_stream_cells(model.ehyb, fold=st["folded"],
+                              **opts).to_torch(dev) if table else None
     t_build = time.perf_counter() - t0
     y_k = ehyb_stream.stream_body(p, x_dev, kahan)
     p_cpu, x_cpu = copy.deepcopy(p).cpu(), x_dev.cpu()
@@ -1091,9 +1233,9 @@ def time_k1_split(name: str, model, dev, x_dev: torch.Tensor,
     err_t = rel(ehyb_stream.stream_body(walk, x_dev, kahan).cpu(),
                 exact) if table else 0.0
     check(max(err_k, err_t) <= tol,
-          f"{name}: the split form rel {err_k:.3e}"
-          + (f", the table form rel {err_t:.3e}" if table else "")
-          + f" from the float64 sums <= {tol}")
+          f"{name}: the {'small' if parent else 'split'} form rel "
+          f"{err_k:.3e}" + (f", {what_walk} rel {err_t:.3e}" if table
+                            else "") + f" from the float64 sums <= {tol}")
     t_check = time.perf_counter() - t0 - t_build
     kernel = lambda: ehyb_stream.stream_body(p, x_dev, kahan)  # noqa: E731
 
@@ -1119,21 +1261,34 @@ def time_k1_split(name: str, model, dev, x_dev: torch.Tensor,
                            8 if f64 else 4)
     t_time = time.perf_counter() - t0 - t_build - t_check
     g = ehyb_stream.geometry_of(p)
-    print(f"  K1 {what}at {name}: split form ({st['split_steps']} steps a "
-          f"chunk, {st['chunked_rbs']} of "
-          f"{st['n_rb']} row blocks in {st['n_chunks']} chunks, "
-          f"{st['n_items']} work items, {st['n_pieces']} pieces, "
+    form = (f"small form ({st['n_hubs']} hub rows apart in "
+            f"{st['hub_items']} items of at most {st['hub_steps']} steps, "
+            f"widest fold {st['max_fold']}, {st['compact_cells']} cells "
+            f"for {st['real_cells']} entries, "
+            if parent else
+            f"split form ({st['split_steps']} steps a chunk, "
+            f"{st['chunked_rbs']} of {st['n_rb']} row blocks in "
+            f"{st['n_chunks']} chunks, ")
+    ws = walk.stats if table else {}
+    print(f"  K1 {what}at {name}: {form}"
+          f"{st['n_items']} work items, longest {st['max_item_steps']} "
+          f"steps, {st['n_pieces']} pieces, "
           f"{st['direct_pieces']} direct, "
           f"{'grouped' if st['grouped'] else 'body order'}; {g}; grid "
           f"{ehyb_stream.grid_of(p, g, kahan, dev)})"
-          + (f" against the table form ({walk.stats['n_pieces']} pieces, "
-             f"max width {walk.stats['max_width']}), device ms per call "
-             f"(table, split, split, table): {turns}" if table else
+          + ((f" against the parent split form ({ws['compact_cells']} "
+              f"cells, {ws['n_items']} work items of at most "
+              f"{ws['max_item_steps']} steps), device ms per call "
+              f"(parent, small, small, parent): {turns}") if parent and table
+             else (f" against the table form ({ws['n_pieces']} pieces, "
+                   f"max width {ws['max_width']}), device ms per call "
+                   f"(table, split, split, table): {turns}") if table else
              f", device ms per call {ms}")
-          + f"; host seconds: the table form's build {t_build:.1f}, the "
+          + f"; host seconds: {what_walk}'s build {t_build:.1f}, the "
           f"checks against the CPU {t_check:.1f}, the timing {t_time:.1f}")
-    print("  " + ("" if not table else f"the table form / the split form "
-                  f"= {table_ms / ms:.1f}; ")
+    print("  " + ("" if not table else f"{what_walk} / the "
+                  f"{'small' if parent else 'split'} form "
+                  f"= {table_ms / ms:.2f}; ")
           + f"plain version {plain_ms:.4f} ms; cuSPARSE over its {nnz} "
           f"entries ({st['tail_cells']} of them the tail's; {x_dev.dtype}) "
           f"{lib_ms:.4f} ms (K1 / cuSPARSE = "
@@ -1146,7 +1301,11 @@ def time_k1_split(name: str, model, dev, x_dev: torch.Tensor,
     out = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, **bounds(b, same))
     if table:
-        out["table_form_ms"] = table_ms
+        out["parent_split_ms" if parent else "table_form_ms"] = table_ms
+    if parent:
+        out.update(cells=st["compact_cells"], items=st["n_items"],
+                   longest_item=st["max_item_steps"],
+                   widest_fold=st["max_fold"])
     return out
 
 
@@ -3869,9 +4028,10 @@ def check_bench_surface(prewarm: Prewarm, res1: dict, card: str) -> tuple:
 def check_heavy_16k(dev) -> list:
     """21b: powerlaw_16k through ``EhybSpmv`` in each config of
     ``HEAVY_CONFIGS``: against the oracle (F64_TOL in float64, ORACLE_TOL
-    in float32), K1 launched once a product over a plan in the split form,
-    then K1 timed by :func:`time_k1_split` (against the table form in
-    turns, cuSPARSE in the config's type); returns the kernels entries."""
+    in float32), K1 launched once a product over a plan in the small form,
+    then K1 timed by :func:`time_k1_split` (against the parent split form
+    in turns, cuSPARSE in the config's type); returns the kernels
+    entries."""
     m = generate.load_corpus("powerlaw_16k")
     x = deterministic_x(m.dimension)
     want = oracle_spmv(m, x)
@@ -3885,10 +4045,10 @@ def check_heavy_16k(dev) -> list:
         n = ehyb_stream.stream_body.launches
         st = model.module.cells.stats
         tol = F64_TOL if f64 else ORACLE_TOL
-        check(err <= tol and n == 1 and st["n_items"] > 0,
+        check(err <= tol and n == 1 and small(model.module.cells),
               f"powerlaw_16k {flags}: rel {err:.3e} <= {tol}, K1 launched "
-              f"{n} time(s) over {st['n_items']} work items "
-              f"({st['chunked_rbs']} row blocks in {st['n_chunks']} chunks)")
+              f"{n} time(s) over {st['n_items']} work items of the small "
+              f"form ({st['n_hubs']} hubs in {st['hub_items']} items)")
         k = time_k1_split(f"powerlaw_16k {flags}", model, dev,
                           model.prepare_x(x))
         out.append(dict(K1_SPLIT[flags], launches=n, rel_error=err, **k))
@@ -4344,6 +4504,11 @@ def run_phases(prewarm: Prewarm, prebuild_sharded: Prewarm,
                             device=dev).setup(m16)
     k1_16k = time_k1_split("powerlaw_16k", model16, dev, model16.prepare_x(
         deterministic_x(m16.dimension)))
+    # its step by kernel under the graph loop (PERF.md, where the time goes)
+    res16 = dict(matrix="powerlaw_16k", dim=m16.dimension, nnz=m16.nnz,
+                 iters=300)
+    loop16 = check_loop(res16, model16, dev)
+    profile_path("powerlaw_16k", res16, model16, loop16["graph"])
     del model16, m16
     t19 = time.perf_counter()
     del rows, model1, model2, model3, model4, model7, plan
@@ -4357,11 +4522,14 @@ def run_phases(prewarm: Prewarm, prebuild_sharded: Prewarm,
           "mode, and scripts_torch/sweep.py on " + ", ".join(SWEEP_ROWS))
     k1_1m, rx4, k9_small_launches = check_bench_surface(prewarm, res1, card)
     t21 = time.perf_counter()
-    phase("21: K1's split variants in float64 and compensated: small "
+    phase("21: K1's split variants in float64 and compensated, and the "
+          "small form: small "
           "bodies, powerlaw_16k in four configs, powerlaw_1m --dword")
     print("  21a: the split variants vs their plain versions on small "
           "bodies")
     check_k1_split_variants(dev)
+    print("  21a: the small form vs its plain version on small bodies")
+    check_k1_small(dev)
     print(f"  21a wall {time.perf_counter() - t21:.1f} s")
     print(f"  21b: powerlaw_16k with {', '.join(HEAVY_CONFIGS)} ({card})")
     heavy = check_heavy_16k(dev)

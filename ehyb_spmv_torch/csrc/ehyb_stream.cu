@@ -707,9 +707,192 @@ __global__ void __launch_bounds__(kMaxThreads) stream_body_split_any_kernel(
   }
 }
 
+// The small form, for heavy-tailed bodies too small to fill the card
+// (powerlaw_16k: 16,384 rows, 389,666 entries, a widest row of 5,426).
+// There the split form's work items (840 of at most 48 steps in float,
+// 681 of 80 in double) fill a fifth of the card's resident warps, each
+// chunk's walk is rounds of three dependent loads, a hub's row block pads
+// its 31 short rows to the hub's width (2.86x cells for entries there),
+// and the widest row block's last chunk adds 114 partials one after
+// another.  The plan's small form (ops/stream_cells.py, small_steps,
+// hub_steps) answers each:
+//
+// * Hub rows apart.  Every row of more than small_steps (40) cells leaves
+//   its row block: its cells are stored row-major (hub_val, hub_col: int32
+//   columns), 32 consecutive entries a step, so a warp's value and column
+//   loads coalesce and no short row is padded to a hub's width.  The row
+//   blocks keep their other rows at their own width, at most three rounds
+//   (kSplitUnroll columns each) of the walk, in table or direct pieces,
+//   through the row map where there is one; a row-block item carries the
+//   mask of its hub lanes (it.w), which it does not write.
+// * Short items.  A hub's steps are cut into chunks of hub_steps (32: two
+//   rounds a lane), each a work item; the hub items come first in the
+//   persistent grid's order, then the row blocks, longest first.  An item
+//   carries what its walk reads (cells, table, slots, y row) in two 16-B
+//   loads, so a row-block item is three dependent loads (cells, table row,
+//   x) and a hub item two (cells, x).
+// * A short fold in a fixed order.  A lane adds its entries of a chunk in
+//   order (entries l, l + 32, ...); the warp's 32 lane sums meet in a fixed
+//   tree (shfl_down at 16, 8, 4, 2, 1: lane l < k combines its own with
+//   lane l + k's); a hub of one chunk writes lane 0's sum.  A longer hub's
+//   chunks write their sums to partial slots and count themselves on its
+//   counter; the last adds the hub's slots lane by lane (lane l: slots l,
+//   l + 32, ... in order, from 0), then the same tree, writes y and puts
+//   the counter back to 0.  The chain is at most ceil(chunks / 32) + 5
+//   adds: 1 + 5 for powerlaw_16k's widest hub (6 chunks).  No atomics
+//   on y.
+// * x through L1/L2.  Staging all of the x a plan reads (64 KB in float
+//   at powerlaw_16k, 128 KB in double) into each block's shared memory
+//   with cp.async won only in float, by 4%, and lost in double, where 128
+//   KB leave one block an SM (chip_k1_sweep.py --small; PERF.md):
+//   x is read through L1/L2, as in the other variants.
+//
+// With KAHAN a lane walks with the Neumaier step, and pairs combine as the
+// split variants' fold does: (S, C) + (s, c) is t = S + s, C += (S - t) + s
+// where |S| >= |s|, else (s - t) + S, S = t, then C += c; a row is S + C.
+// In double the sums equal the plain version (ops/ehyb_stream.py::
+// hub_sums_plain for the hubs, stream_body_plain for the row blocks) bit
+// for bit; in float Kahan the plain version sums in double and rounds once.
+//
+// Measured (chip_k1_sweep.py --small, H100 80GB HBM3 at 700 W),
+// hubs past 40 cells in chunks of 32 steps, 128 threads: powerlaw_16k's
+// body 6.44 us in float (the split form 12.89-13.12, cuSPARSE 9.84), 6.50
+// in float Kahan (12.78-12.82), 7.42 in double (10.52-10.54, cuSPARSE
+// 9.93), 7.63 in double Kahan (12.88-13.05, 10.68), 7.71 in --dword
+// (14.50-14.72, 10.62).  The items are fewer than a wave (2,063 of 4,224
+// resident warps): cutting the hubs finer to fill one (hubs past 32 in
+// chunks of 2 steps, 4,531 items) took float to 10.0 us, each
+// chunk a partial, a fence and an atomic, and a warp's second item
+// waiting on its first.
+
+// (s, c) takes the pair (os, oc): plain, s + os.
+template <bool KAHAN, typename Val>
+__device__ __forceinline__ void combine(Val& s, Val& c, Val os, Val oc) {
+  if (KAHAN) {
+    neumaier_add(s, c, os);
+    c = add_rn(c, oc);
+  } else {
+    s = add_rn(s, os);
+  }
+}
+
+// The warp's fixed tree: lane 0 ends with the combine of the 32 lanes'
+// pairs (the other lanes' pairs are not used).
+template <bool KAHAN, typename Val>
+__device__ __forceinline__ void warp_tree(Val& s, Val& c) {
+#pragma unroll
+  for (int k = 16; k >= 1; k >>= 1) {
+    const Val os = __shfl_down_sync(0xffffffffu, s, k);
+    const Val oc = KAHAN ? __shfl_down_sync(0xffffffffu, c, k) : Val(0);
+    combine<KAHAN>(s, c, os, oc);
+  }
+}
+
+// A piece's cells from c to end, added to a lane's (sum, comp): table or
+// direct.
+template <bool KAHAN, typename Val>
+__device__ __forceinline__ void sum_small_piece(
+    const Val* __restrict__ cell_val, const uint16_t* __restrict__ cell_idx,
+    const int* __restrict__ cell_col, const int* __restrict__ tab,
+    const Val* __restrict__ x, int c, int end, Val& sum, Val& comp) {
+  if (tab == nullptr) {
+    sum_chunk_piece<KAHAN>(cell_val, DirectCols<Val>{cell_col}, x, c, end,
+                           sum, comp);
+  } else {
+    sum_chunk_piece<KAHAN>(cell_val, TableCols<Val>{cell_idx, tab}, x, c,
+                           end, sum, comp);
+  }
+}
+
+// An item is two int4s, read together: item[2 j] = (row block, pieces, -1,
+// hub lanes), item[2 j + 1] = (its first piece's first cell, end cell,
+// first table row or -1 where the piece is direct, 0), its later pieces
+// chained by piece[p].z; hub_item[2 j] = (first cell, steps, partial slot
+// or -1, hub), hub_item[2 j + 1] = (the hub's first slot, its end slot,
+// its y row, 0).
+template <typename Val, bool KAHAN>
+__global__ void __launch_bounds__(kMaxThreads) stream_body_small_kernel(
+    const int4* __restrict__ piece, const int* __restrict__ rows,
+    const Val* __restrict__ cell_val, const uint16_t* __restrict__ cell_idx,
+    const int* __restrict__ cell_col, const int* __restrict__ row_map,
+    const int4* __restrict__ item, int n_items,
+    const int4* __restrict__ hub_item, int n_hub_items,
+    const Val* __restrict__ hub_val, const int* __restrict__ hub_col,
+    Val* partial, int* counter, const Val* __restrict__ x,
+    Val* __restrict__ y) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int n_warps = gridDim.x * warps;
+  const int n_all = n_hub_items + n_items;
+  for (int j = blockIdx.x * warps + (threadIdx.x >> 5); j < n_all;
+       j += n_warps) {
+    Val sum = Val(0), comp = Val(0);
+    if (j < n_hub_items) {
+      const int4 h = __ldg(hub_item + 2 * j);
+      const int4 f = __ldg(hub_item + 2 * j + 1);  // slots f.x .. f.y, y row
+      sum_chunk_piece<KAHAN>(hub_val, DirectCols<Val>{hub_col}, x,
+                             h.x + lane, h.x + h.y * kRows, sum, comp);
+      warp_tree<KAHAN>(sum, comp);
+      if (h.z >= 0) {
+        if (lane == 0) {
+          __stcg(partial + 2 * (size_t)h.z, sum);
+          if (KAHAN) __stcg(partial + 2 * (size_t)h.z + 1, comp);
+        }
+        __threadfence();  // the partial before the count
+        __syncwarp();
+        int last = 0;
+        if (lane == 0) last = atomicAdd(counter + h.w, 1) == f.y - f.x - 1;
+        if (!__shfl_sync(0xffffffffu, last, 0)) continue;
+        __threadfence();  // the count before the partials
+        sum = Val(0);
+        comp = Val(0);
+        for (int s = f.x + lane; s < f.y; s += 32) {
+          combine<KAHAN>(sum, comp, __ldcg(partial + 2 * (size_t)s),
+                         KAHAN ? __ldcg(partial + 2 * (size_t)s + 1)
+                               : Val(0));
+        }
+        warp_tree<KAHAN>(sum, comp);
+        if (lane == 0) counter[h.w] = 0;
+      }
+      if (lane == 0) __stcs(y + f.z, KAHAN ? add_rn(sum, comp) : sum);
+      continue;
+    }
+    const int4 it = __ldg(item + 2 * (j - n_hub_items));
+    const int4 pc = __ldg(item + 2 * (j - n_hub_items) + 1);  // its cells
+    const int rb = it.x;
+    // the y row, read while the cells stream
+    const int out = row_map != nullptr ? __ldg(row_map + rb * kRows + lane)
+                                       : rb * kRows + lane;
+    sum_small_piece<KAHAN>(cell_val, cell_idx, cell_col,
+                           pc.z < 0 ? nullptr : rows + pc.z, x, pc.x + lane,
+                           pc.y, sum, comp);
+    // a row block cut between its steps (16-bit tables): its later pieces
+    for (int q = 1, p = rb; q < it.y; ++q) {
+      p = __ldg(piece + p).z;
+      const int4 a = __ldg(piece + p);
+      const int4 b = __ldg(piece + p + 1);
+      sum_small_piece<KAHAN>(cell_val, cell_idx, cell_col,
+                             a.y == b.y ? nullptr : rows + a.y, x,
+                             a.x + lane, b.x, sum, comp);
+    }
+    if (((unsigned)it.w >> lane) & 1u) continue;  // a hub's lane
+    __stcs(y + out, KAHAN ? add_rn(sum, comp) : sum);
+  }
+}
+
 // A kernel variant, as the runtime API takes it (the variants' parameter
 // types differ with the value type).
 using KernelFn = const void*;
+
+// The small form's variant.
+KernelFn pick_small(int kahan, int f64) {
+  if (f64) {
+    return kahan ? (KernelFn)stream_body_small_kernel<double, true>
+                 : (KernelFn)stream_body_small_kernel<double, false>;
+  }
+  return kahan ? (KernelFn)stream_body_small_kernel<float, true>
+               : (KernelFn)stream_body_small_kernel<float, false>;
+}
 
 template <int V, bool LIST>
 KernelFn pick_v(int staged, int kahan) {
@@ -907,6 +1090,55 @@ extern "C" int ehyb_stream_body_split(
       cudaLaunchKernel(fn, dim3(grid), dim3(threads),
                        plain_float ? args : args_any, 0,
                        static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(launched != cudaSuccess ? launched : last);
+}
+
+// Blocks of `threads` threads of the small form's variant that stay
+// resident on one SM (0 where none can), or a negative CUDA error.
+extern "C" int ehyb_stream_small_resident_blocks(int kahan, int f64,
+                                                 int threads) {
+  int blocks = 0;
+  const int rc = clear(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, pick_small(kahan, f64), threads, 0));
+  return rc != 0 ? -rc : blocks;
+}
+
+// Registers a thread of the small form's variant takes, or a negative
+// CUDA error.
+extern "C" int ehyb_stream_small_registers(int kahan, int f64) {
+  cudaFuncAttributes attr;
+  const int rc = clear(cudaFuncGetAttributes(&attr, pick_small(kahan, f64)));
+  return rc != 0 ? -rc : attr.numRegs;
+}
+
+// Launches the small form's variant on `stream` over a plan in the small
+// form: `grid` blocks of `threads` threads over its n_hub_items hub items,
+// then its n_items row-block items, x through L1/L2, Neumaier-compensated
+// where `kahan`; returns cudaGetLastError(), 0 when the launch was
+// accepted.  `item` and `hub_item` are (n, 8) int32, `hub_val`, `partial`
+// (a sum and a compensation a hub slot), `x` and `y` float (double where
+// `f64`), `counter` int32 (one a hub, 0 between calls), `piece`, `rows`,
+// `cell_val`, `cell_idx`, `cell_col` and `row_map` as ehyb_stream_body's
+// (null where the plan has none), every buffer 16-byte aligned.
+extern "C" int ehyb_stream_body_small(
+    const void* piece, const int* rows, const void* cell_val,
+    const void* cell_idx, const int* cell_col, const int* row_map,
+    const void* item, int n_items, const void* hub_item, int n_hub_items,
+    const void* hub_val, const int* hub_col, void* partial, int* counter,
+    const void* x, void* y, int kahan, int f64, int threads, int grid,
+    void* stream) {
+  if (n_items + n_hub_items <= 0) return 0;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 || grid <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  void* args[] = {&piece,   &rows,     &cell_val, &cell_idx,    &cell_col,
+                  &row_map, &item,     &n_items,  &hub_item,    &n_hub_items,
+                  &hub_val, &hub_col,  &partial,  &counter,     &x,
+                  &y};
+  const cudaError_t launched =
+      cudaLaunchKernel(pick_small(kahan, f64), dim3(grid), dim3(threads),
+                       args, 0, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(launched != cudaSuccess ? launched : last);
 }

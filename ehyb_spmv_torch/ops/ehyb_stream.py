@@ -29,7 +29,12 @@ variant, built at one row a thread with x through L1/L2, in float32 and
 float64, plain or Kahan, over every piece form; a list over it is a list
 of its work items (:func:`~.stream_cells.list_items`), which the split
 variants walk in place of the plan's, so the sharded apply
-(``parallel/spmv.py``) runs a heavy-tailed shard in two such calls.
+(``parallel/spmv.py``) runs a heavy-tailed shard in two such calls.  A
+split plan too small to fill the card takes the split form's small form
+(``stream_cells.small``: hub rows apart, short items, a fixed fold), whose
+kernel is built in float32 and float64, plain or Kahan, at one row a
+thread with x through L1/L2, and takes no list; its hubs' plain version is
+:func:`hub_sums_plain`.
 """
 from __future__ import annotations
 
@@ -47,9 +52,10 @@ from . import stream_plan
 from .build import BuiltLibrary, build_cuda_library
 from .dia import SMEM_LIMIT_BYTES, dia_body
 from .ehyb_wincache import WinCacheDevice, build_wincache_plan, wincache_body
-from .stream_cells import (BLOCK_ROWS, ITEM_PIECE, PIECE_CELL, PIECE_RB,
+from .stream_cells import (BLOCK_ROWS, HUB_CELL, HUB_ID, HUB_SLOT,
+                           HUB_STEPS_COL, ITEM_PIECE, PIECE_CELL, PIECE_RB,
                            PIECE_ROW, StreamCellsDevice, has_tail,
-                           k1_folded_plan, split)
+                           k1_folded_plan, small, split)
 from .torch_ops import (add_tail_, chain_offsets, ehyb_er, ehyb_long,
                         fold_split_, neumaier_add, neumaier_pairs)
 
@@ -102,6 +108,11 @@ GEOMETRY = StreamGeometry()
 #: variants, where the resident blocks, not the geometry asked for, cap
 #: the grid (eight blocks of 128 threads at 64 registers a thread).
 SPLIT_GEOMETRY = StreamGeometry(threads=128, blocks_per_sm=16)
+#: The geometry a plan in the small form takes (its kernel is built at one
+#: row a thread, x through L1/L2).  ``chip_k1_sweep.py --small`` chose it
+#: at powerlaw_16k in five configs with ``stream_cells.SMALL_STEPS`` and
+#: ``HUB_STEPS``: the least sum of the times over the fastest (PERF.md).
+SMALL_GEOMETRY = StreamGeometry(threads=128, blocks_per_sm=16)
 
 _lock = threading.Lock()
 _built = None
@@ -136,6 +147,17 @@ def build_kernel() -> BuiltLibrary:
             lib.ehyb_stream_registers.argtypes = [ctypes.c_int] * 6
             lib.ehyb_stream_smem_bytes.restype = ctypes.c_longlong
             lib.ehyb_stream_smem_bytes.argtypes = [ctypes.c_int] * 4
+            lib.ehyb_stream_body_small.restype = ctypes.c_int
+            lib.ehyb_stream_body_small.argtypes = (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_int]
+                + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p])
+            lib.ehyb_stream_small_resident_blocks.restype = ctypes.c_int
+            lib.ehyb_stream_small_resident_blocks.argtypes = \
+                [ctypes.c_int] * 3
+            lib.ehyb_stream_small_registers.restype = ctypes.c_int
+            lib.ehyb_stream_small_registers.argtypes = [ctypes.c_int] * 2
             _built, _lib = built, lib
         return _built
 
@@ -167,6 +189,30 @@ def resident_blocks(geometry: StreamGeometry, kahan: bool, device,
     return n
 
 
+def small_resident_blocks(geometry: StreamGeometry, kahan: bool, device,
+                          f64: bool = False) -> int:
+    """Blocks of the small form's kernel at ``geometry`` that stay resident
+    on one SM of ``device`` (made once and kept); raises where not one
+    does, as the launch would be refused."""
+    key = ("small", geometry, bool(kahan), bool(f64), torch.device(device))
+    n = _resident.get(key)
+    if n is None:
+        with torch.cuda.device(key[-1]):
+            n = _lib.ehyb_stream_small_resident_blocks(
+                int(kahan), int(f64), geometry.threads)
+        if n <= 0:
+            raise RuntimeError(f"K1's small form at {geometry} cannot run "
+                               f"(occupancy {n})")
+        _resident[key] = n
+    return n
+
+
+def small_registers(kahan: bool = False, f64: bool = False) -> int:
+    """Registers a thread of the small form's kernel variant takes."""
+    build_kernel()
+    return _lib.ehyb_stream_small_registers(int(kahan), int(f64))
+
+
 def registers(geometry: StreamGeometry, kahan: bool = False,
               f64: bool = False, scattered: bool = False,
               split: bool = False) -> int:
@@ -192,9 +238,14 @@ def grid_of(p: StreamCellsDevice, geometry: StreamGeometry, kahan: bool,
     plan, or of ``n_rb`` listed row blocks; a split plan's work items) do
     not give every warp one."""
     f64 = p.cell_val.dtype == torch.float64
-    per_sm = min(geometry.blocks_per_sm,
-                 resident_blocks(geometry, kahan, device, f64, lst,
-                                 scattered(p), split(p)))
+    if small(p):
+        per_sm = min(geometry.blocks_per_sm,
+                     small_resident_blocks(geometry, kahan, device, f64))
+        n_rb = p.n_items + p.n_hub_items
+    else:
+        per_sm = min(geometry.blocks_per_sm,
+                     resident_blocks(geometry, kahan, device, f64, lst,
+                                     scattered(p), split(p)))
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     n_rb = (p.n_items if split(p) else p.n_rb) if n_rb is None else n_rb
     groups = -(-n_rb // geometry.rows)
@@ -227,8 +278,14 @@ def _check(p: StreamCellsDevice, x_pad: torch.Tensor) -> None:
     if x_pad.dtype == torch.float32 and scattered(p):
         raise ValueError("the float32 K1 reads the table form only: no "
                          "direct pieces, no row map")
+    if small(p) and (p.hub_val.dtype != x_pad.dtype
+                     or p.hub_col.dtype != torch.int32):
+        raise ValueError(f"the plan's hub cells must be {x_pad.dtype} "
+                         "values and int32 columns")
     for t in (x_pad, p.piece, p.rows, p.cell_val, p.cell_idx, p.cell_col,
-              p.row_map, p.item, p.chunk_first, p.partial, p.counter):
+              p.row_map, p.item, p.chunk_first, p.partial, p.counter,
+              p.hub_val, p.hub_col, p.hub_cell, p.hub_first, p.hub_row,
+              p.hub_item):
         if t.device != dev:
             raise ValueError(f"tensor on {t.device}, x_pad on {dev}")
         if not t.is_contiguous():
@@ -245,6 +302,10 @@ def _check_split(p: StreamCellsDevice, rb_list) -> None:
     blocks."""
     if rb_list is None:
         return
+    if small(p):
+        raise ValueError("a plan in the small form takes no list (its "
+                         "kernel walks the whole plan): build a listed "
+                         "plan with stream_cells.k1_options(e, lists=True)")
     if split(p) and (rb_list.dim() != 2 or rb_list.shape[1] != 4):
         raise ValueError("a plan in the split form takes a (k, 4) list of "
                          "its work items (stream_cells.list_items), not a "
@@ -275,18 +336,29 @@ def _output(p: StreamCellsDevice, x_pad: torch.Tensor, rb_list, out):
 
 
 def geometry_of(p: StreamCellsDevice) -> StreamGeometry:
-    """The geometry a call over plan ``p`` takes: the split form's or the
-    table form's."""
+    """The geometry a call over plan ``p`` takes: the small form's, the
+    split form's or the table form's.  Which plans take the small form is
+    ``stream_cells.small_form_wanted``'s rule: a split plan whose chunks
+    are longer than ``SMALL_STEPS`` and whose work items fill at most
+    ``SMALL_WAVE_SHARE`` of a wave."""
+    if small(p):
+        return SMALL_GEOMETRY
     return SPLIT_GEOMETRY if split(p) else GEOMETRY
 
 
 def check_built(g: StreamGeometry, dtype: torch.dtype,
-                split_form: bool = False) -> None:
+                split_form: bool = False, small_form: bool = False) -> None:
     """Refuse a geometry K1 is not built for in ``dtype``: float32 at every
     checked geometry; float64 at one row a thread with x through L1/L2
     (plain or Kahan, with or without a row-block list); the split variant
-    (``split_form``) at one row a thread with x through L1/L2."""
+    (``split_form``) at one row a thread with x through L1/L2; the small
+    form (``small_form``) at one row a thread with x through L1/L2."""
     g.check()
+    if small_form:
+        if g.rows != 1 or g.x_mode != "ldg":
+            raise ValueError(f"no small-form K1 built for {g}: it is built "
+                             "at one row a thread, x through L1/L2")
+        return
     if split_form and (g.rows != 1 or g.x_mode != "ldg"):
         what = [f"rows={g.rows}"] if g.rows != 1 else []
         what += [f"x_mode={g.x_mode!r}"] if g.x_mode != "ldg" else []
@@ -308,10 +380,12 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
     g = geometry_of(p) if geometry is None else geometry
     _check(p, x_pad)
     _check_split(p, rb_list)
-    check_built(g, x_pad.dtype, chunked)
+    check_built(g, x_pad.dtype, chunked, small(p))
     f64 = x_pad.dtype == torch.float64
     y = _output(p, x_pad, rb_list, out)
     build_kernel()
+    if small(p):
+        return _launch_small(p, x_pad, kahan, g, y)
     if rb_list is not None:
         n = rb_list.shape[0]
     else:
@@ -349,6 +423,28 @@ def _launch(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool = False,
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ehyb_stream_body launch failed: CUDA error {rc}")
+    stream_body.launches += 1
+    return y
+
+
+def _launch_small(p: StreamCellsDevice, x_pad: torch.Tensor, kahan: bool,
+                  g: StreamGeometry, y: torch.Tensor) -> torch.Tensor:
+    """One launch of the small form's kernel over plan ``p``, counted."""
+    if p.item.shape[1] != 8 or p.hub_item.shape[1] != 8:
+        raise ValueError("a plan in the small form holds (n, 8) items")
+    ptr = lambda t: t.data_ptr() if t.numel() else None  # noqa: E731
+    rc = _lib.ehyb_stream_body_small(
+        p.piece.data_ptr(), ptr(p.rows), ptr(p.cell_val), ptr(p.cell_idx),
+        ptr(p.cell_col), ptr(p.row_map), p.item.data_ptr(), p.n_items,
+        p.hub_item.data_ptr(), p.n_hub_items, p.hub_val.data_ptr(),
+        p.hub_col.data_ptr(), p.partial.data_ptr(), p.counter.data_ptr(),
+        x_pad.data_ptr(), y.data_ptr(), int(bool(kahan)),
+        int(x_pad.dtype == torch.float64), g.threads,
+        grid_of(p, g, kahan, x_pad.device),
+        torch.cuda.current_stream(x_pad.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ehyb_stream_body_small launch failed: CUDA "
+                           f"error {rc}")
     stream_body.launches += 1
     return y
 
@@ -409,7 +505,7 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
     n = p.n_rb * BLOCK_ROWS
     y = torch.zeros(n, dtype=acc, device=dev)
     # a float32 x with kahan sums whole rows in float64, chunked or not
-    chunked = split(p) and (neumaier or not kahan)
+    chunked = p.n_chunked > 0 and (neumaier or not kahan)
     if p.n_cells:
         piece = p.piece.long()
         cell_piece = torch.repeat_interleave(
@@ -468,6 +564,9 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
                     output_size=p.n_chunks)]
                 y.index_add_(0, (slot_rb[:, None] * BLOCK_ROWS + torch.arange(
                     BLOCK_ROWS, device=dev)).reshape(-1), ext[n:])
+    if small(p):
+        y = y.index_copy(0, p.hub_row.long(), hub_sums_plain(p, x_pad,
+                                                               kahan))
     y = y.to(x_pad.dtype)
     if p.row_map.numel():
         y = torch.empty_like(y).index_copy_(0, p.row_map.long(), y)
@@ -483,6 +582,85 @@ def stream_body_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
     # a chunked row block's items name it once each: the same rows, the
     # same values
     return out.index_copy_(0, rows, y.index_select(0, rows))
+
+
+def _combine(s, c, os, oc, neumaier: bool):
+    """The small form's pair combine (``csrc/ehyb_stream.cu``): with
+    ``neumaier`` (S, C) takes ``os`` by one Neumaier step, then C += oc;
+    else S + os."""
+    if not neumaier:
+        return s + os, c
+    t, cn = neumaier_add(s, c, os)
+    return t, cn + oc
+
+
+def _tree(s: torch.Tensor, c: torch.Tensor, neumaier: bool):
+    """The warp's fixed shuffle tree over the last dimension's 32 lanes:
+    at k = 16, 8, 4, 2, 1 lane l < k combines its pair with lane l + k's;
+    lane 0's pair."""
+    for k in (16, 8, 4, 2, 1):
+        s_hi, c_hi = s[:, k:2 * k], c[:, k:2 * k]
+        s, c = _combine(s[:, :k], c[:, :k], s_hi, c_hi, neumaier)
+    return s[:, 0], c[:, 0]
+
+
+def hub_sums_plain(p: StreamCellsDevice, x_pad: torch.Tensor,
+                   kahan: bool = False) -> torch.Tensor:
+    """The small form's hub rows, in its kernel's order step for step:
+    lane l of a hub chunk adds its entries l, l + 32, ... in order; the
+    32 lane sums meet in :func:`_tree`; a hub of one chunk takes its tree's
+    sum, a longer one folds its chunks' partials (lane l adds slots l,
+    l + 32, ... in order, then the tree).  A float64 x with ``kahan`` adds
+    by Neumaier steps and combines pairs (:func:`_combine`), and a row is
+    S + C; a float32 x with ``kahan`` sums each hub in float64 (the
+    compensated kernel's answer to about one ulp).  Returns one sum a hub
+    (float64 where ``kahan``)."""
+    dev = x_pad.device
+    prod = p.hub_val.to(x_pad.dtype) * x_pad[p.hub_col.long()]
+    if kahan and x_pad.dtype == torch.float32:
+        hub = torch.repeat_interleave(
+            torch.arange(p.n_hubs, device=dev), torch.diff(p.hub_cell.long()),
+            output_size=p.n_hub_cells)
+        return torch.zeros(p.n_hubs, dtype=torch.float64,
+                           device=dev).index_add_(0, hub, prod.double())
+    neumaier = kahan
+    it = p.hub_item.long()
+    lane = torch.arange(BLOCK_ROWS, device=dev)
+    s = prod.new_zeros(p.n_hub_items, BLOCK_ROWS)
+    c = torch.zeros_like(s)
+    for q in range(p.hub_steps):
+        on = (q < it[:, HUB_STEPS_COL])[:, None]
+        at = (it[:, HUB_CELL, None] + q * BLOCK_ROWS + lane).clamp_max(
+            p.n_hub_cells - 1)
+        t, cn = neumaier_add(s, c, prod[at]) if neumaier else (
+            s + prod[at], c)
+        s, c = torch.where(on, t, s), torch.where(on, cn, c)
+    s, c = _tree(s, c, neumaier)
+    # a hub of one chunk: its item's pair; a longer one's chunks: slots
+    one = it[:, HUB_SLOT] < 0
+    n_slots = p.n_hub_slots
+    slot = torch.where(one, n_slots, it[:, HUB_SLOT])
+    part_s = s.new_zeros(n_slots + 1).index_copy_(0, slot, s)
+    part_c = s.new_zeros(n_slots + 1).index_copy_(0, slot, c)
+    hub = torch.where(one, it[:, HUB_ID], p.n_hubs)
+    out_s = s.new_zeros(p.n_hubs + 1).index_copy_(0, hub, s)[:-1]
+    out_c = s.new_zeros(p.n_hubs + 1).index_copy_(0, hub, c)[:-1]
+    first = p.hub_first.long()
+    count = torch.diff(first)
+    fs = s.new_zeros(p.n_hubs, BLOCK_ROWS)
+    fc = torch.zeros_like(fs)
+    for r in range(-(-p.max_fold // BLOCK_ROWS)):
+        q = r * BLOCK_ROWS + lane
+        on = q[None, :] < count[:, None]
+        at = torch.where(on, first[:-1, None] + q, n_slots)
+        t, cn = _combine(fs, fc, part_s[at], part_c[at], neumaier)
+        fs, fc = torch.where(on, t, fs), torch.where(on, cn, fc)
+    if p.n_hubs:
+        fs, fc = _tree(fs, fc, neumaier)
+        folded = count > 0
+        out_s = torch.where(folded, fs, out_s)
+        out_c = torch.where(folded, fc, out_c)
+    return out_s + out_c if neumaier else out_s
 
 
 def fold_pairs(p: StreamCellsDevice, y: torch.Tensor, s: torch.Tensor,

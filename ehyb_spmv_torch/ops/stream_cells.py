@@ -62,6 +62,34 @@ without compensation, over any of the forms above):
   the last of its chunks to finish adds its partials into y as in a full
   call.
 
+A body too small to fill the card with the split form's items takes its
+**small form** (``small_steps``, ``hub_steps``; :func:`k1_options` asks for
+it, and :func:`small_form_wanted` is the rule that grants it): where the
+split form would chunk some row block, in chunks longer than the small
+form's rows (``split_steps > small_steps``), and gives the card no more
+than ``SMALL_WAVE_SHARE`` of a wave of work items (``WAVE_WARPS``):
+
+* **hub rows laid out apart**: every row with more than ``small_steps``
+  cells leaves its row block; its cells are stored row-major in
+  ``hub_val``/``hub_col`` (int32 columns), padded with zeros to a
+  multiple of 32, so a warp reads 32 consecutive entries of it a step.
+  The row blocks keep the other rows' cells at their own width (at most
+  ``small_steps`` steps), in any piece form above, each one work item
+  (``item``: slot -1, and in its fourth field the mask of its lanes that
+  are hubs, which it does not write);
+* **short hub items**: a hub's steps in chunks of ``hub_steps``, each a
+  work item (``hub_item``: first cell, steps, partial slot or -1, hub);
+  a lane sums
+  its entries of the chunk in order, the warp's 32 lane sums meet in a
+  fixed shuffle tree, and a hub's chunk partials (slots
+  ``hub_first[h]:hub_first[h + 1]``) are folded by the last chunk to
+  finish: lane l adds slots l, l + 32, ... in order, then the same tree
+  (``csrc/ehyb_stream.cu`` writes the order out).  The plan's y row of
+  hub h is ``hub_row[h]``.
+
+A plan in the small form is also in the split form (:func:`split`: it has
+work items, none chunked); :func:`small` tells it apart.  It takes no list.
+
 The flagship's plan also **folds the EHYB tail** (``fold``,
 :func:`k1_folded_plan`): every entry the apply would otherwise add around
 K1 becomes a cell of its true row, after the row's body cells, so K1
@@ -141,6 +169,21 @@ SPLIT_STEPS = 48
 #: row block up to this width is walked by one warp, which is what
 #: powerlaw_16k waits for; longer chunks cost powerlaw_1m fewer partials.
 SPLIT_STEPS_F64 = 80
+#: The small form's row threshold: a row with more cells is a hub, laid
+#: out apart; the row blocks then hold at most this many steps.  With
+#: ``HUB_STEPS``, a hub chunk's steps, chosen by ``chip_k1_sweep.py
+#: --small`` at powerlaw_16k in five configs: of 16, 32 and 40 cells x
+#: chunks of 8, 16 and 32 steps, the least sum of the times over the
+#: fastest (PERF.md).  Fewer, longer items won: each hub chunk past a
+#: hub's first costs a partial, a fence and an atomic.
+SMALL_STEPS = 40
+HUB_STEPS = 32
+#: Resident warps of one wave on the card the port is tuned on (an H100's
+#: 132 SMs at the split variants' 32 resident warps an SM in float64).
+WAVE_WARPS = 132 * 32
+#: The small form is taken where the split form's work items fill at most
+#: this share of ``WAVE_WARPS``.
+SMALL_WAVE_SHARE = 0.5
 #: 32-B sectors a row block writes to y in body order, and through a row
 #: map (one a row): the grouping's cost in the sector estimate.
 _Y_SECTORS = (BLOCK_ROWS * 8 // 32, BLOCK_ROWS)
@@ -148,12 +191,15 @@ _Y_SECTORS = (BLOCK_ROWS * 8 // 32, BLOCK_ROWS)
 #: Bump on any change to the plans :func:`build_stream_cells` makes: a
 #: cached plan (:func:`k1_folded_plan`'s ``cache``) is the builder's
 #: output, keyed by its inputs.
-PLAN_VERSION = 1
+PLAN_VERSION = 2
 
 #: Columns of the ``piece`` array.
 PIECE_CELL, PIECE_ROW, PIECE_NEXT, PIECE_RB = range(4)
-#: Columns of the ``item`` array (the split form's work items).
+#: Columns of the ``item`` array (the split form's work items; in the
+#: small form the fourth holds the item's hub lanes).
 ITEM_PIECE, ITEM_PIECES, ITEM_SLOT, ITEM_CHUNKED = range(4)
+#: Columns of the ``hub_item`` array (the small form's hub chunks).
+HUB_CELL, HUB_STEPS_COL, HUB_SLOT, HUB_ID = range(4)
 
 
 @dataclasses.dataclass
@@ -176,7 +222,15 @@ class StreamCellsPlan:
     (-1: a whole row block, summed into y) and its chunked row block's
     number (-1 likewise).  Chunked row block i has the slots
     ``chunk_first[i]:chunk_first[i + 1]``, in chunk order, and is row block
-    ``chunk_rb[i]``; ``piece_slot`` is each piece's slot (-1: none)."""
+    ``chunk_rb[i]``; ``piece_slot`` is each piece's slot (-1: none).
+
+    The small form's arrays are empty in every other plan: hub h's cells
+    ``hub_val``/``hub_col[hub_cell[h]:hub_cell[h + 1]]`` (row-major, 32 a
+    step), its slots ``hub_first[h]:hub_first[h + 1]`` (none: one chunk),
+    its plan row ``hub_row[h]``.  The small form's ``item`` and ``hub_item``
+    are (n, 8) int32: the first four columns as above (``HUB_*`` for a
+    hub item), then what the kernel reads with them (a row block's cells
+    and table; a hub's slots and y row)."""
 
     n_slices: int
     piece: np.ndarray
@@ -190,14 +244,24 @@ class StreamCellsPlan:
     chunk_first: np.ndarray = None
     chunk_rb: np.ndarray = None
     piece_slot: np.ndarray = None
+    hub_val: np.ndarray = None
+    hub_col: np.ndarray = None
+    hub_cell: np.ndarray = None
+    hub_first: np.ndarray = None
+    hub_row: np.ndarray = None
+    hub_item: np.ndarray = None
 
     def __post_init__(self):
         for name in ("cell_col", "row_map", "chunk_first", "chunk_rb",
-                     "piece_slot"):
+                     "piece_slot", "hub_col", "hub_cell", "hub_first",
+                     "hub_row"):
             if getattr(self, name) is None:
                 setattr(self, name, np.zeros(0, np.int32))
-        if self.item is None:
-            self.item = np.zeros((0, 4), np.int32)
+        if self.hub_val is None:
+            self.hub_val = np.zeros(0, self.cell_val.dtype)
+        for name in ("item", "hub_item"):
+            if getattr(self, name) is None:
+                setattr(self, name, np.zeros((0, 4), np.int32))
 
     @property
     def n_rb(self) -> int:
@@ -233,10 +297,11 @@ class StreamCellsDevice(torch.nn.Module):
     can be captured in a CUDA graph).  A split plan also holds the kernel's
     workspace: ``partial`` (two slots of 32 values a chunk: the plain
     variants fill the first half, the compensated ones a chunk's sums and
-    compensations in slots 2 s and 2 s + 1) and ``counter`` (one a chunked
-    row block, 0 between calls: the last chunk of a row block to finish
-    adds its partials into y and puts it back), so two calls over one plan
-    must not run at once."""
+    compensations in slots 2 s and 2 s + 1; in the small form a hub
+    chunk's sum and compensation at 2 s and 2 s + 1) and ``counter`` (one
+    a chunked row block, or a hub in the small form, 0 between calls: the
+    last chunk of a row block or hub to finish adds its partials into y and
+    puts it back), so two calls over one plan must not run at once."""
 
     def __init__(self, p: StreamCellsPlan):
         super().__init__()
@@ -262,18 +327,40 @@ class StreamCellsDevice(torch.nn.Module):
         #: passes over the partials).
         self.max_chunks = int(np.diff(p.chunk_first).max()) \
             if self.n_chunked else 0
-        for name in ("item", "chunk_first", "chunk_rb", "piece_slot"):
+        for name in ("item", "chunk_first", "chunk_rb", "piece_slot",
+                     "hub_col", "hub_cell", "hub_first", "hub_row",
+                     "hub_item"):
             self.register_buffer(name, torch.from_numpy(
                 np.ascontiguousarray(getattr(p, name), dtype=np.int32)))
+        self.register_buffer("hub_val", torch.from_numpy(
+            np.ascontiguousarray(p.hub_val)))
+        #: The small form's sizes: hubs, hub items, partial slots, the
+        #: longest hub chunk's steps, the widest fold's partials.
+        self.n_hubs = len(p.hub_row)
+        self.n_hub_items = len(p.hub_item)
+        self.n_hub_slots = int(p.hub_first[-1]) if self.n_hubs else 0
+        self.n_hub_cells = len(p.hub_val)
+        self.hub_steps = int(p.hub_item[:, HUB_STEPS_COL].max()) \
+            if self.n_hub_items else 0
+        self.max_fold = int(np.diff(p.hub_first).max()) if self.n_hubs \
+            else 0
         self.register_buffer("partial", torch.zeros(
-            2 * self.n_chunks * BLOCK_ROWS, dtype=self.cell_val.dtype))
-        self.register_buffer("counter", torch.zeros(self.n_chunked,
-                                                    dtype=torch.int32))
+            2 * (self.n_chunks * BLOCK_ROWS + self.n_hub_slots),
+            dtype=self.cell_val.dtype))
+        self.register_buffer("counter", torch.zeros(
+            self.n_chunked + self.n_hubs, dtype=torch.int32))
 
 
 def split(p) -> bool:
-    """Whether plan ``p`` (host or device) is in the split form."""
+    """Whether plan ``p`` (host or device) is in the split form (the small
+    form among it)."""
     return len(p.item) > 0
+
+
+def small(p) -> bool:
+    """Whether plan ``p`` (host or device) is in the split form's small
+    form: hub rows laid out apart."""
+    return len(p.hub_item) > 0
 
 
 def list_items(p: StreamCellsPlan, rbs) -> np.ndarray:
@@ -281,7 +368,10 @@ def list_items(p: StreamCellsPlan, rbs) -> np.ndarray:
     split form): the rows of ``p.item`` whose row block is listed, in the
     plan's order (longest first), a chunked row block's every chunk among
     them.  It is the list the split variants take where the table form's
-    take ``rbs``."""
+    take ``rbs``.  A plan in the small form takes no list: raises."""
+    if small(p):
+        raise ValueError("a plan in the small form takes no list: build a "
+                         "listed plan with k1_options(e, lists=True)")
     rb = p.piece[p.item[:, ITEM_PIECE], PIECE_RB]
     return np.ascontiguousarray(p.item[np.isin(rb, rbs)], dtype=np.int32)
 
@@ -749,17 +839,122 @@ def _work_items(piece: np.ndarray, n_rb: int, split_steps: int):
             piece_slot, int(items[0, 0]))
 
 
+def _take_hubs(cells, small_steps: int):
+    """Cells (row, place, step, column, value) split into the rest and the
+    cells of hub rows (more than ``small_steps`` cells), the latter as
+    (row, column, value) by row and a row's places in order."""
+    row, k = cells[0], cells[1]
+    if not row.size:
+        return cells, None
+    hub = np.bincount(row)[row] > small_steps
+    if not hub.any():
+        return cells, None
+    o = np.lexsort((k[hub], row[hub]))
+    return (tuple(a[~hub] for a in cells),
+            (row[hub][o], cells[3][hub][o], cells[4][hub][o]))
+
+
+def _hub_arrays(hubs, hub_steps: int, val_dtype,
+                row_map: np.ndarray = None) -> dict:
+    """The small form's hub arrays (:class:`StreamCellsPlan`) of the hub
+    cells ``hubs`` (row, column, value; by row, in a row's order): each
+    hub's cells row-major from a multiple of 32, zeros after its last;
+    its steps in chunks of ``hub_steps``; a hub of one chunk takes no
+    partial slot; an item also holds its hub's slots and y row (through
+    ``row_map`` where given)."""
+    row, col, val = hubs
+    rows, first, count = np.unique(row, return_index=True,
+                                   return_counts=True)
+    steps = -(-count // BLOCK_ROWS)
+    cell = np.zeros(rows.size + 1, np.int64)
+    np.cumsum(steps * BLOCK_ROWS, out=cell[1:])
+    pos = np.repeat(cell[:-1] - first, count) + np.arange(row.size)
+    hub_val = np.zeros(int(cell[-1]), val_dtype)
+    hub_val[pos] = val
+    hub_col = np.zeros(int(cell[-1]), np.int64)
+    hub_col[pos] = col
+    n_chunks = -(-steps // hub_steps)
+    n_slots = np.where(n_chunks > 1, n_chunks, 0)
+    hub_first = np.zeros(rows.size + 1, np.int64)
+    np.cumsum(n_slots, out=hub_first[1:])
+    hub = np.repeat(np.arange(rows.size), n_chunks)
+    c = np.arange(hub.size) - np.repeat(np.cumsum(n_chunks) - n_chunks,
+                                        n_chunks)
+    out = rows if row_map is None else row_map[rows]
+    item = np.stack([cell[hub] + BLOCK_ROWS * hub_steps * c,
+                     np.minimum(hub_steps, steps[hub] - hub_steps * c),
+                     np.where(n_slots[hub] > 0, hub_first[hub] + c, -1),
+                     hub, hub_first[hub], hub_first[hub + 1], out[hub],
+                     np.zeros(hub.size, np.int64)], axis=1)
+    return dict(hub_val=hub_val, hub_col=hub_col, hub_cell=cell,
+                hub_first=hub_first, hub_row=rows, hub_item=item)
+
+
+def _small_items(piece: np.ndarray, n_rb: int, hub_row: np.ndarray):
+    """The small form's row-block work items: every row block one item
+    (its main piece, its pieces; slot -1; the int32 mask of its lanes that
+    are hubs; then its main piece's cells, first and end, and its table's
+    first row, -1 where the piece is direct), longest first, ties in
+    row-block order."""
+    n_pieces = len(piece) - 1
+    width = np.diff(piece[:, PIECE_CELL]) // BLOCK_ROWS
+    p_rb = piece[:n_pieces, PIECE_RB]
+    rb_width = np.bincount(p_rb, weights=width, minlength=n_rb)
+    mask = np.zeros(n_rb, np.int64)
+    np.add.at(mask, hub_row // BLOCK_ROWS,
+              np.left_shift(1, hub_row % BLOCK_ROWS))
+    main = piece[:n_rb + 1]
+    direct = main[1:, PIECE_ROW] == main[:-1, PIECE_ROW]
+    item = np.stack([np.arange(n_rb), np.bincount(p_rb, minlength=n_rb),
+                     np.full(n_rb, -1), mask.astype(np.uint32).view(
+                         np.int32).astype(np.int64),
+                     main[:-1, PIECE_CELL], main[1:, PIECE_CELL],
+                     np.where(direct, -1, main[:-1, PIECE_ROW]),
+                     np.zeros(n_rb, np.int64)], axis=1)
+    return item[np.argsort(-rb_width, kind="stable")]
+
+
+def small_form_wanted(parent: StreamCellsPlan, split_steps: int,
+                      small_steps: int) -> bool:
+    """The rule that gives a body the small form, read off ``parent``, its
+    plan in the split form: some row block is chunked; the chunks are
+    longer than the small form's rows (``split_steps > small_steps``); and
+    the work items fill at most ``SMALL_WAVE_SHARE`` of ``WAVE_WARPS``
+    (powerlaw_16k's 681-865 do, powerlaw_1m's tens of thousands do not)."""
+    return bool(
+        small_steps and parent.stats["chunked_rbs"] > 0
+        and split_steps > small_steps
+        and parent.stats["n_items"] <= SMALL_WAVE_SHARE * WAVE_WARPS)
+
+
 def build_stream_cells(e: EhybMatrix, x_rows: int = None,
                        direct_below: float = 0.0, group_rows: int = 0,
-                       split_steps: int = 0,
-                       fold: bool = False) -> StreamCellsPlan:
+                       split_steps: int = 0, fold: bool = False,
+                       small_steps: int = 0,
+                       hub_steps: int = 0) -> StreamCellsPlan:
     """Decode the body of ``e`` once and re-encode its real cells as K1's
     compact plan.  ``x_rows`` is the length of the x the body reads
     (``e.padded_x_rows`` where None; a shard's ``x_ext`` is longer).
     ``direct_below`` and ``group_rows`` (0: off) are the scattered body's
     options of the module docstring, ``split_steps`` (0: off) the heavy
     tail's; the float kernels read neither of the first two.  With
-    ``fold`` the plan also holds the EHYB tail (the module docstring)."""
+    ``fold`` the plan also holds the EHYB tail (the module docstring).
+    ``small_steps`` and ``hub_steps`` (0: off) ask for the small form,
+    which the body gets where :func:`small_form_wanted` grants it (its
+    split form is built first, and returned where not)."""
+    plan = _build(e, x_rows, direct_below, group_rows, split_steps, fold)
+    if not small_form_wanted(plan, split_steps, small_steps):
+        return plan
+    return _build(e, x_rows, direct_below, group_rows, split_steps, fold,
+                  small_steps, hub_steps or HUB_STEPS) or plan
+
+
+def _build(e: EhybMatrix, x_rows: int, direct_below: float,
+           group_rows: int, split_steps: int, fold: bool,
+           small_steps: int = 0, hub_steps: int = 0) -> StreamCellsPlan:
+    """:func:`build_stream_cells` in the form its options name: with
+    ``small_steps`` the small form, hub rows taken apart (None where no
+    row is a hub: a row block made wide by its tables' cuts alone)."""
     offs = e.slice_offset.astype(np.int64)
     n_slices = offs.shape[0] - 1
     n_steps = int(offs[-1]) if n_slices else 0
@@ -793,11 +988,21 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
     # once they are not, the kept cells go, and a body scattered after all
     # is decoded again
     kept = [] if group_rows and n_rb else None
-    parts, n_keys, n_real = [], 0, 0
+    parts, n_keys, n_real, hubs = [], 0, 0, []
+    if small_steps:
+        split_steps = 0     # the row blocks' widest rows are hubs now
     for a, b in spans:
         row, k, st, col, val = cells_of(a, b)
         if kept is not None:
             kept.append((row, k.copy(), col, val, st < n_steps))
+        if small_steps:
+            (row, k, st, col, val), hub = _take_hubs((row, k, st, col, val),
+                                                    small_steps)
+            if hub is not None:
+                hubs.append(hub)
+                n_real += hub[0].size
+                n_keys += np.unique((hub[0] // BLOCK_ROWS) * n_xrows
+                                    + (hub[1] >> 7)).size
         rb0 = RB_PER_SLICE * a
         u = _units(row // BLOCK_ROWS - rb0, row, k, st, col, val,
                    RB_PER_SLICE * (b - a), n_xrows, direct_below, split_steps)
@@ -831,9 +1036,14 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
             row_map = order
             # a row block's cells by place: its pieces cut between places
             o = _stable_order(k)
+            cells = (prow[o], k[o], k[o], col[o], val[o])
+            if small_steps:
+                cells, hub = _take_hubs(cells, small_steps)
+                hubs = [] if hub is None else [hub]
             parts = [_split(_units(
-                prow[o] // BLOCK_ROWS, prow[o], k[o], k[o], col[o], val[o],
-                n_rb, n_xrows, direct_below, split_steps), n_rb, 0)]
+                cells[0] // BLOCK_ROWS, *cells, n_rb, n_xrows, direct_below,
+                split_steps), n_rb, 0)]
+            del cells
         del row, k, col, val, prow, body
     piece, width, t_size, rows, cell_val, cell_idx, cell_col, direct = \
         _assemble(parts, n_rb, val_dtype)
@@ -842,8 +1052,23 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
     split = _work_items(piece, n_rb, split_steps) if split_steps else None
     item, chunk_first, chunk_rb, piece_slot, max_item = split or (None,) * 5
     n_chunks = int(chunk_first[-1]) if split else 0
+    hub_arrays, n_hub_cells, max_fold = {}, 0, 0
+    if small_steps and not hubs:
+        return None
+    if small_steps:
+        hub_arrays = _hub_arrays(tuple(np.concatenate(a) for a in zip(*hubs)),
+                                 hub_steps, val_dtype, row_map)
+        item = _small_items(piece, n_rb, hub_arrays["hub_row"])
+        n_hub_cells = hub_arrays["hub_val"].size
+        max_fold = int(np.diff(hub_arrays["hub_first"]).max())
+        rb_width = np.bincount(piece[:n_pieces, PIECE_RB], weights=width,
+                               minlength=n_rb)
+        max_item = max(int(rb_width.max()) if n_rb else 0,
+                       int(hub_arrays["hub_item"][:, HUB_STEPS_COL].max()))
+    n_hub_slots = int(hub_arrays["hub_first"][-1]) if small_steps else 0
     if n_cells >= 2 ** 31 or rows.size >= 2 ** 31 or \
-            (cell_col.size and cell_col.max() >= 2 ** 31):
+            (cell_col.size and cell_col.max() >= 2 ** 31) or \
+            n_hub_cells >= 2 ** 31:
         raise ValueError("K1 plan too large for int32 maps")
     n_direct = int((width[direct] * BLOCK_ROWS).sum())
     # each index array holds every cell where some piece reads it
@@ -852,18 +1077,23 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
     if direct[width > 0].all():
         cell_idx = np.zeros(0, np.uint16)
     cell_bytes = n_cells * cell_val.itemsize + 2 * (n_cells - n_direct) \
-        + 4 * n_direct
+        + 4 * n_direct + n_hub_cells * (val_dtype.itemsize + 4)
     map_bytes = piece.size * 4 + rows.size * 4 \
         + (0 if row_map is None else 4 * row_map.size) \
-        + (0 if split is None else 4 * (item.size + chunk_first.size))
-    # the split form's partials: written once and read once
-    partial_bytes = 2 * n_chunks * BLOCK_ROWS * cell_val.itemsize
+        + (0 if split is None else 4 * (item.size + chunk_first.size)) \
+        + 4 * sum(hub_arrays[k].size for k in (
+            "hub_item", "hub_first", "hub_row") if k in hub_arrays) + (
+            4 * item.size if small_steps else 0)
+    # the split form's partials: written once and read once (the small
+    # form's: a sum and a compensation a hub chunk)
+    partial_bytes = 2 * (n_chunks * BLOCK_ROWS + n_hub_slots) \
+        * cell_val.itemsize
     x_bytes = x_rows * cell_val.itemsize
     y_bytes = n_slices * LANES * cell_val.itemsize
     stats = dict(
         n_rb=n_rb, n_pieces=n_pieces,
         split_rbs=int(np.unique(piece[n_rb:n_pieces, PIECE_RB]).size),
-        real_cells=n_real, compact_cells=n_cells,
+        real_cells=n_real, compact_cells=n_cells + n_hub_cells,
         # the fold: whether the plan holds the tail, and its cells
         folded=bool(fold), tail_cells=n_tail,
         padded_cells=n_steps * LANES,
@@ -884,8 +1114,15 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
         # work items, the widest item's steps
         split_steps=split_steps, chunked_rbs=0 if split is None
         else int(chunk_rb.size), n_chunks=n_chunks,
-        n_items=0 if split is None else len(item),
-        max_item_steps=0 if split is None else max_item,
+        n_items=len(item) + len(hub_arrays["hub_item"]) if small_steps
+        else 0 if split is None else len(item),
+        max_item_steps=max_item if split or small_steps else 0,
+        # the small form: its row threshold, hub rows and their cells, hub
+        # items of at most hub_steps steps, the widest fold's partials
+        small=bool(small_steps), small_steps=small_steps,
+        n_hubs=len(hub_arrays.get("hub_row", ())), hub_cells=n_hub_cells,
+        hub_items=len(hub_arrays.get("hub_item", ())),
+        hub_steps=hub_steps if small_steps else 0, max_fold=max_fold,
         cell_bytes=cell_bytes, map_bytes=map_bytes,
         # what the plan itself streams per call: cells, pieces and tables
         stream_bytes=cell_bytes + map_bytes,
@@ -906,24 +1143,33 @@ def build_stream_cells(e: EhybMatrix, x_rows: int = None,
             item=item.astype(np.int32),
             chunk_first=chunk_first.astype(np.int32),
             chunk_rb=chunk_rb.astype(np.int32),
-            piece_slot=piece_slot.astype(np.int32))))
+            piece_slot=piece_slot.astype(np.int32))),
+        **({} if not small_steps else dict(
+            item=item.astype(np.int32),
+            **{k: v if k == "hub_val" else v.astype(np.int32)
+               for k, v in hub_arrays.items()})))
 
 
-def k1_options(e: EhybMatrix) -> dict:
+def k1_options(e: EhybMatrix, lists: bool = False) -> dict:
     """The options of K1's plans for ``e``'s value type, plain or
     compensated alike: float64 values take direct pieces and grouped rows
     where the body is scattered, and the split form where a row block is
     wider than ``SPLIT_STEPS_F64``; float32 values the split form where a
-    row block is wider than ``SPLIT_STEPS``.  ``build_stream_cells(e,
+    row block is wider than ``SPLIT_STEPS``; both ask for the small form
+    (``SMALL_STEPS``, ``HUB_STEPS``; :func:`small_form_wanted` grants it),
+    but for a plan walked through lists (``lists``: the sharded apply's),
+    which the small form's kernel does not take.  ``build_stream_cells(e,
     **k1_options(e))`` is the plan of the body alone."""
+    small = {} if lists else dict(small_steps=SMALL_STEPS,
+                                  hub_steps=HUB_STEPS)
     if e.ell_val.dtype == np.float64:
         return dict(direct_below=DIRECT_BELOW, group_rows=GROUP_ROWS,
-                    split_steps=SPLIT_STEPS_F64)
-    return dict(split_steps=SPLIT_STEPS)
+                    split_steps=SPLIT_STEPS_F64, **small)
+    return dict(split_steps=SPLIT_STEPS, **small)
 
 
-def k1_folded_plan(e: EhybMatrix, x_rows: int = None,
-                   cache: str = None) -> StreamCellsPlan:
+def k1_folded_plan(e: EhybMatrix, x_rows: int = None, cache: str = None,
+                   lists: bool = False) -> StreamCellsPlan:
     """K1's plan of a flagship or precision-mode artifact: the body with
     :func:`k1_options`, and the EHYB tail folded in, so that the plan holds
     the whole apply but its diagonals (ER, long-row and hub-split entries
@@ -935,7 +1181,7 @@ def k1_folded_plan(e: EhybMatrix, x_rows: int = None,
     ``x_rows``, the value type and ``PLAN_VERSION``, where one is there;
     else built and written there, with its build's seconds in
     ``stats["build_seconds"]``."""
-    opts = dict(k1_options(e), fold=True)
+    opts = dict(k1_options(e, lists), fold=True)
     if cache is None:
         return build_stream_cells(e, x_rows, **opts)
     key = hashlib.sha256(json.dumps(dict(

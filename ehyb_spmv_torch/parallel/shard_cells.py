@@ -133,7 +133,7 @@ def build_shard_cells(e: EhybMatrix, sh, force_boundary: bool = False,
     suffix)."""
     R, W = sh.rows_per_dev, sh.window_rows
     plan = k1_folded_plan(e, x_rows=R + 2 * W + sh.n_dev * sh.exchange_slots,
-                          cache=cache)
+                          cache=cache, lists=True)
     _pad_to_local(plan, W)
     if sh.n_dev == 1 or force_boundary:
         interior = np.zeros(plan.n_rb, dtype=bool)

@@ -239,12 +239,52 @@ def test_dword_heavy_tail_split_matches_oracle_and_jax(steps, powerlaw_small,
                                       artifact_cache=False),
                       device="cpu").setup(coo_for(PORT, m))
     st = p.module.cells.stats
-    assert stream_cells.split(p.module.cells) and st["chunked_rbs"] > 0
-    assert st["max_item_steps"] <= (steps or stream_cells.SPLIT_STEPS_F64)
+    assert stream_cells.split(p.module.cells)
+    if steps is None:
+        # as shipped, a body this small takes the split form's small form:
+        # hub rows apart, row blocks of at most SMALL_STEPS steps
+        assert stream_cells.small(p.module.cells) and st["n_hubs"] > 0
+        assert st["max_item_steps"] <= max(stream_cells.SMALL_STEPS,
+                                           st["hub_steps"])
+    else:
+        assert st["chunked_rbs"] > 0 and st["max_item_steps"] <= steps
     x = deterministic_x(m.dimension)
     got, want = p.matvec(x), oracle_spmv(m, x)
     assert got.dtype == np.float64
     assert rel(got, want) <= TOL, rel(got, want)
+    r = ref.EhybSpmv(ref.EhybConfig(dword_values=True, artifact_cache=False)
+                     ).setup(coo_for(REF, m))
+    assert rel(got, r.matvec(x)) <= TOL
+
+
+@pytest.mark.parametrize("kahan", [False, True], ids=["plain", "kahan"])
+def test_dword_small_form_matches_its_order_oracle_and_jax(kahan,
+                                                          powerlaw_small):
+    """The precision mode's heavy-tailed body as shipped takes the split
+    form's small form (hub rows apart, y through the row map where the
+    rows are grouped): K1's plain version, plain or Neumaier, bit for bit
+    against the numpy replay of the kernel's order
+    (``test_torch_stream_cells._small_replay``), and the product within
+    1e-12 of the oracle and of the JAX double-word result."""
+    from ehyb_spmv_torch.ops import ehyb_stream
+    from test_torch_stream_cells import _small_replay
+
+    m = powerlaw_small
+    p = port.EhybSpmv(port.EhybConfig(dword_values=True,
+                                      compensated_sum=kahan,
+                                      artifact_cache=False),
+                      device="cpu").setup(coo_for(PORT, m))
+    cells = p.module.cells
+    assert stream_cells.small(cells) and cells.stats["n_hubs"] > 0
+    plan = stream_cells.k1_folded_plan(p.ehyb)
+    x_pad = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        cells.stats["x_rows"]))
+    np.testing.assert_array_equal(
+        ehyb_stream.stream_body(cells, x_pad, kahan).numpy(),
+        _small_replay(plan, x_pad.numpy(), kahan))
+    x = deterministic_x(m.dimension)
+    got, want = p.matvec(x), oracle_spmv(m, x)
+    assert got.dtype == np.float64 and rel(got, want) <= TOL
     r = ref.EhybSpmv(ref.EhybConfig(dword_values=True, artifact_cache=False)
                      ).setup(coo_for(REF, m))
     assert rel(got, r.matvec(x)) <= TOL

@@ -353,7 +353,7 @@ def test_sharded_apply_refuses_a_plan_without_the_tail():
     R, W = sh.rows_per_dev, sh.window_rows
     body = stream_cells.build_stream_cells(
         e, R + 2 * W + sh.n_dev * sh.exchange_slots,
-        **stream_cells.k1_options(e))
+        **stream_cells.k1_options(e, lists=True))
     alone = dataclasses.replace(sc, plan=body).to_torch("cpu")
     ex = ShardExchange(None, 0, 1, R, W, sh.send_idx[0], sh.exchange_slots,
                        "cpu")

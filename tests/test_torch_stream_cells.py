@@ -7,8 +7,12 @@ plan); a numpy replay of the plan and of the kernel's walk; the cut of a
 row block past the 16-bit range; the split form of a heavy-tailed body
 (chunks of at most ``SPLIT_STEPS`` steps, their partials added in chunk
 order: bit for bit against a numpy replay of that order, and against the
-JAX package's apply and the oracle); and the flagship's K1 path: the plan
-replaces the padded body on the device and in the roofline's bytes.
+JAX package's apply and the oracle); the split form's small form (hub
+rows apart: its plan, its plain version bit for bit against a numpy
+replay of the kernel's lanes, shuffle tree and fold, the apply in five
+configs against the JAX package and the oracle, the rule and the
+refusals); and the flagship's K1 path: the plan replaces the padded body
+on the device and in the roofline's bytes.
 
 Bit equality holds because a row's cells keep their step order and the
 dropped cells are zeros (finite x); the Kahan variant sums in float64 on
@@ -95,8 +99,11 @@ def _dword(m, **extra):
 
 def _body_plan(e):
     """K1's plan of the body of ``e`` alone, with the options of its value
-    type (``stream_cells.k1_options``)."""
-    return stream_cells.build_stream_cells(e, **stream_cells.k1_options(e))
+    type (``stream_cells.k1_options``) in the forms a cell of the plan is
+    a cell of a piece (the split form's small form, where hub rows leave
+    their row blocks, is the small-form tests' below: ``lists=True``)."""
+    return stream_cells.build_stream_cells(
+        e, **stream_cells.k1_options(e, lists=True))
 
 
 def _patch_split(monkeypatch, steps: int) -> None:
@@ -172,6 +179,21 @@ def _replay(p):
     if p.cell_col.size:
         col[direct] = p.cell_col[direct]
     return cell_piece, row, off // 32, col, p.cell_val, off % 32
+
+
+def _entries(p):
+    """Every cell of the plan, the small form's hub cells among them: its
+    y row (through the row map where the plan has one), x column and
+    value."""
+    _, row, _, col, val, _ = _replay(p)
+    if not stream_cells.small(p):
+        return row, col, val
+    hub_row = np.repeat(p.hub_row.astype(np.int64), np.diff(p.hub_cell))
+    if p.row_map.size:
+        hub_row = p.row_map.astype(np.int64)[hub_row]
+    return (np.concatenate([row, hub_row]),
+            np.concatenate([col, p.hub_col.astype(np.int64)]),
+            np.concatenate([val, p.hub_val]))
 
 
 def _walk(n_rb: int, rows_per_thread: int, warps: int):
@@ -844,7 +866,8 @@ def test_split_plan_work_items(case, body, steps, request, monkeypatch):
     built = stream_cells.build_stream_cells(e, split_steps=steps,
                                             **_k1_options(e))
     for f in ("piece", "rows", "cell_val", "cell_idx", "cell_col", "row_map",
-              "item", "chunk_first", "chunk_rb", "piece_slot"):
+              "item", "chunk_first", "chunk_rb", "piece_slot", "hub_val",
+              "hub_col", "hub_cell", "hub_first", "hub_row", "hub_item"):
         np.testing.assert_array_equal(getattr(plan, f), getattr(built, f))
     assert stream_cells.split(plan)
     piece = plan.piece.astype(np.int64)
@@ -1085,7 +1108,8 @@ def _parent_units(rb, lane, k, step, col, val, n_rb, n_xrows, direct_below,
 def _same_plans(a, b) -> None:
     """Plans ``a`` and ``b`` byte for byte, and their stats."""
     for f in ("piece", "rows", "cell_val", "cell_idx", "cell_col", "row_map",
-              "item", "chunk_first", "chunk_rb", "piece_slot"):
+              "item", "chunk_first", "chunk_rb", "piece_slot", "hub_val",
+              "hub_col", "hub_cell", "hub_first", "hub_row", "hub_item"):
         x, y = getattr(a, f), getattr(b, f)
         assert x.dtype == y.dtype and x.shape == y.shape, f
         assert x.tobytes() == y.tobytes(), f
@@ -1117,6 +1141,10 @@ def test_float_plans_unchanged_by_the_split_form(case, fixture, layout, wps,
     wide = _widest_row_block(parent) > limit
     assert wide == (fixture in ("edges", "cancellation"))
     assert stream_cells.split(plan) == wide
+    if not wide:
+        # the small form's options leave a plan that is not split as it is
+        _same_plans(stream_cells.build_stream_cells(
+            e, **stream_cells.k1_options(e)), plan)
     if stream_cells.split(plan):
         plan = stream_cells.build_stream_cells(e)
     assert not stream_cells.split(plan) and plan.stats["chunked_rbs"] == 0
@@ -1351,7 +1379,7 @@ def test_folded_plan_holds_the_tail(case, fixture, kind, opts, kahan, form,
     assert ("direct" in form) == (pst["direct_pieces"] > 0)
     assert ("grouped" in form) == pst["grouped"]
     # (1) every entry once, each where it belongs
-    _, row, _, col, val, _ = _replay(plan)
+    row, col, val = _entries(plan)
     real = val != 0
     n_all = st["nnz_ell"] + st["nnz_er"] + st["nnz_long"]
     assert real.sum() == pst["real_cells"] == n_all
@@ -1427,3 +1455,347 @@ def test_folded_plan_is_cached_beside_the_artifact(scrambled, powerlaw_small,
     third = port.EhybSpmv(cfg, device="cpu").setup(m)
     assert len(list(tmp_path.glob("*.k1-*.npz"))) == 2
     assert stream_cells.split(third.module.cells)
+
+
+# ---------------------------------------------------------------------------
+# The split form's small form: hub rows apart, short items, a fixed fold.
+# ---------------------------------------------------------------------------
+
+#: Bodies that reach the small form: (case, fixture, layout, windows per
+#: sub-tile, extra config, patches of ``stream_cells``).  powerlaw_small
+#: takes it as shipped (hub chunks of 16 steps), and with chunks of one
+#: step (its widest hub then folds 51 partials); the long body and its
+#: float64 copy with the thresholds patched small; the long body at 128
+#: steps with hubs past 100 cells (its row blocks cut into pieces between
+#: their steps); the precision mode's scattered body with rows of more
+#: than two cells as hubs (grouped rows).
+SMALL_CASES = [
+    ("powerlaw", "powerlaw_small", "sell_rx", 4, {}, {}),
+    ("powerlaw_chunks1", "powerlaw_small", "sell_rx", 4, {},
+     {"HUB_STEPS": 1}),
+    ("powerlaw_f64", "powerlaw_small", "sell_rx", 4, {"dtype": "float64"},
+     {}),
+    ("long", "long", None, 0, {}, {"SPLIT_STEPS": 8, "SMALL_STEPS": 4}),
+    ("long_f64", "long_f64", None, 0, {},
+     {"SPLIT_STEPS_F64": 8, "SMALL_STEPS": 4}),
+    ("long_cut", "long", None, 0, {},
+     {"SPLIT_STEPS": 128, "SMALL_STEPS": 100}),
+    ("dword_grouped", "scrambled", "dword", 0, {},
+     {"SPLIT_STEPS_F64": 3, "SMALL_STEPS": 2}),
+]
+SMALL_IDS = [c[0] for c in SMALL_CASES]
+
+
+def _small_plan(request, monkeypatch, fixture, layout, wps, extra, patch):
+    """The body of the case and its plan as shipped (``k1_options``) under
+    the case's patches, and the parent: its split form."""
+    for k, v in patch.items():
+        monkeypatch.setattr(stream_cells, k, v)
+    e = _artifact(request, fixture, layout, wps, extra)
+    plan = stream_cells.build_stream_cells(e, **stream_cells.k1_options(e))
+    parent = _body_plan(e)
+    return e, plan, parent
+
+
+@pytest.mark.parametrize("case,fixture,layout,wps,extra,patch", SMALL_CASES,
+                         ids=SMALL_IDS)
+def test_small_plan_replay(case, fixture, layout, wps, extra, patch,
+                           request, monkeypatch):
+    """The small form's plan: the rule grants it where the split form
+    chunks a row block; every row of more than SMALL_STEPS cells is a hub,
+    apart (no real cell in a piece, its lane masked in its row block's
+    item), the others keep their row blocks at most SMALL_STEPS wide; the
+    hub items cover each hub's steps once, in order, in chunks of at most
+    hub_steps, a slot a chunk where a hub has more than one; the items
+    count every row block and hub chunk; and the plan's cells, hubs among
+    them, are the parent's real cells, each once."""
+    e, plan, parent = _small_plan(request, monkeypatch, fixture, layout, wps,
+                                  extra, patch)
+    st, small_steps = plan.stats, stream_cells.SMALL_STEPS
+    assert stream_cells.split(parent) and parent.stats["chunked_rbs"] > 0
+    assert stream_cells.small(plan) and stream_cells.split(plan)
+    assert st["small"] and st["chunked_rbs"] == 0 and not plan.chunk_rb.size
+    assert st["grouped"] == (case == "dword_grouped")
+    # every entry once: the pieces' real cells and the hubs' against the
+    # parent's
+    got = _entries(plan)
+    want = _entries(parent)
+    real_g, real_w = got[2] != 0, want[2] != 0
+    assert real_g.sum() == real_w.sum() == st["real_cells"]
+    key = lambda r: np.lexsort((r[2][r[2] != 0], r[1][r[2] != 0],  # noqa
+                               r[0][r[2] != 0]))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a[real_g][key(got)],
+                                      b[real_w][key(want)])
+    # hubs apart: more than small_steps cells each, none in a piece
+    n_hub = np.diff(plan.hub_cell)
+    count = np.array([np.count_nonzero(plan.hub_val[a:b]) for a, b in zip(
+        plan.hub_cell[:-1], plan.hub_cell[1:])])
+    assert np.all(count > small_steps) and np.all(n_hub % 32 == 0)
+    assert np.all(-(-count // 32) * 32 == n_hub)
+    for h, (a, b) in enumerate(zip(plan.hub_cell[:-1], plan.hub_cell[1:])):
+        assert not plan.hub_val[a + count[h]:b].any()
+    hub_rows = plan.hub_row.astype(np.int64)
+    _, row, _, _, val, _ = _replay(plan)
+    out = plan.row_map.astype(np.int64)[hub_rows] if plan.row_map.size \
+        else hub_rows
+    assert not np.isin(row[val != 0], out).any()
+    widths = np.bincount(plan.piece[:-1, stream_cells.PIECE_RB],
+                         weights=np.diff(plan.piece[:, 0]) // 32,
+                         minlength=plan.n_rb)
+    # a row block's pieces together hold at most small_steps steps
+    assert widths.max() <= small_steps
+    assert (st["split_rbs"] > 0) == (case == "long_cut")
+    # the row-block items: every row block once, its hub lanes masked
+    item = plan.item.astype(np.int64)
+    assert sorted(item[:, 0]) == list(range(plan.n_rb))
+    chains = _chains(plan)
+    np.testing.assert_array_equal(item[:, 1],
+                                  [len(chains[r]) for r in item[:, 0]])
+    assert np.all(item[:, stream_cells.ITEM_SLOT] == -1)
+    mask = np.zeros(plan.n_rb, np.int64)
+    np.add.at(mask, hub_rows // 32, 1 << (hub_rows % 32))
+    np.testing.assert_array_equal(item[:, 3].astype(np.uint32),
+                                  mask[item[:, 0]].astype(np.uint32))
+    # ... and its main piece's cells and table (-1: direct)
+    pc = plan.piece.astype(np.int64)
+    np.testing.assert_array_equal(item[:, 4], pc[item[:, 0], 0])
+    np.testing.assert_array_equal(item[:, 5], pc[item[:, 0] + 1, 0])
+    np.testing.assert_array_equal(item[:, 6], np.where(
+        pc[item[:, 0] + 1, 1] == pc[item[:, 0], 1], -1, pc[item[:, 0], 1]))
+    # the hub items: each hub's steps once, in order; slots in order
+    hub_item = plan.hub_item.astype(np.int64)
+    hs = st["hub_steps"]
+    assert hub_item[:, 1].max() <= hs and hub_item[:, 1].min() >= 1
+    n_slots = np.diff(plan.hub_first)
+    for h in range(len(hub_rows)):
+        mine = hub_item[hub_item[:, 3] == h]
+        assert mine[0, 0] == plan.hub_cell[h]
+        np.testing.assert_array_equal(
+            mine[:, 0], plan.hub_cell[h] + 32 * np.r_[0, np.cumsum(
+                mine[:-1, 1])])
+        assert mine[:, 1].sum() * 32 == n_hub[h]
+        # each item carries its hub's slots and y row
+        assert np.all(mine[:, 4:7] == [plan.hub_first[h],
+                                       plan.hub_first[h + 1], out[h]])
+        if len(mine) == 1:
+            assert n_slots[h] == 0 and mine[0, 2] == -1
+        else:
+            np.testing.assert_array_equal(
+                mine[:, 2], plan.hub_first[h] + np.arange(len(mine)))
+    assert st["n_items"] == plan.n_rb + len(hub_item)
+    assert st["hub_items"] == len(hub_item) and st["n_hubs"] == len(hub_rows)
+    assert st["max_fold"] == n_slots.max()
+    assert st["max_item_steps"] == max(int(widths.max()),
+                                       int(hub_item[:, 1].max()))
+    assert st["compact_cells"] == plan.piece[-1, 0] + plan.hub_val.size
+    assert case != "powerlaw" or hs == stream_cells.HUB_STEPS
+    assert case != "powerlaw_chunks1" or (hs == 1 and st["max_fold"] == 51)
+
+
+def _neumaier_step(s, c, v):
+    """One Neumaier step on numpy scalars."""
+    t = s + v
+    return t, c + ((s - t) + v if abs(s) >= abs(v) else (v - t) + s)
+
+
+def _small_replay(plan, x: np.ndarray, kahan: bool) -> np.ndarray:
+    """The small form's sums in numpy, in its kernel's order: a row block's
+    rows by piece, then place (Neumaier steps where ``kahan``); a hub's chunks,
+    lane l adding entries l, l + 32, ... of its chunk, the 32 lanes in the
+    tree (k = 16, 8, 4, 2, 1: lane l < k takes lane l + k's pair), a hub
+    of several chunks its slots lane by lane (slot l, l + 32, ...) and the
+    tree again; a row is S + C with ``kahan``."""
+    dt = plan.cell_val.dtype.type
+    zero = dt(0)
+
+    def combine(a, b):
+        if not kahan:
+            return (a[0] + b[0], zero)
+        s, c = _neumaier_step(a[0], a[1], b[0])
+        return (s, c + b[1])
+
+    def tree(pairs):
+        pairs = list(pairs)
+        for k in (16, 8, 4, 2, 1):
+            pairs = [combine(pairs[i], pairs[i + k]) for i in range(k)]
+        return pairs[0]
+
+    n = plan.n_rb * 32
+    y = np.zeros(n, dt)
+    cell_piece, row, k, col, val, _ = _replay(plan)
+    sums = {}
+    # a row's cells by piece (main, then later pieces in chain order), then
+    # place
+    for i in np.lexsort((k, cell_piece, row)):
+        r = int(row[i])
+        s, c = sums.get(r, (zero, zero))
+        v = val[i] * x[col[i]]
+        sums[r] = _neumaier_step(s, c, v) if kahan else (s + v, zero)
+    for r, (s, c) in sums.items():
+        y[r] = s + c if kahan else s
+    prod = plan.hub_val * x[plan.hub_col.astype(np.int64)]
+    part = {}
+    hub_out = plan.row_map.astype(np.int64)[plan.hub_row] \
+        if plan.row_map.size else plan.hub_row.astype(np.int64)
+    for first, steps, slot, h in plan.hub_item[:, :4].astype(np.int64):
+        lanes = []
+        for lane in range(32):
+            s = c = zero
+            for q in range(steps):
+                v = prod[first + 32 * q + lane]
+                s, c = _neumaier_step(s, c, v) if kahan else (s + v, zero)
+            lanes.append((s, c))
+        pair = tree(lanes)
+        if slot < 0:
+            y[hub_out[h]] = pair[0] + pair[1] if kahan else pair[0]
+        else:
+            part[slot] = pair
+    for h in range(len(plan.hub_row)):
+        a, b = plan.hub_first[h], plan.hub_first[h + 1]
+        if a == b:
+            continue
+        lanes = []
+        for lane in range(32):
+            acc = (zero, zero)
+            for q in range(a + lane, b, 32):
+                acc = combine(acc, part[q])
+            lanes.append(acc)
+        pair = tree(lanes)
+        y[hub_out[h]] = pair[0] + pair[1] if kahan else pair[0]
+    return y
+
+
+@pytest.mark.parametrize("kahan", [False, True], ids=["plain", "kahan"])
+@pytest.mark.parametrize("case,fixture,layout,wps,extra,patch", SMALL_CASES,
+                         ids=SMALL_IDS)
+def test_small_plain_matches_its_fold_order(case, fixture, layout, wps,
+                                            extra, patch, kahan, request,
+                                            monkeypatch):
+    """The small form's plain version (``stream_body_plain``, its hubs by
+    ``hub_sums_plain``) bit for bit against a numpy replay of the kernel's
+    order (``_small_replay``: the lanes, the shuffle tree, the fold of the
+    partials lane by lane), plain and Kahan in float64, plain in float32;
+    a float32 x with Kahan (float64 sums, rounded once) within 1e-6 of it;
+    every form within 1e-6 (float32) or 1e-14 (float64) of the parent's
+    split form and, where the wrapper takes a CPU tensor, the plain
+    version, counting no launch."""
+    e, plan, parent = _small_plan(request, monkeypatch, fixture, layout, wps,
+                                  extra, patch)
+    p = plan.to_torch()
+    x = _x(e, 5)
+    launches = ehyb_stream.stream_body.launches
+    got = ehyb_stream.stream_body(p, x, kahan)
+    assert ehyb_stream.stream_body.launches == launches
+    assert torch.equal(got, ehyb_stream.stream_body_plain(p, x, kahan))
+    f64 = x.dtype == torch.float64
+    want = _small_replay(plan, x.numpy(), kahan and f64)
+    if f64 or not kahan:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        assert rel(got.numpy(), want) <= 1e-6
+    ref = ehyb_stream.stream_body_plain(parent.to_torch(), x, kahan)
+    assert rel(got.numpy(), ref.numpy()) <= (1e-14 if f64 else 1e-6)
+
+
+#: The configs of the small form's apply on powerlaw_small (the CLI's
+#: flags → config fields): every K1 variant it reads.
+SMALL_CONFIGS = {"f32": {}, "compensated": dict(compensated_sum=True),
+                 "f64": dict(dtype="float64"),
+                 "f64_compensated": dict(dtype="float64",
+                                         compensated_sum=True),
+                 "dword": dict(dword_values=True)}
+
+
+@pytest.mark.parametrize("config", sorted(SMALL_CONFIGS))
+def test_small_apply_matches_jax_and_oracle(config, powerlaw_small):
+    """powerlaw_small through ``EhybSpmv`` in each of the five configs:
+    K1's plan as shipped takes the small form, and the product lies within
+    5e-6 of the JAX package's model (its XLA apply, ``ehyb_apply_xla``,
+    on the same artifact in float32) and of the exact-f64 oracle, and in
+    float64 within 1e-12 of the oracle."""
+    from ehyb_spmv_gpu_tpu.ops import xla_ops
+    import jax.numpy as jnp
+    import ehyb_spmv_gpu_tpu as ref
+
+    from test_torch_parity import REF, port_from_ref
+
+    kw = dict(artifact_cache=False, **SMALL_CONFIGS[config])
+    m = powerlaw_small
+    model = port.EhybSpmv(port.EhybConfig(**kw), device="cpu").setup(
+        coo_for(PORT, m))
+    assert stream_cells.small(model.module.cells)
+    x = deterministic_x(m.dimension)
+    got = model.matvec(x)
+    f64 = config in ("f64", "f64_compensated", "dword")
+    assert rel(got, oracle_spmv(m, x)) <= (1e-12 if f64 else ORACLE_TOL)
+    jmodel = ref.EhybSpmv(ref.EhybConfig(**kw)).setup(coo_for(REF, m))
+    assert rel(got, jmodel.matvec(x)) <= ORACLE_TOL
+    if config == "f32":
+        # the flagship's apply on the JAX host layer's artifact, against
+        # the JAX package's XLA apply of it
+        cfg = config_for(REF, True, "sell_rx", 4)
+        _, _, e_ref = host_pipeline(REF, m, cfg)
+        e_pt = port_from_ref(e_ref)
+        apply = ehyb_stream.make_stream_apply(e_pt, e_pt.to_torch())
+        assert stream_cells.small(apply.cells)
+        xp = np.zeros(e_ref.padded_x_rows, np.float32)
+        xp[:m.dimension] = np.random.default_rng(1).standard_normal(
+            m.dimension)
+        y = apply(torch.from_numpy(xp)).numpy()
+        want = np.asarray(xla_ops.ehyb_apply_xla(e_ref.to_jax(),
+                                                 jnp.asarray(xp)))
+        assert rel(y, body_rows(y, want)) <= ORACLE_TOL
+
+
+def test_small_form_refusals_and_rule(powerlaw_small, monkeypatch):
+    """What the small form's kernel does not read is refused, on the CPU
+    as on the card: a list (a row-block list or work items, and
+    ``list_items`` of its plan), a geometry of more rows a thread or x
+    staged, hub cells of another type; a plan walked through lists
+    (``k1_options(e, lists=True)``, the sharded apply's) keeps the split
+    form; and the rule refuses the small form where the split form's items
+    would fill more than SMALL_WAVE_SHARE of the wave or its chunks are no
+    longer than SMALL_STEPS, leaving the split form's plan byte for byte,
+    as does a body with no row past SMALL_STEPS."""
+    e = port.EhybSpmv(port.EhybConfig(routed_delegate="never"),
+                      device="cpu").setup(coo_for(PORT, powerlaw_small)).ehyb
+    plan = stream_cells.build_stream_cells(e, **stream_cells.k1_options(e))
+    listed = _body_plan(e)
+    assert stream_cells.small(plan) and not stream_cells.small(listed)
+    assert stream_cells.split(listed)
+    p = plan.to_torch()
+    x = _x(e)
+    for lst in (torch.zeros(2, dtype=torch.int32),
+                torch.from_numpy(stream_cells.list_items(listed, [0]))):
+        with pytest.raises(ValueError, match="small form takes no list"):
+            ehyb_stream.stream_body(p, x, rb_list=lst)
+    with pytest.raises(ValueError, match="small form takes no list"):
+        stream_cells.list_items(plan, [0])
+    for g in (ehyb_stream.StreamGeometry(rows=2),
+              ehyb_stream.StreamGeometry(x_mode="staged")):
+        with pytest.raises(ValueError, match="small-form K1"):
+            ehyb_stream.check_built(g, torch.float32, True, True)
+    ehyb_stream.check_built(ehyb_stream.SMALL_GEOMETRY, torch.float64, True,
+                            True)
+    bad = plan.to_torch()
+    bad.hub_col = bad.hub_col.long()
+    with pytest.raises(ValueError, match="hub cells"):
+        ehyb_stream._check(bad, x)
+    assert ehyb_stream.geometry_of(p) == ehyb_stream.SMALL_GEOMETRY
+    assert ehyb_stream.geometry_of(listed.to_torch()) == \
+        ehyb_stream.SPLIT_GEOMETRY
+    # a body the rule grants whose rows are none past small_steps (its
+    # row blocks wide by their tables' cuts alone) keeps its split form
+    with monkeypatch.context() as mp:
+        mp.setattr(stream_cells, "small_form_wanted", lambda *a: True)
+        _same_plans(stream_cells.build_stream_cells(
+            e, **dict(stream_cells.k1_options(e), small_steps=1 << 20)),
+            listed)
+    for k, v in (("SMALL_WAVE_SHARE", 1e-3),
+                 ("SMALL_STEPS", stream_cells.SPLIT_STEPS)):
+        with monkeypatch.context() as mp:
+            mp.setattr(stream_cells, k, v)
+            _same_plans(stream_cells.build_stream_cells(
+                e, **stream_cells.k1_options(e)), listed)
+
